@@ -5,10 +5,13 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each kernel against its plain PyTorch version on the card
-at the headline shapes (bit for bit), times kernel, plain version, a
-library yardstick and the byte/operation bound, then drives the port's
-VideoConverter at full width -- a batch of 1920x1080 I420 frames, made from
-the seed, to RGB 224x224 -- in three configurations:
+at the main paths' shapes (bit for bit), times kernel, plain version, a
+library call or yardstick and the byte/operation bound, then drives the
+port's main paths at full width, each with the launch counts zeroed just
+before it and read just after:
+
+1. the VideoConverter -- a batch of 1920x1080 I420 frames, made from the
+   seed, to RGB 224x224 -- in three configurations:
 
   linear2      method=linear, 2 taps (videoscale's default): yscale kernel
                + 2-tap gather chroma
@@ -17,11 +20,23 @@ the seed, to RGB 224x224 -- in three configurations:
   add_borders  linear/2 with the 16:9 -> 1:1 dest rect (dest-y=49,
                dest-height=126): phase-split path + rect embed, no kernel
 
-Launch counts are zeroed just before those three conversions and read just
-after.  Outputs are checked against the port's own CPU path (first two
-frames) and its numpy gold (first frame).  Any failure raises.  The last
-line of standard output is one JSON object {"ok": true, "device": ...};
-the line before it holds the kernels' JSON.  Needs one CUDA card; exits
+2. launch strings through the port's parse_launch on CUDA, 1920x1080 I420
+   frames pushed into appsrc as CUDA tensors and read from appsink:
+
+  deint_chain                deinterlace method=linear ! videobalance
+                             (BASELINE config 4 as bench_all.py drives it):
+                             deint kernel, 3 launches per tick
+  deint_rate_chain           deinterlace method=scalerbob ! videorate !
+                             30/1 ! videobalance: deint kernel
+  headline_launch            videoconvertscale ! RGB 224x224 (add-borders
+                             route: no kernel)
+  headline_launch_noborders  the same with add-borders=false: yscale kernel
+
+Outputs are checked against the port's own CPU path (first frames), the
+converter's numpy gold and videobalance's float64 tables.  Any failure
+raises.  The last line of standard output is one JSON object {"ok": true,
+"device": ...}; the line before it holds the kernels' JSON, and the line
+before that the card's name and power limit.  Needs one CUDA card; exits
 non-zero without one.
 """
 
@@ -34,7 +49,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor fp32 (used for int32 MACs)
+# H100 SXM int32: 64 of an SM's 128 lanes per clock take int32 (half the
+# 67e12 non-tensor fp32 rate), a multiply-add counted as 2 operations
+INT32_OPS_PER_S = 33.5e12
 W, H, OW, OH = 1920, 1080, 224, 224
 CONFIGS = {
     "linear2": {"resampler-method": "linear", "resampler-taps": 2},
@@ -73,7 +90,7 @@ def touched(res, limit: int) -> int:
 
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -88,11 +105,197 @@ def dense_pair(x_f32, h_res, v_res):
     return lambda: torch.matmul(mv, torch.matmul(x_f32, mh))
 
 
+# -- deinterlace: kernel vs plain, timings ----------------------------------
+
+DEINT_BATCH = 64                # bench_all.py's batch per tick at 1080i
+DEINT_ODD = (3, 45, 301)        # odd height and width: the byte path
+
+
+def check_deint(planes, rng):
+    """deint_both_parities against its plain version, bit for bit, at the
+    chain's Y and U/V shapes and one odd shape, both methods, both
+    parities.  Returns the largest difference (0)."""
+    import torch
+    from gstreamer_tpu_torch.ops import deint_kernel as dk
+    odd = torch.as_tensor(rng.integers(0, 256, DEINT_ODD, dtype="uint8")
+                          ).to(planes[0].device)
+    err = 0
+    for plane in (planes[0][:DEINT_BATCH], planes[1][:DEINT_BATCH], odd):
+        for method in dk.METHODS:
+            for parity0 in (0, 1):
+                k = dk.deint_both_parities(plane, method, parity0)
+                p = dk.deint_both_parities_plain(plane, method, parity0)
+                torch.cuda.synchronize()
+                require(k.dtype == torch.uint8 and k.shape == p.shape,
+                        f"deint {tuple(plane.shape)}: bad output")
+                err = max(err, int((k.int() - p.int()).abs().max()))
+    require(err == 0, f"deint_both_parities: kernel differs from its plain "
+            f"version by up to {err}")
+    return err
+
+
+def time_deint(planes):
+    """Per tick of the chain (Y + U + V at batch 64, method linear): the
+    kernel, the plain version, the byte bound and a copy_ yardstick that
+    moves the same bytes (one read, two writes; the port never calls
+    it)."""
+    import torch
+    from gstreamer_tpu_torch.ops import deint_kernel as dk
+    t = dict(ms=0.0, plain_ms=0.0, copy_ms=0.0, bytes=0, ops=0)
+    for i, reps in ((0, 1), (1, 2)):                # Y once, U and V alike
+        plane = planes[i][:DEINT_BATCH]
+        nf, h, w = plane.shape
+        dst = torch.empty((nf, 2, h, w), dtype=torch.uint8,
+                          device=plane.device)
+        both = plane.unsqueeze(1).expand(nf, 2, h, w)
+        t["ms"] += reps * cuda_ms(
+            lambda: dk.deint_both_parities(plane, "linear", 0), 20)
+        t["plain_ms"] += reps * cuda_ms(
+            lambda: dk.deint_both_parities_plain(plane, "linear", 0), 3, 1)
+        t["copy_ms"] += reps * cuda_ms(lambda: dst.copy_(both), 20)
+        t["bytes"] += reps * 3 * plane.numel()
+        t["ops"] += reps * 3 * plane.numel()       # (a + b + 1) >> 1
+        del dst
+    t["bound"] = bound(t["bytes"], t["ops"])
+    return t
+
+
+# -- launch strings through parse_launch -------------------------------------
+
+SRC = ("appsrc name=in caps=video/x-raw,format=I420,width={w},height={h},"
+       "framerate=30/1 ! ")
+LAUNCH = {       # name: (launch string, batch, ticks)
+    "deint_chain": (SRC + "deinterlace method=linear ! videobalance "
+                    "contrast=1.1 brightness=0.05 ! appsink name=out",
+                    DEINT_BATCH, 3),
+    "deint_rate_chain": (SRC + "deinterlace method=scalerbob ! videorate ! "
+                         "video/x-raw,framerate=30/1 ! videobalance "
+                         "saturation=1.2 ! appsink name=out", 16, 2),
+    "headline_launch": (SRC + "videoconvertscale ! video/x-raw,format=RGB,"
+                        "width=224,height=224 ! appsink name=out", 64, 3),
+    "headline_launch_noborders": (
+        SRC + "videoconvertscale add-borders=false ! video/x-raw,format=RGB,"
+        "width=224,height=224 ! appsink name=out", 64, 3),
+}
+DUR = 33333333                  # ns per input frame at 30/1
+CPU_FRAMES = 2                  # input frames the CPU reference runs
+
+
+def drive(desc, batch, ticks, planes, device=None):
+    """Push `ticks` buffers of `planes` (the same frames each tick) into
+    appsrc and tick the pipeline to EOS, each tick timed on the host clock
+    between two synchronises.  Returns (pipeline, first sample, output
+    frames per tick, seconds per tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    cuda = device is None
+    pipe = parse_launch(desc, batch=batch, device=device)
+    src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+    for t in range(ticks):
+        src.push_buffer(Buffer(data=planes, pts=t * batch * DUR,
+                               duration=DUR, batch=batch))
+    src.end_of_stream()
+    pipe.set_state(State.PLAYING)
+    first, frames, secs = None, [], []
+    while True:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not more:
+            break
+        n = 0
+        while (s := sink.pull_sample()) is not None:
+            if first is None:
+                first = s
+            n += s.buffer.batch
+        frames.append(n)
+        secs.append(dt)
+    pipe.set_state(State.NULL)
+    return pipe, first, frames, secs
+
+
+def balance_gold(pipe, deinterlaced):
+    """videobalance's float64 tables looked up on the host."""
+    import numpy as np
+    bal = next(e for e in pipe.iterate_elements()
+               if e.FACTORY == "videobalance")
+    ty, tu, tv = bal._tables()
+    y, u, v = (np.asarray(p, np.int64) for p in deinterlaced)
+    return ty[y], tu[u, v], tv[u, v]
+
+
+def launch_paths(planes, host, counters):
+    """Drive every launch path on the card with the counts zeroed just
+    before it and read just after; check its outputs against the same
+    launch string run by the port on the CPU over the first input frames,
+    and the deint chain against the plain deinterlace and videobalance's
+    float64 tables.  Returns {name: dict of counts, frames/s, ...}."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.ops import deint_kernel as dk
+    res = {}
+    for name, (desc, batch, ticks) in LAUNCH.items():
+        desc = desc.format(w=W, h=H)
+        ins = tuple(p[:batch] for p in planes)
+        for c in counters.values():
+            c.launches = 0
+        pipe, first, frames, secs = drive(desc, batch, ticks, ins)
+        counts = {k: c.launches for k, c in counters.items()}
+        require(len(frames) == ticks and all(frames),
+                f"{name}: {frames} output frames per tick")
+        _, ref, _, _ = drive(desc, CPU_FRAMES, 1,
+                             tuple(p[:CPU_FRAMES] for p in host), "cpu")
+        n = ref.buffer.batch
+        require(first.buffer.pts == ref.buffer.pts
+                and str(first.caps) == str(ref.caps),
+                f"{name}: first sample's pts/caps differ from the CPU run")
+        for o, r in zip(first.buffer.data, ref.buffer.data):
+            require(o.device.type == "cuda", f"{name}: output on {o.device}")
+            require(torch.equal(o[:n].cpu(), r),
+                    f"{name}: CUDA output differs from the port's CPU path")
+        if name == "deint_chain":
+            fields = tuple(dk.deint_both_parities_plain(
+                torch.as_tensor(p[:CPU_FRAMES]), "linear", 0).flatten(0, 1)
+                for p in host)
+            for o, g in zip(first.buffer.data, balance_gold(pipe, fields)):
+                require(np.array_equal(
+                    o[:2 * CPU_FRAMES].cpu().numpy().astype(np.int64), g),
+                    "deint_chain: output differs from deint plain + "
+                    "videobalance float64 tables")
+            require(counts["deint_both_parities"] == 3 * ticks,
+                    f"deint_chain: {counts} launches, want 3 deint per tick")
+        elif name == "deint_rate_chain":
+            require(counts["deint_both_parities"] >= 1,
+                    f"deint_rate_chain: deint kernel not launched {counts}")
+        elif name == "headline_launch_noborders":
+            require(counts["yscale_hv"] >= 1,
+                    f"{name}: yscale kernel not launched {counts}")
+        timed_f, timed_s = sum(frames[1:]), sum(secs[1:])
+        res[name] = dict(counts=counts, batch=batch, ticks=ticks,
+                         frames=frames, secs=secs, fused=pipe._fused,
+                         fps=timed_f / timed_s, ref_frames=n)
+        del first
+        print(f"path {name}: batch {batch}, {ticks} ticks, "
+              f"{'fused' if pipe._fused else 'per-element'}; launches "
+              f"{counts}; output frames per tick {frames}; CUDA == port CPU"
+              f" ({n} frames)")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=256)
     args = ap.parse_args()
+    if args.batch < DEINT_BATCH:
+        ap.error(f"--batch must be at least {DEINT_BATCH}: the launch paths "
+                 "take their frames from the converter's batch")
 
     import torch
     if not torch.cuda.is_available():
@@ -105,6 +308,7 @@ def main() -> int:
     from gstreamer_tpu_torch.device import resolve
     from gstreamer_tpu_torch.ops import _build
     from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import deint_kernel as dk
     from gstreamer_tpu_torch.ops import yscale_kernel as ysk
 
     torch.set_float32_matmul_precision("highest")   # yardstick: no TF32
@@ -156,7 +360,11 @@ def main() -> int:
     for kname, e in err.items():
         require(e == 0, f"{kname}: kernel differs from its plain version "
                 f"by up to {e}")
-    print(f"kernel vs plain (bit for bit): {err}")
+    err["deint_both_parities"] = check_deint(planes, rng)
+    print(f"kernel vs plain (bit for bit): {err}; deint at "
+          f"{tuple(planes[0][:DEINT_BATCH].shape)}, "
+          f"{tuple(planes[1][:DEINT_BATCH].shape)} and {DEINT_ODD}, both "
+          "methods, both parities")
 
     # -- timings at the headline shapes ---------------------------------------
     timings = {}
@@ -197,10 +405,21 @@ def main() -> int:
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               f"(2 dense fp32 matmuls) {t['library_ms']:.4f} ms, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    td = time_deint(planes)
+    timings[("deint_both_parities", "linear")] = dict(td, library_ms=None)
+    print(f"time deint_both_parities [linear, Y+U+V of {DEINT_BATCH} 1080p "
+          f"I420 frames]: kernel {td['ms']:.4f} ms, plain "
+          f"{td['plain_ms']:.4f} ms, bound {td['bound'][0]:.4f} ms "
+          f"({td['bound'][1]}, {td['bytes']} bytes); library: none (no "
+          f"single PyTorch call); copy_ yardstick of the same bytes "
+          f"{td['copy_ms']:.4f} ms")
 
     # -- the main path: counts zeroed just before, read just after ------------
-    ysk.yscale_hv.launches = 0
-    ck.chroma420_scale.launches = 0
+    counters = {"yscale_hv": ysk.yscale_hv,
+                "chroma420_scale": ck.chroma420_scale,
+                "deint_both_parities": dk.deint_both_parities}
+    for c in counters.values():
+        c.launches = 0
     outs, per_cfg = {}, {}
     for k, conv in convs.items():
         before = (ysk.yscale_hv.launches, ck.chroma420_scale.launches)
@@ -208,8 +427,7 @@ def main() -> int:
         torch.cuda.synchronize()
         per_cfg[k] = (ysk.yscale_hv.launches - before[0],
                       ck.chroma420_scale.launches - before[1])
-    launches = {"yscale_hv": ysk.yscale_hv.launches,
-                "chroma420_scale": ck.chroma420_scale.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     print(f"main path launches {launches}; per config (yscale, chroma420): "
           f"{per_cfg}")
     require(per_cfg["linear2"][0] >= 1 and per_cfg["cubic"][0] >= 1,
@@ -239,6 +457,19 @@ def main() -> int:
         ms = cuda_ms(lambda: conv.convert(planes), 5, 1)
         print(f"e2e {k}: {ms:.3f} ms per batch of {b}, "
               f"{b / ms * 1e3:.1f} frames/s")
+    del outs
+
+    # -- launch strings: each path with its counts zeroed just before -------
+    paths = launch_paths(planes, host, counters)
+    for pname, r in paths.items():
+        for k in launches:
+            launches[k] += r["counts"][k]
+        print(f"e2e {pname}: {r['fps']:.1f} output frames/s over ticks 2.."
+              f"{r['ticks']} (batch {r['batch']} in, "
+              f"{r['frames'][1:]} frames out, "
+              f"{[round(s * 1e3, 3) for s in r['secs']]} ms per tick, host "
+              f"clock between synchronises; tick 1 includes first calls)")
+    print(f"main path launches, all paths: {launches}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -249,7 +480,10 @@ def main() -> int:
                              "linear2"),
                "chroma420_scale": ("gstreamer_tpu_torch/csrc/chroma420.cu",
                                    "gstreamer_tpu/ops/chroma420_kernel.py:159",
-                                   "cubic")}
+                                   "cubic"),
+               "deint_both_parities": ("gstreamer_tpu_torch/csrc/deint.cu",
+                                       "gstreamer_tpu/ops/deint_kernel.py:85",
+                                       "linear")}
     kernels = []
     for kname, (src, repl, tag) in sources.items():
         t = timings[(kname, tag)]

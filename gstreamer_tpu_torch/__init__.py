@@ -1,13 +1,26 @@
 """PyTorch/CUDA port of gstreamer_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``gstreamer_tpu`` is the reference; this package imports
-nothing of it (nor of jax).  It grows slice by slice: this slice carries the
-VideoConverter (1080p I420 -> RGB 224x224 headline path) with hand-written
-CUDA kernels for the luma h+v scale and the fused 4:2:0 chroma scale.
+nothing of it (nor of jax).  It grows slice by slice.  So far it carries:
+
+* the VideoConverter (1080p I420 -> RGB 224x224 headline path) with
+  hand-written CUDA kernels for the luma h+v scale and the fused 4:2:0
+  chroma scale;
+* the launch-string runtime -- caps negotiation, ``parse_launch`` and
+  ``Pipeline`` -- with the elements capsfilter, identity, queue, fakesink,
+  appsink, appsrc, videoconvert/videoscale/videoconvertscale,
+  deinterlace (linear and scalerbob, with a CUDA kernel for both field
+  parities), videorate and videobalance.
+
+Everything runs on CUDA unless the caller passes ``device="cpu"``; without
+a card the default raises.
 """
 
+from .core.parse import parse_launch
+from .core.pipeline import Pipeline
 from .device import resolve as resolve_device
 from .video.converter import VideoConverter
 from .video.info import VideoInfo
 
-__all__ = ["VideoConverter", "VideoInfo", "resolve_device"]
+__all__ = ["Pipeline", "VideoConverter", "VideoInfo", "parse_launch",
+           "resolve_device"]

@@ -22,6 +22,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "status.cuh"
+
 namespace scale2pass {
 
 constexpr int kThreads = 256;
@@ -158,7 +160,3 @@ int launch(const Source& src, const Taps& t, OutT* out, int batch,
 }
 
 }  // namespace scale2pass
-
-extern "C" const char* gst_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}

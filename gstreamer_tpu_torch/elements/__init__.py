@@ -1,0 +1,10 @@
+"""Element plugins of the port — importing this package registers the
+ported factories in ``gstreamer_tpu_torch.core.element._REGISTRY`` (the
+registry-scan equivalent of gstregistry.c).  Only these exist; any other
+factory name raises ``ValueError`` in ``element_factory_make``."""
+
+from . import util_elements      # noqa: F401  (capsfilter, identity, queue, fakesink, appsink, appsrc)
+from . import videoconvertscale  # noqa: F401  (videoconvert, videoscale, videoconvertscale)
+from . import videofilter        # noqa: F401  (videobalance)
+from . import videorate          # noqa: F401
+from . import deinterlace        # noqa: F401  (deinterlace, autodeinterlace)

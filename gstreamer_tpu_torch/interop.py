@@ -1,4 +1,4 @@
-"""Carry a converter plan across packages as plain numpy arrays.
+"""Carry state across packages as plain data: converter plans, caps.
 
 A VideoConverter's "weights" are its plan: the resamplers' offsets and S16
 taps, the prepared color matrix and the chroma siting.  ``plan_arrays``
@@ -6,7 +6,8 @@ flattens a plan into a dict of numpy arrays; it reads only attributes, so it
 accepts the JAX package's plan as well as this package's.
 ``plan_from_reference`` rebuilds this package's plan objects from such a
 dict, so the port can run on exactly the reference's plan
-(``VideoConverter.load_plan``).
+(``VideoConverter.load_plan``).  ``negotiated_caps`` reads a negotiated
+pipeline's per-pad caps as strings, from either package's Pipeline.
 """
 
 from __future__ import annotations
@@ -60,3 +61,11 @@ def plan_from_reference(arrays: Dict[str, np.ndarray]) -> dict:
     for flag in _FLAGS:
         plan[flag] = bool(arrays[flag])
     return plan
+
+
+def negotiated_caps(pipeline) -> Dict[str, str]:
+    """A negotiated pipeline (either package's) -> {"element:pad": caps
+    string}, every pad of every element in topological order; a pad with
+    no caps maps to "None"."""
+    return {f"{e.name}:{p.name}": str(p.caps)
+            for e in pipeline._topo_order() for p in e.pads}

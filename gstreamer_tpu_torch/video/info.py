@@ -1,16 +1,17 @@
 """VideoInfo: the negotiated per-stream video configuration (host data).
 
 A copy of the JAX package's ``video/info.py`` (GstVideoInfo: default
-colorimetry and chroma siting by resolution, video-info.c) without the caps
-interop, which waits for the launch-string runtime of a later slice.
+colorimetry and chroma siting by resolution, video-info.c; reading a caps
+structure).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from fractions import Fraction
 from typing import Optional
 
+from ..core.structure import Structure
+from ..core.value import Fraction
 from .format import VideoFormatInfo, format_info, plane_shapes
 
 # Colorimetry enums (string-valued to stay caps-friendly).
@@ -100,6 +101,25 @@ class VideoInfo:
 
     def plane_shapes(self):
         return plane_shapes(self.finfo, self.width, self.height)
+
+    # -- caps interop -----------------------------------------------------
+    @staticmethod
+    def from_caps_structure(s: Structure) -> "VideoInfo":
+        if s.name != "video/x-raw":
+            raise ValueError(f"not raw video caps: {s!r}")
+        col = s.get("colorimetry")
+        cs = s.get("chroma-site")
+        return VideoInfo(
+            format=s.get("format", "I420"),
+            width=int(s["width"]),
+            height=int(s["height"]),
+            fps=(s.get("framerate") if isinstance(s.get("framerate"), Fraction)
+                 else Fraction(int(s.get("framerate", 30)))),
+            par=s.get("pixel-aspect-ratio", Fraction(1)),
+            colorimetry=Colorimetry.from_string(col) if col else None,
+            chroma_site=cs,
+            interlace_mode=s.get("interlace-mode", "progressive"),
+        )
 
 
 def default_colorimetry(finfo: VideoFormatInfo, height: int) -> Colorimetry:

@@ -1,22 +1,63 @@
 #!/usr/bin/env python3
-"""Where the time goes in the torch port's headline conversions, on one GPU.
+"""Where the time goes in the torch port's main paths, on one GPU.
 
     python3 profile_torch_headline.py [--batch 256] [--iters 5] [--seed 0]
 
-For each of chip_smoke.py's configurations (linear2, cubic, add_borders)
-this runs ``VideoConverter.convert`` on a batch of 1920x1080 I420 frames
-already on the card, under ``torch.profiler`` for ``--iters`` conversions,
-and prints one JSON line: the wall time per batch, the device busy time per
-batch (the union of the kernels' device intervals), the device idle share,
-and the ten kernels with the most device time.  Needs a CUDA card.
+For each of chip_smoke.py's converter configurations (linear2, cubic,
+add_borders) this runs ``VideoConverter.convert`` on a batch of 1920x1080
+I420 frames already on the card, and for each of its launch paths
+(deint_chain, deint_rate_chain, headline_launch,
+headline_launch_noborders) ``Pipeline.tick`` at the path's batch, with the
+frames pushed into appsrc as CUDA tensors.  Each runs two times untraced,
+then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
+the wall time per batch or tick, the device busy time (the union of the
+kernels' device intervals), the device idle share, and the ten kernels
+with the most device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
+
+
+def report(name, batch, step, iters):
+    """Run `step` twice, then `iters` times under torch.profiler; print
+    the JSON line described above."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:            # union of the device intervals
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    per_name: dict = {}
+    for e in kernels:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    busy = busy_us / iters / 1e3
+    print(json.dumps({
+        "config": name, "batch": batch, "wall_ms": wall,
+        "device_busy_ms": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall),
+        "top": [{"kernel": k[:90], "device_ms": us / iters / 1e3,
+                 "calls": n // iters} for k, (us, n) in top]}))
 
 
 def main() -> int:
@@ -28,13 +69,14 @@ def main() -> int:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_headline: needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import CONFIGS, H, OH, OW, W
-    from gstreamer_tpu_torch import VideoConverter, VideoInfo
+    from chip_smoke import CONFIGS, DUR, H, LAUNCH, OH, OW, W
+    from gstreamer_tpu_torch import VideoConverter, VideoInfo, parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
     from gstreamer_tpu_torch.ops import _build
 
     _build.build()
@@ -47,36 +89,22 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     for name, cfg in CONFIGS.items():
         conv = VideoConverter(ii, oi, cfg)
-        for _ in range(2):
-            conv.convert(planes)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                conv.convert(planes)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / args.iters * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy_us, reach = 0.0, float("-inf")
-        for start, end in spans:            # union of the device intervals
-            busy_us += max(0.0, end - max(start, reach))
-            reach = max(reach, end)
-        per_name: dict = {}
-        for e in kernels:
-            us, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
-        busy = busy_us / args.iters / 1e3
-        print(json.dumps({
-            "config": name, "batch": args.batch, "wall_ms": wall,
-            "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "top": [{"kernel": k[:90], "device_ms": us / args.iters / 1e3,
-                     "calls": n // args.iters} for k, (us, n) in top]}))
+        report(name, args.batch, lambda: conv.convert(planes), args.iters)
+    for name, (desc, batch, _) in LAUNCH.items():
+        pipe = parse_launch(desc.format(w=W, h=H), batch=batch)
+        src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+        ins = tuple(p[:batch] for p in planes)
+        pts = itertools.count(0, batch * DUR)
+        pipe.set_state(State.PLAYING)
+
+        def tick():
+            src.push_buffer(Buffer(data=ins, pts=next(pts), duration=DUR,
+                                   batch=batch))
+            pipe.tick()
+            while sink.pull_sample() is not None:
+                pass
+        report(name, batch, tick, args.iters)
+        pipe.set_state(State.NULL)
     return 0
 
 
