@@ -11,7 +11,7 @@ port's main paths at full width, each with the launch counts zeroed just
 before it and read just after:
 
 1. the VideoConverter -- a batch of 1920x1080 I420 frames, made from the
-   seed, to RGB 224x224 -- in three configurations:
+   seed, to RGB 224x224 -- in four configurations:
 
   linear2      method=linear, 2 taps (videoscale's default): yscale kernel
                + 2-tap gather chroma
@@ -19,8 +19,14 @@ before it and read just after:
                kernel
   add_borders  linear/2 with the 16:9 -> 1:1 dest rect (dest-y=49,
                dest-height=126): phase-split path + rect embed, no kernel
+  fused_ingest linear/2 with GTPU_PALLAS=1 set for this phase only: the
+               fused-ingest kernel (unpack + chroma up2 + h-scale), then the
+               plain v-scale; the same bytes as linear2
 
-2. launch strings through the port's parse_launch on CUDA, 1920x1080 I420
+2. the two standalone scale ops, hscale_u8 and scale_hv_u8, called as a user
+   would on the batch's luma plane (the package has no other caller);
+
+3. launch strings through the port's parse_launch on CUDA, 1920x1080 I420
    frames pushed into appsrc as CUDA tensors and read from appsink:
 
   deint_chain                deinterlace method=linear ! videobalance
@@ -31,6 +37,11 @@ before it and read just after:
   headline_launch            videoconvertscale ! RGB 224x224 (add-borders
                              route: no kernel)
   headline_launch_noborders  the same with add-borders=false: yscale kernel
+  quickstart                 the README quick-start string at 1080p:
+                             videotestsrc pattern=snow ! I420 1920x1080 !
+                             videoconvertscale add-borders=false ! RGB
+                             224x224 ! appsink (snow generated on the card)
+  quickstart_fused           the same with GTPU_PALLAS=1: fused-ingest kernel
 
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
@@ -43,7 +54,9 @@ non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -59,12 +72,31 @@ CONFIGS = {
     "add_borders": {"resampler-method": "linear", "resampler-taps": 2,
                     "dest-x": 0, "dest-y": 49, "dest-width": 224,
                     "dest-height": 126},
+    # linear2's plan; convert() runs under opt_in() (FUSED_CONFIGS)
+    "fused_ingest": {"resampler-method": "linear", "resampler-taps": 2},
 }
+FUSED_CONFIGS = ("fused_ingest",)
+SMALL = (3, 46, 70, 20, 33)     # B, H, W, OH, OW: an awkward small shape
 
 
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def opt_in(on: bool = True):
+    """GTPU_PALLAS=1 (the converter's fused-ingest route) inside the block
+    only; the variable is read at every convert()."""
+    old = os.environ.pop("GTPU_PALLAS", None)
+    if on:
+        os.environ["GTPU_PALLAS"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("GTPU_PALLAS", None)
+        if old is not None:
+            os.environ["GTPU_PALLAS"] = old
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -103,6 +135,150 @@ def dense_pair(x_f32, h_res, v_res):
     mv = torch.as_tensor(tap_matrix(v_res).astype("float32"),
                          device=x_f32.device)
     return lambda: torch.matmul(mv, torch.matmul(x_f32, mh))
+
+
+def dense_h(x_f32, h_res):
+    """The library yardstick of an h-only scale: one dense fp32 product."""
+    import torch
+    from gstreamer_tpu_torch.video.scaler import tap_matrix
+    mh = torch.as_tensor(tap_matrix(h_res).T.astype("float32"),
+                         device=x_f32.device)
+    return lambda: torch.matmul(x_f32, mh)
+
+
+# -- the h-only, int32 and fused-ingest kernels: kernel vs plain, timings -----
+
+def max_err(ks, ps, what):
+    """Largest difference between a kernel's outputs and its plain
+    version's; dtypes and shapes must agree."""
+    err = 0
+    for k, p in zip(ks, ps):
+        require(k.dtype == p.dtype and k.shape == p.shape,
+                f"{what}: kernel gives {k.dtype} {tuple(k.shape)}, plain "
+                f"{p.dtype} {tuple(p.shape)}")
+        err = max(err, int((k.int() - p.int()).abs().max()))
+    return err
+
+
+def check_new_kernels(planes, plans, rng):
+    """hscale_u8, scale_hv_u8 and fused_i420_up_hscale against their plain
+    versions, bit for bit, at the main path's shape under both plans
+    (linear/2 and cubic taps) and at one awkward small shape (lanczos; a
+    view that starts off a 16-byte boundary included).  Returns
+    {kernel: largest difference (0)}."""
+    import torch
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
+    from gstreamer_tpu_torch.video.scaler import make_resampler
+    sb, sh, sw, soh, sow = SMALL
+    small = tuple(torch.as_tensor(rng.integers(0, 256, shp, dtype="uint8")
+                                  ).to(planes[0].device)[1:]
+                  for shp in ((sb + 1, sh, sw), (sb + 1, sh // 2, sw // 2),
+                              (sb + 1, sh // 2, sw // 2)))
+    cases = [(planes, p["h_res"], p["v_res"]) for p in plans]
+    cases.append((small, make_resampler("lanczos", sw, sow),
+                  make_resampler("lanczos", sh, soh)))
+    err = {"hscale_u8": 0, "scale_hv_u8": 0, "fused_i420_up_hscale": 0}
+    for (y, u, v), hr, vr in cases:
+        err["hscale_u8"] = max(err["hscale_u8"], max_err(
+            [hk.hscale_u8(y, hr)], [hk.hscale_u8_plain(y, hr)], "hscale_u8"))
+        err["scale_hv_u8"] = max(err["scale_hv_u8"], max_err(
+            [s2k.scale_hv_u8(y, hr, vr)], [s2k.scale_hv_u8_plain(y, hr, vr)],
+            "scale_hv_u8"))
+        for cosited in (False, True):
+            err["fused_i420_up_hscale"] = max(
+                err["fused_i420_up_hscale"], max_err(
+                    fk.fused_i420_up_hscale(y, u, v, hr, cosited),
+                    fk.fused_i420_up_hscale_plain(y, u, v, hr, cosited),
+                    "fused_i420_up_hscale"))
+        torch.cuda.synchronize()
+    for kname, e in err.items():
+        require(e == 0, f"{kname}: kernel differs from its plain version "
+                f"by up to {e}")
+    return err
+
+
+def time_new_kernels(planes, plans):
+    """{(kernel, tag): times and bound} at the batch's shape.  Bytes: each
+    input read once, each output written once (scale_hv_u8: the rows its
+    vertical taps read, as for yscale_hv).  Operations: 2 per tap
+    multiply-add, plus the up2 filters of the fused kernel (about 4 per
+    sample they produce)."""
+    import torch
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
+    y, u, v = planes
+    b = y.shape[0]
+    y_f32 = y.float()
+    up_f32 = torch.repeat_interleave(torch.repeat_interleave(u, 2, -1),
+                                     2, -2).float()
+    out = {}
+    for tag, plan in plans.items():
+        hr, vr = plan["h_res"], plan["v_res"]
+        th, tv = hr.max_taps, vr.max_taps
+        cos = plan["up_h_cosited"]
+        lib_h = dense_h(y_f32, hr)
+        lib_c = dense_h(up_f32, hr)
+        out[("hscale_u8", tag)] = dict(
+            ms=cuda_ms(lambda: hk.hscale_u8(y, hr), 20),
+            plain_ms=cuda_ms(lambda: hk.hscale_u8_plain(y, hr), 3, 1),
+            library_ms=cuda_ms(lib_h, 5, 1), library="1 dense fp32 matmul",
+            bound=bound(b * H * W + b * H * OW * 4, 2.0 * b * H * OW * th),
+            taps=(th,))
+        rows = touched(vr, H)
+        out[("scale_hv_u8", tag)] = dict(
+            ms=cuda_ms(lambda: s2k.scale_hv_u8(y, hr, vr), 20),
+            plain_ms=cuda_ms(lambda: s2k.scale_hv_u8_plain(y, hr, vr), 3, 1),
+            library_ms=cuda_ms(dense_pair(y_f32, hr, vr), 5, 1),
+            library="2 dense fp32 matmuls",
+            bound=bound(b * rows * W + b * OH * OW * 4,
+                        2.0 * b * (rows * OW * th + OH * OW * tv)),
+            taps=(th, tv))
+        out[("fused_i420_up_hscale", tag)] = dict(
+            ms=cuda_ms(lambda: fk.fused_i420_up_hscale(y, u, v, hr, cos), 20),
+            plain_ms=cuda_ms(
+                lambda: fk.fused_i420_up_hscale_plain(y, u, v, hr, cos),
+                3, 1),
+            library_ms=None,
+            # no single call computes it; three dense h products (Y and two
+            # nearest-upsampled chroma planes) move comparable data
+            yardstick_ms=cuda_ms(lambda: (lib_h(), lib_c(), lib_c()), 5, 1),
+            bound=bound(b * H * W * 3 // 2 + b * 3 * H * OW * 2,
+                        2.0 * b * 3 * H * OW * th
+                        + b * 2 * 4.0 * (W * H // 2 + W * H)),
+            taps=(th,))
+    return out
+
+
+def standalone_ops(planes, host, plan):
+    """The two standalone scale ops as a user calls them, at full width on
+    the batch's luma plane; outputs checked for shape and type, and against
+    the port's CPU path on the first frames."""
+    import torch
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
+    hr, vr = plan["h_res"], plan["v_res"]
+    y = planes[0]
+    require(hk.applicable(hr, y.shape) and s2k.applicable(hr, vr, y.shape),
+            "standalone ops: the headline shape fails their own gates")
+    out_h = hk.hscale_u8(y, hr)
+    out_hv = s2k.scale_hv_u8(y, hr, vr)
+    torch.cuda.synchronize()
+    b = y.shape[0]
+    require(out_h.dtype == out_hv.dtype == torch.int32
+            and tuple(out_h.shape) == (b, H, OW)
+            and tuple(out_hv.shape) == (b, OH, OW),
+            "standalone ops: bad output")
+    cpu = torch.as_tensor(host[0][:CPU_FRAMES])
+    require(torch.equal(out_h[:CPU_FRAMES].cpu(), hk.hscale_u8(cpu, hr))
+            and torch.equal(out_hv[:CPU_FRAMES].cpu(),
+                            s2k.scale_hv_u8(cpu, hr, vr)),
+            "standalone ops: CUDA output differs from the port's CPU path")
+    require(int(out_h.min()) >= 0 and int(out_h.max()) <= 255
+            and int(out_hv.min()) >= 0 and int(out_hv.max()) <= 255,
+            "standalone ops: output outside 0..255")
 
 
 # -- deinterlace: kernel vs plain, timings ----------------------------------
@@ -164,18 +340,27 @@ def time_deint(planes):
 
 SRC = ("appsrc name=in caps=video/x-raw,format=I420,width={w},height={h},"
        "framerate=30/1 ! ")
-LAUNCH = {       # name: (launch string, batch, ticks)
+# the README quick-start string, with the source pinned to 1080p I420 and n
+# frames (videotestsrc has no appsrc to feed: it makes its frames on the card)
+QUICKSTART = ("videotestsrc pattern=snow num-buffers={n} ! video/x-raw,"
+              "format=I420,width={w},height={h},framerate=30/1 ! "
+              "videoconvertscale add-borders=false ! video/x-raw,format=RGB,"
+              "width=224,height=224 ! appsink name=out")
+LAUNCH = {       # name: (launch string, batch, ticks, GTPU_PALLAS=1)
     "deint_chain": (SRC + "deinterlace method=linear ! videobalance "
                     "contrast=1.1 brightness=0.05 ! appsink name=out",
-                    DEINT_BATCH, 3),
+                    DEINT_BATCH, 3, False),
     "deint_rate_chain": (SRC + "deinterlace method=scalerbob ! videorate ! "
                          "video/x-raw,framerate=30/1 ! videobalance "
-                         "saturation=1.2 ! appsink name=out", 16, 2),
+                         "saturation=1.2 ! appsink name=out", 16, 2, False),
     "headline_launch": (SRC + "videoconvertscale ! video/x-raw,format=RGB,"
-                        "width=224,height=224 ! appsink name=out", 64, 3),
+                        "width=224,height=224 ! appsink name=out", 64, 3,
+                        False),
     "headline_launch_noborders": (
         SRC + "videoconvertscale add-borders=false ! video/x-raw,format=RGB,"
-        "width=224,height=224 ! appsink name=out", 64, 3),
+        "width=224,height=224 ! appsink name=out", 64, 3, False),
+    "quickstart": (QUICKSTART, 64, 3, False),
+    "quickstart_fused": (QUICKSTART, 64, 3, True),
 }
 DUR = 33333333                  # ns per input frame at 30/1
 CPU_FRAMES = 2                  # input frames the CPU reference runs
@@ -183,20 +368,23 @@ CPU_FRAMES = 2                  # input frames the CPU reference runs
 
 def drive(desc, batch, ticks, planes, device=None):
     """Push `ticks` buffers of `planes` (the same frames each tick) into
-    appsrc and tick the pipeline to EOS, each tick timed on the host clock
-    between two synchronises.  Returns (pipeline, first sample, output
-    frames per tick, seconds per tick)."""
+    appsrc, where the string has one (a videotestsrc makes batch * ticks
+    frames itself), and tick the pipeline to EOS, each tick timed on the
+    host clock between two synchronises.  Returns (pipeline, first sample,
+    output frames per tick, seconds per tick)."""
     import torch
     from gstreamer_tpu_torch import parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer
     from gstreamer_tpu_torch.core.pipeline import State
     cuda = device is None
-    pipe = parse_launch(desc, batch=batch, device=device)
+    pipe = parse_launch(desc.format(w=W, h=H, n=batch * ticks), batch=batch,
+                        device=device)
     src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
-    for t in range(ticks):
-        src.push_buffer(Buffer(data=planes, pts=t * batch * DUR,
-                               duration=DUR, batch=batch))
-    src.end_of_stream()
+    if src is not None:
+        for t in range(ticks):
+            src.push_buffer(Buffer(data=planes, pts=t * batch * DUR,
+                                   duration=DUR, batch=batch))
+        src.end_of_stream()
     pipe.set_state(State.PLAYING)
     first, frames, secs = None, [], []
     while True:
@@ -240,17 +428,19 @@ def launch_paths(planes, host, counters):
     import torch
     from gstreamer_tpu_torch.ops import deint_kernel as dk
     res = {}
-    for name, (desc, batch, ticks) in LAUNCH.items():
-        desc = desc.format(w=W, h=H)
+    for name, (desc, batch, ticks, fused) in LAUNCH.items():
         ins = tuple(p[:batch] for p in planes)
-        for c in counters.values():
-            c.launches = 0
-        pipe, first, frames, secs = drive(desc, batch, ticks, ins)
-        counts = {k: c.launches for k, c in counters.items()}
-        require(len(frames) == ticks and all(frames),
-                f"{name}: {frames} output frames per tick")
-        _, ref, _, _ = drive(desc, CPU_FRAMES, 1,
-                             tuple(p[:CPU_FRAMES] for p in host), "cpu")
+        with opt_in(fused):
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            pipe, first, frames, secs = drive(desc, batch, ticks, ins)
+            counts = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            require(len(frames) == ticks and all(frames),
+                    f"{name}: {frames} output frames per tick")
+            _, ref, _, _ = drive(desc, CPU_FRAMES, 1,
+                                 tuple(p[:CPU_FRAMES] for p in host), "cpu")
         n = ref.buffer.batch
         require(first.buffer.pts == ref.buffer.pts
                 and str(first.caps) == str(ref.caps),
@@ -273,18 +463,26 @@ def launch_paths(planes, host, counters):
         elif name == "deint_rate_chain":
             require(counts["deint_both_parities"] >= 1,
                     f"deint_rate_chain: deint kernel not launched {counts}")
-        elif name == "headline_launch_noborders":
-            require(counts["yscale_hv"] >= 1,
-                    f"{name}: yscale kernel not launched {counts}")
+        elif name in ("headline_launch_noborders", "quickstart"):
+            require(counts["yscale_hv"] >= 1
+                    and counts["fused_i420_up_hscale"] == 0,
+                    f"{name}: want the yscale kernel and no fused-ingest "
+                    f"launch, got {counts}")
+        elif name == "quickstart_fused":
+            require(counts["fused_i420_up_hscale"] == ticks
+                    and counts["yscale_hv"] == 0,
+                    f"{name}: want one fused-ingest launch per tick and no "
+                    f"yscale launch, got {counts}")
         timed_f, timed_s = sum(frames[1:]), sum(secs[1:])
         res[name] = dict(counts=counts, batch=batch, ticks=ticks,
                          frames=frames, secs=secs, fused=pipe._fused,
-                         fps=timed_f / timed_s, ref_frames=n)
+                         fps=timed_f / timed_s, ref_frames=n, peak=peak)
         del first
         print(f"path {name}: batch {batch}, {ticks} ticks, "
               f"{'fused' if pipe._fused else 'per-element'}; launches "
-              f"{counts}; output frames per tick {frames}; CUDA == port CPU"
-              f" ({n} frames)")
+              f"{counts}; output frames per tick {frames}; peak device "
+              f"memory {peak / 2**30:.2f} GiB; CUDA == port CPU ({n} "
+              f"frames)")
     return res
 
 
@@ -308,7 +506,10 @@ def main() -> int:
     from gstreamer_tpu_torch.device import resolve
     from gstreamer_tpu_torch.ops import _build
     from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
     from gstreamer_tpu_torch.ops import deint_kernel as dk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
     from gstreamer_tpu_torch.ops import yscale_kernel as ysk
 
     torch.set_float32_matmul_precision("highest")   # yardstick: no TF32
@@ -361,10 +562,13 @@ def main() -> int:
         require(e == 0, f"{kname}: kernel differs from its plain version "
                 f"by up to {e}")
     err["deint_both_parities"] = check_deint(planes, rng)
+    err.update(check_new_kernels(planes, (lin, cub), rng))
     print(f"kernel vs plain (bit for bit): {err}; deint at "
           f"{tuple(planes[0][:DEINT_BATCH].shape)}, "
           f"{tuple(planes[1][:DEINT_BATCH].shape)} and {DEINT_ODD}, both "
-          "methods, both parities")
+          f"methods, both parities; hscale_u8, scale_hv_u8 and "
+          f"fused_i420_up_hscale at batch {b} of {W}x{H} (linear/2 and cubic "
+          f"taps) and at {SMALL[:3]} -> {SMALL[3:]} (lanczos), both sitings")
 
     # -- timings at the headline shapes ---------------------------------------
     timings = {}
@@ -414,26 +618,51 @@ def main() -> int:
           f"single PyTorch call); copy_ yardstick of the same bytes "
           f"{td['copy_ms']:.4f} ms")
 
+    for (kname, tag), t in time_new_kernels(
+            planes, {"linear2": lin, "cubic": cub}).items():
+        timings[(kname, tag)] = t
+        lib = (f"library ({t['library']}) {t['library_ms']:.4f} ms"
+               if t["library_ms"] is not None else
+               f"library: none (no single PyTorch call); yardstick of 3 "
+               f"dense fp32 h products {t['yardstick_ms']:.4f} ms")
+        print(f"time {kname} [{tag}, taps {t['taps']}] batch {b}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {lib}, bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+
     # -- the main path: counts zeroed just before, read just after ------------
     counters = {"yscale_hv": ysk.yscale_hv,
                 "chroma420_scale": ck.chroma420_scale,
-                "deint_both_parities": dk.deint_both_parities}
+                "deint_both_parities": dk.deint_both_parities,
+                "fused_i420_up_hscale": fk.fused_i420_up_hscale,
+                "scale_hv_u8": s2k.scale_hv_u8,
+                "hscale_u8": hk.hscale_u8}
     for c in counters.values():
         c.launches = 0
     outs, per_cfg = {}, {}
     for k, conv in convs.items():
-        before = (ysk.yscale_hv.launches, ck.chroma420_scale.launches)
-        outs[k] = conv.convert(planes)
+        before = {n: c.launches for n, c in counters.items()}
+        with opt_in(k in FUSED_CONFIGS):
+            outs[k] = conv.convert(planes)
         torch.cuda.synchronize()
-        per_cfg[k] = (ysk.yscale_hv.launches - before[0],
-                      ck.chroma420_scale.launches - before[1])
+        per_cfg[k] = {n: c.launches - before[n] for n, c in counters.items()
+                      if c.launches - before[n]}
+    standalone_ops(planes, host, lin)
     launches = {k: c.launches for k, c in counters.items()}
-    print(f"main path launches {launches}; per config (yscale, chroma420): "
-          f"{per_cfg}")
-    require(per_cfg["linear2"][0] >= 1 and per_cfg["cubic"][0] >= 1,
-            "yscale kernel not launched on the main path")
-    require(per_cfg["cubic"][1] >= 1,
-            "chroma420 kernel not launched on the main path")
+    print(f"main path launches (converter configs and standalone ops) "
+          f"{launches}; per config: {per_cfg}")
+    require(per_cfg["linear2"] == {"yscale_hv": 1}
+            and per_cfg["cubic"] == {"yscale_hv": 1, "chroma420_scale": 2},
+            "yscale / chroma420 kernels not launched as expected on the "
+            "main path")
+    require(per_cfg["add_borders"] == {}, "add_borders launched a kernel")
+    require(per_cfg["fused_ingest"] == {"fused_i420_up_hscale": 1},
+            f"fused_ingest: want exactly one fused-ingest launch, got "
+            f"{per_cfg['fused_ingest']}")
+    require(launches["hscale_u8"] == 1 and launches["scale_hv_u8"] == 1,
+            "standalone ops not launched")
+    for o, r in zip(outs["fused_ingest"], outs["linear2"]):
+        require(torch.equal(o, r),
+                "fused_ingest: output differs from linear2's bytes")
 
     # -- outputs against the port's CPU path and numpy gold -------------------
     for k, cfg in CONFIGS.items():
@@ -441,8 +670,9 @@ def main() -> int:
         require(len(out) == 3 and all(
             o.dtype == torch.uint8 and tuple(o.shape) == (b, OH, OW)
             for o in out), f"{k}: bad output {[o.shape for o in out]}")
-        cpu = VideoConverter(ii, oi, cfg, device="cpu").convert(
-            tuple(p[:2] for p in host))
+        with opt_in(k in FUSED_CONFIGS):
+            cpu = VideoConverter(ii, oi, cfg, device="cpu").convert(
+                tuple(p[:2] for p in host))
         gold = convs[k].convert_ref(tuple(p[:1] for p in host))
         for o, c, g in zip(out, cpu, gold):
             require(torch.equal(o[:2].cpu(), c),
@@ -454,7 +684,8 @@ def main() -> int:
 
     # -- end to end: frames/s of convert() on inputs resident on the card -----
     for k, conv in convs.items():
-        ms = cuda_ms(lambda: conv.convert(planes), 5, 1)
+        with opt_in(k in FUSED_CONFIGS):
+            ms = cuda_ms(lambda: conv.convert(planes), 5, 1)
         print(f"e2e {k}: {ms:.3f} ms per batch of {b}, "
               f"{b / ms * 1e3:.1f} frames/s")
     del outs
@@ -483,7 +714,16 @@ def main() -> int:
                                    "cubic"),
                "deint_both_parities": ("gstreamer_tpu_torch/csrc/deint.cu",
                                        "gstreamer_tpu/ops/deint_kernel.py:85",
-                                       "linear")}
+                                       "linear"),
+               "fused_i420_up_hscale": (
+                   "gstreamer_tpu_torch/csrc/fused_ingest.cu",
+                   "gstreamer_tpu/ops/convert_kernel.py:185", "linear2"),
+               "scale_hv_u8": ("gstreamer_tpu_torch/csrc/scale2d.cu",
+                               "gstreamer_tpu/ops/scale2d_kernel.py:88",
+                               "linear2"),
+               "hscale_u8": ("gstreamer_tpu_torch/csrc/hscale.cu",
+                             "gstreamer_tpu/ops/hscale_kernel.py:73",
+                             "linear2")}
     kernels = []
     for kname, (src, repl, tag) in sources.items():
         t = timings[(kname, tag)]

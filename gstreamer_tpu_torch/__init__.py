@@ -4,13 +4,15 @@ The JAX package ``gstreamer_tpu`` is the reference; this package imports
 nothing of it (nor of jax).  It grows slice by slice.  So far it carries:
 
 * the VideoConverter (1080p I420 -> RGB 224x224 headline path) with
-  hand-written CUDA kernels for the luma h+v scale and the fused 4:2:0
-  chroma scale;
+  hand-written CUDA kernels for the luma h+v scale, the fused 4:2:0
+  chroma scale and the opt-in fused ingest (environment variable
+  ``GTPU_PALLAS=1``), and the standalone scale ops ``hscale_u8`` and
+  ``scale_hv_u8`` on kernels of their own;
 * the launch-string runtime -- caps negotiation, ``parse_launch`` and
   ``Pipeline`` -- with the elements capsfilter, identity, queue, fakesink,
   appsink, appsrc, videoconvert/videoscale/videoconvertscale,
   deinterlace (linear and scalerbob, with a CUDA kernel for both field
-  parities), videorate and videobalance.
+  parities), videorate, videobalance and videotestsrc.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``; without
 a card the default raises.

@@ -1,7 +1,10 @@
 // Two-pass separable S16-tap scale of an 8-bit plane, for Hopper (sm_90a).
 //
-// Shared by csrc/yscale.cu (luma, straight from the stored plane) and
-// csrc/chroma420.cu (4:2:0 chroma, from virtual full-resolution samples).
+// Shared by csrc/yscale.cu and csrc/scale2d.cu (a stored plane, int16 or
+// int32 out) and csrc/chroma420.cu (4:2:0 chroma, from virtual
+// full-resolution samples).  The horizontal-only helpers at the end
+// (stage_span, hpass_rows, hscale_kernel) serve csrc/hscale.cu and
+// csrc/fused_ingest.cu.
 // Per pass the result is the reference's fixed-point rounding
 // (video-orc.orc resample_*_u8):  clamp((sum tap_s16 * px + 2^p - 1) >> p).
 //
@@ -57,6 +60,15 @@ __device__ __forceinline__ int round_u8(int acc, int precision) {
   const int v = (acc + ((1 << precision) - 1)) >> precision;  // arithmetic
   return min(max(v, 0), 255);
 }
+
+// A stored (B, h, w) u8 plane as the two-pass kernel's Source.
+struct PlaneSource {
+  const uint8_t* p;
+  int h, w;
+  __device__ __forceinline__ uint8_t fetch(int b, int y, int x) const {
+    return __ldg(p + (static_cast<size_t>(b) * h + y) * w + x);
+  }
+};
 
 template <class Source, class OutT>
 __global__ void __launch_bounds__(kThreads)
@@ -156,6 +168,121 @@ int launch(const Source& src, const Taps& t, OutT* out, int batch,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((t.oh + tile_rows - 1) / tile_rows, batch);
   kern<<<grid, kThreads, L.total, stream>>>(src, t, out, tile_rows, span_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- horizontal pass only ---------------------------------------------------
+
+struct HTaps {
+  const int32_t* h_off;    // [ow]
+  const int16_t* h_taps;   // [th][ow]  tap-major
+  int in_w, ow, th, precision;
+};
+
+// Shared memory of the h tables: taps [th][ow] int16, then offsets [ow] int32.
+__host__ __device__ inline size_t htable_bytes(int th, int ow) {
+  return align16(static_cast<size_t>(th) * ow * 2) +
+         align16(static_cast<size_t>(ow) * 4);
+}
+
+__device__ __forceinline__ void load_htables(const HTaps& t, int16_t* s_taps,
+                                             int32_t* s_off) {
+  for (int i = threadIdx.x; i < t.th * t.ow; i += blockDim.x)
+    s_taps[i] = t.h_taps[i];
+  for (int i = threadIdx.x; i < t.ow; i += blockDim.x) s_off[i] = t.h_off[i];
+}
+
+// Copy n contiguous bytes from device memory into shared memory, 16 bytes a
+// thread where both sides allow it.  `s_base` is 16-byte aligned and has 16
+// bytes of slack; the copy lands at s_base + (src & 15) so that source and
+// destination share their alignment.  Returns where the first byte landed.
+// The caller synchronises.
+__device__ __forceinline__ uint8_t* stage_span(uint8_t* s_base,
+                                               const uint8_t* src, int n) {
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  uint8_t* dst = s_base + skew;
+  const int head = min(n, (16 - skew) & 15);
+  const int nvec = (n - head) >> 4;
+  const int tail0 = head + (nvec << 4);
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  uint4* vdst = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) vdst[i] = __ldg(vsrc + i);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = __ldg(src + i);
+  for (int i = tail0 + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = __ldg(src + i);
+  return dst;
+}
+
+// Horizontal tap pass over n_rows rows of in_w samples held in shared memory
+// (row k at s_rows + k * in_w).  store(k, j, value) takes each result.
+template <class Store>
+__device__ __forceinline__ void hpass_rows(const uint8_t* s_rows, int n_rows,
+                                           const HTaps& t,
+                                           const int16_t* s_taps,
+                                           const int32_t* s_off,
+                                           const Store& store) {
+  for (int i = threadIdx.x; i < n_rows * t.ow; i += blockDim.x) {
+    const int k = i / t.ow;
+    const int j = i - k * t.ow;
+    const uint8_t* px = s_rows + k * t.in_w + s_off[j];
+    int acc = 0;
+    for (int q = 0; q < t.th; ++q)
+      acc += static_cast<int>(s_taps[q * t.ow + j]) * px[q];
+    store(k, j, round_u8(acc, t.precision));
+  }
+}
+
+template <class OutT>
+struct RowStore {
+  OutT* out;               // first row of the block
+  int ow;
+  __device__ __forceinline__ void operator()(int k, int j, int v) const {
+    out[static_cast<size_t>(k) * ow + j] = static_cast<OutT>(v);
+  }
+};
+
+// h-scale of total_rows rows (all frames' rows, back to back); a block owns
+// rows_per_block consecutive rows: one contiguous span of device memory.
+template <class OutT>
+__global__ void __launch_bounds__(kThreads)
+hscale_kernel(const uint8_t* __restrict__ src, HTaps t, OutT* __restrict__ out,
+              int total_rows, int rows_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_taps = reinterpret_cast<int16_t*>(smem);
+  int32_t* s_off = reinterpret_cast<int32_t*>(
+      smem + align16(static_cast<size_t>(t.th) * t.ow * 2));
+  uint8_t* s_base = smem + htable_bytes(t.th, t.ow);
+
+  const int r0 = blockIdx.x * rows_per_block;
+  const int n_rows = min(rows_per_block, total_rows - r0);
+  load_htables(t, s_taps, s_off);
+  const uint8_t* s_rows =
+      stage_span(s_base, src + static_cast<size_t>(r0) * t.in_w,
+                 n_rows * t.in_w);
+  __syncthreads();
+  hpass_rows(s_rows, n_rows, t, s_taps, s_off,
+             RowStore<OutT>{out + static_cast<size_t>(r0) * t.ow, t.ow});
+}
+
+// Shared memory of hscale_kernel; ops/hscale_kernel.py computes the same.
+__host__ __device__ inline size_t hscale_smem(int in_w, int ow, int th,
+                                              int rows_per_block) {
+  return htable_bytes(th, ow) +
+         align16(static_cast<size_t>(rows_per_block) * in_w) + 16;
+}
+
+template <class OutT>
+int launch_hscale(const uint8_t* src, const HTaps& t, OutT* out,
+                  int total_rows, int rows_per_block, cudaStream_t stream) {
+  const size_t smem = hscale_smem(t.in_w, t.ow, t.th, rows_per_block);
+  auto kern = hscale_kernel<OutT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (total_rows + rows_per_block - 1) / rows_per_block;
+  kern<<<blocks, kThreads, smem, stream>>>(
+      src, t, out, total_rows, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 

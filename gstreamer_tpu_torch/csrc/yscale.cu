@@ -13,18 +13,6 @@
 
 #include "scale2pass.cuh"
 
-namespace {
-
-struct LumaSource {
-  const uint8_t* p;
-  int h, w;
-  __device__ __forceinline__ uint8_t fetch(int b, int y, int x) const {
-    return __ldg(p + (static_cast<size_t>(b) * h + y) * w + x);
-  }
-};
-
-}  // namespace
-
 extern "C" int gst_yscale_hv_u8(const void* src, void* out, const void* h_off,
                                 const void* h_taps, const void* v_off,
                                 const void* v_taps, int batch, int in_h,
@@ -36,7 +24,7 @@ extern "C" int gst_yscale_hv_u8(const void* src, void* out, const void* h_off,
                            static_cast<const int32_t*>(v_off),
                            static_cast<const int16_t*>(v_taps),
                            in_w, ow, oh, th, tv, precision};
-  const LumaSource s{static_cast<const uint8_t*>(src), in_h, in_w};
+  const scale2pass::PlaneSource s{static_cast<const uint8_t*>(src), in_h, in_w};
   return scale2pass::launch(s, t, static_cast<int16_t*>(out), batch,
                             tile_rows, span_max,
                             static_cast<cudaStream_t>(stream));

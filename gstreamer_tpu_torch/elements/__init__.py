@@ -8,3 +8,4 @@ from . import videoconvertscale  # noqa: F401  (videoconvert, videoscale, videoc
 from . import videofilter        # noqa: F401  (videobalance)
 from . import videorate          # noqa: F401
 from . import deinterlace        # noqa: F401  (deinterlace, autodeinterlace)
+from . import videotestsrc      # noqa: F401

@@ -1,7 +1,8 @@
 """Carry state across packages as plain data: converter plans, caps.
 
 A VideoConverter's "weights" are its plan: the resamplers' offsets and S16
-taps, the prepared color matrix and the chroma siting.  ``plan_arrays``
+taps, the prepared color matrix, the chroma siting and whether the plan is
+eligible for the fused-ingest route (``pallas_ok``).  ``plan_arrays``
 flattens a plan into a dict of numpy arrays; it reads only attributes, so it
 accepts the JAX package's plan as well as this package's.
 ``plan_from_reference`` rebuilds this package's plan objects from such a
@@ -19,7 +20,8 @@ import numpy as np
 from .video.color import PreparedMatrix
 from .video.scaler import SCALE_U8, Resampler
 
-_FLAGS = ("up_h_cosited", "up_v_cosited", "down_h_cosited", "down_v_cosited")
+_FLAGS = ("up_h_cosited", "up_v_cosited", "down_h_cosited", "down_v_cosited",
+          "pallas_ok")
 
 
 def plan_arrays(plan) -> Dict[str, np.ndarray]:
@@ -41,7 +43,7 @@ def plan_arrays(plan) -> Dict[str, np.ndarray]:
 
 def plan_from_reference(arrays: Dict[str, np.ndarray]) -> dict:
     """{name: numpy array} (see plan_arrays) -> this package's plan
-    entries: Resampler objects, a PreparedMatrix and the siting flags."""
+    entries: Resampler objects, a PreparedMatrix and the flags."""
     plan: dict = {}
     for key in ("h_res", "v_res"):
         if f"{key}.offset" not in arrays:

@@ -26,6 +26,24 @@ def smem_bytes(in_w: int, ow: int, th: int, span: int) -> int:
             + _align16(ROWS_PER_CHUNK * in_w) + 4 * span)
 
 
+def htable_bytes(th: int, ow: int) -> int:
+    """scale2pass.cuh htable_bytes: the h taps and offsets of a block."""
+    return _align16(th * ow * 2) + _align16(ow * 4)
+
+
+def rows_per_block(need, most: int, what: str) -> int:
+    """The largest row count (most, most/2, ..., 1) of an h-only kernel
+    whose block fits the shared-memory target; need(n) is the block's
+    bytes at n rows."""
+    n = most
+    while n > 1 and need(n) > SMEM_TARGET:
+        n //= 2
+    if need(n) > SMEM_LIMIT:
+        raise ValueError(f"{what}: {need(n)} bytes of shared memory per "
+                         f"block at {n} row(s), more than {SMEM_LIMIT}")
+    return n
+
+
 def _cache(res) -> dict:
     return res.__dict__.setdefault("_cuda_cache", {})
 

@@ -15,6 +15,11 @@ This slice ports the routes of the 4:2:x downscale in "hv" order:
   checks) are tiling limits and do not apply here.
 * ``_pipeline_phase_split`` with ``_finish``'s dest-rect embed and border
   fill (the launched element's add-borders case; no kernel).
+* ``_pipeline_pallas``: the reference's opt-in fused-ingest route
+  (environment variable ``GTPU_PALLAS``, off unless set).  One CUDA kernel
+  does unpack + chroma up2 H + chroma up2 V + h-scale; the v-scale, the
+  matrix and the pack stay plain torch, as they are plain XLA in the
+  reference.
 
 Every other route (the generic line pipeline, gamma remap, interlaced
 scaling, dither) raises NotImplementedError: those are later slices.
@@ -22,6 +27,7 @@ scaling, dither) raises NotImplementedError: those are later slices.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -33,7 +39,7 @@ from . import chroma as chroma_mod
 from . import color as color_mod
 from . import scaler as scaler_mod
 from .dither import make_converter_dither
-from .format import pack_planes, unpack_planes
+from .format import check_supported, pack_planes, unpack_planes
 from .info import VideoInfo, chroma_site_h_cosited, chroma_site_v_cosited
 
 DEFAULTS = {
@@ -238,6 +244,17 @@ class VideoConverter:
         plan["dither"] = make_converter_dither(
             cfg["dither-method"], int(cfg.get("dither-quantization", 1)),
             ofmt, out_bits)
+
+        # fused ingest kernel (ops/convert_kernel.py) eligibility:
+        # 8-bit 4:2:0 -> downscale, h-first, no alpha
+        from ..ops import convert_kernel as ck
+        plan["pallas_ok"] = (
+            ck.applicable(ifmt, ii, oi, plan)
+            and not ifmt.has_alpha
+            and not plan["do_gamma"]
+            and not plan["rect_active"]
+            and not plan["interlaced"]
+            and (plan["v_res"] is None or plan["scale_order"] == "hv"))
         return plan
 
     # -- execution ---------------------------------------------------------
@@ -247,6 +264,9 @@ class VideoConverter:
         ii = self.in_info
         ifmt = ii.finfo
         plan = self._plan
+
+        if xp is not np and plan["pallas_ok"] and self._pallas_enabled():
+            return self._pipeline_pallas(xp, planes)
 
         sub_up = (plan["upsample"] and not ifmt.is_gray
                   and ifmt.w_sub[1] <= 1 and ifmt.h_sub[1] <= 1)
@@ -402,6 +422,8 @@ class VideoConverter:
         plan = self._plan
         ii = self.in_info
         h_res, v_res = plan["h_res"], plan["v_res"]
+        # a source may hand out broadcast views; the kernels take dense planes
+        planes = tuple(p.contiguous() for p in planes)
         y = ysk.yscale_hv(planes[0], h_res, v_res,
                           precision=scaler_mod.SCALE_U8)
         if use_gather:
@@ -413,6 +435,40 @@ class VideoConverter:
                 p, h_res, v_res, plan["up_h_cosited"], plan["up_v_cosited"],
                 ii.width, ii.height) for p in planes[1:3])
         chans = (None, y, u, v)
+        return self._finish(xp, self._matrix_and_downsample(xp, chans))
+
+    def _pallas_enabled(self) -> bool:
+        """The fused-ingest route is opt-in, under the reference's name and
+        default: GTPU_PALLAS=1 (or =interpret, the reference's CPU test
+        mode; there is no interpret mode here, a CPU tensor runs the
+        kernel's plain version)."""
+        return os.environ.get("GTPU_PALLAS", "0") in ("1", "interpret")
+
+    def _pipeline_pallas(self, xp, planes):
+        """Fused-ingest variant: one kernel does unpack + chroma up2 +
+        h-scale; plain torch finishes v-scale + matrix + downsample +
+        pack."""
+        from ..ops.convert_kernel import fused_i420_up_hscale
+
+        plan = self._plan
+        ifmt = self.in_info.finfo
+        check_supported(ifmt)
+        y, u, v = (p.contiguous() for p in planes[:3])
+        yk, ue, uo, ve, vo = fused_i420_up_hscale(
+            y, u, v, plan["h_res"], plan["up_h_cosited"],
+            precision=scaler_mod.SCALE_U8)
+        if plan["v_res"] is not None:
+            yk = scaler_mod.scale_axis_exact(xp, yk, -2, plan["v_res"])
+            uk = scaler_mod.scale_rows_split_exact(xp, ue, uo, plan["v_res"])
+            vk = scaler_mod.scale_rows_split_exact(xp, ve, vo, plan["v_res"])
+        else:
+            # interleave the parity planes (cheap at the scaled width)
+            def _ilv(e, o):
+                st = _xp.stack(xp, [e, o], -2)
+                return st.reshape(tuple(e.shape[:-2])
+                                  + (e.shape[-2] * 2, e.shape[-1]))
+            uk, vk = _ilv(ue, uo), _ilv(ve, vo)
+        chans = (None, yk, uk, vk)
         return self._finish(xp, self._matrix_and_downsample(xp, chans))
 
     # -- entry points ------------------------------------------------------

@@ -451,7 +451,7 @@ _LATER = ("is ported in a later slice of the PyTorch port (this slice "
           "covers 8-bit planar YUV and 8-bit component-plane RGB)")
 
 
-def _check_supported(fmt: VideoFormatInfo) -> None:
+def check_supported(fmt: VideoFormatInfo) -> None:
     ok = (fmt.bits == 8 and fmt.tile is None
           and all(d == 8 for d in fmt.depth[:fmt.n_components])
           and ((fmt.is_yuv and fmt.layout == "planar")
@@ -468,7 +468,7 @@ def unpack_planes(xp, fmt: VideoFormatInfo, planes, width: int, height: int,
     ``xp`` is numpy (the host gold) or torch.  subsampled_chroma=True keeps
     subsampled chroma planes at their stored resolution (the caller
     upsamples them directly)."""
-    _check_supported(fmt)
+    check_supported(fmt)
     comps = []
     for c in range(min(fmt.n_components, 3)):
         p = _xp.astype(xp, planes[c], dtype)
@@ -496,7 +496,7 @@ def pack_planes(xp, fmt: VideoFormatInfo, chans, width: int, height: int):
 
     Values must already be in range (the converter clamps before pack).
     A None alpha channel means opaque."""
-    _check_supported(fmt)
+    check_supported(fmt)
     out = []
     for c in range(min(fmt.n_components, 3)):
         hs, ws = fmt.h_sub[c], fmt.w_sub[c]
@@ -508,6 +508,12 @@ def pack_planes(xp, fmt: VideoFormatInfo, chans, width: int, height: int):
             a = _xp.full_like(xp, out[0], 255)
         out.append(_xp.astype(xp, a, "uint8"))
     return tuple(out)
+
+
+def pack(xp, fmt: VideoFormatInfo, canon, width: int, height: int):
+    """Canonical (..., H, W, 4) int (A, c0, c1, c2) -> component planes."""
+    chans = tuple(canon[..., i] for i in range(4))
+    return pack_planes(xp, fmt, chans, width, height)
 
 
 def plane_shapes(fmt: VideoFormatInfo, width: int, height: int):

@@ -4,11 +4,13 @@
     python3 profile_torch_headline.py [--batch 256] [--iters 5] [--seed 0]
 
 For each of chip_smoke.py's converter configurations (linear2, cubic,
-add_borders) this runs ``VideoConverter.convert`` on a batch of 1920x1080
-I420 frames already on the card, and for each of its launch paths
-(deint_chain, deint_rate_chain, headline_launch,
-headline_launch_noborders) ``Pipeline.tick`` at the path's batch, with the
-frames pushed into appsrc as CUDA tensors.  Each runs two times untraced,
+add_borders, and fused_ingest under GTPU_PALLAS=1) this runs
+``VideoConverter.convert`` on a batch of 1920x1080 I420 frames already on
+the card, and for each of its launch paths (deint_chain, deint_rate_chain,
+headline_launch, headline_launch_noborders, quickstart and
+quickstart_fused) ``Pipeline.tick`` at the path's batch, with the frames
+pushed into appsrc as CUDA tensors (the quick-start paths' videotestsrc
+makes its own on the card).  Each runs two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
 kernels' device intervals), the device idle share, and the ten kernels
@@ -73,7 +75,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_headline: needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import CONFIGS, DUR, H, LAUNCH, OH, OW, W
+    from chip_smoke import (CONFIGS, DUR, FUSED_CONFIGS, H, LAUNCH, OH, OW,
+                            W, opt_in)
     from gstreamer_tpu_torch import VideoConverter, VideoInfo, parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer
     from gstreamer_tpu_torch.core.pipeline import State
@@ -89,21 +92,28 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     for name, cfg in CONFIGS.items():
         conv = VideoConverter(ii, oi, cfg)
-        report(name, args.batch, lambda: conv.convert(planes), args.iters)
-    for name, (desc, batch, _) in LAUNCH.items():
-        pipe = parse_launch(desc.format(w=W, h=H), batch=batch)
+        with opt_in(name in FUSED_CONFIGS):
+            report(name, args.batch, lambda: conv.convert(planes),
+                   args.iters)
+    for name, (desc, batch, _, fused) in LAUNCH.items():
+        # n: frames a videotestsrc makes (2 untraced ticks + iters traced)
+        pipe = parse_launch(desc.format(w=W, h=H,
+                                        n=batch * (args.iters + 2)),
+                            batch=batch)
         src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
         ins = tuple(p[:batch] for p in planes)
         pts = itertools.count(0, batch * DUR)
         pipe.set_state(State.PLAYING)
 
         def tick():
-            src.push_buffer(Buffer(data=ins, pts=next(pts), duration=DUR,
-                                   batch=batch))
+            if src is not None:
+                src.push_buffer(Buffer(data=ins, pts=next(pts), duration=DUR,
+                                       batch=batch))
             pipe.tick()
             while sink.pull_sample() is not None:
                 pass
-        report(name, batch, tick, args.iters)
+        with opt_in(fused):
+            report(name, batch, tick, args.iters)
         pipe.set_state(State.NULL)
     return 0
 

@@ -17,12 +17,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from jax.experimental.pallas import tpu as pltpu
+
 from gstreamer_tpu.ops import chroma420_kernel as jck
+from gstreamer_tpu.ops import hscale_kernel as jhk
+from gstreamer_tpu.ops import scale2d_kernel as js2
 from gstreamer_tpu.video import scaler as jscaler
 
 import gstreamer_tpu_torch
 from gstreamer_tpu_torch import VideoConverter, VideoInfo
 from gstreamer_tpu_torch.ops import chroma420_kernel as tck
+from gstreamer_tpu_torch.ops import hscale_kernel as thk
+from gstreamer_tpu_torch.ops import scale2d_kernel as ts2
 from gstreamer_tpu_torch.ops import yscale_kernel as tysk
 from gstreamer_tpu_torch.video import scaler as tscaler
 
@@ -94,6 +100,81 @@ def test_chroma420_plain_matches_reference_kernel(shape, h_cos, v_cos):
     assert tck.chroma420_scale.launches == before
 
 
+# the two standalone scale ops: lane-aligned widths (the reference's TPU
+# gate) and widths the port also takes, downscales only
+STANDALONE = [
+    (128, 48, 32, 24, "linear", 2),
+    (256, 130, 64, 40, "cubic", 0),
+    (70, 46, 33, 20, "lanczos", 0),
+    (480, 270, 112, 112, "linear", 2),
+]
+
+
+@pytest.mark.parametrize("shape", STANDALONE)
+def test_standalone_scale_plain_matches_reference(shape):
+    """hscale_u8 and scale_hv_u8 on CPU tensors (their plain versions)
+    against (a) what the reference kernels' docstrings define them to
+    equal, the reference's scale_axis_exact(-1) then (-2), at every shape,
+    and (b) the reference Pallas kernels themselves under
+    force_tpu_interpret_mode() (their wrappers have no interpret switch of
+    their own) where the reference's own gate admits the shape."""
+    w, h, ow, oh, method, taps = shape
+    y = _frames((h, w), 2, 25)
+    jh, jv = (_res(jscaler, method, taps, w, ow),
+              _res(jscaler, method, taps, h, oh))
+    th, tv = (_res(tscaler, method, taps, w, ow),
+              _res(tscaler, method, taps, h, oh))
+    assert thk.applicable(th, y.shape) and ts2.applicable(th, tv, y.shape)
+    ref_h = np.asarray(jscaler.scale_axis_exact(jnp, jnp.asarray(y), -1, jh))
+    ref_hv = np.asarray(jscaler.scale_axis_exact(jnp, jnp.asarray(ref_h), -2,
+                                                 jv))
+    counts = (thk.hscale_u8.launches, ts2.scale_hv_u8.launches)
+    out_h = thk.hscale_u8(torch.as_tensor(y), th)
+    out_hv = ts2.scale_hv_u8(torch.as_tensor(y), th, tv)
+    assert (thk.hscale_u8.launches, ts2.scale_hv_u8.launches) == counts
+    assert out_h.dtype == out_hv.dtype == torch.int32
+    assert tuple(out_h.shape) == (2, h, ow)
+    assert tuple(out_hv.shape) == (2, oh, ow)
+    assert np.array_equal(out_h.numpy(), ref_h)
+    assert np.array_equal(out_hv.numpy(), ref_hv)
+    if jhk.applicable(jh, y.shape) and js2.applicable(jh, jv, y.shape):
+        with pltpu.force_tpu_interpret_mode():
+            ker_h = np.asarray(jhk.hscale_u8(jnp.asarray(y), jh))
+            ker_hv = np.asarray(js2.scale_hv_u8(jnp.asarray(y), jh, jv))
+        assert np.array_equal(out_h.numpy(), ker_h)
+        assert np.array_equal(out_hv.numpy(), ker_hv)
+    else:
+        assert w % 128           # only the TPU lane rule kept it out
+
+
+def test_standalone_gates_keep_the_references_rules():
+    up = _res(tscaler, "linear", 2, 64, 128)
+    down = _res(tscaler, "linear", 2, 64, 16)
+    jup = _res(jscaler, "linear", 2, 128, 256)
+    assert not thk.applicable(up, (1, 48, 64))
+    assert not jhk.applicable(jup, (1, 48, 128))
+    assert thk.applicable(down, (1, 48, 64))
+    assert not ts2.applicable(down, None, (1, 48, 64))
+    assert not ts2.applicable(down, _res(tscaler, "linear", 2, 48, 96),
+                              (1, 48, 64))
+
+
+@pytest.mark.parametrize("shape", STANDALONE + HEADLINE)
+def test_standalone_scale_kernels_match_plain_on_card(cuda, shape):
+    w, h, ow, oh, method, taps = shape
+    th, tv = (_res(tscaler, method, taps, w, ow),
+              _res(tscaler, method, taps, h, oh))
+    y = torch.as_tensor(_frames((h, w), 3, 26)).to(cuda)
+    n_h, n_hv = thk.hscale_u8.launches, ts2.scale_hv_u8.launches
+    kh = thk.hscale_u8(y, th)
+    khv = ts2.scale_hv_u8(y, th, tv)
+    torch.cuda.synchronize()
+    assert (thk.hscale_u8.launches, ts2.scale_hv_u8.launches) == (n_h + 1,
+                                                                  n_hv + 1)
+    assert torch.equal(kh, thk.hscale_u8_plain(y, th))
+    assert torch.equal(khv, ts2.scale_hv_u8_plain(y, th, tv))
+
+
 def test_wrappers_raise_on_other_devices():
     th = _res(tscaler, "linear", 2, 64, 16)
     tv = _res(tscaler, "linear", 2, 48, 12)
@@ -104,6 +185,11 @@ def test_wrappers_raise_on_other_devices():
         tck.chroma420_scale(torch.empty((1, 24, 32), dtype=torch.uint8,
                                         device="meta"), th, tv, True, False,
                             64, 48)
+    meta = torch.empty((1, 48, 64), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        thk.hscale_u8(meta, th)
+    with pytest.raises(ValueError):
+        ts2.scale_hv_u8(meta, th, tv)
 
 
 @pytest.mark.parametrize("shape", SHAPES + HEADLINE)

@@ -187,16 +187,16 @@ def test_registry_is_the_ports_own():
     assert set(telement._REGISTRY) == {
         "capsfilter", "identity", "queue", "fakesink", "appsink", "appsrc",
         "videoconvert", "videoscale", "videoconvertscale", "videobalance",
-        "videorate", "deinterlace", "autodeinterlace"}
+        "videorate", "deinterlace", "autodeinterlace", "videotestsrc"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("videotestsrc")
+        telement.element_factory_make("audiotestsrc")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("videotestsrc ! appsink",
+        gstreamer_tpu_torch.parse_launch("audiotestsrc ! appsink",
                                          device="cpu")
 
 
