@@ -5,8 +5,11 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each kernel against its plain PyTorch version on the card
-at the main paths' shapes (bit for bit), times kernel, plain version, a
-library call or yardstick and the byte/operation bound, then drives the
+at the main paths' shapes (bit for bit; the two-pass scale kernels also at
+batch 64, at a width that is no multiple of 16 and on views that start off
+a 16-byte boundary), times kernel, plain version, a library call or
+yardstick and the byte/operation bound (the operations at the rate of the
+unit that does them; a time under its bound fails the run), then drives the
 port's main paths at full width, each with the launch counts zeroed just
 before it and read just after:
 
@@ -65,6 +68,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # H100 SXM int32: 64 of an SM's 128 lanes per clock take int32 (half the
 # 67e12 non-tensor fp32 rate), a multiply-add counted as 2 operations
 INT32_OPS_PER_S = 33.5e12
+# dp4a: one int32-lane instruction makes four 8-bit products and adds them,
+# so the same lanes do four times the operations.  The two-pass scale
+# kernels run every product there, an S16 tap as two 8-bit limbs: 2
+# multiply-adds, 4 operations, per tap and sample.
+DP4A_OPS_PER_S = 4 * INT32_OPS_PER_S
 W, H, OW, OH = 1920, 1080, 224, 224
 CONFIGS = {
     "linear2": {"resampler-method": "linear", "resampler-taps": 2},
@@ -120,10 +128,25 @@ def touched(res, limit: int) -> int:
     return int(np.unique(np.clip(idx, 0, limit - 1)).size)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, dp4a_ops: float = 0.0):
+    """(ms, "bytes" or "operations", unit): the larger of the bytes over the
+    card's memory rate and the operations over the peak rate of the unit
+    that does them: `ops` on the int32 lanes, `dp4a_ops` at dp4a's rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    t_ops = (ops / INT32_OPS_PER_S + dp4a_ops / DP4A_OPS_PER_S) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+    unit = (f"dp4a {DP4A_OPS_PER_S / 1e12:.0f} T 8-bit ops/s" if dp4a_ops
+            else f"int32 {INT32_OPS_PER_S / 1e12:.1f} T ops/s")
+    return t_ops, "operations", unit
+
+
+def two_pass_ops(b, rows, h_res, v_res):
+    """dp4a operations of a two-pass scale: 4 per tap and sample (two 8-bit
+    limb multiply-adds), over the `rows` source rows the vertical taps read
+    and over every output."""
+    return 4.0 * b * (rows * h_res.out_size * h_res.max_taps
+                      + v_res.out_size * h_res.out_size * v_res.max_taps)
 
 
 def dense_pair(x_f32, h_res, v_res):
@@ -157,6 +180,66 @@ def max_err(ks, ps, what):
                 f"{what}: kernel gives {k.dtype} {tuple(k.shape)}, plain "
                 f"{p.dtype} {tuple(p.shape)}")
         err = max(err, int((k.int() - p.int()).abs().max()))
+    return err
+
+
+ODD_WIDTH = (2, 270, 484, 112, 112)   # B, H, W, OH, OW: W % 16 == 4
+SKEWED = 2                            # 1080p frames of the misaligned view
+
+
+def check_two_pass(planes, plans, rng):
+    """yscale_hv, scale_hv_u8 and chroma420_scale (all four sitings)
+    against their plain versions, bit for bit, where the staging differs:
+    the launch paths' batch of 64 at the main path's shape (bulk copies),
+    a width that is no multiple of 16, the awkward small shape on a view
+    that starts off a 16-byte boundary, and full-width frames on a view
+    that starts one byte in (word-by-word staging).  Returns {kernel:
+    largest difference (0)}."""
+    import torch
+    from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
+    from gstreamer_tpu_torch.ops import yscale_kernel as ysk
+    from gstreamer_tpu_torch.video.scaler import make_resampler
+    dev = planes[0].device
+
+    def view(n, h, w, skip):
+        """(n, h, w) random bytes starting `skip` bytes into a tensor."""
+        flat = torch.as_tensor(rng.integers(0, 256, skip + n * h * w + 16,
+                                            dtype="uint8")).to(dev)
+        return flat[skip:skip + n * h * w].view(n, h, w)
+
+    cases = [(planes[0][:DEINT_BATCH], planes[1][:DEINT_BATCH], p["h_res"],
+              p["v_res"]) for p in plans]
+    ob, oh_, ow_, ooh, oow = ODD_WIDTH
+    cases.append((view(ob, oh_, ow_, 0), view(ob, oh_ // 2, ow_ // 2, 0),
+                  make_resampler("linear", ow_, oow, 0, max_taps_opt=2),
+                  make_resampler("linear", oh_, ooh, 0, max_taps_opt=2)))
+    sb, sh, sw, soh, sow = SMALL
+    cases.append((view(sb, sh, sw, sh * sw), view(sb, sh // 2, sw // 2,
+                                                  (sh // 2) * (sw // 2)),
+                  make_resampler("lanczos", sw, sow),
+                  make_resampler("lanczos", sh, soh)))
+    cases.append((view(SKEWED, H, W, 1), view(SKEWED, H // 2, W // 2, 1),
+                  plans[1]["h_res"], plans[1]["v_res"]))
+    err = {"yscale_hv": 0, "scale_hv_u8": 0, "chroma420_scale": 0}
+    for y, c, hr, vr in cases:
+        w, h = hr.in_size, vr.in_size
+        err["yscale_hv"] = max(err["yscale_hv"], max_err(
+            [ysk.yscale_hv(y, hr, vr)], [ysk.yscale_hv_plain(y, hr, vr)],
+            "yscale_hv"))
+        err["scale_hv_u8"] = max(err["scale_hv_u8"], max_err(
+            [s2k.scale_hv_u8(y, hr, vr)], [s2k.scale_hv_u8_plain(y, hr, vr)],
+            "scale_hv_u8"))
+        for h_cos in (False, True):
+            for v_cos in (False, True):
+                err["chroma420_scale"] = max(err["chroma420_scale"], max_err(
+                    [ck.chroma420_scale(c, hr, vr, h_cos, v_cos, w, h)],
+                    [ck.chroma420_scale_plain(c, hr, vr, h_cos, v_cos)],
+                    "chroma420_scale"))
+        torch.cuda.synchronize()
+    for kname, e in err.items():
+        require(e == 0, f"{kname}: kernel differs from its plain version "
+                f"by up to {e}")
     return err
 
 
@@ -203,7 +286,8 @@ def time_new_kernels(planes, plans):
     """{(kernel, tag): times and bound} at the batch's shape.  Bytes: each
     input read once, each output written once (scale_hv_u8: the rows its
     vertical taps read, as for yscale_hv).  Operations: 2 per tap
-    multiply-add, plus the up2 filters of the fused kernel (about 4 per
+    multiply-add on the int32 lanes (scale_hv_u8: 4 at dp4a's rate,
+    two_pass_ops), plus the up2 filters of the fused kernel (about 4 per
     sample they produce)."""
     import torch
     from gstreamer_tpu_torch.ops import convert_kernel as fk
@@ -233,8 +317,8 @@ def time_new_kernels(planes, plans):
             plain_ms=cuda_ms(lambda: s2k.scale_hv_u8_plain(y, hr, vr), 3, 1),
             library_ms=cuda_ms(dense_pair(y_f32, hr, vr), 5, 1),
             library="2 dense fp32 matmuls",
-            bound=bound(b * rows * W + b * OH * OW * 4,
-                        2.0 * b * (rows * OW * th + OH * OW * tv)),
+            bound=bound(b * rows * W + b * OH * OW * 4, 0.0,
+                        two_pass_ops(b, rows, hr, vr)),
             taps=(th, tv))
         out[("fused_i420_up_hscale", tag)] = dict(
             ms=cuda_ms(lambda: fk.fused_i420_up_hscale(y, u, v, hr, cos), 20),
@@ -563,12 +647,18 @@ def main() -> int:
                 f"by up to {e}")
     err["deint_both_parities"] = check_deint(planes, rng)
     err.update(check_new_kernels(planes, (lin, cub), rng))
+    for kname, e in check_two_pass(planes, (lin, cub), rng).items():
+        err[kname] = max(err[kname], e)
     print(f"kernel vs plain (bit for bit): {err}; deint at "
           f"{tuple(planes[0][:DEINT_BATCH].shape)}, "
           f"{tuple(planes[1][:DEINT_BATCH].shape)} and {DEINT_ODD}, both "
           f"methods, both parities; hscale_u8, scale_hv_u8 and "
           f"fused_i420_up_hscale at batch {b} of {W}x{H} (linear/2 and cubic "
-          f"taps) and at {SMALL[:3]} -> {SMALL[3:]} (lanczos), both sitings")
+          f"taps) and at {SMALL[:3]} -> {SMALL[3:]} (lanczos), both sitings; "
+          f"yscale_hv, scale_hv_u8 and chroma420_scale (four sitings) also "
+          f"at batch {DEINT_BATCH}, at {ODD_WIDTH[:3]} -> {ODD_WIDTH[3:]} (a "
+          f"width that is no multiple of 16) and on views that start off a "
+          f"16-byte boundary ({SMALL[:3]} and {(SKEWED, H, W)})")
 
     # -- timings at the headline shapes ---------------------------------------
     timings = {}
@@ -577,13 +667,17 @@ def main() -> int:
         hr, vr = plan["h_res"], plan["v_res"]
         rows = touched(vr, H)
         nbytes = b * rows * W + b * OH * OW * 2
-        ops = 2.0 * b * (rows * OW * hr.max_taps + OH * OW * vr.max_taps)
         timings[("yscale_hv", tag)] = dict(
             ms=cuda_ms(lambda: ysk.yscale_hv(planes[0], hr, vr), 20),
             plain_ms=cuda_ms(lambda: ysk.yscale_hv_plain(planes[0], hr, vr),
                              3, 1),
             library_ms=cuda_ms(dense_pair(y_f32, hr, vr), 5, 1),
-            bound=bound(nbytes, ops), taps=(hr.max_taps, vr.max_taps))
+            bound=bound(nbytes, 0.0, two_pass_ops(b, rows, hr, vr)),
+            taps=(hr.max_taps, vr.max_taps))
+        y64 = planes[0][:DEINT_BATCH]
+        print(f"time yscale_hv [{tag}] batch {DEINT_BATCH} (the launch "
+              f"paths' batch; per call, host side included): "
+              f"{cuda_ms(lambda: ysk.yscale_hv(y64, hr, vr), 50):.4f} ms")
     del y_f32
     hr, vr = cub["h_res"], cub["v_res"]
     args_c = (hr, vr, cub["up_h_cosited"], cub["up_v_cosited"])
@@ -594,7 +688,11 @@ def main() -> int:
         crow_ids.update({max(y // 2 - 1, 0), y // 2,
                          min(y // 2 + 1, H // 2 - 1)})
     nbytes = b * len(crow_ids) * (W // 2) + b * OH * OW * 4
-    ops = 2.0 * b * (vrows * OW * hr.max_taps + OH * OW * vr.max_taps)
+    # the up2 filters: about 4 operations per sample of the column filter
+    # (over the chroma rows read, at full width) and of the row filter (over
+    # the rows the vertical taps read), four samples to an int32 lane
+    dp4a_ops = (two_pass_ops(b, vrows, hr, vr)
+                + 4.0 * b * W * (len(crow_ids) + vrows))
     up = (torch.repeat_interleave(torch.repeat_interleave(
         planes[1], 2, -1), 2, -2)).float()
     timings[("chroma420_scale", "cubic")] = dict(
@@ -602,19 +700,20 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: ck.chroma420_scale_plain(planes[1], *args_c),
                          3, 1),
         library_ms=cuda_ms(dense_pair(up, hr, vr), 5, 1),
-        bound=bound(nbytes, ops), taps=(hr.max_taps, vr.max_taps))
+        bound=bound(nbytes, 0.0, dp4a_ops), taps=(hr.max_taps, vr.max_taps))
     del up
     for (kname, tag), t in timings.items():
         print(f"time {kname} [{tag}, taps {t['taps']}] batch {b}: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               f"(2 dense fp32 matmuls) {t['library_ms']:.4f} ms, bound "
-              f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}, {t['bound'][2]})")
     td = time_deint(planes)
     timings[("deint_both_parities", "linear")] = dict(td, library_ms=None)
     print(f"time deint_both_parities [linear, Y+U+V of {DEINT_BATCH} 1080p "
           f"I420 frames]: kernel {td['ms']:.4f} ms, plain "
           f"{td['plain_ms']:.4f} ms, bound {td['bound'][0]:.4f} ms "
-          f"({td['bound'][1]}, {td['bytes']} bytes); library: none (no "
+          f"({td['bound'][1]}, {td['bound'][2]}, {td['bytes']} bytes); "
+          f"library: none (no "
           f"single PyTorch call); copy_ yardstick of the same bytes "
           f"{td['copy_ms']:.4f} ms")
 
@@ -627,7 +726,14 @@ def main() -> int:
                f"dense fp32 h products {t['yardstick_ms']:.4f} ms")
         print(f"time {kname} [{tag}, taps {t['taps']}] batch {b}: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {lib}, bound "
-              f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}, {t['bound'][2]})")
+    for (kname, tag), t in timings.items():
+        require(t["ms"] >= t["bound"][0],
+                f"{kname} [{tag}]: {t['ms']:.4f} ms reads under its bound of "
+                f"{t['bound'][0]:.4f} ms ({t['bound'][1]}): the bound is no "
+                f"bound")
+    print(f"bounds: none of the {len(timings)} kernel times reads under its "
+          f"bound")
 
     # -- the main path: counts zeroed just before, read just after ------------
     counters = {"yscale_hv": ysk.yscale_hv,

@@ -1,23 +1,44 @@
-// Two-pass separable S16-tap scale of an 8-bit plane, for Hopper (sm_90a).
+// Separable S16-tap scale of an 8-bit plane, for Hopper (sm_90a).
 //
-// Shared by csrc/yscale.cu and csrc/scale2d.cu (a stored plane, int16 or
-// int32 out) and csrc/chroma420.cu (4:2:0 chroma, from virtual
-// full-resolution samples).  The horizontal-only helpers at the end
+// The two-pass kernel (scale2pass_kernel) is shared by csrc/yscale.cu and
+// csrc/scale2d.cu (a stored plane, int16 or int32 out) and csrc/chroma420.cu
+// (4:2:0 chroma: the full-resolution rows are built in shared memory from
+// the half-resolution plane).  The horizontal-only helpers at the end
 // (stage_span, hpass_rows, hscale_kernel) serve csrc/hscale.cu and
 // csrc/fused_ingest.cu.
 // Per pass the result is the reference's fixed-point rounding
-// (video-orc.orc resample_*_u8):  clamp((sum tap_s16 * px + 2^p - 1) >> p).
+// (video-orc.orc resample_*_u8):  clamp((sum tap_s16 * px + 2^p - 1) >> p),
+// horizontal first, then vertical.
 //
-// One block owns one frame and one tile of output rows, and computes those
-// outputs completely: no sum is carried between blocks.
-//   1. flag the input rows the tile's vertical taps read, [v_off[r0],
-//      v_off[r1-1] + tv), and keep only those (2-tap filters read fewer
-//      than half of them);
-//   2. stage those rows in shared memory a chunk at a time (Source::fetch)
-//      and run the horizontal pass from there into a u8 row buffer, also in
-//      shared memory;
-//   3. run the vertical pass from that buffer and write the output once.
-// Device memory sees each needed input row of the tile once and each output
+// One block owns one frame and one tile of output rows and computes those
+// outputs completely: no sum is carried between blocks.  What bounds it on
+// this card is, in turn, the staging of source rows (2 taps: nothing else
+// happens) and shared-memory bandwidth in the horizontal pass (35 taps a
+// column at 1080p -> 224 cubic).  The design, step by step:
+//   1. The host lists, per tile, the input rows the tile's vertical taps
+//      read (ops/_scale2pass.py row_table); no block scans or compacts.
+//   2. Those rows are staged a chunk of 8 at a time into a ring of chunk
+//      buffers: one bulk copy (TMA, 1-D) a row, completing on the slot's
+//      mbarrier, when base and width are multiples of 16 (else word by word,
+//      any alignment and width), so the next chunks load while chunk c is
+//      computed and no thread spends instructions on the copy; one block
+//      barrier a chunk.
+//   3. The horizontal pass: a thread owns one output column over the 8 rows
+//      of the chunk, so its taps are read once a chunk.  Pixels are read as
+//      32-bit words and multiplied with dp4a: each S16 tap is split on the
+//      host into byte limbs, tap = 256 * hi + lo (lo u8, hi s8), four taps
+//      to a word, shifted so that every column starts on a source word;
+//      acc = (dp4a(px, hi) << 8) + dp4a(px, lo) is the exact int32 sum.
+//      The rounded u8 results go to a buffer in shared memory that is kept
+//      column by column (entry = place in the tile's row list).
+//      The host also orders the columns (ops/_scale2pass.py column_order) so
+//      that the 32 lanes of a warp start on words in 32 different banks: in
+//      natural order lanes lie 8.57 bytes apart and every load costs three
+//      passes over the banks.
+//   4. The vertical pass is the same dp4a dot product along a column's line
+//      of that buffer, with the tile's vertical taps packed the same way, and
+//      writes each output once.
+// Device memory sees each needed input row of a tile once and each output
 // once; tiles overlap by the vertical filter's reach.
 #pragma once
 
@@ -31,28 +52,49 @@ namespace scale2pass {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerChunk = 8;   // mirrored in ops/_scale2pass.py
+constexpr int kMaxStages = 4;
 
 struct Taps {
-  const int32_t* h_off;    // [ow]      first source column of output column j
-  const int16_t* h_taps;   // [th][ow]  tap-major, so neighbouring j are adjacent
-  const int32_t* v_off;    // [oh]      first source row of output row r
-  const int16_t* v_taps;   // [oh][tv]
-  int in_w, ow, oh, th, tv, precision;
+  const int2* h_cols;      // [ow]      {first source word, output column} of
+                           //           entry s, in the host's column order
+  const int2* h_taps;      // [nw][ow]  {lo limbs u8x4, hi limbs s8x4} of entry s
+  const int32_t* v_word;   // [oh]      first word of output row r's window in
+                           //           a column of the h-pass buffer
+  const int2* v_taps;      // [nwv][oh] {lo limbs, hi limbs}, as h_taps
+  const int32_t* rows;     // [tiles][n_max]  input rows a tile reads, ascending
+  const int32_t* count;    // [tiles]
+  int in_w, ow, oh, nw, nwv, precision, tile_rows, n_max, stages;
 };
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-// Dynamic shared memory: h taps | h-pass rows (u8) | staged source rows (u8)
-// | needed-row list (int).  ops/_scale2pass.py computes the same total.
-struct SmemLayout {
-  size_t hbuf, rowbuf, rows, total;
-  __host__ __device__ SmemLayout(const Taps& t, int span_max) {
-    hbuf = align16(static_cast<size_t>(t.th) * t.ow * 2);
-    rowbuf = hbuf + align16(static_cast<size_t>(span_max) * t.ow);
-    rows = rowbuf + align16(static_cast<size_t>(kRowsPerChunk) * t.in_w);
-    total = rows + static_cast<size_t>(span_max) * 4;
+// Bytes between staged full-width rows: the h pass reads whole words and may
+// run a few zero-tap bytes past the row.
+__host__ __device__ inline int row_stride(int in_w) {
+  return static_cast<int>(align16(in_w)) + 16;
+}
+
+// Bytes between the columns of the h-pass buffer.  It is kept column by
+// column, so that the v pass reads along a line as the h pass does: room for
+// whole chunks and the zero-tap words past the last row, and an odd number of
+// words, so that neighbouring columns start in different banks.
+__host__ __device__ inline int hbuf_pitch(int n_max) {
+  const int pitch = ((n_max + 7) & ~7) + 8;
+  return ((pitch >> 2) & 1) ? pitch : pitch + 4;
+}
+
+// Dynamic shared memory: packed h taps | the tile's packed v taps | h-pass
+// result (u8, column by column) | the source's staging.
+// ops/_scale2pass.py smem_bytes computes the same total.
+struct Layout {
+  size_t vtaps, hbuf, src, total;
+  __host__ __device__ Layout(const Taps& t, size_t src_bytes) {
+    vtaps = align16(static_cast<size_t>(t.nw) * t.ow * 8);
+    hbuf = vtaps + align16(static_cast<size_t>(t.nwv) * t.tile_rows * 8);
+    src = hbuf + align16(static_cast<size_t>(t.ow) * hbuf_pitch(t.n_max));
+    total = src + src_bytes;
   }
 };
 
@@ -61,114 +103,303 @@ __device__ __forceinline__ int round_u8(int acc, int precision) {
   return min(max(v, 0), 255);
 }
 
-// A stored (B, h, w) u8 plane as the two-pass kernel's Source.
-struct PlaneSource {
-  const uint8_t* p;
-  int h, w;
-  __device__ __forceinline__ uint8_t fetch(int b, int y, int x) const {
-    return __ldg(p + (static_cast<size_t>(b) * h + y) * w + x);
-  }
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <class Source, class OutT>
-__global__ void __launch_bounds__(kThreads)
-scale2pass_kernel(Source src, Taps t, OutT* __restrict__ out, int tile_rows,
-                  int span_max) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_lo, s_n;
-  const SmemLayout L(t, span_max);
-  int16_t* s_taps = reinterpret_cast<int16_t*>(smem);
-  uint8_t* s_h = smem + L.hbuf;
-  uint8_t* s_row = smem + L.rowbuf;
-  int* s_rows = reinterpret_cast<int*>(smem + L.rows);
+// mbarriers that the bulk copies of a ring slot complete on
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * tile_rows;
-  const int r1 = min(r0 + tile_rows, t.oh);
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  for (int i = tid; i < t.th * t.ow; i += blockDim.x) s_taps[i] = t.h_taps[i];
-  if (tid == 0) {
-    int lo = t.v_off[r0], hi = t.v_off[r0];
-    for (int r = r0 + 1; r < r1; ++r) {
-      lo = min(lo, t.v_off[r]);
-      hi = max(hi, t.v_off[r]);
-    }
-    s_lo = lo;
-    s_n = hi + t.tv - lo;
-  }
-  __syncthreads();
-  const int lo = s_lo;
-  const int span = s_n;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  // 1. which rows of [lo, lo + span) the tile's vertical taps read
-  for (int i = tid; i < span; i += blockDim.x) {
-    int need = 0;
-    for (int r = r0; r < r1 && !need; ++r) {
-      const int d = lo + i - t.v_off[r];
-      need = d >= 0 && d < t.tv;
-    }
-    s_rows[i] = need;
-  }
-  __syncthreads();
-  if (tid == 0) {  // compact in place: the write index never passes the read
-    int n = 0;
-    for (int i = 0; i < span; ++i)
-      if (s_rows[i]) s_rows[n++] = i;
-    s_n = n;
-  }
-  __syncthreads();
-  const int n_rows = s_n;
-
-  // 2. horizontal pass over the needed rows, a chunk of staged rows at a time
-  for (int c0 = 0; c0 < n_rows; c0 += kRowsPerChunk) {
-    const int nc = min(kRowsPerChunk, n_rows - c0);
-    for (int i = tid; i < nc * t.in_w; i += blockDim.x) {
-      const int k = i / t.in_w;
-      s_row[i] = src.fetch(b, lo + s_rows[c0 + k], i - k * t.in_w);
-    }
-    __syncthreads();
-    for (int i = tid; i < nc * t.ow; i += blockDim.x) {
-      const int k = i / t.ow;
-      const int j = i - k * t.ow;
-      const uint8_t* px = s_row + k * t.in_w + t.h_off[j];
-      int acc = 0;
-      for (int q = 0; q < t.th; ++q)
-        acc += static_cast<int>(s_taps[q * t.ow + j]) * px[q];
-      s_h[s_rows[c0 + k] * t.ow + j] =
-          static_cast<uint8_t>(round_u8(acc, t.precision));
-    }
-    __syncthreads();
-  }
-
-  // 3. vertical pass from shared memory; each output written once
-  for (int i = tid; i < (r1 - r0) * t.ow; i += blockDim.x) {
-    const int k = i / t.ow;
-    const int j = i - k * t.ow;
-    const int r = r0 + k;
-    const uint8_t* col = s_h + (t.v_off[r] - lo) * t.ow + j;
-    const int16_t* tap = t.v_taps + static_cast<size_t>(r) * t.tv;
-    int acc = 0;
-    for (int q = 0; q < t.tv; ++q)
-      acc += static_cast<int>(__ldg(tap + q)) * col[q * t.ow];
-    out[(static_cast<size_t>(b) * t.oh + r) * t.ow + j] =
-        static_cast<OutT>(round_u8(acc, t.precision));
+// Wait until the phase of `parity` has completed.  A wait that never ends
+// (a lost copy) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1 << 24)) __trap();
   }
 }
 
-// Launch on `stream`; returns the CUDA error code (0 on success).
+// One bulk copy (TMA, 1-D) of `bytes` from device to shared memory, both
+// 16-byte aligned, bytes a multiple of 16; completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* smem_dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem_dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The `nbytes` (1..4) bytes at g, any alignment, as one little-endian word.
+// Reads only aligned words that hold at least one of those bytes.
+__device__ __forceinline__ uint32_t load_word_unaligned(const uint8_t* g,
+                                                        int nbytes) {
+  const int m = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 3);
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(g - m);
+  const uint32_t lo = __ldg(a);
+  const uint32_t hi = (m + nbytes > 4) ? __ldg(a + 1) : 0u;
+  return __funnelshift_r(lo, hi, 8 * m);
+}
+
+// Stage rows ids[0..n) (n <= 32) of a plane whose rows are `len` bytes, back
+// to back, into dst + k * stride (16-byte aligned).  `aligned`: the plane's
+// base and len are multiples of 16, so each row is one bulk copy, started by a
+// lane of warp 0, and `bar` completes when all have landed; otherwise all
+// threads copy word by word, synchronously, and `bar` is not used.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, int stride,
+                                           const uint8_t* plane, int len,
+                                           const int32_t* ids, int n,
+                                           bool aligned, uint64_t* bar) {
+  if (aligned) {
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) mbar_expect_tx(bar, static_cast<uint32_t>(n) * len);
+      __syncwarp();
+      if (threadIdx.x < n)
+        bulk_copy(dst + threadIdx.x * stride,
+                  plane + static_cast<size_t>(__ldg(ids + threadIdx.x)) * len,
+                  len, bar);
+    }
+  } else {
+    const int per = (len + 3) >> 2;
+    for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+      const int k = i / per;
+      const int x = (i - k * per) << 2;
+      const uint8_t* g = plane + static_cast<size_t>(__ldg(ids + k)) * len + x;
+      *reinterpret_cast<uint32_t*>(dst + k * stride + x) =
+          load_word_unaligned(g, min(4, len - x));
+    }
+  }
+}
+
+__device__ __forceinline__ int dp4a_u8_u8(uint32_t a, int b, int c) {
+  int d;
+  asm("dp4a.u32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ int dp4a_u8_s8(uint32_t a, int b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// A stored (B, h, w) u8 plane as the two-pass kernel's Source: the ring holds
+// `stages` chunks of kRowsPerChunk rows.
+struct PlaneSource {
+  const uint8_t* p;
+  int h, w, aligned;
+
+  __host__ __device__ size_t smem_bytes(const Taps& t) const {
+    return static_cast<size_t>(t.stages) * kRowsPerChunk * row_stride(w);
+  }
+  // start the loads of chunk c into ring slot `slot`
+  __device__ __forceinline__ void fetch(uint8_t* s_src, const Taps& t, int b,
+                                        int tile, int c, int slot, int n_rows,
+                                        uint64_t* bar) const {
+    const int rs = row_stride(w);
+    stage_rows(s_src + static_cast<size_t>(slot) * kRowsPerChunk * rs, rs,
+               p + static_cast<size_t>(b) * h * w, w,
+               t.rows + static_cast<size_t>(tile) * t.n_max +
+                   c * kRowsPerChunk,
+               min(kRowsPerChunk, n_rows - c * kRowsPerChunk), aligned, bar);
+  }
+  // the chunk's rows, row_stride(w) apart, once its loads have landed
+  __device__ __forceinline__ const uint8_t* prepare(uint8_t* s_src,
+                                                    const Taps&, int, int,
+                                                    int slot, int) const {
+    return s_src + static_cast<size_t>(slot) * kRowsPerChunk * row_stride(w);
+  }
+};
+
+// Rounded result of the two limb sums.
+__device__ __forceinline__ uint32_t limb_round(int lo, int hi, int precision) {
+  return static_cast<uint32_t>(round_u8(
+      static_cast<int>(static_cast<uint32_t>(hi) << 8) + lo, precision));
+}
+
+// Horizontal pass over the 8 rows of chunk c: a thread owns one output
+// column and leaves its 8 results as two words of that column's line in the
+// h-pass buffer (rows past the tile's last are written too and never read
+// with a tap that is not zero).  The host orders the columns so that the
+// lanes of a warp start on words in different banks.
+__device__ __forceinline__ void hpass_chunk(const uint8_t* rows8, int c,
+                                            const Taps& t, const int2* s_taps,
+                                            uint8_t* s_h) {
+  const int stride_w = row_stride(t.in_w) >> 2;
+  const int pitch = hbuf_pitch(t.n_max);
+  for (int j = threadIdx.x; j < t.ow; j += blockDim.x) {
+    const int2 col = __ldg(t.h_cols + j);
+    const uint32_t* px = reinterpret_cast<const uint32_t*>(rows8) + col.x;
+    int lo[kRowsPerChunk], hi[kRowsPerChunk];
+#pragma unroll
+    for (int k = 0; k < kRowsPerChunk; ++k) lo[k] = hi[k] = 0;
+    for (int q = 0; q < t.nw; ++q) {
+      const int2 w = s_taps[q * t.ow + j];
+#pragma unroll
+      for (int k = 0; k < kRowsPerChunk; ++k) {
+        const uint32_t v = px[k * stride_w + q];
+        lo[k] = dp4a_u8_u8(v, w.x, lo[k]);
+        hi[k] = dp4a_u8_s8(v, w.y, hi[k]);
+      }
+    }
+    uint32_t* dst = reinterpret_cast<uint32_t*>(s_h + col.y * pitch +
+                                                c * kRowsPerChunk);
+#pragma unroll
+    for (int k = 0; k < kRowsPerChunk; k += 4)
+      dst[k >> 2] = limb_round(lo[k], hi[k], t.precision) |
+                    limb_round(lo[k + 1], hi[k + 1], t.precision) << 8 |
+                    limb_round(lo[k + 2], hi[k + 2], t.precision) << 16 |
+                    limb_round(lo[k + 3], hi[k + 3], t.precision) << 24;
+  }
+}
+
+// Vertical pass over the tile's output rows, four at a time: a thread owns
+// one output column and reads along its line of the h-pass buffer.  Rows past
+// the tile's last repeat its last row's work and store nothing.
+template <class OutT>
+__device__ __forceinline__ void vpass_tile(const uint8_t* s_h, const Taps& t,
+                                           const int2* s_vt, int r0, int r1,
+                                           OutT* out_frame) {
+  constexpr int kRows = 4;
+  const int pitch_w = hbuf_pitch(t.n_max) >> 2;
+  for (int k0 = 0; k0 < r1 - r0; k0 += kRows) {
+    int kk[kRows], first[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      kk[k] = min(k0 + k, r1 - r0 - 1);
+      first[k] = __ldg(t.v_word + r0 + kk[k]);
+    }
+    for (int j = threadIdx.x; j < t.ow; j += blockDim.x) {
+      const uint32_t* line = reinterpret_cast<const uint32_t*>(s_h) + j * pitch_w;
+      int lo[kRows], hi[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) lo[k] = hi[k] = 0;
+      for (int q = 0; q < t.nwv; ++q) {
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          const int2 w = s_vt[q * t.tile_rows + kk[k]];
+          const uint32_t v = line[first[k] + q];
+          lo[k] = dp4a_u8_u8(v, w.x, lo[k]);
+          hi[k] = dp4a_u8_s8(v, w.y, hi[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+        if (k0 + k < r1 - r0)
+          out_frame[static_cast<size_t>(r0 + k0 + k) * t.ow + j] =
+              static_cast<OutT>(limb_round(lo[k], hi[k], t.precision));
+    }
+  }
+}
+
 template <class Source, class OutT>
-int launch(const Source& src, const Taps& t, OutT* out, int batch,
-           int tile_rows, int span_max, cudaStream_t stream) {
-  const SmemLayout L(t, span_max);
+__global__ void __launch_bounds__(kThreads, 2)
+scale2pass_kernel(Source src, Taps t, OutT* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(t, 0);
+  int2* s_taps = reinterpret_cast<int2*>(smem);
+  int2* s_vt = reinterpret_cast<int2*>(smem + L.vtaps);
+  uint8_t* s_h = smem + L.hbuf;
+  uint8_t* s_src = smem + L.src;
+
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int r0 = tile * t.tile_rows;
+  const int r1 = min(r0 + t.tile_rows, t.oh);
+  const int tid = threadIdx.x;
+  const int n_rows = __ldg(t.count + tile);
+  const int n_chunks = (n_rows + kRowsPerChunk - 1) / kRowsPerChunk;
+
+  __shared__ uint64_t s_bar[kMaxStages];   // one per ring slot
+  if (src.aligned) {
+    if (tid == 0) {
+      for (int i = 0; i < t.stages; ++i) mbar_init(&s_bar[i], 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+
+  // the first chunks are on their way while the tables load
+  for (int c = 0; c < t.stages - 1; ++c)
+    if (c < n_chunks) src.fetch(s_src, t, b, tile, c, c, n_rows, &s_bar[c]);
+  for (int i = tid; i < t.nw * t.ow; i += blockDim.x) s_taps[i] = t.h_taps[i];
+  for (int i = tid; i < t.nwv * t.tile_rows; i += blockDim.x) {
+    const int q = i / t.tile_rows;
+    const int r = r0 + i - q * t.tile_rows;
+    s_vt[i] = r < r1 ? t.v_taps[static_cast<size_t>(q) * t.oh + r]
+                     : make_int2(0, 0);
+  }
+
+  // horizontal pass, chunk by chunk; chunk c + stages - 1 loads meanwhile
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (src.aligned) mbar_wait(&s_bar[slot], parity);   // chunk c is in
+    __syncthreads();               // for everyone; chunk c - 1 is done with
+    const int nxt = c + t.stages - 1;
+    const int nxt_slot = slot == 0 ? t.stages - 1 : slot - 1;
+    if (nxt < n_chunks)
+      src.fetch(s_src, t, b, tile, nxt, nxt_slot, n_rows, &s_bar[nxt_slot]);
+    const uint8_t* rows8 = src.prepare(s_src, t, tile, c, slot, n_rows);
+    hpass_chunk(rows8, c, t, s_taps, s_h);
+    if (++slot == t.stages) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+  __syncthreads();
+
+  // vertical pass from shared memory; each output written once
+  vpass_tile(s_h, t, s_vt, r0, r1, out + static_cast<size_t>(b) * t.oh * t.ow);
+}
+
+// Launch on `stream`; returns the CUDA error code (0 on success).  `smem` is
+// the host's own count of the block's shared memory and must equal Layout's.
+template <class Source, class OutT>
+int launch(const Source& src, const Taps& t, OutT* out, int batch, int smem,
+           cudaStream_t stream) {
+  const Layout L(t, src.smem_bytes(t));
+  if (t.stages < 2 || t.stages > kMaxStages ||
+      static_cast<size_t>(smem) != L.total)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = scale2pass_kernel<Source, OutT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((t.oh + tile_rows - 1) / tile_rows, batch);
-  kern<<<grid, kThreads, L.total, stream>>>(src, t, out, tile_rows, span_max);
+  const dim3 grid((t.oh + t.tile_rows - 1) / t.tile_rows, batch);
+  kern<<<grid, kThreads, L.total, stream>>>(src, t, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p, int len) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (len & 15) == 0;
 }
 
 // ---- horizontal pass only ---------------------------------------------------

@@ -6,11 +6,14 @@ upsampled 2x in both directions with the video-chroma.c integer filters
 (cosited or interstitial) and scaled h then v with per-pass rounding, into
 (B, OH, OW) int32 in 0..255.  The kernel is ``csrc/chroma420.cu``.
 
-Bound on the H100: the half-res plane read (0.52 MB per 1080p frame) and
-the tap multiply-adds over the full-resolution virtual plane are close;
-at cubic (35x20 taps) the operations bound is the larger.  The up2 samples
-are computed per tile in shared memory and never written out, and each
-output is written once.
+Bound on the H100: operations.  The half-res plane read is small (0.52 MB
+per 1080p frame); the tap products over the full-resolution virtual plane
+(35x20 taps at cubic, run on ``dp4a``) and the two up2 filters over it are
+the larger side.  Per chunk of 8 needed full-resolution rows the kernel
+stages only the chroma rows they are built from (``_scale2pass.
+chroma_table``), filters columns, then rows, as byte arithmetic on whole
+words in shared memory, and hands the rows to the two-pass kernel; the up2
+samples never reach device memory and each output is written once.
 """
 
 from __future__ import annotations
@@ -20,9 +23,7 @@ import torch
 from ..video import chroma as chroma_mod
 from ..video.scaler import (SCALE_U8, scale_cols_split_exact,
                             scale_rows_split_exact)
-from . import _build, _scale2pass
-
-_ARGS = "pppppp" + "i" * 13 + "p"
+from . import _scale2pass
 
 
 def applicable(h_res, v_res, cw: int, ch: int) -> bool:
@@ -65,24 +66,13 @@ def chroma420_scale(c: torch.Tensor, h_res, v_res, h_cosited: bool,
     ch, cw = (full_h + 1) // 2, (full_w + 1) // 2
     _scale2pass.check_plane(c, (ch, cw), "chroma420_scale")
     oh, ow = v_res.out_size, h_res.out_size
-    th, tv = h_res.max_taps, v_res.max_taps
     out = torch.empty(c.shape[:-2] + (oh, ow), dtype=torch.int32,
                       device=c.device)
     batch = c.numel() // (ch * cw) if ch * cw else 0
     if batch == 0:
         return out
-    h_off, h_taps = _scale2pass.tables(h_res, c.device, precision, True)
-    v_off, v_taps = _scale2pass.tables(v_res, c.device, precision, False)
-    tile_rows, span = _scale2pass.tiling(v_res, full_w, ow, th)
-    lib, fn = _build.function("chroma420", "gst_chroma420_scale_u8", _ARGS)
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(c.data_ptr(), out.data_ptr(), h_off.data_ptr(),
-                    h_taps.data_ptr(), v_off.data_ptr(), v_taps.data_ptr(),
-                    batch, ch, cw, full_w, oh, ow, th, tv, precision,
-                    int(bool(h_cosited)), int(bool(v_cosited)), tile_rows,
-                    span, stream)
-    _build.check(lib, status, "chroma420_scale")
+    _scale2pass.launch("chroma420", "gst_chroma420_scale_u8", c, out, h_res,
+                       v_res, precision, batch, (h_cosited, v_cosited))
     chroma420_scale.launches += 1
     return out
 

@@ -9,8 +9,9 @@ standalone op (the reference package has no caller either).  The kernel is
 output.
 
 Bound on the H100: bytes (the source rows the vertical taps read, 4 bytes
-per output).  A block reads each source row its tile of output rows needs
-once, keeps the h pass in shared memory and writes each output once.
+per output).  As in ``yscale_kernel``: host row lists, bulk copies ahead of
+the arithmetic, ``dp4a`` over byte-limb taps, the h pass kept in shared
+memory, each output written once.
 """
 
 from __future__ import annotations
@@ -19,9 +20,7 @@ import numpy as np
 import torch
 
 from ..video.scaler import SCALE_U8, scale_axis_exact, tap_matrix
-from . import _build, _scale2pass
-
-_ARGS = "pppppp" + "i" * 10 + "p"
+from . import _scale2pass
 
 
 def applicable(h_res, v_res, shape) -> bool:
@@ -55,23 +54,13 @@ def scale_hv_u8(y: torch.Tensor, h_res, v_res) -> torch.Tensor:
     in_h, in_w = v_res.in_size, h_res.in_size
     _scale2pass.check_plane(y, (in_h, in_w), "scale_hv_u8")
     oh, ow = v_res.out_size, h_res.out_size
-    th, tv = h_res.max_taps, v_res.max_taps
     out = torch.empty(y.shape[:-2] + (oh, ow), dtype=torch.int32,
                       device=y.device)
     batch = y.numel() // (in_h * in_w)
     if batch == 0:
         return out
-    h_off, h_taps = _scale2pass.tables(h_res, y.device, SCALE_U8, True)
-    v_off, v_taps = _scale2pass.tables(v_res, y.device, SCALE_U8, False)
-    tile_rows, span = _scale2pass.tiling(v_res, in_w, ow, th)
-    lib, fn = _build.function("scale2d", "gst_scale_hv_u8", _ARGS)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(y.data_ptr(), out.data_ptr(), h_off.data_ptr(),
-                    h_taps.data_ptr(), v_off.data_ptr(), v_taps.data_ptr(),
-                    batch, in_h, in_w, oh, ow, th, tv, SCALE_U8, tile_rows,
-                    span, stream)
-    _build.check(lib, status, "scale_hv_u8")
+    _scale2pass.launch("scale2d", "gst_scale_hv_u8", y, out, h_res, v_res,
+                       SCALE_U8, batch)
     scale_hv_u8.launches += 1
     return out
 

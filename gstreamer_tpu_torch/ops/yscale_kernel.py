@@ -5,11 +5,12 @@ Replaces ``gstreamer_tpu/ops/yscale_kernel.py::yscale_hv`` (pallas_call at
 scaled vertically, each pass ``clamp((sum tap_s16 * px + 4095) >> 12)``,
 into (B, oh, ow) int16.  The kernel is ``csrc/yscale.cu``.
 
-Bound on the H100: bytes.  The work is a few int32 multiply-adds per source
-byte (35 + 20 taps at 1080p -> 224 cubic), while the u8 frame (2.07 MB at
-1080p) has to come from device memory.  The kernel reads each source row a
-tile of output rows needs once, keeps the h-pass in shared memory, skips
-rows no vertical tap reads (more than half of them with 2 taps) and writes
+Bound on the H100: bytes, the u8 rows the vertical taps read (2.07 MB per
+1080p frame when all are needed).  The kernel gets the list of rows each
+tile of output rows needs from the host (``_scale2pass.row_table``), brings
+them in by bulk copies (TMA) a chunk of 8 ahead of the arithmetic, runs both
+passes as ``dp4a`` dot products over taps split into byte limbs
+(``_scale2pass.pack_taps``), keeps the h pass in shared memory and writes
 each output once.
 """
 
@@ -18,9 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..video.scaler import SCALE_U8, scale_axis_exact
-from . import _build, _scale2pass
-
-_ARGS = "pppppp" + "i" * 10 + "p"
+from . import _scale2pass
 
 
 def yscale_hv_plain(y, h_res, v_res, precision: int = SCALE_U8):
@@ -44,23 +43,13 @@ def yscale_hv(y: torch.Tensor, h_res, v_res,
     in_h, in_w = v_res.in_size, h_res.in_size
     _scale2pass.check_plane(y, (in_h, in_w), "yscale_hv")
     oh, ow = v_res.out_size, h_res.out_size
-    th, tv = h_res.max_taps, v_res.max_taps
     out = torch.empty(y.shape[:-2] + (oh, ow), dtype=torch.int16,
                       device=y.device)
     batch = y.numel() // (in_h * in_w) if in_h * in_w else 0
     if batch == 0:
         return out
-    h_off, h_taps = _scale2pass.tables(h_res, y.device, precision, True)
-    v_off, v_taps = _scale2pass.tables(v_res, y.device, precision, False)
-    tile_rows, span = _scale2pass.tiling(v_res, in_w, ow, th)
-    lib, fn = _build.function("yscale", "gst_yscale_hv_u8", _ARGS)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(y.data_ptr(), out.data_ptr(), h_off.data_ptr(),
-                    h_taps.data_ptr(), v_off.data_ptr(), v_taps.data_ptr(),
-                    batch, in_h, in_w, oh, ow, th, tv, precision, tile_rows,
-                    span, stream)
-    _build.check(lib, status, "yscale_hv")
+    _scale2pass.launch("yscale", "gst_yscale_hv_u8", y, out, h_res, v_res,
+                       precision, batch)
     yscale_hv.launches += 1
     return out
 

@@ -14,7 +14,8 @@ makes its own on the card).  Each runs two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
 kernels' device intervals), the device idle share, and the ten kernels
-with the most device time.  Needs a CUDA card.
+with the most device time, then the port's own kernels where they rank
+lower.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ import itertools
 import json
 import sys
 import time
+
+
+# names of the port's own CUDA kernels: listed even below the top ten
+OWN_KERNELS = ("scale2pass", "fused_ingest", "deint_both_parities")
 
 
 def report(name, batch, step, iters):
@@ -52,14 +57,16 @@ def report(name, batch, step, iters):
     for e in kernels:
         us, n = per_name.get(e.name, (0.0, 0))
         per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:10]
+    own = [kv for kv in ranked[10:] if any(w in kv[0] for w in OWN_KERNELS)]
     busy = busy_us / iters / 1e3
     print(json.dumps({
         "config": name, "batch": batch, "wall_ms": wall,
         "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1.0 - busy / wall),
         "top": [{"kernel": k[:90], "device_ms": us / iters / 1e3,
-                 "calls": n // iters} for k, (us, n) in top]}))
+                 "calls": n // iters} for k, (us, n) in top + own]}))
 
 
 def main() -> int:
