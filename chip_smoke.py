@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each kernel against its plain PyTorch version on the card
-at the main paths' shapes (bit for bit; the two-pass scale kernels also at
-batch 64, at a width that is no multiple of 16 and on views that start off
-a 16-byte boundary), times kernel, plain version, a library call or
+at the main paths' shapes (bit for bit; the two-pass and the
+horizontal-only scale kernels also at batch 64, at a width that is no
+multiple of 16 and on views that start off a 16-byte boundary), times kernel, plain version, a library call or
 yardstick and the byte/operation bound (the operations at the rate of the
 unit that does them; a time under its bound fails the run), then drives the
 port's main paths at full width, each with the launch counts zeroed just
@@ -282,13 +282,63 @@ def check_new_kernels(planes, plans, rng):
     return err
 
 
+def check_h_only(planes, plans, rng):
+    """hscale_u8 and fused_i420_up_hscale (both sitings) against their plain
+    versions, bit for bit, where the staging or the partition into blocks
+    differs from the batch's: the launch paths' batch of 64 at the main
+    path's shape under both plans (bulk copies, shorter runs), a width that
+    is no multiple of 16, the awkward small shape (23 chroma rows, lanczos)
+    on a view that starts off a 16-byte boundary, and full-width frames on
+    a view that starts one byte in (word-by-word staging).  Returns
+    {kernel: largest difference (0)}."""
+    import torch
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    from gstreamer_tpu_torch.video.scaler import make_resampler
+    dev = planes[0].device
+
+    def i420(n, h, w, skip):
+        """(y, u, v) of random bytes, each starting `skip` bytes into a
+        tensor."""
+        out = []
+        for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+            flat = torch.as_tensor(rng.integers(
+                0, 256, skip + n * hh * ww + 16, dtype="uint8")).to(dev)
+            out.append(flat[skip:skip + n * hh * ww].view(n, hh, ww))
+        return tuple(out)
+
+    cases = [(tuple(p[:DEINT_BATCH] for p in planes), plan["h_res"])
+             for plan in plans]
+    ob, oh_, ow_, _, oow = ODD_WIDTH
+    cases.append((i420(ob, oh_, ow_, 0),
+                  make_resampler("linear", ow_, oow, 0, max_taps_opt=2)))
+    sb, sh, sw, _, sow = SMALL
+    cases.append((i420(sb, sh, sw, 3), make_resampler("lanczos", sw, sow)))
+    cases += [(i420(SKEWED, H, W, 1), plan["h_res"]) for plan in plans]
+    err = {"hscale_u8": 0, "fused_i420_up_hscale": 0}
+    for (y, u, v), hr in cases:
+        err["hscale_u8"] = max(err["hscale_u8"], max_err(
+            [hk.hscale_u8(y, hr)], [hk.hscale_u8_plain(y, hr)], "hscale_u8"))
+        for cosited in (False, True):
+            err["fused_i420_up_hscale"] = max(
+                err["fused_i420_up_hscale"], max_err(
+                    fk.fused_i420_up_hscale(y, u, v, hr, cosited),
+                    fk.fused_i420_up_hscale_plain(y, u, v, hr, cosited),
+                    "fused_i420_up_hscale"))
+        torch.cuda.synchronize()
+    for kname, e in err.items():
+        require(e == 0, f"{kname}: kernel differs from its plain version "
+                f"by up to {e}")
+    return err
+
+
 def time_new_kernels(planes, plans):
     """{(kernel, tag): times and bound} at the batch's shape.  Bytes: each
     input read once, each output written once (scale_hv_u8: the rows its
-    vertical taps read, as for yscale_hv).  Operations: 2 per tap
-    multiply-add on the int32 lanes (scale_hv_u8: 4 at dp4a's rate,
+    vertical taps read, as for yscale_hv).  Operations: every product runs
+    on dp4a, 4 operations per tap and sample at that rate (scale_hv_u8:
     two_pass_ops), plus the up2 filters of the fused kernel (about 4 per
-    sample they produce)."""
+    sample they produce, on packed words, four samples to an int32 lane)."""
     import torch
     from gstreamer_tpu_torch.ops import convert_kernel as fk
     from gstreamer_tpu_torch.ops import hscale_kernel as hk
@@ -309,7 +359,8 @@ def time_new_kernels(planes, plans):
             ms=cuda_ms(lambda: hk.hscale_u8(y, hr), 20),
             plain_ms=cuda_ms(lambda: hk.hscale_u8_plain(y, hr), 3, 1),
             library_ms=cuda_ms(lib_h, 5, 1), library="1 dense fp32 matmul",
-            bound=bound(b * H * W + b * H * OW * 4, 2.0 * b * H * OW * th),
+            bound=bound(b * H * W + b * H * OW * 4, 0.0,
+                        4.0 * b * H * OW * th),
             taps=(th,))
         rows = touched(vr, H)
         out[("scale_hv_u8", tag)] = dict(
@@ -329,8 +380,8 @@ def time_new_kernels(planes, plans):
             # no single call computes it; three dense h products (Y and two
             # nearest-upsampled chroma planes) move comparable data
             yardstick_ms=cuda_ms(lambda: (lib_h(), lib_c(), lib_c()), 5, 1),
-            bound=bound(b * H * W * 3 // 2 + b * 3 * H * OW * 2,
-                        2.0 * b * 3 * H * OW * th
+            bound=bound(b * H * W * 3 // 2 + b * 3 * H * OW * 2, 0.0,
+                        4.0 * b * 3 * H * OW * th
                         + b * 2 * 4.0 * (W * H // 2 + W * H)),
             taps=(th,))
     return out
@@ -647,15 +698,17 @@ def main() -> int:
                 f"by up to {e}")
     err["deint_both_parities"] = check_deint(planes, rng)
     err.update(check_new_kernels(planes, (lin, cub), rng))
-    for kname, e in check_two_pass(planes, (lin, cub), rng).items():
-        err[kname] = max(err[kname], e)
+    for check in (check_two_pass, check_h_only):
+        for kname, e in check(planes, (lin, cub), rng).items():
+            err[kname] = max(err[kname], e)
     print(f"kernel vs plain (bit for bit): {err}; deint at "
           f"{tuple(planes[0][:DEINT_BATCH].shape)}, "
           f"{tuple(planes[1][:DEINT_BATCH].shape)} and {DEINT_ODD}, both "
           f"methods, both parities; hscale_u8, scale_hv_u8 and "
           f"fused_i420_up_hscale at batch {b} of {W}x{H} (linear/2 and cubic "
           f"taps) and at {SMALL[:3]} -> {SMALL[3:]} (lanczos), both sitings; "
-          f"yscale_hv, scale_hv_u8 and chroma420_scale (four sitings) also "
+          f"yscale_hv, scale_hv_u8, chroma420_scale (four sitings), "
+          f"hscale_u8 and fused_i420_up_hscale (both sitings) also "
           f"at batch {DEINT_BATCH}, at {ODD_WIDTH[:3]} -> {ODD_WIDTH[3:]} (a "
           f"width that is no multiple of 16) and on views that start off a "
           f"16-byte boundary ({SMALL[:3]} and {(SKEWED, H, W)})")

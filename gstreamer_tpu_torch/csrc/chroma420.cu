@@ -20,8 +20,8 @@
 // ops/_scale2pass.py chroma_table; one bulk copy a row, ahead of use), runs
 // the column filter once per staged row into a full-width row in shared
 // memory, then the row filter into the chunk buffer, both as byte arithmetic
-// on whole 32-bit words, and hands the chunk to the two-pass kernel's dp4a
-// horizontal pass (scale2pass.cuh).  Each chroma byte comes from device
+// on whole 32-bit words (scale2pass.cuh up2_columns, up2_row), and hands the
+// chunk to the two-pass kernel's dp4a horizontal pass.  Each chroma byte comes from device
 // memory once per chunk that needs it; the up2 samples never reach device
 // memory.  The two filter passes cost about as much as the horizontal pass.
 
@@ -33,12 +33,6 @@ using scale2pass::align16;
 using scale2pass::kRowsPerChunk;
 using scale2pass::row_stride;
 using scale2pass::Taps;
-
-// (3a + b + 2) >> 2 on each byte of a word: the rounded-up average of a and
-// the rounded-down average of a and b (exact: the two roundings never meet)
-__device__ __forceinline__ uint32_t filt31(uint32_t a, uint32_t b) {
-  return __vavgu4(a, __vhaddu4(a, b));
-}
 
 // Shared memory: ring of `stages` x cr_max half-resolution rows | cr_max
 // column-filtered full-width rows | the chunk's kRowsPerChunk finished rows.
@@ -77,72 +71,21 @@ struct Chroma420Source {
     uint8_t* s_row = s_hc + static_cast<size_t>(cr_max) * rs;
     const int tid = threadIdx.x;
 
-    // up2 columns of every staged row, interleaved to full width: a word of
-    // four chroma samples makes two words; a thread takes four words
+    // up2 columns of every staged row, interleaved to full width
     const int n = __ldg(cn + tile * chunks + c);
-    const int cwords = (cw + 3) >> 2;
-    const int groups = (cwords + 3) >> 2;
-    for (int i = tid; i < n * groups; i += blockDim.x) {
-      const int r = i / groups;
-      const int x0 = (i - r * groups) << 2;
-      const uint32_t* row = reinterpret_cast<const uint32_t*>(ring + r * cs);
-      const uint4 v = *reinterpret_cast<const uint4*>(row + x0);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-      uint32_t prev = x0 ? row[x0 - 1] >> 24 : w[0] & 255u;
-      const uint32_t after = x0 + 4 < cwords ? row[x0 + 4] & 255u : 0u;
-      uint8_t* dst = s_hc + r * rs + 8 * x0;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int valid = cw - 4 * (x0 + m);   // samples from this word on
-        if (valid <= 0) break;
-        uint32_t cur = w[m];
-        uint32_t next;
-        if (valid <= 4) {                      // the row's last word
-          next = (cur >> (8 * (valid - 1))) & 255u;
-          if (valid < 4) {                     // repeat the last sample
-            const uint32_t keep = (1u << (8 * valid)) - 1u;
-            cur = (cur & keep) | ((next * 0x01010101u) & ~keep);
-          }
-        } else {
-          next = m < 3 ? w[m + 1] & 255u : after;
-        }
-        const uint32_t left = (cur << 8) | prev;           // c[k-1] per byte
-        const uint32_t right = (cur >> 8) | (next << 24);  // c[k+1] per byte
-        uint32_t e, o;
-        if (h_cosited) {
-          e = cur;
-          o = __vavgu4(cur, right);            // (a + b + 1) >> 1 per byte
-        } else {
-          e = filt31(cur, left);
-          o = filt31(cur, right);
-        }
-        *reinterpret_cast<uint2*>(dst + 8 * m) =
-            make_uint2(__byte_perm(e, o, 0x5140), __byte_perm(e, o, 0x7362));
-        prev = cur >> 24;
-      }
-    }
+    scale2pass::up2_columns(ring, cs, n, cw, h_cosited != 0,
+                            [=](int r) { return s_hc + r * rs; });
     __syncthreads();
 
     // up2 rows: each needed full-resolution row from its two staged rows,
-    // sixteen samples a thread
+    // a warp a row
     const int nc = min(kRowsPerChunk, n_rows - c * kRowsPerChunk);
-    const int per = (in_w + 15) >> 4;
     const int32_t* sl =
         slots + static_cast<size_t>(tile) * t.n_max + c * kRowsPerChunk;
-    for (int k = tid >> 5; k < nc; k += blockDim.x >> 5) {   // a warp a row
+    for (int k = tid >> 5; k < nc; k += blockDim.x >> 5) {
       const int s = __ldg(sl + k);
-      const uint4* ra = reinterpret_cast<const uint4*>(s_hc + (s & 255) * rs);
-      const uint4* rb = reinterpret_cast<const uint4*>(s_hc + (s >> 8) * rs);
-      uint4* ro = reinterpret_cast<uint4*>(s_row + k * rs);
-      for (int x = tid & 31; x < per; x += 32) {
-        const uint4 a = ra[x];
-        const uint4 nb = rb[x];
-        ro[x] = v_cosited
-                    ? make_uint4(__vavgu4(a.x, nb.x), __vavgu4(a.y, nb.y),
-                                 __vavgu4(a.z, nb.z), __vavgu4(a.w, nb.w))
-                    : make_uint4(filt31(a.x, nb.x), filt31(a.y, nb.y),
-                                 filt31(a.z, nb.z), filt31(a.w, nb.w));
-      }
+      scale2pass::up2_row(s_hc + (s & 255) * rs, s_hc + (s >> 8) * rs,
+                          s_row + k * rs, in_w, v_cosited != 0);
     }
     __syncthreads();
     return s_row;

@@ -14,22 +14,48 @@
 // with columns and rows clamped at the plane's edges.  The TPU kernel keeps
 // even and odd columns as half-width operands of dense bf16 limb matrices,
 // takes the row halo from three shifted copies of the chroma planes, and pads
-// height and width to its tiles.  None of that carries over: a block owns one
-// frame and a run of chroma rows, stages them (with one halo row each side)
-// in shared memory, builds the interleaved full-width up2 rows there, and
-// runs the same table-driven h pass over them that it runs over the luma rows
-// (scale2pass.cuh hpass_rows).  The full-width chroma rows never reach device
-// memory, and nothing is padded: edges are clamped by index.
+// height and width to its tiles.  None of that carries over.
 //
-// Bound: bytes (1.5 per source pixel read; 2 * ow * 2H per frame written).
+// Bound: bytes (1.5 per source pixel read; 2 * ow * 2H per frame written);
+// the products (4 dp4a operations per tap and output, three planes' worth)
+// and the two up2 filters over the full-resolution chroma come second.  One
+// launch holds two kinds of block, the long chroma blocks first and the short
+// luma blocks after them, where they fill the card's last round (spreading
+// them among the chroma blocks measured slower):
+//   luma    a block owns a run of consecutive luma rows (all frames' rows back
+//           to back) and is csrc/hscale.cu's loop with an int16 store
+//           (scale2pass.cuh hrun).
+//   chroma  a block owns one frame, one plane and a long run of chroma rows
+//           (the host lists the runs with their clamped halo rows,
+//           ops/_scale2pass.py chroma_runs), so the halo costs a few percent.
+//           The rows arrive four at a time through a ring of bulk copies; each
+//           is column-filtered once, on whole words, into a full-width row of
+//           a rolling window (up2_columns); the row filter (up2_row) builds a
+//           chunk of 8 full-resolution rows, the even and odd children of 4
+//           chroma rows, from window rows k-1, k, k+1; the chunk goes through
+//           the same packed dp4a pass as luma (hpass_store), and its even and
+//           odd rows leave for their two planes 16 bytes a thread while the
+//           next chunk is built.  Two block barriers a chunk.
+// The full-width chroma rows never reach device memory, and nothing is
+// padded: edges are clamped by index.
 
 #include "scale2pass.cuh"
 
 namespace {
 
 using scale2pass::align16;
+using scale2pass::HLayout;
 using scale2pass::HTaps;
+using scale2pass::kChromaRowsPerChunk;
+using scale2pass::kRowsPerChunk;
 using scale2pass::kThreads;
+using scale2pass::out_span_bytes;
+using scale2pass::row_stride;
+
+// Column-filtered rows a chroma block keeps: the row filter of chunk m reads
+// staged rows 4m - 1 .. 4m + 5 while rows up to 4m + 7 are already there.
+// ops/_scale2pass.py WINDOW_ROWS mirrors it.
+constexpr int kWindowRows = 12;
 
 struct Planes {
   const uint8_t* y;
@@ -40,112 +66,178 @@ struct Planes {
   int16_t* ouo;
   int16_t* ove;
   int16_t* ovo;
-  int h, hc, wc, h_cosited;
+  int hc, wc, h_cosited;
 };
 
-// Dynamic shared memory: h tables | chroma rows (u8, + halo) | h-filtered
-// full-width rows (u8) | luma rows, then v-filtered full-width rows (u8).
-// ops/convert_kernel.py computes the same total.
-struct SmemLayout {
-  size_t chroma, hrows, rows, total;
-  __host__ __device__ SmemLayout(const HTaps& t, int wc, int kc) {
-    chroma = scale2pass::htable_bytes(t.th, t.ow);
-    hrows = chroma + align16(static_cast<size_t>(kc + 2) * wc) + 16;
-    rows = hrows + align16(static_cast<size_t>(kc + 2) * t.in_w);
-    total = rows + align16(static_cast<size_t>(2 * kc) * t.in_w) + 16;
+// How the work is cut into blocks (ops/convert_kernel.py sizes the runs).
+struct Split {
+  const int4* cruns;       // [c_runs] {k0, k1, lo, hi}: chroma rows k0 .. k1-1
+                           //          of a plane, built from rows lo .. hi
+  int c_runs;              // runs a chroma plane of one frame is cut into
+  int c_blocks;            // batch * 2 * c_runs; the luma blocks follow
+  int y_run;               // chunks of luma rows a luma block owns
+  int y_rows;              // batch * H
+  int y_aligned, c_aligned;
+};
+
+// Dynamic shared memory of a chroma block: packed h taps | ring of `stages`
+// groups of 4 half-resolution rows | window of column-filtered full-width
+// rows | the chunk's 8 finished rows | two buffers of a chunk's results, even
+// and odd rows apart.  ops/_scale2pass.py fused_smem_bytes computes the
+// larger of this and the luma block's HLayout.
+struct CLayout {
+  size_t ring, window, rows, out, total;
+  __host__ __device__ CLayout(const HTaps& t, int wc) {
+    ring = align16(static_cast<size_t>(t.nw) * t.ow * 8);
+    window = ring + static_cast<size_t>(t.stages) * kChromaRowsPerChunk *
+                        align16(wc);
+    rows = window + static_cast<size_t>(kWindowRows) * row_stride(t.in_w);
+    out = rows + static_cast<size_t>(kRowsPerChunk) * row_stride(t.in_w);
+    total = out + 4 * out_span_bytes(kChromaRowsPerChunk, t.ow, 2);
   }
 };
 
-// rows 2k (even) and 2k+1 (odd) of a block go to two planes
+size_t smem_total(const HTaps& t, int wc) {
+  const size_t luma = HLayout(t, sizeof(int16_t)).total;
+  const size_t chroma = CLayout(t, wc).total;
+  return luma > chroma ? luma : chroma;
+}
+
+// Rows 2k (even) and 2k+1 (odd) of a chunk go to two planes: chunk c is one
+// span of 4 rows in each.
 struct ParityStore {
-  int16_t* even;
+  int16_t* even;           // first row of the run in each plane
   int16_t* odd;
-  int ow;
-  __device__ __forceinline__ void operator()(int k, int j, int v) const {
-    ((k & 1) ? odd : even)[static_cast<size_t>(k >> 1) * ow + j] =
-        static_cast<int16_t>(v);
+  uint8_t* s_out;          // 2 x 2 x out_span_bytes(kChromaRowsPerChunk, ow, 2)
+  int ow, n_rows;          // chroma rows of the run
+  struct At {
+    int16_t* e;
+    int16_t* o;
+  };
+
+  __device__ __forceinline__ size_t first(int c) const {
+    return static_cast<size_t>(c) * kChromaRowsPerChunk * ow;
+  }
+  __device__ __forceinline__ At at(int c) const {
+    const size_t span = out_span_bytes(kChromaRowsPerChunk, ow, 2);
+    uint8_t* buf = s_out + (c & 1) * 2 * span;
+    return At{scale2pass::same_phase(buf, even + first(c)),
+              scale2pass::same_phase(buf + span, odd + first(c))};
+  }
+  __device__ __forceinline__ void put(const At& s, int k, int col,
+                                      uint32_t v) const {
+    ((k & 1) ? s.o : s.e)[(k >> 1) * ow + col] = static_cast<int16_t>(v);
+  }
+  __device__ __forceinline__ void flush(int c) const {
+    const int n = min(kChromaRowsPerChunk, n_rows - c * kChromaRowsPerChunk);
+    const At s = at(c);
+    scale2pass::copy_out(even + first(c), s.e, n * ow * 2);
+    scale2pass::copy_out(odd + first(c), s.o, n * ow * 2);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-fused_ingest_kernel(Planes p, HTaps t, int kc, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const SmemLayout L(t, p.wc, kc);
-  int16_t* s_taps = reinterpret_cast<int16_t*>(smem);
-  int32_t* s_off = reinterpret_cast<int32_t*>(
-      smem + align16(static_cast<size_t>(t.th) * t.ow * 2));
-  uint8_t* s_cbase = smem + L.chroma;
-  uint8_t* s_h = smem + L.hrows;
-  uint8_t* s_v = smem + L.rows;
+// One frame's plane (u or v), run `run` of its chroma rows.
+__device__ __forceinline__ void chroma_run(const Planes& p, const HTaps& t,
+                                           const Split& sp, int b, int plane,
+                                           int run, unsigned char* smem,
+                                           uint64_t* s_bar) {
+  const CLayout L(t, p.wc);
+  int2* s_taps = reinterpret_cast<int2*>(smem);
+  uint8_t* s_ring = smem + L.ring;
+  uint8_t* s_win = smem + L.window;
+  uint8_t* s_rows = smem + L.rows;
+  const int4 r = __ldg(sp.cruns + run);
+  const int k0 = r.x, k1 = r.y, lo = r.z, hi = r.w;
+  const int cs = static_cast<int>(align16(p.wc));
+  const int rs = row_stride(t.in_w);
+  const bool aligned = sp.c_aligned != 0;
+  const bool h_cosited = p.h_cosited != 0;
+  const uint8_t* src =
+      (plane ? p.v : p.u) + (static_cast<size_t>(b) * p.hc + lo) * p.wc;
+  const int n_staged = hi - lo + 1;
+  const int n_groups =
+      (n_staged + kChromaRowsPerChunk - 1) / kChromaRowsPerChunk;
+  const int n_out = (k1 - k0 + kChromaRowsPerChunk - 1) / kChromaRowsPerChunk;
+  const size_t slot_bytes = static_cast<size_t>(kChromaRowsPerChunk) * cs;
 
-  const int b = blockIdx.x / tiles;
-  const int k0 = (blockIdx.x - b * tiles) * kc;
-  const int nk = min(kc, p.hc - k0);
-  const int w = t.in_w;
-  const int tid = threadIdx.x;
+  // staged rows 4g .. 4g+3 -> ring slot g % stages
+  auto fetch = [&](int g) {
+    const int slot = g % t.stages;
+    scale2pass::stage_run(
+        s_ring + slot * slot_bytes, cs,
+        src + static_cast<size_t>(g) * kChromaRowsPerChunk * p.wc, p.wc,
+        min(kChromaRowsPerChunk, n_staged - g * kChromaRowsPerChunk), aligned,
+        &s_bar[slot]);
+  };
+  // where column-filtered staged row i waits
+  auto win = [&](int i) { return s_win + (i % kWindowRows) * rs; };
+  // up2 columns of group g, once it is in, into the window
+  auto columns = [&](int g) {
+    const int slot = g % t.stages;
+    if (aligned) scale2pass::mbar_wait(&s_bar[slot], (g / t.stages) & 1);
+    scale2pass::up2_columns(
+        s_ring + slot * slot_bytes, cs,
+        min(kChromaRowsPerChunk, n_staged - g * kChromaRowsPerChunk), p.wc,
+        h_cosited,
+        [=](int i) {
+          return s_win + ((g * kChromaRowsPerChunk + i) % kWindowRows) * rs;
+        });
+  };
 
-  scale2pass::load_htables(t, s_taps, s_off);
+  for (int g = 0; g < t.stages; ++g)
+    if (g < n_groups) fetch(g);
+  scale2pass::load_htaps(t, s_taps);
+  __syncthreads();                 // word-by-word staging: group 0 is in
+  columns(0);
 
-  // luma rows 2*k0 .. 2*(k0+nk)-1: one contiguous span, the plain h pass
-  {
-    const size_t row0 = static_cast<size_t>(b) * p.h + 2 * k0;
-    const uint8_t* s_y = scale2pass::stage_span(s_v, p.y + row0 * w,
-                                                2 * nk * w);
+  const size_t out0 = (static_cast<size_t>(b) * p.hc + k0) * t.ow;
+  const ParityStore store{(plane ? p.ove : p.oue) + out0,
+                          (plane ? p.ovo : p.ouo) + out0, smem + L.out, t.ow,
+                          k1 - k0};
+  for (int m = 0; m < n_out; ++m) {
+    if (m + 1 < n_groups) columns(m + 1);
+    __syncthreads();     // the window holds groups <= m + 1; chunk m - 1 is
+                         // done with: its rows, its results, group m's slot
+    if (m + t.stages < n_groups) fetch(m + t.stages);
+    if (m > 0) store.flush(m - 1);
+
+    // up2 rows, a warp a row: children 2k (above: k-1) and 2k+1 (below: k+1)
+    const int kc0 = k0 + m * kChromaRowsPerChunk;
+    const int n_full = 2 * min(kChromaRowsPerChunk, k1 - kc0);
+    for (int k = threadIdx.x >> 5; k < n_full; k += blockDim.x >> 5) {
+      const int kc = kc0 + (k >> 1);
+      const int nb = (k & 1) ? min(kc + 1, p.hc - 1) : max(kc - 1, 0);
+      scale2pass::up2_row(win(kc - lo), win(nb - lo), s_rows + k * rs, t.in_w,
+                          false);
+    }
     __syncthreads();
-    scale2pass::hpass_rows(s_y, 2 * nk, t, s_taps, s_off,
-                           scale2pass::RowStore<int16_t>{p.oy + row0 * t.ow,
-                                                         t.ow});
+    scale2pass::hpass_store(s_rows, rs >> 2, t, s_taps, store, m);
   }
+  __syncthreads();
+  store.flush(n_out - 1);
+}
 
-  const int lo = max(k0 - 1, 0);
-  const int hi = min(k0 + nk, p.hc - 1);
-  const int n_c = hi - lo + 1;
-  for (int plane = 0; plane < 2; ++plane) {
-    const uint8_t* src = plane ? p.v : p.u;
-    __syncthreads();               // the h pass before this is done with s_v
-    const uint8_t* s_c = scale2pass::stage_span(
-        s_cbase, src + (static_cast<size_t>(b) * p.hc + lo) * p.wc,
-        n_c * p.wc);
-    __syncthreads();
-
-    // up2 H of every staged row, interleaved to full width
-    for (int i = tid; i < n_c * p.wc; i += blockDim.x) {
-      const int r = i / p.wc;
-      const int x = i - r * p.wc;
-      const uint8_t* row = s_c + r * p.wc;
-      const int c = row[x];
-      const int cn = row[min(x + 1, p.wc - 1)];
-      int e, o;
-      if (p.h_cosited) {
-        e = c;
-        o = (c + cn + 1) >> 1;
-      } else {
-        e = (row[max(x - 1, 0)] + 3 * c + 2) >> 2;
-        o = (3 * c + cn + 2) >> 2;
-      }
-      s_h[r * w + 2 * x] = static_cast<uint8_t>(e);
-      s_h[r * w + 2 * x + 1] = static_cast<uint8_t>(o);
-    }
-    __syncthreads();
-
-    // up2 V (interstitial) into full-resolution rows 2k and 2k+1
-    for (int i = tid; i < nk * w; i += blockDim.x) {
-      const int kk = i / w;
-      const int x = i - kk * w;
-      const int k = k0 + kk;
-      const int c = s_h[(k - lo) * w + x];
-      const int up = s_h[(max(k - 1, 0) - lo) * w + x];
-      const int dn = s_h[(min(k + 1, p.hc - 1) - lo) * w + x];
-      s_v[(2 * kk) * w + x] = static_cast<uint8_t>((up + 3 * c + 2) >> 2);
-      s_v[(2 * kk + 1) * w + x] = static_cast<uint8_t>((3 * c + dn + 2) >> 2);
-    }
-    __syncthreads();
-
-    const size_t out0 = (static_cast<size_t>(b) * p.hc + k0) * t.ow;
-    scale2pass::hpass_rows(
-        s_v, 2 * nk, t, s_taps, s_off,
-        ParityStore{(plane ? p.ove : p.oue) + out0,
-                    (plane ? p.ovo : p.ouo) + out0, t.ow});
+__global__ void __launch_bounds__(kThreads, scale2pass::kHBlocksPerSM)
+fused_ingest_kernel(Planes p, HTaps t, Split sp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t s_bar[scale2pass::kMaxStages];
+  const int blk = blockIdx.x;
+  if (blk < sp.c_blocks) {
+    if (sp.c_aligned) scale2pass::ring_init(s_bar, t.stages);
+    const int b = blk / (2 * sp.c_runs);
+    const int rem = blk - b * 2 * sp.c_runs;
+    chroma_run(p, t, sp, b, rem / sp.c_runs, rem % sp.c_runs, smem, s_bar);
+  } else {
+    if (sp.y_aligned) scale2pass::ring_init(s_bar, t.stages);
+    const int run_rows = sp.y_run * kRowsPerChunk;
+    const size_t r0 = static_cast<size_t>(blk - sp.c_blocks) * run_rows;
+    const int n_rows =
+        static_cast<int>(min(static_cast<size_t>(run_rows), sp.y_rows - r0));
+    const HLayout L(t, sizeof(int16_t));
+    scale2pass::hrun(p.y + r0 * t.in_w, n_rows, sp.y_aligned != 0, t, smem,
+                     s_bar,
+                     scale2pass::RowStore<int16_t>{p.oy + r0 * t.ow,
+                                                   smem + L.out, t.ow, n_rows});
   }
 }
 
@@ -153,11 +245,13 @@ fused_ingest_kernel(Planes p, HTaps t, int kc, int tiles) {
 
 extern "C" int gst_fused_i420_up_hscale(
     const void* y, const void* u, const void* v, void* oy, void* oue,
-    void* ouo, void* ove, void* ovo, const void* h_off, const void* h_taps,
-    int batch, int in_h, int in_w, int ow, int th, int precision,
-    int h_cosited, int chroma_rows_per_block, void* stream) {
-  const HTaps t{static_cast<const int32_t*>(h_off),
-                static_cast<const int16_t*>(h_taps), in_w, ow, th, precision};
+    void* ouo, void* ove, void* ovo, const void* h_cols, const void* h_taps,
+    const void* cruns, int batch, int in_h, int in_w, int ow, int nw,
+    int precision, int h_cosited, int y_run, int c_runs, int stages, int smem,
+    void* stream) {
+  const HTaps t{static_cast<const int2*>(h_cols),
+                static_cast<const int2*>(h_taps), in_w, ow, nw, precision,
+                stages};
   const Planes p{static_cast<const uint8_t*>(y),
                  static_cast<const uint8_t*>(u),
                  static_cast<const uint8_t*>(v),
@@ -166,15 +260,23 @@ extern "C" int gst_fused_i420_up_hscale(
                  static_cast<int16_t*>(ouo),
                  static_cast<int16_t*>(ove),
                  static_cast<int16_t*>(ovo),
-                 in_h, in_h / 2, in_w / 2, h_cosited};
-  const int kc = chroma_rows_per_block;
-  const SmemLayout L(t, p.wc, kc);
+                 in_h / 2, in_w / 2, h_cosited};
+  const size_t total = smem_total(t, p.wc);
+  if (stages < 2 || stages > scale2pass::kMaxStages || y_run < 1 ||
+      c_runs < 1 || static_cast<size_t>(smem) != total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Split sp{static_cast<const int4*>(cruns), c_runs, batch * 2 * c_runs,
+                 y_run, batch * in_h,
+                 scale2pass::aligned16(y, in_w) ? 1 : 0,
+                 scale2pass::aligned16(u, p.wc) &&
+                         scale2pass::aligned16(v, p.wc) ? 1 : 0};
   cudaError_t e = cudaFuncSetAttribute(
       fused_ingest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+      static_cast<int>(total));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (p.hc + kc - 1) / kc;
-  fused_ingest_kernel<<<batch * tiles, kThreads, L.total,
-                        static_cast<cudaStream_t>(stream)>>>(p, t, kc, tiles);
+  const int y_chunks = (sp.y_rows + kRowsPerChunk - 1) / kRowsPerChunk;
+  const int y_blocks = (y_chunks + y_run - 1) / y_run;
+  fused_ingest_kernel<<<sp.c_blocks + y_blocks, kThreads, total,
+                        static_cast<cudaStream_t>(stream)>>>(p, t, sp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,10 @@
 // The two-pass kernel (scale2pass_kernel) is shared by csrc/yscale.cu and
 // csrc/scale2d.cu (a stored plane, int16 or int32 out) and csrc/chroma420.cu
 // (4:2:0 chroma: the full-resolution rows are built in shared memory from
-// the half-resolution plane).  The horizontal-only helpers at the end
-// (stage_span, hpass_rows, hscale_kernel) serve csrc/hscale.cu and
+// the half-resolution plane).  The horizontal-only part at the end (hrun,
+// hpass_store, the row stores, hscale_kernel) serves csrc/hscale.cu and
+// csrc/fused_ingest.cu with the same packed horizontal pass; the 4:2:0 up2
+// filters on whole words (up2_columns, up2_row) serve csrc/chroma420.cu and
 // csrc/fused_ingest.cu.
 // Per pass the result is the reference's fixed-point rounding
 // (video-orc.orc resample_*_u8):  clamp((sum tap_s16 * px + 2^p - 1) >> p),
@@ -243,6 +245,26 @@ __device__ __forceinline__ uint32_t limb_round(int lo, int hi, int precision) {
       static_cast<int>(static_cast<uint32_t>(hi) << 8) + lo, precision));
 }
 
+// The exact limb sums of one output column over the 8 rows of a chunk: px is
+// the column's first word in the chunk's first row, rows stride_w words
+// apart; taps[q * ow] holds the {lo, hi} limb words that meet word q.
+__device__ __forceinline__ void hdot8(const uint32_t* px, int stride_w, int nw,
+                                      const int2* taps, int ow,
+                                      int (&lo)[kRowsPerChunk],
+                                      int (&hi)[kRowsPerChunk]) {
+#pragma unroll
+  for (int k = 0; k < kRowsPerChunk; ++k) lo[k] = hi[k] = 0;
+  for (int q = 0; q < nw; ++q) {
+    const int2 w = taps[q * ow];
+#pragma unroll
+    for (int k = 0; k < kRowsPerChunk; ++k) {
+      const uint32_t v = px[k * stride_w + q];
+      lo[k] = dp4a_u8_u8(v, w.x, lo[k]);
+      hi[k] = dp4a_u8_s8(v, w.y, hi[k]);
+    }
+  }
+}
+
 // Horizontal pass over the 8 rows of chunk c: a thread owns one output
 // column and leaves its 8 results as two words of that column's line in the
 // h-pass buffer (rows past the tile's last are written too and never read
@@ -255,19 +277,9 @@ __device__ __forceinline__ void hpass_chunk(const uint8_t* rows8, int c,
   const int pitch = hbuf_pitch(t.n_max);
   for (int j = threadIdx.x; j < t.ow; j += blockDim.x) {
     const int2 col = __ldg(t.h_cols + j);
-    const uint32_t* px = reinterpret_cast<const uint32_t*>(rows8) + col.x;
     int lo[kRowsPerChunk], hi[kRowsPerChunk];
-#pragma unroll
-    for (int k = 0; k < kRowsPerChunk; ++k) lo[k] = hi[k] = 0;
-    for (int q = 0; q < t.nw; ++q) {
-      const int2 w = s_taps[q * t.ow + j];
-#pragma unroll
-      for (int k = 0; k < kRowsPerChunk; ++k) {
-        const uint32_t v = px[k * stride_w + q];
-        lo[k] = dp4a_u8_u8(v, w.x, lo[k]);
-        hi[k] = dp4a_u8_s8(v, w.y, hi[k]);
-      }
-    }
+    hdot8(reinterpret_cast<const uint32_t*>(rows8) + col.x, stride_w, t.nw,
+          s_taps + j, t.ow, lo, hi);
     uint32_t* dst = reinterpret_cast<uint32_t*>(s_h + col.y * pitch +
                                                 c * kRowsPerChunk);
 #pragma unroll
@@ -402,118 +414,355 @@ inline bool aligned16(const void* p, int len) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (len & 15) == 0;
 }
 
+// ---- 4:2:0 up2 filters on whole words ---------------------------------------
+//
+// video-chroma.c's 2x upsampling filters as exact byte arithmetic on 32-bit
+// words, four samples an instruction; csrc/chroma420.cu and
+// csrc/fused_ingest.cu build their full-resolution chroma rows with them.
+
+// (3a + b + 2) >> 2 on each byte of a word: the rounded-up average of a and
+// the rounded-down average of a and b (exact: the two roundings never meet)
+__device__ __forceinline__ uint32_t filt31(uint32_t a, uint32_t b) {
+  return __vavgu4(a, __vhaddu4(a, b));
+}
+
+// up2 columns of n staged half-resolution rows of cw samples (cs bytes
+// apart, 16-byte aligned), interleaved to full width: row r goes to dst(r).
+// Cosited: c[k], (c[k] + c[k+1] + 1) >> 1; interstitial: (c[k-1] + 3c[k] + 2)
+// >> 2, (3c[k] + c[k+1] + 2) >> 2; edges clamped.  A word of four chroma
+// samples makes two words; a thread takes four words.  All threads of the
+// block call it; the caller synchronises.
+template <class Dst>
+__device__ __forceinline__ void up2_columns(const uint8_t* rows, int cs, int n,
+                                            int cw, bool h_cosited,
+                                            const Dst& dst) {
+  const int cwords = (cw + 3) >> 2;
+  const int groups = (cwords + 3) >> 2;
+  for (int i = threadIdx.x; i < n * groups; i += blockDim.x) {
+    const int r = i / groups;
+    const int x0 = (i - r * groups) << 2;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(rows + r * cs);
+    const uint4 v = *reinterpret_cast<const uint4*>(row + x0);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const uint32_t prev = x0 ? row[x0 - 1] >> 24 : w[0] & 255u;
+    const uint32_t after = x0 + 4 < cwords ? row[x0 + 4] & 255u : 0u;
+    uint8_t* out = dst(r) + 8 * x0;
+    // the four words are independent of each other: a word's left
+    // neighbour is the word before it as loaded
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int valid = cw - 4 * (x0 + m);   // samples from this word on
+      if (valid > 0) {
+        uint32_t cur = w[m];
+        const uint32_t before = m ? w[m - 1] >> 24 : prev;
+        uint32_t next = m < 3 ? w[m + 1] & 255u : after;
+        if (valid <= 4) {                    // the row's last word
+          next = (cur >> (8 * (valid - 1))) & 255u;
+          if (valid < 4) {                   // repeat the last sample
+            const uint32_t keep = (1u << (8 * valid)) - 1u;
+            cur = (cur & keep) | ((next * 0x01010101u) & ~keep);
+          }
+        }
+        const uint32_t left = (cur << 8) | before;         // c[k-1] per byte
+        const uint32_t right = (cur >> 8) | (next << 24);  // c[k+1] per byte
+        uint32_t e, o;
+        if (h_cosited) {
+          e = cur;
+          o = __vavgu4(cur, right);          // (a + b + 1) >> 1 per byte
+        } else {
+          e = filt31(cur, left);
+          o = filt31(cur, right);
+        }
+        *reinterpret_cast<uint2*>(out + 8 * m) =
+            make_uint2(__byte_perm(e, o, 0x5140), __byte_perm(e, o, 0x7362));
+      }
+    }
+  }
+}
+
+// up2 rows: one full-resolution row of in_w samples from the column-filtered
+// row a of its own chroma row and b of the neighbour (cosited: their rounded
+// average; interstitial: (3a + b + 2) >> 2), sixteen samples a lane of the
+// calling warp.  All three rows are 16-byte aligned.
+__device__ __forceinline__ void up2_row(const uint8_t* a, const uint8_t* b,
+                                        uint8_t* out, int in_w, bool cosited) {
+  const uint4* ra = reinterpret_cast<const uint4*>(a);
+  const uint4* rb = reinterpret_cast<const uint4*>(b);
+  uint4* ro = reinterpret_cast<uint4*>(out);
+  const int per = (in_w + 15) >> 4;
+  // four loads of each row in flight before the first is used
+  for (int x0 = threadIdx.x & 31; x0 < per; x0 += 128) {
+    uint4 p[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (x0 + 32 * i < per) {
+        p[i] = ra[x0 + 32 * i];
+        q[i] = rb[x0 + 32 * i];
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (x0 + 32 * i < per)
+        ro[x0 + 32 * i] =
+            cosited ? make_uint4(__vavgu4(p[i].x, q[i].x),
+                                 __vavgu4(p[i].y, q[i].y),
+                                 __vavgu4(p[i].z, q[i].z),
+                                 __vavgu4(p[i].w, q[i].w))
+                    : make_uint4(filt31(p[i].x, q[i].x), filt31(p[i].y, q[i].y),
+                                 filt31(p[i].z, q[i].z),
+                                 filt31(p[i].w, q[i].w));
+  }
+}
+
 // ---- horizontal pass only ---------------------------------------------------
+//
+// hscale_u8 and fused_i420_up_hscale scale every row of their input
+// horizontally and write every result to device memory: 1 byte read per
+// source sample and 2 or 4 written per output, so bytes bound them on this
+// card as long as the products cost little.  They do here: the pass is the
+// two-pass kernel's packed dp4a pass (hdot8), over the same host tables
+// (ops/_scale2pass.py pack_h).  What the design does to stay near the bytes:
+//   1. A block owns a run of consecutive rows (the host sizes it,
+//      ops/_scale2pass.py run_chunks) and walks it a chunk of 8 rows at a
+//      time, so the packed taps (17.9 KB at 35 taps) come once a run.
+//   2. The rows of a chunk are consecutive in device memory: one bulk copy
+//      (TMA, 1-D) a chunk into a ring of chunk buffers, completing on the
+//      slot's mbarrier, when base and width are multiples of 16; the next
+//      chunks load while chunk c is computed.  Otherwise all threads copy
+//      word by word, any alignment and width, rows row_stride apart.
+//   3. A warp's 32 columns are scattered over the output row (the host's
+//      bank-aware order), so storing them directly would touch a sector per
+//      lane.  The 8 x ow results of a chunk wait in shared memory instead,
+//      at the same 16-byte phase as their place in device memory, and leave
+//      16 bytes a thread while the next chunk is computed: the rows of a
+//      chunk are one contiguous span of the output (two for chroma, whose
+//      even and odd rows go to two planes).  One block barrier a chunk.
+
+constexpr int kChromaRowsPerChunk = kRowsPerChunk / 2;
+// The h-only kernels keep their registers low enough for this many blocks
+// an SM (ops/_scale2pass.py H_BLOCKS_PER_SM): their steps are short and
+// separated by barriers, so what hides their latency is other blocks.
+constexpr int kHBlocksPerSM = 3;
 
 struct HTaps {
-  const int32_t* h_off;    // [ow]
-  const int16_t* h_taps;   // [th][ow]  tap-major
-  int in_w, ow, th, precision;
+  const int2* h_cols;      // [ow]      as Taps::h_cols
+  const int2* h_taps;      // [nw][ow]  as Taps::h_taps
+  int in_w, ow, nw, precision, stages;
 };
 
-// Shared memory of the h tables: taps [th][ow] int16, then offsets [ow] int32.
-__host__ __device__ inline size_t htable_bytes(int th, int ow) {
-  return align16(static_cast<size_t>(th) * ow * 2) +
-         align16(static_cast<size_t>(ow) * 4);
+// Bytes of one of the two buffers a store keeps for `rows` x ow results of
+// `elem` bytes: room to start at any 16-byte phase.
+__host__ __device__ inline size_t out_span_bytes(int rows, int ow, int elem) {
+  return align16(static_cast<size_t>(rows) * ow * elem) + 16;
 }
 
-__device__ __forceinline__ void load_htables(const HTaps& t, int16_t* s_taps,
-                                             int32_t* s_off) {
-  for (int i = threadIdx.x; i < t.th * t.ow; i += blockDim.x)
-    s_taps[i] = t.h_taps[i];
-  for (int i = threadIdx.x; i < t.ow; i += blockDim.x) s_off[i] = t.h_off[i];
-}
+// Dynamic shared memory of a block that h-scales stored rows: packed h taps
+// | ring of `stages` chunks | two buffers of a chunk's results.
+// ops/_scale2pass.py hsmem_bytes computes the same total.
+struct HLayout {
+  size_t ring, out, total;
+  __host__ __device__ HLayout(const HTaps& t, int elem) {
+    ring = align16(static_cast<size_t>(t.nw) * t.ow * 8);
+    out = ring + static_cast<size_t>(t.stages) * kRowsPerChunk *
+                     row_stride(t.in_w);
+    total = out + 2 * out_span_bytes(kRowsPerChunk, t.ow, elem);
+  }
+};
 
-// Copy n contiguous bytes from device memory into shared memory, 16 bytes a
-// thread where both sides allow it.  `s_base` is 16-byte aligned and has 16
-// bytes of slack; the copy lands at s_base + (src & 15) so that source and
-// destination share their alignment.  Returns where the first byte landed.
-// The caller synchronises.
-__device__ __forceinline__ uint8_t* stage_span(uint8_t* s_base,
-                                               const uint8_t* src, int n) {
-  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-  uint8_t* dst = s_base + skew;
-  const int head = min(n, (16 - skew) & 15);
-  const int nvec = (n - head) >> 4;
-  const int tail0 = head + (nvec << 4);
-  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
-  uint4* vdst = reinterpret_cast<uint4*>(dst + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) vdst[i] = __ldg(vsrc + i);
-  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = __ldg(src + i);
-  for (int i = tail0 + threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = __ldg(src + i);
-  return dst;
-}
-
-// Horizontal tap pass over n_rows rows of in_w samples held in shared memory
-// (row k at s_rows + k * in_w).  store(k, j, value) takes each result.
-template <class Store>
-__device__ __forceinline__ void hpass_rows(const uint8_t* s_rows, int n_rows,
-                                           const HTaps& t,
-                                           const int16_t* s_taps,
-                                           const int32_t* s_off,
-                                           const Store& store) {
-  for (int i = threadIdx.x; i < n_rows * t.ow; i += blockDim.x) {
-    const int k = i / t.ow;
-    const int j = i - k * t.ow;
-    const uint8_t* px = s_rows + k * t.in_w + s_off[j];
-    int acc = 0;
-    for (int q = 0; q < t.th; ++q)
-      acc += static_cast<int>(s_taps[q * t.ow + j]) * px[q];
-    store(k, j, round_u8(acc, t.precision));
+// Stage n consecutive rows of len bytes, the first at g.  `aligned`: g and
+// len are multiples of 16, so the rows are one bulk copy, land len apart and
+// complete on `bar`; otherwise all threads copy word by word, synchronously,
+// rows `stride` apart (a multiple of 4), and `bar` is not used.
+__device__ __forceinline__ void stage_run(uint8_t* dst, int stride,
+                                          const uint8_t* g, int len, int n,
+                                          bool aligned, uint64_t* bar) {
+  if (aligned) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, static_cast<uint32_t>(n) * len);
+      bulk_copy(dst, g, static_cast<uint32_t>(n) * len, bar);
+    }
+  } else {
+    const int per = (len + 3) >> 2;
+    for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+      const int k = i / per;
+      const int x = (i - k * per) << 2;
+      *reinterpret_cast<uint32_t*>(dst + k * stride + x) = load_word_unaligned(
+          g + static_cast<size_t>(k) * len + x, min(4, len - x));
+    }
   }
 }
 
+// Copy nbytes from shared memory to device memory, 16 bytes a thread; s and
+// dst lie at the same 16-byte phase.
+__device__ __forceinline__ void copy_out(void* dst_, const void* s_,
+                                         int nbytes) {
+  uint8_t* dst = static_cast<uint8_t*>(dst_);
+  const uint8_t* s = static_cast<const uint8_t*>(s_);
+  const int head = min(
+      nbytes, (16 - static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15)) &
+                  15);
+  const int nvec = (nbytes - head) >> 4;
+  const int tail0 = head + (nvec << 4);
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  const uint4* vs = reinterpret_cast<const uint4*>(s + head);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) vd[i] = vs[i];
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = s[i];
+  for (int i = tail0 + threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = s[i];
+}
+
+// Where the buffer for a span that goes to g starts inside its 16 bytes of
+// slack: at g's own 16-byte phase.
+template <class T>
+__device__ __forceinline__ T* same_phase(uint8_t* s_buf, const T* g) {
+  return reinterpret_cast<T*>(s_buf + (reinterpret_cast<uintptr_t>(g) & 15));
+}
+
+// A store takes the results of chunk c of a block's run: at(c) says where
+// they wait in shared memory, put() places the result of row k (of the
+// chunk) and output column col, flush(c) writes the chunk's rows out.
+// Consecutive chunks take turns on two buffers: chunk c - 1 leaves while
+// chunk c is computed.
+
+// Rows that are consecutive in the output: chunk c is one span.
 template <class OutT>
 struct RowStore {
-  OutT* out;               // first row of the block
-  int ow;
-  __device__ __forceinline__ void operator()(int k, int j, int v) const {
-    out[static_cast<size_t>(k) * ow + j] = static_cast<OutT>(v);
+  OutT* out;               // first output row of the run
+  uint8_t* s_out;          // 2 x out_span_bytes(kRowsPerChunk, ow, elem)
+  int ow, n_rows;          // rows of the run
+
+  __device__ __forceinline__ OutT* span(int c) const {
+    return out + static_cast<size_t>(c) * kRowsPerChunk * ow;
+  }
+  __device__ __forceinline__ OutT* at(int c) const {
+    return same_phase(
+        s_out + (c & 1) * out_span_bytes(kRowsPerChunk, ow, sizeof(OutT)),
+        span(c));
+  }
+  __device__ __forceinline__ void put(OutT* s, int k, int col,
+                                      uint32_t v) const {
+    s[k * ow + col] = static_cast<OutT>(v);
+  }
+  __device__ __forceinline__ void flush(int c) const {
+    const int n = min(kRowsPerChunk, n_rows - c * kRowsPerChunk);
+    copy_out(span(c), at(c), n * ow * static_cast<int>(sizeof(OutT)));
   }
 };
 
-// h-scale of total_rows rows (all frames' rows, back to back); a block owns
-// rows_per_block consecutive rows: one contiguous span of device memory.
-template <class OutT>
-__global__ void __launch_bounds__(kThreads)
-hscale_kernel(const uint8_t* __restrict__ src, HTaps t, OutT* __restrict__ out,
-              int total_rows, int rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* s_taps = reinterpret_cast<int16_t*>(smem);
-  int32_t* s_off = reinterpret_cast<int32_t*>(
-      smem + align16(static_cast<size_t>(t.th) * t.ow * 2));
-  uint8_t* s_base = smem + htable_bytes(t.th, t.ow);
+// Horizontal pass over the 8 rows of a chunk (stride_w words apart) into the
+// store's buffer for chunk c: a thread owns one output column, as in
+// hpass_chunk.  Rows past the run's last are computed from whatever the
+// buffer holds and never leave.
+template <class Store>
+__device__ __forceinline__ void hpass_store(const uint8_t* rows8, int stride_w,
+                                            const HTaps& t, const int2* s_taps,
+                                            const Store& store, int c) {
+  const auto s = store.at(c);
+  for (int j = threadIdx.x; j < t.ow; j += blockDim.x) {
+    const int2 col = __ldg(t.h_cols + j);
+    int lo[kRowsPerChunk], hi[kRowsPerChunk];
+    hdot8(reinterpret_cast<const uint32_t*>(rows8) + col.x, stride_w, t.nw,
+          s_taps + j, t.ow, lo, hi);
+#pragma unroll
+    for (int k = 0; k < kRowsPerChunk; ++k)
+      store.put(s, k, col.y, limb_round(lo[k], hi[k], t.precision));
+  }
+}
 
-  const int r0 = blockIdx.x * rows_per_block;
-  const int n_rows = min(rows_per_block, total_rows - r0);
-  load_htables(t, s_taps, s_off);
-  const uint8_t* s_rows =
-      stage_span(s_base, src + static_cast<size_t>(r0) * t.in_w,
-                 n_rows * t.in_w);
+__device__ __forceinline__ void load_htaps(const HTaps& t, int2* s_taps) {
+  for (int i = threadIdx.x; i < t.nw * t.ow; i += blockDim.x)
+    s_taps[i] = t.h_taps[i];
+}
+
+// The mbarriers of a ring, one a slot; every thread of the block calls it.
+__device__ __forceinline__ void ring_init(uint64_t* s_bar, int stages) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(&s_bar[i], 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  hpass_rows(s_rows, n_rows, t, s_taps, s_off,
-             RowStore<OutT>{out + static_cast<size_t>(r0) * t.ow, t.ow});
 }
 
-// Shared memory of hscale_kernel; ops/hscale_kernel.py computes the same.
-__host__ __device__ inline size_t hscale_smem(int in_w, int ow, int th,
-                                              int rows_per_block) {
-  return htable_bytes(th, ow) +
-         align16(static_cast<size_t>(rows_per_block) * in_w) + 16;
+// h-scale of a run of n_rows consecutive stored rows, the first at src, a
+// chunk at a time through the ring at s_ring; `smem` is laid out as HLayout.
+// `aligned`: src and in_w are multiples of 16 (bulk copies).
+template <class Store>
+__device__ __forceinline__ void hrun(const uint8_t* src, int n_rows,
+                                     bool aligned, const HTaps& t,
+                                     unsigned char* smem, uint64_t* s_bar,
+                                     const Store& store) {
+  int2* s_taps = reinterpret_cast<int2*>(smem);
+  uint8_t* s_ring = smem + HLayout(t, 0).ring;   // whatever the store's type
+  const int stride = aligned ? t.in_w : row_stride(t.in_w);
+  const size_t slot_bytes =
+      static_cast<size_t>(kRowsPerChunk) * row_stride(t.in_w);
+  const int n_chunks = (n_rows + kRowsPerChunk - 1) / kRowsPerChunk;
+  auto fetch = [&](int c, int slot) {
+    stage_run(s_ring + slot * slot_bytes, stride,
+              src + static_cast<size_t>(c) * kRowsPerChunk * t.in_w, t.in_w,
+              min(kRowsPerChunk, n_rows - c * kRowsPerChunk), aligned,
+              &s_bar[slot]);
+  };
+
+  // the first chunks are on their way while the tables load
+  for (int c = 0; c < t.stages - 1; ++c)
+    if (c < n_chunks) fetch(c, c);
+  load_htaps(t, s_taps);
+
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (aligned) mbar_wait(&s_bar[slot], parity);   // chunk c is in
+    __syncthreads();               // for everyone; chunk c - 1 is done with
+    const int nxt = c + t.stages - 1;
+    if (nxt < n_chunks) fetch(nxt, slot == 0 ? t.stages - 1 : slot - 1);
+    if (c > 0) store.flush(c - 1);
+    hpass_store(s_ring + slot * slot_bytes, stride >> 2, t, s_taps, store, c);
+    if (++slot == t.stages) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+  __syncthreads();
+  store.flush(n_chunks - 1);
 }
 
+// h-scale of total_rows rows (all frames' rows, back to back); a block owns
+// run_chunks consecutive chunks of them.
+template <class OutT>
+__global__ void __launch_bounds__(kThreads, kHBlocksPerSM)
+hscale_kernel(const uint8_t* __restrict__ src, HTaps t, OutT* __restrict__ out,
+              int total_rows, int run_chunks, int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t s_bar[kMaxStages];
+  const HLayout L(t, sizeof(OutT));
+  const int run_rows = run_chunks * kRowsPerChunk;
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * run_rows;
+  const int n_rows =
+      static_cast<int>(min(static_cast<size_t>(run_rows), total_rows - r0));
+  if (aligned) ring_init(s_bar, t.stages);
+  hrun(src + r0 * t.in_w, n_rows, aligned != 0, t, smem, s_bar,
+       RowStore<OutT>{out + r0 * t.ow, smem + L.out, t.ow, n_rows});
+}
+
+// Launch on `stream`; returns the CUDA error code (0 on success).  `smem` is
+// the host's own count of the block's shared memory and must equal HLayout's.
 template <class OutT>
 int launch_hscale(const uint8_t* src, const HTaps& t, OutT* out,
-                  int total_rows, int rows_per_block, cudaStream_t stream) {
-  const size_t smem = hscale_smem(t.in_w, t.ow, t.th, rows_per_block);
+                  int total_rows, int run_chunks, int smem,
+                  cudaStream_t stream) {
+  const HLayout L(t, sizeof(OutT));
+  if (t.stages < 2 || t.stages > kMaxStages || run_chunks < 1 ||
+      static_cast<size_t>(smem) != L.total)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = hscale_kernel<OutT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(L.total));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (total_rows + rows_per_block - 1) / rows_per_block;
-  kern<<<blocks, kThreads, smem, stream>>>(
-      src, t, out, total_rows, rows_per_block);
+  const int n_chunks = (total_rows + kRowsPerChunk - 1) / kRowsPerChunk;
+  const int blocks = (n_chunks + run_chunks - 1) / run_chunks;
+  kern<<<blocks, kThreads, L.total, stream>>>(src, t, out, total_rows,
+                                              run_chunks,
+                                              aligned16(src, t.in_w) ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,10 +18,16 @@ pair, in numpy:
   memory, sized exactly as the kernel lays it out (``tiling``,
   ``smem_bytes``).
 
-``emulate`` walks those tables the way a block does, in numpy, so that the
-tables and the packed arithmetic can be held against the plain versions
-without a card.  The h-only kernels (hscale_u8, fused_i420_up_hscale) use
-``tables``, ``htable_bytes`` and ``rows_per_block``.
+For the h-only kernels (hscale_u8, fused_i420_up_hscale) it makes the same
+packed horizontal taps (``pack_h``) and, beside them, how the rows are cut
+into blocks: the chunks of 8 rows a block owns (``run_chunks``), the runs of
+chroma rows of the fused kernel with the clamped halo rows each stages
+(``chroma_runs``), the depth of the ring and the block's shared memory
+(``hplan``, ``hsmem_bytes``, ``fused_smem_bytes``).
+
+``emulate`` (two-pass) and ``emulate_hscale`` / ``emulate_fused`` (h-only)
+walk those tables the way a block does, in numpy, so that the tables and the
+packed arithmetic can be held against the plain versions without a card.
 """
 
 from __future__ import annotations
@@ -43,41 +49,8 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def htable_bytes(th: int, ow: int) -> int:
-    """scale2pass.cuh htable_bytes: the h taps and offsets of a block."""
-    return _align16(th * ow * 2) + _align16(ow * 4)
-
-
-def rows_per_block(need, most: int, what: str) -> int:
-    """The largest row count (most, most/2, ..., 1) of an h-only kernel
-    whose block fits the shared-memory target; need(n) is the block's
-    bytes at n rows."""
-    n = most
-    while n > 1 and need(n) > SMEM_TARGET:
-        n //= 2
-    if need(n) > SMEM_LIMIT:
-        raise ValueError(f"{what}: {need(n)} bytes of shared memory per "
-                         f"block at {n} row(s), more than {SMEM_LIMIT}")
-    return n
-
-
 def _cache(res) -> dict:
     return res.__dict__.setdefault("_cuda_cache", {})
-
-
-def tables(res, device, precision: int, tap_major: bool):
-    """(offset int32 [out], taps int16) on `device`; taps are [T][out] when
-    tap_major (the h pass) else [out][T] (the v pass)."""
-    key = ("tables", str(device), precision, tap_major)
-    cache = _cache(res)
-    if key not in cache:
-        taps = np.asarray(res.taps_s16(precision), np.int16)
-        if tap_major:
-            taps = taps.T
-        cache[key] = (
-            torch.as_tensor(np.asarray(res.offset, np.int32)).to(device),
-            torch.as_tensor(np.ascontiguousarray(taps)).to(device))
-    return cache[key]
 
 
 # -- tables of the two-pass kernels (numpy) ----------------------------------
@@ -346,6 +319,141 @@ def launch(source: str, symbol: str, x: torch.Tensor, out: torch.Tensor,
     _build.check(lib, status, symbol)
 
 
+# -- the h-only kernels: packed taps, partition, shared memory ---------------
+
+CHROMA_ROWS_PER_CHUNK = ROWS_PER_CHUNK // 2    # kChromaRowsPerChunk
+WINDOW_ROWS = 12               # fused_ingest.cu kWindowRows
+H_STAGES = (4, 3, 2)           # ring depths tried, deepest first
+H_BLOCKS_PER_SM = (3, 2, 1)    # blocks an SM tried, most first
+SM_SMEM = 228 * 1024           # shared memory of one Hopper SM; a resident
+BLOCK_RESERVE = 1024           # block takes this much of it beside its own
+MIN_RUN = 2                    # fewest chunks a block owns
+HSCALE_WAVES = 16              # blocks a slot of the card takes in turn:
+FUSED_WAVES = 2                # stored rows; the fused kernel's chroma rows
+
+
+def out_span_bytes(rows: int, ow: int, elem: int) -> int:
+    """scale2pass.cuh out_span_bytes: one buffer of rows x ow results of
+    elem bytes, with room to start at any 16-byte phase."""
+    return _align16(rows * ow * elem) + 16
+
+
+def hsmem_bytes(in_w: int, ow: int, nw: int, stages: int, elem: int) -> int:
+    """scale2pass.cuh HLayout.total: packed h taps | ring of `stages` chunks
+    | two buffers of a chunk's results (elem bytes each)."""
+    return (_align16(nw * ow * 8)
+            + stages * ROWS_PER_CHUNK * (_align16(in_w) + 16)
+            + 2 * out_span_bytes(ROWS_PER_CHUNK, ow, elem))
+
+
+def fused_smem_bytes(in_w: int, ow: int, nw: int, stages: int) -> int:
+    """fused_ingest.cu smem_total: the larger of its luma block (HLayout,
+    int16 out) and its chroma block (CLayout: packed h taps | ring of
+    `stages` groups of 4 half-resolution rows | window of column-filtered
+    rows | the chunk's 8 finished rows | two buffers of results, even and
+    odd apart)."""
+    row = _align16(in_w) + 16
+    chroma = (_align16(nw * ow * 8)
+              + stages * CHROMA_ROWS_PER_CHUNK * _align16(in_w // 2)
+              + WINDOW_ROWS * row + ROWS_PER_CHUNK * row
+              + 4 * out_span_bytes(CHROMA_ROWS_PER_CHUNK, ow, 2))
+    return max(hsmem_bytes(in_w, ow, nw, stages, 2), chroma)
+
+
+def run_chunks(n_chunks: int, slots: int, waves: int) -> int:
+    """Chunks a block owns when n_chunks are spread over `waves` blocks for
+    each of the card's `slots` (blocks it runs at a time), in runs of at
+    least MIN_RUN chunks."""
+    return max(min(MIN_RUN, n_chunks), -(-n_chunks // (slots * waves)), 1)
+
+
+def row_runs(total_rows: int, run: int) -> np.ndarray:
+    """int32 [blocks][2]: (first row, rows) of each block of an h-only
+    launch over total_rows consecutive rows, `run` chunks a block."""
+    step = run * ROWS_PER_CHUNK
+    first = np.arange(0, total_rows, step)
+    return np.stack([first, np.minimum(step, total_rows - first)],
+                    -1).astype(np.int32)
+
+
+def chroma_runs(hc: int, run: int) -> np.ndarray:
+    """int32 [runs][4], (k0, k1, lo, hi) of each run a chroma plane of hc
+    rows is cut into, at most `run` chunks of CHROMA_ROWS_PER_CHUNK rows
+    each and as even as that allows: the block builds rows k0 .. k1-1 and
+    stages rows lo .. hi for them, one halo row each side, clamped."""
+    chunks = -(-hc // CHROMA_ROWS_PER_CHUNK)
+    runs = -(-chunks // run)
+    step = -(-chunks // runs) * CHROMA_ROWS_PER_CHUNK
+    k0 = np.arange(0, hc, step)
+    k1 = np.minimum(k0 + step, hc)
+    return np.ascontiguousarray(np.stack(
+        [k0, k1, np.maximum(k0 - 1, 0), np.minimum(k1, hc - 1)], -1),
+        np.int32)
+
+
+@dataclass
+class HPlan:
+    """What a launch of an h-only kernel needs beside its input."""
+
+    nw: int                     # words a column's h taps span
+    stages: int
+    smem: int
+    blocks_per_sm: int
+    host: dict = field(default_factory=dict)    # name -> numpy table
+    dev: dict = field(default_factory=dict)     # device -> tensors on it
+
+
+def hplan(res, precision: int, fused: bool = False) -> HPlan:
+    """The packed taps, ring depth and shared memory of h-scaling with
+    `res` (hscale_u8, or the fused ingest when `fused`): the most blocks an
+    SM can hold at a time (of H_BLOCKS_PER_SM) with a ring of at least two
+    chunks, and the deepest ring that many blocks leave room for.  Cached on
+    res."""
+    key = ("hplan", precision, bool(fused))
+    cache = _cache(res)
+    if key in cache:
+        return cache[key]
+    in_w, ow = res.in_size, res.out_size
+    nw = words_per_column(res.max_taps)
+
+    def need(stages):
+        return (fused_smem_bytes(in_w, ow, nw, stages) if fused
+                else hsmem_bytes(in_w, ow, nw, stages, 4))
+
+    for blocks in H_BLOCKS_PER_SM:
+        room = min(SM_SMEM // blocks - BLOCK_RESERVE, SMEM_LIMIT)
+        stages = next((n for n in H_STAGES if need(n) <= room), None)
+        if stages is not None:
+            break
+    else:
+        raise ValueError(
+            f"h-scale of width {in_w}->{ow} with {res.max_taps} taps needs "
+            f"{need(min(H_STAGES))} bytes of shared memory per block, more "
+            f"than {SMEM_LIMIT}")
+    cols, packed = pack_h(res, precision)
+    p = HPlan(nw=nw, stages=stages, smem=need(stages), blocks_per_sm=blocks,
+              host={"hcols": cols, "htaps": packed})
+    cache[key] = p
+    return p
+
+
+def on_device(p: HPlan, device, name: str, make=None) -> torch.Tensor:
+    """Table `name` of the plan on `device`, sent there once; `make()`
+    gives a table the plan does not hold yet."""
+    dev = p.dev.setdefault(str(device), {})
+    if name not in dev:
+        if name not in p.host:
+            p.host[name] = np.ascontiguousarray(make())
+        dev[name] = torch.as_tensor(p.host[name]).to(device)
+    return dev[name]
+
+
+def slots(p: HPlan, device) -> int:
+    """Blocks of the plan's kernel the card runs at a time."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * p.blocks_per_sm
+
+
 # -- the block loop in numpy: tables and packed arithmetic, no card ----------
 
 def _bytes_of(words):
@@ -452,6 +560,130 @@ def emulate(x: torch.Tensor, h_res, v_res, precision: int, sitings=None):
                         t["vtaps"][:, r0:r1], precision)       # [B][ow][rows]
         out[:, r0:r1] = np.moveaxis(v, 1, 2)
     return torch.as_tensor(out)
+
+
+def _chunk_dot(flat_words, stride_w, cols, packed, precision):
+    """hpass_store over one chunk: flat_words [B][words] holds 8 rows
+    stride_w words apart -> [B][8][ow], output columns in natural order."""
+    out = np.zeros(flat_words.shape[:1] + (ROWS_PER_CHUNK, len(cols)),
+                   np.int64)
+    for k in range(ROWS_PER_CHUNK):
+        out[:, k, cols[:, 1]] = _packed_dot(
+            flat_words, k * stride_w + cols[:, 0], packed, precision)
+    return out
+
+
+def _stage(rows_u8, stride, aligned, rng):
+    """A ring slot after stage_run: rows_u8 [B][n][len] land len apart when
+    `aligned` (one bulk copy) else `stride` apart; every other byte of the
+    slot is whatever was there (random here) -> [B][words]."""
+    b, n, length = rows_u8.shape
+    slot = rng.integers(0, 256, (b, ROWS_PER_CHUNK * (_align16(length) + 16)),
+                        dtype=np.uint8)
+    step = length if aligned else stride
+    for k in range(n):
+        slot[:, k * step:k * step + length] = rows_u8[:, k]
+    return np.ascontiguousarray(slot).view(np.uint32), step // 4
+
+
+def _emulate_hrun(rows_u8, p: HPlan, precision, aligned, rng):
+    """scale2pass.cuh hrun over rows_u8 [n][len] -> [n][ow] int64."""
+    n, in_w = rows_u8.shape
+    cols, packed = p.host["hcols"], p.host["htaps"]
+    out = np.zeros((n, len(cols)), np.int64)
+    for r0 in range(0, n, ROWS_PER_CHUNK):
+        chunk = rows_u8[None, r0:r0 + ROWS_PER_CHUNK]
+        words, stride_w = _stage(chunk, _align16(in_w) + 16, aligned, rng)
+        res = _chunk_dot(words, stride_w, cols, packed, precision)[0]
+        out[r0:r0 + chunk.shape[1]] = res[:chunk.shape[1]]
+    return out
+
+
+def emulate_hscale(x: torch.Tensor, res, precision: int, n_slots: int = 3,
+                   aligned: bool = True, seed: int = 0) -> torch.Tensor:
+    """What csrc/hscale.cu computes, block by block, from the same tables
+    (CPU, numpy inside): (..., H, W) uint8 -> (..., H, ow) int32.
+    `aligned` picks the staging (one bulk copy a chunk, or word by word);
+    bytes of a ring slot that no copy writes are random."""
+    rng = np.random.default_rng(seed)
+    in_w, ow = res.in_size, res.out_size
+    aligned = aligned and in_w % 16 == 0
+    src = x.numpy().reshape(-1, in_w)
+    p = hplan(res, precision)
+    run = run_chunks(-(-len(src) // ROWS_PER_CHUNK), n_slots, HSCALE_WAVES)
+    out = np.full((len(src), ow), -1, np.int64)
+    for r0, n in row_runs(len(src), run):
+        out[r0:r0 + n] = _emulate_hrun(src[r0:r0 + n], p, precision, aligned,
+                                       rng)
+    return torch.as_tensor(out.astype(np.int32)).reshape(
+        tuple(x.shape[:-1]) + (ow,))
+
+
+def emulate_fused(y, u, v, res, h_cosited: bool, precision: int,
+                  n_slots: int = 3, aligned: bool = True, seed: int = 0):
+    """What csrc/fused_ingest.cu computes, block by block, from the same
+    tables (CPU, numpy inside): y (B, H, W), u, v (B, H/2, W/2) uint8 ->
+    (Y, U_even, U_odd, V_even, V_odd) int16."""
+    rng = np.random.default_rng(seed)
+    b, in_h, in_w = y.shape
+    hc, wc, ow = in_h // 2, in_w // 2, res.out_size
+    p = hplan(res, precision, fused=True)
+    cols, packed = p.host["hcols"], p.host["htaps"]
+    y_run = run_chunks(-(-b * in_h // ROWS_PER_CHUNK), n_slots, HSCALE_WAVES)
+    c_run = run_chunks(2 * b * -(-hc // CHROMA_ROWS_PER_CHUNK), n_slots,
+                       FUSED_WAVES)
+    rs = _align16(in_w) + 16
+    cs, cwords = _align16(wc), (wc + 3) // 4
+
+    ysrc = y.numpy().reshape(-1, in_w)
+    oy = np.full((b * in_h, ow), -1, np.int64)
+    for r0, n in row_runs(len(ysrc), y_run):
+        oy[r0:r0 + n] = _emulate_hrun(ysrc[r0:r0 + n], p, precision,
+                                      aligned and in_w % 16 == 0, rng)
+    outs = [oy.reshape(b, in_h, ow)]
+    for plane in (u.numpy(), v.numpy()):
+        even = np.full((b, hc, ow), -1, np.int64)
+        odd = np.full((b, hc, ow), -1, np.int64)
+        for k0, k1, lo, hi in chroma_runs(hc, c_run):
+            n_staged = hi - lo + 1
+            n_out = -(-(k1 - k0) // CHROMA_ROWS_PER_CHUNK)
+            window = rng.integers(0, 2 ** 32, (b, WINDOW_ROWS, rs // 4),
+                                  dtype=np.uint32)
+
+            def columns(g):         # up2_columns of group g into the window
+                i0 = g * CHROMA_ROWS_PER_CHUNK
+                if i0 >= n_staged:
+                    return
+                rows = plane[:, lo + i0:lo + min(i0 + CHROMA_ROWS_PER_CHUNK,
+                                                 n_staged)]
+                slot = rng.integers(0, 256, (b, rows.shape[1], cs),
+                                    dtype=np.uint8)    # rows cs apart
+                slot[..., :wc] = rows
+                full = _up2_h_words(slot.view(np.uint32)[..., :cwords], wc,
+                                    h_cosited)
+                for i in range(rows.shape[1]):
+                    window[:, (i0 + i) % WINDOW_ROWS, :full.shape[-1]] = \
+                        full[:, i]
+
+            columns(0)
+            for m in range(n_out):
+                columns(m + 1)
+                kc0 = k0 + m * CHROMA_ROWS_PER_CHUNK
+                nk = min(CHROMA_ROWS_PER_CHUNK, k1 - kc0)
+                chunk = rng.integers(0, 2 ** 32, (b, ROWS_PER_CHUNK, rs // 4),
+                                     dtype=np.uint32)
+                for k in range(2 * nk):             # up2_row
+                    kc = kc0 + (k >> 1)
+                    nb = min(kc + 1, hc - 1) if k & 1 else max(kc - 1, 0)
+                    chunk[:, k] = _filt31(
+                        window[:, (kc - lo) % WINDOW_ROWS],
+                        window[:, (nb - lo) % WINDOW_ROWS])
+                res8 = _chunk_dot(chunk.reshape(b, -1), rs // 4, cols, packed,
+                                  precision)
+                even[:, kc0:kc0 + nk] = res8[:, 0:2 * nk:2]
+                odd[:, kc0:kc0 + nk] = res8[:, 1:2 * nk:2]
+        outs += [even, odd]
+    return tuple(torch.as_tensor(o.astype(np.int16)) for o in outs)
 
 
 def check_plane(x: torch.Tensor, shape_hw, what: str) -> None:

@@ -11,9 +11,15 @@ upsampled 2x horizontally (cosited or interstitial), then 2x vertically
 shift.  The kernel is ``csrc/fused_ingest.cu``.
 
 Bound on the H100: bytes (1.5 per source pixel read, 4 * H * out_w per
-frame written).  A block owns one frame and a run of chroma rows; the
-full-width up2 rows are built in shared memory and never reach device
-memory.
+frame written); the products run on ``dp4a`` over packed byte-limb taps and
+the two up2 filters on whole words, so they come second.  One launch holds
+luma blocks (a run of consecutive rows each, ``hscale_u8``'s loop with an
+int16 store) and chroma blocks (one frame, one plane and a long run of
+chroma rows each, so the halo row each side costs a few percent); the host
+sizes both kinds of run from the batch (``_scale2pass.run_chunks``) and lists the
+chroma runs with their clamped halo (``_scale2pass.chroma_runs``).  Each
+chroma row is column-filtered once into a rolling window in shared memory;
+the full-width up2 rows never reach device memory.
 """
 
 from __future__ import annotations
@@ -25,8 +31,7 @@ from ..video.scaler import (SCALE_U8, scale_axis_exact,
                             scale_cols_split_exact)
 from . import _build, _scale2pass
 
-_ARGS = "p" * 10 + "i" * 8 + "p"
-MAX_CHROMA_ROWS_PER_BLOCK = 4
+_ARGS = "p" * 11 + "i" * 11 + "p"
 
 
 def applicable(ifmt, ii, oi, plan) -> bool:
@@ -41,15 +46,6 @@ def applicable(ifmt, ii, oi, plan) -> bool:
         and plan.get("h_res") is not None
         and ii.height % 2 == 0
         and ii.width % 2 == 0)
-
-
-def smem_bytes(in_w: int, ow: int, th: int, kc: int) -> int:
-    """fused_ingest.cu SmemLayout.total at kc chroma rows per block."""
-    a16 = _scale2pass._align16
-    return (_scale2pass.htable_bytes(th, ow)
-            + a16((kc + 2) * (in_w // 2)) + 16
-            + a16((kc + 2) * in_w)
-            + a16(2 * kc * in_w) + 16)
 
 
 def fused_i420_up_hscale_plain(y, u, v, h_res, h_cosited: bool,
@@ -100,7 +96,7 @@ def fused_i420_up_hscale(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if y.device.type != "cuda":
         raise ValueError(f"fused_i420_up_hscale: unsupported device "
                          f"{y.device}")
-    ow, th = h_res.out_size, h_res.max_taps
+    ow = h_res.out_size
     outs = (torch.empty(lead + (in_h, ow), dtype=torch.int16,
                         device=y.device),) + tuple(
         torch.empty(lead + (in_h // 2, ow), dtype=torch.int16,
@@ -108,18 +104,29 @@ def fused_i420_up_hscale(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     batch = y.numel() // (in_h * in_w) if in_h * in_w else 0
     if batch == 0:
         return outs
-    kc = _scale2pass.rows_per_block(
-        lambda n: smem_bytes(in_w, ow, th, n), MAX_CHROMA_ROWS_PER_BLOCK,
-        "fused_i420_up_hscale")
-    h_off, h_taps = _scale2pass.tables(h_res, y.device, precision, True)
+    if batch * in_h >= 1 << 30:
+        raise ValueError(f"fused_i420_up_hscale: {batch * in_h} rows in one "
+                         f"call")
+    sp = _scale2pass
+    p = sp.hplan(h_res, precision, fused=True)
+    hc = in_h // 2
+    y_run = sp.run_chunks(-(-batch * in_h // sp.ROWS_PER_CHUNK),
+                          sp.slots(p, y.device), sp.HSCALE_WAVES)
+    c_run = sp.run_chunks(2 * batch * -(-hc // sp.CHROMA_ROWS_PER_CHUNK),
+                          sp.slots(p, y.device), sp.FUSED_WAVES)
+    cruns = sp.on_device(p, y.device, f"cruns {hc} {c_run}",
+                         lambda: sp.chroma_runs(hc, c_run))
+    h_cols = sp.on_device(p, y.device, "hcols")
+    h_taps = sp.on_device(p, y.device, "htaps")
     lib, fn = _build.function("fused_ingest", "gst_fused_i420_up_hscale",
                               _ARGS)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(y.data_ptr(), u.data_ptr(), v.data_ptr(),
-                    *(o.data_ptr() for o in outs), h_off.data_ptr(),
-                    h_taps.data_ptr(), batch, in_h, in_w, ow, th, precision,
-                    int(bool(h_cosited)), kc, stream)
+                    *(o.data_ptr() for o in outs), h_cols.data_ptr(),
+                    h_taps.data_ptr(), cruns.data_ptr(), batch, in_h, in_w,
+                    ow, p.nw, precision, int(bool(h_cosited)), y_run,
+                    len(cruns), p.stages, p.smem, stream)
     _build.check(lib, status, "fused_i420_up_hscale")
     fused_i420_up_hscale.launches += 1
     return outs

@@ -7,10 +7,15 @@ Replaces ``gstreamer_tpu/ops/hscale_kernel.py::hscale_u8`` (pallas_call at
 int32.  It is a standalone op (the reference package has no caller either).
 The kernel is ``csrc/hscale.cu``.
 
-Bound on the H100: bytes (1 per source pixel read, 4 per output written; a
-few multiply-adds per source byte).  Rows are independent, so all frames'
-rows are taken back to back: a block stages a few consecutive rows, one
-contiguous span read 16 bytes a thread, and writes their outputs once.
+Bound on the H100: bytes (1 per source pixel read, 4 per output written).
+The products run on ``dp4a`` over taps packed as byte limbs (the two-pass
+kernel's horizontal pass), so that even at 35 taps they cost less than the
+bytes.  Rows are independent, so all frames' rows are taken back to back: a
+block owns a run of 8-row chunks (``_scale2pass.run_chunks``: some sixteen
+blocks for each block the card runs at a time, three an SM), reads the
+packed taps once, and walks the run through a ring of bulk copies, one a
+chunk, that load while it computes; results leave through shared memory,
+16 bytes a thread.
 """
 
 from __future__ import annotations
@@ -21,8 +26,7 @@ import torch
 from ..video.scaler import SCALE_U8, scale_axis_exact, tap_matrix
 from . import _build, _scale2pass
 
-_ARGS = "pppp" + "i" * 6 + "p"
-MAX_ROWS_PER_BLOCK = 8
+_ARGS = "pppp" + "i" * 8 + "p"
 
 
 def applicable(res, shape) -> bool:
@@ -30,12 +34,6 @@ def applicable(res, shape) -> bool:
     rule is a TPU lane tiling and does not apply here."""
     return (int(np.abs(tap_matrix(res)).max()) < (1 << 13)
             and res.out_size <= shape[-1])
-
-
-def smem_bytes(in_w: int, ow: int, th: int, rows: int) -> int:
-    """scale2pass.cuh hscale_smem."""
-    return (_scale2pass.htable_bytes(th, ow)
-            + _scale2pass._align16(rows * in_w) + 16)
 
 
 def hscale_u8_plain(y, res):
@@ -53,7 +51,7 @@ def hscale_u8(y: torch.Tensor, res) -> torch.Tensor:
         return hscale_u8_plain(y, res)
     if y.device.type != "cuda":
         raise ValueError(f"hscale_u8: unsupported device {y.device}")
-    in_w, ow, th = res.in_size, res.out_size, res.max_taps
+    in_w, ow = res.in_size, res.out_size
     if y.ndim < 2:
         raise ValueError(f"hscale_u8: expected (..., H, W), got "
                          f"{tuple(y.shape)}")
@@ -65,16 +63,18 @@ def hscale_u8(y: torch.Tensor, res) -> torch.Tensor:
         return out
     if total_rows >= 1 << 31:
         raise ValueError(f"hscale_u8: {total_rows} rows in one call")
-    rows = _scale2pass.rows_per_block(
-        lambda n: smem_bytes(in_w, ow, th, n), MAX_ROWS_PER_BLOCK,
-        "hscale_u8")
-    h_off, h_taps = _scale2pass.tables(res, y.device, SCALE_U8, True)
+    p = _scale2pass.hplan(res, SCALE_U8)
+    run = _scale2pass.run_chunks(
+        -(-total_rows // _scale2pass.ROWS_PER_CHUNK),
+        _scale2pass.slots(p, y.device), _scale2pass.HSCALE_WAVES)
+    h_cols = _scale2pass.on_device(p, y.device, "hcols")
+    h_taps = _scale2pass.on_device(p, y.device, "htaps")
     lib, fn = _build.function("hscale", "gst_hscale_u8", _ARGS)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(y.data_ptr(), out.data_ptr(), h_off.data_ptr(),
-                    h_taps.data_ptr(), total_rows, in_w, ow, th, SCALE_U8,
-                    rows, stream)
+        status = fn(y.data_ptr(), out.data_ptr(), h_cols.data_ptr(),
+                    h_taps.data_ptr(), total_rows, in_w, ow, p.nw, SCALE_U8,
+                    run, p.stages, p.smem, stream)
     _build.check(lib, status, "hscale_u8")
     hscale_u8.launches += 1
     return out

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Check and time the two-pass scale kernels under different tilings.
+"""Check and time the tap-scale kernels under different tilings.
 
-    python3 sweep_scale2pass.py [--check-only] [--seed N]
+    python3 sweep_scale2pass.py [--check-only] [--h-only] [--seed N]
 
-Needs one CUDA card.  Builds csrc/yscale.cu, scale2d.cu and chroma420.cu,
-holds yscale_hv, scale_hv_u8 and chroma420_scale against their plain
-versions bit for bit at small and awkward shapes (odd sizes, widths that are
-no multiple of 16, views that start off a 16-byte boundary, all four
-sitings), then times them at 1920x1080 -> 224x224 (linear/2 and cubic taps,
-batch 256 and 64) for each tiling variant: (largest tile of output rows,
-ring depths tried, shared-memory target of a block).  The variant the
-package ships is the first.  Prints one line per measurement and the card's
-name and power limit.
+Needs one CUDA card.  Builds csrc/yscale.cu, scale2d.cu, chroma420.cu,
+hscale.cu and fused_ingest.cu, holds yscale_hv, scale_hv_u8, chroma420_scale,
+hscale_u8 and fused_i420_up_hscale against their plain versions bit for bit
+at small and awkward shapes (odd sizes, widths that are no multiple of 16,
+views that start off a 16-byte boundary, all sitings), then times them at
+1920x1080 -> 224x224 (linear/2 and cubic taps, batch 256 and 64) for each
+tiling variant.  Two-pass kernels: (largest tile of output rows, ring depths
+tried, shared-memory target of a block).  h-only kernels (hscale_u8,
+fused_i420_up_hscale): (ring depths tried, blocks an SM tried, blocks a slot of
+the card takes in turn for hscale_u8 and for the fused kernel, fewest chunks
+a block owns); --h-only times only these.  The variant the package ships is
+the first of each list.  Prints one line per measurement and the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -26,6 +30,16 @@ VARIANTS = [      # MAX_TILE_ROWS, STAGES, SMEM_TARGET
     (32, (2,), 112 * 1024),
     (16, (3, 2), 75 * 1024),
     (32, (3, 2), 75 * 1024),
+]
+H_VARIANTS = [    # H_STAGES, H_BLOCKS_PER_SM, HSCALE_WAVES, FUSED_WAVES, MIN_RUN
+    ((4, 3, 2), (3, 2, 1), 16, 2, 2),
+    ((4, 3, 2), (3, 2, 1), 16, 1, 2),
+    ((4, 3, 2), (3, 2, 1), 16, 4, 2),
+    ((4, 3, 2), (3, 2, 1), 16, 8, 2),
+    ((4, 3, 2), (3, 2, 1), 1, 2, 2),
+    ((4, 3, 2), (3, 2, 1), 32, 2, 2),
+    ((4, 3, 2), (2, 1), 16, 2, 2),
+    ((2,), (3, 2, 1), 16, 2, 2),
 ]
 CHECKS = [        # B, H, W, OH, OW, method, taps
     (2, 48, 64, 24, 32, "linear", 2),
@@ -85,6 +99,8 @@ def same(k, p, what):
 def check(rng, dev):
     import torch
     from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
     from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
     from gstreamer_tpu_torch.ops import yscale_kernel as ysk
     good = True
@@ -105,10 +121,22 @@ def check(rng, dev):
                         ck.chroma420_scale_plain(c, hr, vr, hc, vc),
                         f"chroma420_scale {hc} {vc}")
                    for hc, vc in itertools.product((False, True), repeat=2)]
+            ok3 = same(hk.hscale_u8(y, hr), hk.hscale_u8_plain(y, hr),
+                       "hscale_u8")
+            okf = []
+            if h % 2 == 0 and w % 2 == 0:
+                c2 = plane(ch, cw)
+                for hc in (False, True):
+                    okf += [same(k, p, f"fused_i420_up_hscale {hc} out {i}")
+                            for i, (k, p) in enumerate(zip(
+                                fk.fused_i420_up_hscale(y, c, c2, hr, hc),
+                                fk.fused_i420_up_hscale_plain(y, c, c2, hr,
+                                                              hc)))]
             torch.cuda.synchronize()
             print(f"check {(b, h, w)} -> {(oh, ow)} {method}/{taps} skew "
-                  f"{skew}: yscale {ok}, scale_hv {ok2}, chroma {oks}")
-            good = good and ok and ok2 and all(oks)
+                  f"{skew}: yscale {ok}, scale_hv {ok2}, chroma {oks}, "
+                  f"hscale {ok3}, fused {okf}")
+            good = good and ok and ok2 and ok3 and all(oks) and all(okf)
     if not good:
         raise SystemExit("kernel differs from its plain version")
 
@@ -142,11 +170,46 @@ def sweep(rng, dev):
                       + f"; plane tile {p.tile_rows} stages {p.stages} smem "
                       f"{p.smem}; chroma tile {pc.tile_rows} stages "
                       f"{pc.stages} smem {pc.smem}")
+    sp.MAX_TILE_ROWS, sp.STAGES, sp.SMEM_TARGET = VARIANTS[0]
+
+
+def sweep_h(rng, dev):
+    """hscale_u8 and fused_i420_up_hscale under H_VARIANTS, twice over, in
+    turns, so that a drift of the card shows."""
+    import torch
+    from gstreamer_tpu_torch.ops import _scale2pass as sp
+    from gstreamer_tpu_torch.ops import convert_kernel as fk
+    from gstreamer_tpu_torch.ops import hscale_kernel as hk
+    w, h, ow, oh = 1920, 1080, 224, 224
+    y, u, v = (torch.as_tensor(rng.integers(0, 256, shape, dtype="uint8")
+                               ).to(dev)
+               for shape in ((256, h, w), (256, h // 2, w // 2),
+                             (256, h // 2, w // 2)))
+    for variant in H_VARIANTS * 2:
+        (sp.H_STAGES, sp.H_BLOCKS_PER_SM, sp.HSCALE_WAVES, sp.FUSED_WAVES,
+         sp.MIN_RUN) = variant
+        for method, taps in (("linear", 2), ("cubic", 0)):
+            hr, _ = resamplers(method, taps, w, h, ow, oh)
+            p, pf = sp.hplan(hr, 12), sp.hplan(hr, 12, fused=True)
+            for n in (256, 64):
+                ms = dict(
+                    hscale=cuda_ms(lambda: hk.hscale_u8(y[:n], hr)),
+                    fused=cuda_ms(lambda: fk.fused_i420_up_hscale(
+                        y[:n], u[:n], v[:n], hr, False)))
+                print(f"time h-only {variant}: {method}/{hr.max_taps} batch "
+                      f"{n}: " + ", ".join(f"{k} {t:.4f} ms"
+                                           for k, t in ms.items())
+                      + f"; hscale stages {p.stages} smem {p.smem} blocks/SM "
+                      f"{p.blocks_per_sm}; fused stages {pf.stages} smem "
+                      f"{pf.smem} blocks/SM {pf.blocks_per_sm}")
+    (sp.H_STAGES, sp.H_BLOCKS_PER_SM, sp.HSCALE_WAVES, sp.FUSED_WAVES,
+     sp.MIN_RUN) = H_VARIANTS[0]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--h-only", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import numpy as np
@@ -155,7 +218,7 @@ def main() -> int:
         print("sweep_scale2pass: needs a CUDA card", file=sys.stderr)
         return 2
     from gstreamer_tpu_torch.ops import _build
-    names = ("yscale", "scale2d", "chroma420")
+    names = ("yscale", "scale2d", "chroma420", "hscale", "fused_ingest")
     _build.build(names)
     for src in names:
         for line in (_build.BUILD_DIR / f"{src}.log").read_text().splitlines():
@@ -165,7 +228,9 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     check(rng, dev)
     if not args.check_only:
-        sweep(rng, dev)
+        if not args.h_only:
+            sweep(rng, dev)
+        sweep_h(rng, dev)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
