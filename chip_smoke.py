@@ -46,6 +46,20 @@ before it and read just after:
                              224x224 ! appsink (snow generated on the card)
   quickstart_fused           the same with GTPU_PALLAS=1: fused-ingest kernel
 
+4. generic_routes: the converter's other routes at full width (GENERIC
+   below): NV12 ingest with and without the fused-ingest kernel, an SD -> HD
+   upscale, a same-size I420 -> BGRA, RGB -> I420 for an encoder, 10-bit
+   P010 -> 8-bit RGB, RGB16 out with the default bayer dither and with a
+   serial one (floyd-steinberg: the scale kernels still launch), gamma remap
+   with a primaries change, interlaced scaling, and the launched
+   videoconvertscale with element defaults over an NV12 videotestsrc.  The
+   card's bytes must equal the numpy gold and the port's CPU path on the
+   first 2 frames;
+
+5. the switches: linear2 and cubic again at batch 64 under
+   GTPU_PALLAS_YSCALE=0 and GTPU_PALLAS_CHROMA=0: the same bytes, and no
+   launch of the kernel switched off.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -93,18 +107,24 @@ def require(ok: bool, what: str) -> None:
 
 
 @contextlib.contextmanager
-def opt_in(on: bool = True):
-    """GTPU_PALLAS=1 (the converter's fused-ingest route) inside the block
-    only; the variable is read at every convert()."""
-    old = os.environ.pop("GTPU_PALLAS", None)
-    if on:
-        os.environ["GTPU_PALLAS"] = "1"
+def switches(**env):
+    """The converter's GTPU_PALLAS* switches set inside the block only (a
+    value of None unsets one); they are read at every convert()."""
+    old = {k: os.environ.pop(k, None) for k in env}
+    os.environ.update({k: v for k, v in env.items() if v is not None})
     try:
         yield
     finally:
-        os.environ.pop("GTPU_PALLAS", None)
-        if old is not None:
-            os.environ["GTPU_PALLAS"] = old
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def opt_in(on: bool = True):
+    """GTPU_PALLAS=1 (the converter's fused-ingest route) inside the block
+    only."""
+    return switches(GTPU_PALLAS="1" if on else None)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -553,7 +573,7 @@ def balance_gold(pipe, deinterlaced):
     return ty[y], tu[u, v], tv[u, v]
 
 
-def launch_paths(planes, host, counters):
+def launch_paths(planes, host, counters, table=None):
     """Drive every launch path on the card with the counts zeroed just
     before it and read just after; check its outputs against the same
     launch string run by the port on the CPU over the first input frames,
@@ -563,7 +583,7 @@ def launch_paths(planes, host, counters):
     import torch
     from gstreamer_tpu_torch.ops import deint_kernel as dk
     res = {}
-    for name, (desc, batch, ticks, fused) in LAUNCH.items():
+    for name, (desc, batch, ticks, fused) in (table or LAUNCH).items():
         ins = tuple(p[:batch] for p in planes)
         with opt_in(fused):
             torch.cuda.reset_peak_memory_stats()
@@ -603,6 +623,10 @@ def launch_paths(planes, host, counters):
                     and counts["fused_i420_up_hscale"] == 0,
                     f"{name}: want the yscale kernel and no fused-ingest "
                     f"launch, got {counts}")
+        elif name == "launch_small_default":
+            require(not any(counts.values()) and pipe._fused,
+                    f"{name}: want the phase-split route in one fused "
+                    f"program and no kernel, got {counts}")
         elif name == "quickstart_fused":
             require(counts["fused_i420_up_hscale"] == ticks
                     and counts["yscale_hv"] == 0,
@@ -619,6 +643,222 @@ def launch_paths(planes, host, counters):
               f"memory {peak / 2**30:.2f} GiB; CUDA == port CPU ({n} "
               f"frames)")
     return res
+
+
+# -- the converter's other routes, at full width --------------------------------
+
+BT709 = ("16-235", "bt709", "bt709", "bt709")
+LINEAR2 = {"resampler-method": "linear", "resampler-taps": 2}
+# name: input (format, size, VideoInfo arguments), output, batch, config,
+# whether GTPU_PALLAS=1 is set, and the plan entries the route must show
+GENERIC = {
+    "nv12_ingest": dict(
+        src=("NV12", (W, H), {}), dst=("RGB", (OW, OH), {}), batch=256,
+        cfg=LINEAR2, want={"scale_order": "hv", "scale_before_matrix": True},
+        launches={}),
+    "nv12_fused": dict(
+        src=("NV12", (W, H), {}), dst=("RGB", (OW, OH), {}), batch=256,
+        cfg=LINEAR2, fused=True, want={"pallas_ok": True},
+        launches={"fused_i420_up_hscale": 1}),
+    "upscale": dict(
+        src=("I420", (640, 360), {}), dst=("RGB", (W, H), {}), batch=32,
+        cfg=None, want={"scale_before_matrix": False, "upsample": True},
+        launches={}),
+    "same_size": dict(
+        src=("I420", (W, H), {}), dst=("BGRA", (W, H), {}), batch=32,
+        cfg=None, want={"h_res": None, "v_res": None, "upsample": True},
+        launches={}),
+    "encode_side": dict(
+        src=("RGB", (W, H), {}), dst=("I420", (1280, 720), {}), batch=32,
+        cfg=None, want={"scale_before_matrix": True, "upsample": False,
+                        "downsample": True}, launches={}),
+    "hdr_ingest": dict(
+        src=("P010_10LE", (W, H), {}), dst=("RGB", (OW, OH), {}), batch=64,
+        cfg=LINEAR2, want={"unpack_bits": 16, "pack_bits": 8, "dither": None},
+        launches={}),
+    "rgb16_out": dict(
+        src=("I420", (W, H), {}), dst=("RGB16", (640, 360), {}), batch=32,
+        cfg=None, want={"pack_bits": 8},
+        launches={"yscale_hv": 1, "chroma420_scale": 2}),
+    # a serial dither: only the planes at the dither step visit the host, so
+    # the route's kernels launch as they do for rgb16_out (timed once: the
+    # dither is a Python loop over pixels)
+    "rgb16_serial": dict(
+        src=("I420", (W, H), {}), dst=("RGB16", (640, 360), {}),
+        batch=CPU_FRAMES, cfg={"dither-method": "floyd-steinberg"},
+        want={"pack_bits": 8}, timing=(1, 0),
+        launches={"yscale_hv": 1, "chroma420_scale": 2}),
+    "gamma_remap": dict(
+        src=("I420", (W, H), {"colorimetry": BT709}),
+        dst=("RGB", (640, 360),
+             {"colorimetry": ("0-255", "rgb", "srgb", "bt2020")}),
+        batch=16, cfg={"gamma-mode": "remap", "primaries-mode": "fast"},
+        want={"do_gamma": True}, launches={}),
+    "interlaced": dict(
+        src=("I420", (W, H), {"interlace_mode": "interleaved"}),
+        dst=("I420", (1280, 720), {"interlace_mode": "interleaved"}),
+        batch=16, cfg=None, want={"interlaced": True, "downsample": True},
+        launches={}),
+}
+GENERIC_LAUNCH = {
+    "launch_small_default": (
+        "videotestsrc num-buffers={n} ! video/x-raw,format=NV12,width={w},"
+        "height={h},framerate=30/1 ! videoconvertscale ! video/x-raw,"
+        "format=RGB,width=224,height=224 ! appsink name=out", 64, 3, False),
+}
+
+
+def generic_converter(name, device=None):
+    from gstreamer_tpu_torch import VideoConverter, VideoInfo
+    from gstreamer_tpu_torch.video.info import Colorimetry
+    g = GENERIC[name]
+
+    def info(fmt, size, kw):
+        kw = dict(kw)
+        if "colorimetry" in kw:
+            kw["colorimetry"] = Colorimetry(*kw["colorimetry"])
+        return VideoInfo(format=fmt, width=size[0], height=size[1], **kw)
+    return VideoConverter(info(*g["src"]), info(*g["dst"]), g["cfg"],
+                          device=device)
+
+
+def generic_inputs(name, host, batch):
+    """Host planes of `batch` input frames of a GENERIC configuration, cut
+    from the seeded 1080p I420 batch `host`: NV12's component planes are
+    I420's; a smaller I420 frame is the top-left corner; RGB takes three
+    runs of luma frames; P010 builds 10-bit samples from two frames' bytes,
+    left-justified in their 16-bit words."""
+    import numpy as np
+    fmt, (w, h), _ = GENERIC[name]["src"]
+    y, u, v = host
+    if fmt in ("I420", "NV12"):
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        out = (y[:batch, :h, :w], u[:batch, :ch, :cw], v[:batch, :ch, :cw])
+    elif fmt == "RGB":
+        out = tuple(y[i * batch:(i + 1) * batch] for i in range(3))
+    elif fmt == "P010_10LE":
+        out = tuple(((p[:batch].astype(np.uint16) << 2
+                      | (p[batch:2 * batch] & 3)) << 6) for p in host)
+    else:
+        raise ValueError(fmt)
+    require(all(len(p) == batch for p in out),
+            f"{name}: the seeded batch is too small for {batch} frames")
+    return tuple(np.ascontiguousarray(p) for p in out)
+
+
+def generic_routes(host, counters):
+    """Drive every GENERIC configuration on the card through
+    VideoConverter.convert, with the launch counts zeroed just before and
+    read just after; require the route the plan must take, the launches it
+    must make, and the card's bytes equal to the numpy gold and to the
+    port's CPU path on the first frames; then time it.  A batch that does
+    not fit the card's memory is halved, and the printed line says so.
+    Returns {name: launch counts}."""
+    import numpy as np
+    import torch
+    res, outs = {}, {}
+    for name, g in GENERIC.items():
+        conv = generic_converter(name)
+        for key, val in g["want"].items():
+            require(conv.plan[key] == val if val is not None
+                    else conv.plan[key] is None,
+                    f"{name}: plan[{key!r}] is {conv.plan[key]!r}")
+        batch, note = g["batch"], ""
+        while True:
+            ins = generic_inputs(name, host, batch)
+            dev = tuple(torch.as_tensor(p).to(conv.device) for p in ins)
+            try:
+                with opt_in(g.get("fused", False)):
+                    for c in counters.values():
+                        c.launches = 0
+                    out = conv.convert(dev)
+                    torch.cuda.synchronize()
+                    counts = {k: c.launches for k, c in counters.items()
+                              if c.launches}
+                    ms = cuda_ms(lambda: conv.convert(dev),
+                                 *g.get("timing", (3, 1)))
+                break
+            except torch.cuda.OutOfMemoryError:
+                require(batch > CPU_FRAMES, f"{name}: out of device memory "
+                        f"at batch {batch}")
+                del dev
+                torch.cuda.empty_cache()
+                batch //= 2
+                note = f" (batch halved from {g['batch']}: out of memory)"
+        require(counts == g["launches"],
+                f"{name}: launches {counts}, want {g['launches']}")
+        first = tuple(p[:CPU_FRAMES] for p in ins)
+        with opt_in(g.get("fused", False)):
+            cpu = generic_converter(name, "cpu").convert(first)
+        gold = conv.convert_ref(first)
+        shapes = conv.out_info.plane_shapes()
+        want = torch.uint16 if conv.out_info.finfo.bits == 16 else torch.uint8
+        require(len(out) == len(shapes), f"{name}: {len(out)} planes")
+        for o, c, gd, shape in zip(out, cpu, gold, shapes):
+            require(o.device.type == "cuda" and o.dtype == want
+                    and tuple(o.shape) == (batch,) + shape,
+                    f"{name}: bad output {o.dtype} {tuple(o.shape)}")
+            require(torch.equal(o[:CPU_FRAMES].cpu(), c),
+                    f"{name}: CUDA output differs from the port's CPU path")
+            require(np.array_equal(o[:CPU_FRAMES].cpu().numpy(), gd),
+                    f"{name}: CUDA output differs from the numpy gold")
+        if name == "same_size":
+            require(int(out[3].min()) == 255, "same_size: alpha not opaque")
+        if name == "rgb16_out":
+            require(conv.plan["dither"].method == "bayer"
+                    and all(int(o.max()) <= m
+                            for o, m in zip(out, (31, 63, 31))),
+                    "rgb16_out: not dithered and stored at 5/6/5 bits")
+        if name == "rgb16_serial":
+            require(conv.plan["dither"].method == "floyd-steinberg"
+                    and any(not torch.equal(o, b[:batch]) for o, b
+                            in zip(outs["rgb16_out"], out)),
+                    "rgb16_serial: the bytes of the bayer dither")
+        outs[name] = tuple(o[:CPU_FRAMES].clone() for o in out)
+        res[name] = counts
+        print(f"generic {name}: {g['src'][0]} {g['src'][1]} -> {g['dst'][0]} "
+              f"{g['dst'][1]}, launches {counts}; CUDA == port CPU path == "
+              f"numpy gold ({CPU_FRAMES} frames)")
+        print(f"e2e {name}: {ms:.3f} ms per batch of {batch}{note}, "
+              f"{batch / ms * 1e3:.1f} frames/s")
+        del out, dev
+        torch.cuda.empty_cache()
+    for a, b in zip(outs["nv12_fused"], outs["nv12_ingest"]):
+        require(torch.equal(a, b),
+                "nv12_fused: output differs from nv12_ingest's bytes")
+    return res
+
+
+def switched_off(convs, planes, counters):
+    """linear2 and cubic at the launch paths' batch under
+    GTPU_PALLAS_YSCALE=0 and under GTPU_PALLAS_CHROMA=0: the bytes of the
+    run with no switch set, and no launch of the kernel switched off.
+    Returns the launch counts summed over the runs."""
+    import torch
+    ins = tuple(p[:DEINT_BATCH] for p in planes)
+    total = {k: 0 for k in counters}
+    for cfg in ("linear2", "cubic"):
+        base = convs[cfg].convert(ins)
+        for var, off in (("GTPU_PALLAS_YSCALE", "yscale_hv"),
+                         ("GTPU_PALLAS_CHROMA", "chroma420_scale")):
+            with switches(**{var: "0"}):
+                for c in counters.values():
+                    c.launches = 0
+                out = convs[cfg].convert(ins)
+                torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            require(counts[off] == 0,
+                    f"{cfg} under {var}=0: {off} launched {counts[off]} times")
+            for o, r in zip(out, base):
+                require(torch.equal(o, r),
+                        f"{cfg} under {var}=0: bytes differ from the run "
+                        f"with no switch set")
+            for k, n in counts.items():
+                total[k] += n
+            print(f"switch {var}=0, {cfg}, batch {DEINT_BATCH}: launches "
+                  f"{ {k: n for k, n in counts.items() if n} }; the same "
+                  f"bytes as with no switch set")
+    return total
 
 
 def main() -> int:
@@ -859,6 +1099,22 @@ def main() -> int:
               f"{r['frames'][1:]} frames out, "
               f"{[round(s * 1e3, 3) for s in r['secs']]} ms per tick, host "
               f"clock between synchronises; tick 1 includes first calls)")
+    del paths
+
+    # -- the generic routes and the switches -----------------------------------
+    for counts in generic_routes(host, counters).values():
+        for k, n in counts.items():
+            launches[k] += n
+    for pname, r in launch_paths(planes, host, counters,
+                                 GENERIC_LAUNCH).items():
+        for k in launches:
+            launches[k] += r["counts"][k]
+        print(f"e2e {pname}: {r['fps']:.1f} output frames/s over ticks 2.."
+              f"{r['ticks']} (batch {r['batch']}, "
+              f"{[round(s * 1e3, 3) for s in r['secs']]} ms per tick, host "
+              f"clock between synchronises)")
+    for k, n in switched_off(convs, planes, counters).items():
+        launches[k] += n
     print(f"main path launches, all paths: {launches}")
 
     smi = subprocess.run(

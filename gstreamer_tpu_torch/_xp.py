@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 _TORCH_DTYPES = {
-    "uint8": torch.uint8, "int16": torch.int16, "int32": torch.int32,
+    "uint8": torch.uint8, "uint16": torch.uint16, "int16": torch.int16, "int32": torch.int32,
     "int64": torch.int64, "float32": torch.float32, "float64": torch.float64,
 }
 

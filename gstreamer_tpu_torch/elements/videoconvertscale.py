@@ -129,6 +129,7 @@ class _ConvertScaleBase(TransformElement):
             "resampler-taps": taps,
             "chroma-mode": self.props["chroma-mode"],
             "matrix-mode": self.props["matrix-mode"],
+            "dither-method": self.props["dither"],
         }
         if method_name in CUBIC_BC:
             b, c = CUBIC_BC[method_name]

@@ -1,8 +1,11 @@
 """Carry state across packages as plain data: converter plans, caps.
 
 A VideoConverter's "weights" are its plan: the resamplers' offsets and S16
-taps, the prepared color matrix, the chroma siting and whether the plan is
-eligible for the fused-ingest route (``pallas_ok``).  ``plan_arrays``
+taps, the prepared color matrices (the main one and the gamma chain's
+``to_rgb`` / ``to_yuv``), the gamma LUTs, the dither's parameters, the
+chroma siting and the flags that pick the route (``scale_order``,
+``interlaced``, ``pallas_ok``, ...).  An entry that is None in the plan has
+no key in the dict.  ``plan_arrays``
 flattens a plan into a dict of numpy arrays; it reads only attributes, so it
 accepts the JAX package's plan as well as this package's.
 ``plan_from_reference`` rebuilds this package's plan objects from such a
@@ -18,10 +21,14 @@ from typing import Dict
 import numpy as np
 
 from .video.color import PreparedMatrix
+from .video.dither import VideoDither
 from .video.scaler import SCALE_U8, Resampler
 
 _FLAGS = ("up_h_cosited", "up_v_cosited", "down_h_cosited", "down_v_cosited",
-          "pallas_ok")
+          "pallas_ok", "interlaced", "do_gamma", "scale_before_matrix",
+          "upsample", "downsample")
+_MATRICES = ("matrix", "to_rgb", "to_yuv")
+_TABLES = ("gamma_dec", "gamma_enc")
 
 
 def plan_arrays(plan) -> Dict[str, np.ndarray]:
@@ -34,16 +41,30 @@ def plan_arrays(plan) -> Dict[str, np.ndarray]:
         out[f"{key}.in_size"] = np.asarray(res.in_size, np.int64)
         out[f"{key}.offset"] = np.asarray(res.offset, np.int64)
         out[f"{key}.taps_s16"] = np.asarray(res.taps_s16(SCALE_U8), np.int16)
-    out["matrix.im"] = np.asarray(plan["matrix"].im, np.int64)
-    out["matrix.mode"] = np.asarray(plan["matrix"].mode)
+    for key in _MATRICES:
+        pm = plan.get(key)
+        if pm is not None:
+            out[f"{key}.im"] = np.asarray(pm.im, np.int64)
+            out[f"{key}.mode"] = np.asarray(pm.mode)
+    for key in _TABLES:
+        if plan.get(key) is not None:
+            out[key] = np.asarray(plan[key])
     for flag in _FLAGS:
         out[flag] = np.asarray(bool(plan[flag]))
+    out["scale_order"] = np.asarray(plan["scale_order"])
+    d = plan["dither"]
+    if d is not None:
+        out["dither.method"] = np.asarray(d.method)
+        out["dither.flags_quantize"] = np.asarray(bool(d.flags_quantize))
+        out["dither.bits"] = np.asarray(d.bits, np.int64)
+        out["dither.shift"] = np.asarray(d.shift, np.int64)
     return out
 
 
 def plan_from_reference(arrays: Dict[str, np.ndarray]) -> dict:
     """{name: numpy array} (see plan_arrays) -> this package's plan
-    entries: Resampler objects, a PreparedMatrix and the flags."""
+    entries: Resampler, PreparedMatrix and VideoDither objects, the gamma
+    tables and the flags."""
     plan: dict = {}
     for key in ("h_res", "v_res"):
         if f"{key}.offset" not in arrays:
@@ -58,10 +79,23 @@ def plan_from_reference(arrays: Dict[str, np.ndarray]) -> dict:
             in_size=int(arrays[f"{key}.in_size"]), out_size=taps.shape[0],
             max_taps=taps.shape[1], offset=offset,
             taps=taps.astype(np.float64) / (1 << SCALE_U8), _taps_s16=taps)
-    plan["matrix"] = PreparedMatrix(str(arrays["matrix.mode"]),
-                                    np.asarray(arrays["matrix.im"], np.int64))
+    for key in _MATRICES:
+        plan[key] = (PreparedMatrix(str(arrays[f"{key}.mode"]),
+                                    np.asarray(arrays[f"{key}.im"], np.int64))
+                     if f"{key}.im" in arrays else None)
+    for key in _TABLES:
+        plan[key] = np.asarray(arrays[key]) if key in arrays else None
     for flag in _FLAGS:
         plan[flag] = bool(arrays[flag])
+    plan["scale_order"] = str(arrays["scale_order"])
+    plan["dither"] = None
+    if "dither.method" in arrays:
+        shift = [int(x) for x in arrays["dither.shift"]]
+        # a quantizer of 1 << shift gives the dither back its shift
+        plan["dither"] = VideoDither(
+            str(arrays["dither.method"]),
+            bool(arrays["dither.flags_quantize"]),
+            int(arrays["dither.bits"]), [1 << x for x in shift])
     return plan
 
 

@@ -11,6 +11,7 @@ video_converter_matrix16) over channel planes, under numpy or torch.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -372,3 +373,130 @@ def apply_prepared_planes(xp, chans, pm: PreparedMatrix):
     if pm.mode == "table":
         return apply_matrix8_table_planes(xp, chans, pm)
     return apply_matrix8_planes(xp, chans, pm)
+
+
+# ---------------------------------------------------------------------------
+# Transfer functions and gamma LUTs (video-color.c).  The tables are host
+# float64 math; on the device a LUT is an index into a constant tensor.
+# ---------------------------------------------------------------------------
+
+def transfer_decode(func: str, val: float) -> float:
+    """gst_video_transfer_function_decode (video-color.c:628): non-linear
+    L' -> linear L."""
+    v = val
+    if func in ("gamma18",):
+        return v ** 1.8
+    if func in ("gamma20",):
+        return v ** 2.0
+    if func in ("gamma22",):
+        return v ** 2.2
+    if func in ("bt601", "bt709", "bt2020-10"):
+        return v / 4.5 if v < 0.081 else ((v + 0.099) / 1.099) ** (1.0 / 0.45)
+    if func == "smpte240m":
+        return v / 4.0 if v < 0.0913 else ((v + 0.1115) / 1.1115) ** (1.0 / 0.45)
+    if func == "srgb":
+        return v / 12.92 if v <= 0.04045 else ((v + 0.055) / 1.055) ** 2.4
+    if func == "gamma28":
+        return v ** 2.8
+    if func == "log100":
+        return 0.0 if v == 0.0 else 10.0 ** (2.0 * (v - 1.0))
+    if func == "log316":
+        return 0.0 if v == 0.0 else 10.0 ** (2.5 * (v - 1.0))
+    if func == "bt2020-12":
+        return v / 4.5 if v < 0.08145 else ((v + 0.0993) / 1.0993) ** (1.0 / 0.45)
+    if func == "adobergb":
+        return v ** 2.19921875
+    if func == "smpte2084":
+        c1, c2, c3 = 0.8359375, 18.8515625, 18.6875
+        m1, m2 = 0.1593017578125, 78.84375
+        tmp = v ** (1 / m2)
+        tmp2 = max(tmp - c1, 0.0)
+        return (tmp2 / (c2 - c3 * tmp)) ** (1 / m1)
+    if func == "arib-std-b67":
+        a, b, c = 0.17883277, 0.28466892, 0.55991073
+        if v > 0.5:
+            return (math.exp((v - c) / a) + b) / 12.0
+        return v * v / 3.0
+    return v   # unknown / gamma10
+
+
+def transfer_encode(func: str, val: float) -> float:
+    """gst_video_transfer_function_encode (video-color.c:495)."""
+    v = val
+    if func == "gamma18":
+        return v ** (1.0 / 1.8)
+    if func == "gamma20":
+        return v ** (1.0 / 2.0)
+    if func == "gamma22":
+        return v ** (1.0 / 2.2)
+    if func in ("bt601", "bt709", "bt2020-10"):
+        return 4.5 * v if v < 0.018 else 1.099 * v ** 0.45 - 0.099
+    if func == "smpte240m":
+        return v * 4.0 if v < 0.0228 else 1.1115 * v ** 0.45 - 0.1115
+    if func == "srgb":
+        return 12.92 * v if v <= 0.0031308 else 1.055 * v ** (1.0 / 2.4) - 0.055
+    if func == "gamma28":
+        return v ** (1 / 2.8)
+    if func == "log100":
+        return 0.0 if v < 0.01 else 1.0 + math.log10(v) / 2.0
+    if func == "log316":
+        return 0.0 if v < 0.0031622777 else 1.0 + math.log10(v) / 2.5
+    if func == "bt2020-12":
+        return 4.5 * v if v < 0.0181 else 1.0993 * v ** 0.45 - 0.0993
+    if func == "adobergb":
+        return v ** (1.0 / 2.19921875)
+    if func == "smpte2084":
+        c1, c2, c3 = 0.8359375, 18.8515625, 18.6875
+        m1, m2 = 0.1593017578125, 78.84375
+        Ln = v ** m1
+        return ((c1 + c2 * Ln) / (1.0 + c3 * Ln)) ** m2
+    if func == "arib-std-b67":
+        a, b, c = 0.17883277, 0.28466892, 0.55991073
+        if v > (1.0 / 12.0):
+            return a * math.log(12.0 * v - b) + c
+        return math.sqrt(3.0 * v)
+    return v
+
+
+def gamma_decode_table(transfer: str, bits: int) -> np.ndarray:
+    """setup_gamma_decode (video-converter.c:1496): u16 LUT, rint
+    rounding."""
+    n = 256 if bits == 8 else 65536
+    mx = n - 1
+    t = np.array([transfer_decode(transfer, i / mx) * 65535.0
+                  for i in range(n)])
+    return np.rint(t).astype(np.uint16)
+
+
+def gamma_encode_table(transfer: str, target_bits: int) -> np.ndarray:
+    """setup_gamma_encode (video-converter.c:1533): 65536-entry LUT."""
+    mx = 255.0 if target_bits == 8 else 65535.0
+    t = np.array([transfer_encode(transfer, i / 65535.0) * mx
+                  for i in range(65536)])
+    t = np.rint(t)
+    return t.astype(np.uint8 if target_bits == 8 else np.uint16)
+
+
+def _lut_planes(xp, chans, table: np.ndarray, alpha):
+    like = next(c for c in chans[1:] if c is not None)
+    tab = _xp.const(xp, table, "int32", like)
+    return (alpha,) + tuple(tab[_xp.astype(xp, c, "int64")]
+                            for c in chans[1:])
+
+
+def apply_gamma_decode_planes(xp, chans, table: np.ndarray, in_bits: int):
+    """gamma_convert_u8_u16 / u16_u16 (video-converter.c:1445,1480):
+    alpha widened by byte-replication, colors through the LUT."""
+    a = chans[0]
+    if a is not None and in_bits == 8:
+        a = _xp.astype(xp, a, "int32")
+        a = (a << 8) | a
+    return _lut_planes(xp, chans, table, a)
+
+
+def apply_gamma_encode_planes(xp, chans, table: np.ndarray, target_bits: int):
+    """gamma_convert_u16_u8 / u16_u16: alpha narrowed by >>8."""
+    a = chans[0]
+    if a is not None and target_bits == 8:
+        a = _xp.astype(xp, a, "int32") >> 8
+    return _lut_planes(xp, chans, table, a)

@@ -6,23 +6,36 @@ host planning.  Execution runs one pipeline under two array modules: torch
 on the converter's device (``convert``) and numpy on the host
 (``convert_ref``, the gold the port checks itself against).
 
-This slice ports the routes of the 4:2:x downscale in "hv" order:
+It accepts every (format, size, config) the reference accepts and returns
+the same bytes, by the reference's routes:
 
+* the generic pipeline: unpack -> chroma upsample -> scale (before or after
+  the matrix, "hv" or "vh" by pixel count) -> color matrix or the gamma
+  remap chain (to R'G'B', decode LUT, primaries in linear light, encode
+  LUT, to Y'CbCr) -> chroma downsample -> dither -> dest-rect embed ->
+  pack.  Plain torch: the reference computes it in plain XLA outside any
+  kernel.  Interlaced frames take field-aware vertical filters.
+* ``_pipeline_phase_split``: 4:2:x upsample + downscale in "hv" order with
+  the chroma phases kept apart (no kernel).
 * ``_pipeline_chroma_kernel``: luma through the yscale CUDA kernel; chroma
   through the 2-tap static gather (plain torch) or the chroma420 CUDA
   kernel.  The torch path takes it wherever the reference takes it on a
   TPU; the reference's TPU gates (VMEM budget, (8, 128) tiling, backend
   checks) are tiling limits and do not apply here.
-* ``_pipeline_phase_split`` with ``_finish``'s dest-rect embed and border
-  fill (the launched element's add-borders case; no kernel).
-* ``_pipeline_pallas``: the reference's opt-in fused-ingest route
-  (environment variable ``GTPU_PALLAS``, off unless set).  One CUDA kernel
-  does unpack + chroma up2 H + chroma up2 V + h-scale; the v-scale, the
-  matrix and the pack stay plain torch, as they are plain XLA in the
-  reference.
+* ``_pipeline_pallas``: the reference's opt-in fused-ingest route.  One
+  CUDA kernel does unpack + chroma up2 H + chroma up2 V + h-scale; the
+  v-scale, the matrix and the pack stay plain torch, as they are plain XLA
+  in the reference.
 
-Every other route (the generic line pipeline, gamma remap, interlaced
-scaling, dither) raises NotImplementedError: those are later slices.
+Three environment switches, under the reference's names and defaults, are
+read at every ``convert``: ``GTPU_PALLAS`` (off unless "1": the fused-ingest
+route), ``GTPU_PALLAS_YSCALE`` (on unless set to something other than "1":
+the yscale kernel; off computes luma with two plain scale passes) and
+``GTPU_PALLAS_CHROMA`` (on unless set to something other than "1": the
+chroma420 kernel; off sends a plan of more than 2 taps to the phase-split
+route).  They select a route and never hide a failure: with none set a CUDA
+tensor goes to the kernels, and a kernel that fails to build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ from . import chroma as chroma_mod
 from . import color as color_mod
 from . import scaler as scaler_mod
 from .dither import make_converter_dither
-from .format import check_supported, pack_planes, unpack_planes
+from .format import pack_planes, unpack_planes
 from .info import VideoInfo, chroma_site_h_cosited, chroma_site_v_cosited
 
 DEFAULTS = {
@@ -54,9 +67,6 @@ DEFAULTS = {
     "alpha-value": 1.0,
     "fill-border": True,
 }
-
-_LATER = "is ported in a later slice of the PyTorch port"
-
 
 class _UnpackFinfo:
     """Stands in for the UNPACK format's GstVideoFormatInfo when computing
@@ -154,16 +164,19 @@ class VideoConverter:
             # GST_VIDEO_RESAMPLER_OPT_MAX_TAPS semantics: a tap budget
             rkw["max_taps_opt"] = taps
             taps = 0
+        # interlaced frames get field-aware vertical filters
+        # (video-converter.c :3301 selects upsample_i/v_scaler_i when the
+        # frame is interlaced; keyed off the negotiated interlace-mode,
+        # since a whole batch shares one plan)
         plan["interlaced"] = ii.interlace_mode in ("interleaved", "mixed")
-        if plan["interlaced"]:
-            raise NotImplementedError(f"interlaced scaling {_LATER}")
         h_res = v_res = None
         if in_w != out_w:
             h_res = scaler_mod.make_resampler(method, in_w, out_w, taps,
                                               **rkw)
         if in_h != out_h:
-            v_res = scaler_mod.make_resampler(method, in_h, out_h, taps,
-                                              **rkw)
+            make_v = (scaler_mod.make_resampler_interlaced
+                      if plan["interlaced"] else scaler_mod.make_resampler)
+            v_res = make_v(method, in_h, out_h, taps, **rkw)
         s1 = out_w * in_h
         s2 = in_w * out_h
         plan["scale_order"] = "hv" if s1 <= s2 else "vh"
@@ -178,33 +191,67 @@ class VideoConverter:
         in_bits, out_bits = ifmt.bits, ofmt.bits
         plan["unpack_bits"], plan["pack_bits"] = in_bits, out_bits
 
-        plan["do_gamma"] = cfg.get("gamma-mode", "none") == "remap"
-        if plan["do_gamma"]:
-            raise NotImplementedError(f"gamma remap {_LATER}")
+        # gamma remap + primaries conversion (chain_convert_to_RGB :1566,
+        # chain_convert primaries block :1752, chain_convert_to_YUV :1955)
+        do_gamma = cfg.get("gamma-mode", "none") == "remap"
+        plan["do_gamma"] = do_gamma
         same_primaries = (
             cfg.get("primaries-mode", "none") == "none"
             or color_mod.primaries_is_equivalent(
                 ii.colorimetry.primaries, oi.colorimetry.primaries))
-        m = color_mod.identity()
+        conv = color_mod.identity()
         if not same_primaries:
-            m = color_mod.primaries_convert_matrix(
+            conv = color_mod.primaries_convert_matrix(
                 ii.colorimetry.primaries, oi.colorimetry.primaries)
-        if in_bits < out_bits:
-            s = 1 << (out_bits - in_bits)
-            m = color_mod.scale_components(
-                m, *(float(np.float32(1.0) / np.float32(s)),) * 3)
-        m = color_mod.compute_matrix_to_rgb(
-            m, ii.colorimetry, _UnpackFinfo(ifmt),
-            matrix_mode_none=(matrix_mode == "none"))
-        m = color_mod.compute_matrix_to_yuv(
-            m, oi.colorimetry, _UnpackFinfo(ofmt),
-            matrix_mode_none=(matrix_mode == "none"))
-        if in_bits > out_bits:
-            s = float(np.float32(1 << (in_bits - out_bits)))
-            m = color_mod.scale_components(m, s, s, s)
-        plan["matrix"] = color_mod.prepare_matrix(
-            m, unpack_rgb=ifmt.is_rgb, pack_rgb=ofmt.is_rgb,
-            bits=max(in_bits, out_bits))
+        mm_none = matrix_mode == "none"
+        plan["to_rgb"] = plan["to_yuv"] = None
+        plan["gamma_dec"] = plan["gamma_enc"] = None
+        if not do_gamma:
+            m = conv
+            if in_bits < out_bits:
+                s = 1 << (out_bits - in_bits)
+                m = color_mod.scale_components(
+                    m, *(float(np.float32(1.0) / np.float32(s)),) * 3)
+            m = color_mod.compute_matrix_to_rgb(
+                m, ii.colorimetry, _UnpackFinfo(ifmt),
+                matrix_mode_none=mm_none)
+            m = color_mod.compute_matrix_to_yuv(
+                m, oi.colorimetry, _UnpackFinfo(ofmt),
+                matrix_mode_none=mm_none)
+            if in_bits > out_bits:
+                s = float(np.float32(1 << (in_bits - out_bits)))
+                m = color_mod.scale_components(m, s, s, s)
+            plan["matrix"] = color_mod.prepare_matrix(
+                m, unpack_rgb=ifmt.is_rgb, pack_rgb=ofmt.is_rgb,
+                bits=max(in_bits, out_bits))
+        else:
+            # to-RGB matrix at unpack bits (only when the input is YUV)
+            if not ifmt.is_rgb:
+                m1 = color_mod.compute_matrix_to_rgb(
+                    color_mod.identity(), ii.colorimetry,
+                    _UnpackFinfo(ifmt), matrix_mode_none=mm_none)
+                s = float(1 << in_bits)
+                m1 = color_mod.scale_components(m1, s, s, s)
+                plan["to_rgb"] = color_mod.prepare_matrix(
+                    m1, unpack_rgb=False, pack_rgb=True, bits=in_bits)
+            plan["gamma_dec"] = color_mod.gamma_decode_table(
+                ii.colorimetry.transfer, in_bits)
+            # linear-light primaries conversion at 16 bits
+            plan["matrix"] = (color_mod.prepare_matrix(
+                conv, unpack_rgb=True, pack_rgb=True, bits=16)
+                if not same_primaries else None)
+            plan["gamma_enc"] = color_mod.gamma_encode_table(
+                oi.colorimetry.transfer, out_bits)
+            # to-YUV matrix at pack bits (only when the output is YUV)
+            if not ofmt.is_rgb:
+                s = 1.0 / float(1 << out_bits)
+                m2 = color_mod.scale_components(color_mod.identity(),
+                                                s, s, s)
+                m2 = color_mod.compute_matrix_to_yuv(
+                    m2, oi.colorimetry, _UnpackFinfo(ofmt),
+                    matrix_mode_none=mm_none)
+                plan["to_yuv"] = color_mod.prepare_matrix(
+                    m2, unpack_rgb=True, pack_rgb=False, bits=out_bits)
 
         # border color (setup_borderline :2188): ARGB (0xAARRGGBB) taken
         # to the output space; YUV via the 8-bit to-YUV 3x3 with hardcoded
@@ -240,7 +287,7 @@ class VideoConverter:
         else:
             plan["border"] = None
 
-        # dither plan (chain_dither :2034); a plan that dithers raises
+        # dither plan (chain_dither :2034)
         plan["dither"] = make_converter_dither(
             cfg["dither-method"], int(cfg.get("dither-quantization", 1)),
             ofmt, out_bits)
@@ -259,17 +306,23 @@ class VideoConverter:
 
     # -- execution ---------------------------------------------------------
     def _pipeline(self, xp, planes):
-        """planes (component arrays of in_info) -> planes of out_info, as
-        a tuple of per-channel planes (A, c0, c1, c2), each (..., H, W)."""
-        ii = self.in_info
-        ifmt = ii.finfo
+        """planes (component arrays of in_info) -> planes of out_info.
+        Inside, a frame is a tuple of per-channel planes (A, c0, c1, c2),
+        each (..., H, W)."""
+        ii, oi = self.in_info, self.out_info
+        ifmt, ofmt = ii.finfo, oi.finfo
         plan = self._plan
 
         if xp is not np and plan["pallas_ok"] and self._pallas_enabled():
             return self._pipeline_pallas(xp, planes)
 
+        # When upsampling 2x-subsampled chroma, unpack keeps the chroma
+        # planes at their stored resolution and up2_half produces the
+        # full-resolution plane directly.  Interlaced vertical up2 runs on
+        # the nearest-duplicated plane (4-line field groups) instead.
         sub_up = (plan["upsample"] and not ifmt.is_gray
-                  and ifmt.w_sub[1] <= 1 and ifmt.h_sub[1] <= 1)
+                  and ifmt.w_sub[1] <= 1 and ifmt.h_sub[1] <= 1
+                  and not (plan["interlaced"] and ifmt.h_sub[1] == 1))
         # Phase-split path: 4:2:x upsample + downscale in "hv" order.  The
         # full-width chroma plane is never materialized: up2 produces
         # even/odd phases at the stored resolution and the scales contract
@@ -278,7 +331,9 @@ class VideoConverter:
             sub_up and ifmt.w_sub[1] == 1
             and plan["scale_before_matrix"] and plan["scale_order"] == "hv"
             and plan["h_res"] is not None
-            and (plan["unpack_bits"] == 8 and not plan["do_gamma"]))
+            and (plan["unpack_bits"] == 8 and not plan["do_gamma"])
+            and not plan["interlaced"]
+            and not getattr(self, "_disable_phase_split", False))
         if (xp is not np and phase_split
                 and ifmt.h_sub[1] == 1 and plan["v_res"] is not None
                 and not plan["rect_active"]
@@ -289,17 +344,14 @@ class VideoConverter:
             from ..ops import chroma420_kernel as ck420
             cw = planes[1].shape[-1]
             chh = planes[1].shape[-2]
+            # the 2-tap gather is chosen before the chroma switch is read
             if ckg.applicable(plan["h_res"], plan["v_res"], cw, chh):
                 return self._pipeline_chroma_kernel(xp, planes,
                                                     use_gather=True)
-            if ck420.applicable(plan["h_res"], plan["v_res"], cw, chh):
+            if (self._chroma_kernel_on()
+                    and ck420.applicable(plan["h_res"], plan["v_res"],
+                                         cw, chh)):
                 return self._pipeline_chroma_kernel(xp, planes)
-        if not phase_split:
-            raise NotImplementedError(
-                f"{ii.format} {ii.width}x{ii.height} -> "
-                f"{self.out_info.format} {self.out_info.width}x"
-                f"{self.out_info.height}: the generic converter pipeline "
-                f"{_LATER}")
         in_x, in_y, in_w, in_h = plan["rect"][:4]
         if (in_x, in_y, in_w, in_h) != (0, 0, ii.width, ii.height):
             # SRC rect crop: offsets are chroma-aligned so per-component
@@ -310,32 +362,150 @@ class VideoConverter:
                 return p[..., in_y >> hs:(in_y + in_h + (1 << hs) - 1) >> hs,
                          in_x >> ws:(in_x + in_w + (1 << ws) - 1) >> ws]
             planes = tuple(crop(c, p) for c, p in enumerate(planes))
+        # int16 is wide enough for every 8-bit stage up to the matrix
+        # (values <= 255, chroma filter sums <= 2044); unpack_planes widens
+        # a 16-bit container to int32 itself
         chans = unpack_planes(xp, ifmt, planes, in_w, in_h, dtype="int16",
                               subsampled_chroma=sub_up)
-        if not ifmt.has_alpha and not self.out_info.finfo.has_alpha:
+        # the alpha plane is skipped when neither side carries alpha (it
+        # would be a constant all the way through)
+        if not ifmt.has_alpha and not ofmt.has_alpha:
             chans = (None,) + chans[1:]
-        return self._pipeline_phase_split(xp, chans)
 
-    def _matrix_and_downsample(self, xp, chans):
-        """Color matrix, then the output's chroma downsample (v, then h)."""
-        ofmt = self.out_info.finfo
+        if phase_split:
+            return self._pipeline_phase_split(xp, chans)
+
+        if plan["upsample"]:
+            chans = self._upsample(xp, chans, sub_up, in_w, in_h)
+
+        do_gamma = plan["do_gamma"]
+        if do_gamma:
+            # chain_convert_to_RGB: matrix to R'G'B' at unpack bits, then
+            # gamma decode through the LUT -> 16-bit linear ARGB64
+            if plan["to_rgb"] is not None:
+                chans = color_mod.apply_prepared_planes(xp, chans,
+                                                        plan["to_rgb"])
+            chans = color_mod.apply_gamma_decode_planes(
+                xp, chans, plan["gamma_dec"], plan["unpack_bits"])
+
+        if plan["scale_before_matrix"]:
+            chans = self._scale(xp, chans)
+
+        if do_gamma:
+            # chain_convert in linear light: only the (optional) primaries
+            # conversion matrix
+            if plan["matrix"] is not None:
+                chans = color_mod.apply_prepared_planes(xp, chans,
+                                                        plan["matrix"])
+        else:
+            chans = self._matrix(xp, chans)
+
+        if not plan["scale_before_matrix"]:
+            chans = self._scale(xp, chans)
+
+        if do_gamma:
+            # chain_convert_to_YUV: gamma encode to pack bits, then the
+            # to-YUV matrix
+            chans = color_mod.apply_gamma_encode_planes(
+                xp, chans, plan["gamma_enc"], plan["pack_bits"])
+            if plan["to_yuv"] is not None:
+                chans = color_mod.apply_prepared_planes(xp, chans,
+                                                        plan["to_yuv"])
+
+        return self._finish(xp, self._downsample(xp, chans))
+
+    def _upsample(self, xp, chans, sub_up: bool, in_w: int, in_h: int):
+        """Input chroma to full resolution: h first, then v
+        (MAKE_UPSAMPLE_V2 calls h_resample first)."""
+        ifmt = self.in_info.finfo
         plan = self._plan
-        if plan["unpack_bits"] == 8 and plan["pack_bits"] == 16:
+        hc, vc = plan["up_h_cosited"], plan["up_v_cosited"]
+        ws, hs = ifmt.w_sub[1], ifmt.h_sub[1]
+
+        def up(c):
+            if sub_up:
+                if ws == 1:
+                    c = chroma_mod.up2_half(xp, c, -1, hc, in_w)
+                if hs == 1:
+                    c = chroma_mod.up2_half(xp, c, -2, vc, in_h)
+                return c
+            if ws == 1:
+                c = chroma_mod.up2(xp, c, -1, hc)
+            elif ws == 2:
+                c = chroma_mod.up4(xp, c, -1, hc)
+            if hs == 1:
+                up_v = (chroma_mod.up2_interlaced if plan["interlaced"]
+                        else chroma_mod.up2)
+                c = up_v(xp, c, -2, vc)
+            elif hs == 2:
+                c = chroma_mod.up4(xp, c, -2, vc)
+            return c
+
+        a, y, u, v = chans
+        return (a, y, up(u), up(v))
+
+    def _scale(self, xp, chans):
+        """Both scale passes in the plan's order (chain_scale :1684), at 16
+        bits in linear light, else at the depth of the side of the matrix
+        they run on."""
+        plan = self._plan
+        bits = (16 if plan["do_gamma"]
+                else (plan["unpack_bits"] if plan["scale_before_matrix"]
+                      else plan["pack_bits"]))
+        passes = [(-1, plan["h_res"]), (-2, plan["v_res"])]
+        if plan["scale_order"] != "hv":
+            passes.reverse()
+        for axis, res in passes:
+            if res is not None:
+                chans = tuple(
+                    c if c is None else scaler_mod.scale_axis_exact(
+                        xp, c, axis, res, precision=scaler_mod.SCALE_U8,
+                        value_bits=bits)
+                    for c in chans)
+        return chans
+
+    def _matrix(self, xp, chans):
+        """The conversion stage (do_convert_lines): optional 8 -> 16
+        widening (v*257, video_orc_convert_u8_to_u16), the matrix, 16 -> 8
+        narrowing (>>8, video_orc_convert_u16_to_u8)."""
+        plan = self._plan
+        in_bits, out_bits = plan["unpack_bits"], plan["pack_bits"]
+        if in_bits == 8 and out_bits == 16:
             chans = tuple(c if c is None else _xp.astype(xp, c, "int32") * 257
                           for c in chans)
         chans = color_mod.apply_prepared_planes(xp, chans, plan["matrix"])
-        if plan["downsample"]:
-            if ofmt.h_sub[1] > 1 or ofmt.w_sub[1] > 1:
-                raise NotImplementedError(f"4x chroma downsample {_LATER}")
-            a, yy, uu, vv = chans
-            if ofmt.h_sub[1] == 1:
-                uu = chroma_mod.down2(xp, uu, -2, plan["down_v_cosited"])
-                vv = chroma_mod.down2(xp, vv, -2, plan["down_v_cosited"])
-            if ofmt.w_sub[1] == 1:
-                uu = chroma_mod.down2(xp, uu, -1, plan["down_h_cosited"])
-                vv = chroma_mod.down2(xp, vv, -1, plan["down_h_cosited"])
-            chans = (a, yy, uu, vv)
+        if in_bits == 16 and out_bits == 8:
+            chans = tuple(c if c is None else _xp.astype(xp, c, "int32") >> 8
+                          for c in chans)
         return chans
+
+    def _downsample(self, xp, chans):
+        """The output's chroma downsample: v first, then h
+        (MAKE_DOWNSAMPLE_V2 filters lines, then h)."""
+        ofmt = self.out_info.finfo
+        plan = self._plan
+        if not plan["downsample"]:
+            return chans
+        hc, vc = plan["down_h_cosited"], plan["down_v_cosited"]
+
+        def down(c):
+            if ofmt.h_sub[1] == 1:
+                dn_v = (chroma_mod.down2_interlaced if plan["interlaced"]
+                        else chroma_mod.down2)
+                c = dn_v(xp, c, -2, vc)
+            elif ofmt.h_sub[1] == 2:
+                c = chroma_mod.down4(xp, c, -2, vc)
+            if ofmt.w_sub[1] == 1:
+                c = chroma_mod.down2(xp, c, -1, hc)
+            elif ofmt.w_sub[1] == 2:
+                c = chroma_mod.down4(xp, c, -1, hc)
+            return c
+
+        a, y, u, v = chans
+        return (a, y, down(u), down(v))
+
+    def _matrix_and_downsample(self, xp, chans):
+        return self._downsample(xp, self._matrix(xp, chans))
 
     def _pipeline_phase_split(self, xp, chans):
         """4:2:x chroma upsampled as separate even/odd parity phases at
@@ -381,12 +551,13 @@ class VideoConverter:
         return self._finish(xp, self._matrix_and_downsample(xp, chans))
 
     def _finish(self, xp, chans):
-        """Dest-rect embed with border fill, then pack (a dithering plan
-        raised when the converter was made)."""
+        """Dither, dest-rect embed with border fill, then pack."""
         oi = self.out_info
         ofmt = oi.finfo
         plan = self._plan
         _, _, _, _, out_x, out_y, out_w, out_h = plan["rect"]
+        if plan["dither"] is not None:
+            chans = plan["dither"].apply(xp, chans, out_h, out_w)
 
         if plan["rect_active"]:
             border = plan["border"]
@@ -412,7 +583,8 @@ class VideoConverter:
 
     def _pipeline_chroma_kernel(self, xp, planes, use_gather: bool = False):
         """4:2:0 fast path: luma scales straight from the stored uint8
-        plane through the yscale kernel; chroma runs in the 2-tap
+        plane through the yscale kernel (two plain scale passes when
+        GTPU_PALLAS_YSCALE switches it off); chroma runs in the 2-tap
         static-gather formulation or through the chroma420 kernel.
         Bit-identical to _pipeline_phase_split."""
         from ..ops import chroma420_gather as ckg
@@ -424,8 +596,16 @@ class VideoConverter:
         h_res, v_res = plan["h_res"], plan["v_res"]
         # a source may hand out broadcast views; the kernels take dense planes
         planes = tuple(p.contiguous() for p in planes)
-        y = ysk.yscale_hv(planes[0], h_res, v_res,
-                          precision=scaler_mod.SCALE_U8)
+        if self._yscale_kernel_on():
+            y = ysk.yscale_hv(planes[0], h_res, v_res,
+                              precision=scaler_mod.SCALE_U8)
+        else:
+            y = scaler_mod.scale_axis_exact(
+                xp, planes[0], -1, h_res, precision=scaler_mod.SCALE_U8,
+                value_bits=8)
+            y = scaler_mod.scale_axis_exact(
+                xp, y, -2, v_res, precision=scaler_mod.SCALE_U8,
+                value_bits=8)
         if use_gather:
             u, v = (ckg.chroma420_scale_2tap(
                 xp, p, h_res, v_res, plan["up_h_cosited"],
@@ -436,6 +616,17 @@ class VideoConverter:
                 ii.width, ii.height) for p in planes[1:3])
         chans = (None, y, u, v)
         return self._finish(xp, self._matrix_and_downsample(xp, chans))
+
+    def _yscale_kernel_on(self) -> bool:
+        """GTPU_PALLAS_YSCALE gates the luma h+v kernel: on unless the
+        variable is set to something other than "1"."""
+        return os.environ.get("GTPU_PALLAS_YSCALE", "1") == "1"
+
+    def _chroma_kernel_on(self) -> bool:
+        """GTPU_PALLAS_CHROMA gates the chroma420 kernel: on unless the
+        variable is set to something other than "1" ("interpret", the
+        reference's CPU test mode, counts as "1" here)."""
+        return os.environ.get("GTPU_PALLAS_CHROMA", "1") in ("1", "interpret")
 
     def _pallas_enabled(self) -> bool:
         """The fused-ingest route is opt-in, under the reference's name and
@@ -451,8 +642,6 @@ class VideoConverter:
         from ..ops.convert_kernel import fused_i420_up_hscale
 
         plan = self._plan
-        ifmt = self.in_info.finfo
-        check_supported(ifmt)
         y, u, v = (p.contiguous() for p in planes[:3])
         yk, ue, uo, ve, vo = fused_i420_up_hscale(
             y, u, v, plan["h_res"], plan["up_h_cosited"],
@@ -475,7 +664,14 @@ class VideoConverter:
     def convert(self, planes):
         """Convert component planes (numpy arrays or tensors, optionally
         batched in front) on the converter's device; returns a tuple of
-        tensors there."""
+        tensors there.
+
+        The floyd-steinberg and sierra-lite dithers propagate their error
+        pixel by pixel and cannot be vectorized: under such a plan the
+        channel planes that reach the dither step make one round trip to
+        the host (``VideoDither._apply_serial``) and come back to the
+        converter's device.  Unpack, scale, matrix, downsample and pack,
+        and every kernel of the route, stay on the device."""
         planes = tuple(torch.as_tensor(p).to(self.device) for p in planes)
         with torch.no_grad():
             return self._pipeline(torch, planes)

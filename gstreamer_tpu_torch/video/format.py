@@ -447,41 +447,23 @@ def format_info(name: str) -> VideoFormatInfo:
 def all_formats():
     return list(FORMATS)
 
-_LATER = ("is ported in a later slice of the PyTorch port (this slice "
-          "covers 8-bit planar YUV and 8-bit component-plane RGB)")
-
-
-def check_supported(fmt: VideoFormatInfo) -> None:
-    ok = (fmt.bits == 8 and fmt.tile is None
-          and all(d == 8 for d in fmt.depth[:fmt.n_components])
-          and ((fmt.is_yuv and fmt.layout == "planar")
-               or (fmt.is_rgb and fmt.layout in ("planar", "packed"))))
-    if not ok:
-        raise NotImplementedError(f"format {fmt.name} ({fmt.layout}, "
-                                  f"{fmt.bits}-bit) {_LATER}")
-
-
-def unpack_planes(xp, fmt: VideoFormatInfo, planes, width: int, height: int,
-                  dtype: str = "int32", subsampled_chroma: bool = False):
-    """planes -> canonical channel tuple (A, c0, c1, c2), each (..., H, W).
-
-    ``xp`` is numpy (the host gold) or torch.  subsampled_chroma=True keeps
-    subsampled chroma planes at their stored resolution (the caller
-    upsamples them directly)."""
-    check_supported(fmt)
-    comps = []
-    for c in range(min(fmt.n_components, 3)):
-        p = _xp.astype(xp, planes[c], dtype)
-        if not (subsampled_chroma and c in (1, 2)):
-            p = _dup(xp, p, fmt.h_sub[c], -2, height)
-            p = _dup(xp, p, fmt.w_sub[c], -1, width)
-        comps.append(p)
-    if fmt.has_alpha:
-        alpha = _xp.astype(xp, planes[fmt.n_components - 1], dtype)
-    else:
-        alpha = _xp.full_like(xp, comps[0], 255)
-    return (alpha, comps[0], comps[1], comps[2])
-
+# ---------------------------------------------------------------------------
+# Canonical unpack/pack over component planes.
+#
+# planes: tuple of component arrays, each (..., comp_h, comp_w), batch dims
+# allowed in front; semi-planar and packed formats arrive as separate
+# component arrays too (plane_shapes).  Chroma fill on unpack is nearest
+# duplication (ORC loadupdb / GET_UV_420 y>>1, video-format.c:91); pack
+# selects the top-left sample of each chroma block (ORC select0wb /
+# IS_CHROMA_LINE_420, video-format.c:117).
+#
+# Dtypes.  Stored planes are uint8 (8-bit containers) or uint16 (16-bit
+# containers), numpy arrays or torch tensors; a torch int32 tensor holding
+# the same values is accepted for a 16-bit container.  Stored values are
+# widened at once (to `dtype`, or int32 for a 16-bit container) and every
+# stage computes in signed integers: torch has no uint16 arithmetic, so
+# torch.uint16 appears only as the final cast of pack_planes' outputs.
+# ---------------------------------------------------------------------------
 
 def _dup(xp, a, factor_log2: int, axis: int, size: int):
     """Nearest-duplicate along axis to reach `size` samples."""
@@ -491,23 +473,128 @@ def _dup(xp, a, factor_log2: int, axis: int, size: int):
     return _xp.take(a, axis, 0, size)
 
 
+def _dup_v_interlaced(xp, a, factor_log2: int, size: int):
+    """Field-aware vertical nearest-duplication for interlaced frames.
+
+    video-format.c GET_UV_420 (:71): full line y reads chroma row
+    ((y & ~3) >> 1) + (y & 1): top and bottom field lines alternate chroma
+    rows instead of pairing (c0,c1,c0,c1,... not c0,c0,c1,c1,...).
+    GET_UV_410 analog for 4x: ((y & ~7) >> 2) + (y & 1)."""
+    if factor_log2 == 0:
+        return a
+    ys = np.arange(size)
+    if factor_log2 == 1:
+        rows = ((ys & ~3) >> 1) + (ys & 1)
+    else:
+        rows = ((ys & ~7) >> 2) + (ys & 1)
+    rows = np.minimum(rows, a.shape[-2] - 1)
+    return a[..., _xp.index(xp, rows, a), :]
+
+
+def unpack_planes(xp, fmt: VideoFormatInfo, planes, width: int, height: int,
+                  dtype: str = "int32", subsampled_chroma: bool = False,
+                  interlaced: bool = False):
+    """planes -> canonical channel tuple (A, c0, c1, c2), each (..., H, W).
+
+    ``xp`` is numpy (the host gold) or torch.  subsampled_chroma=True keeps
+    subsampled chroma planes at their stored resolution (the caller
+    upsamples them directly)."""
+    dt = "int32" if fmt.bits == 16 else dtype
+
+    def widen(p, c):
+        """Stored value -> canonical depth (8 or 16 bit) with the
+        reference's per-family replication rules."""
+        d = fmt.depth[c] if c < len(fmt.depth) else fmt.depth[0]
+        if fmt.bits == 16 and d < 16:
+            if not fmt.replicate:
+                # MT2110T/R, NV12_10BE_8L128: plain v<<6, no low-bit fill
+                p = p << (16 - d)
+            elif fmt.layout == "word32":
+                # unpack_rgb10a2_le / Y410: left-justify then |= >>10
+                # (including the 2-bit alpha: a<<14 | a<<4)
+                p = p << (16 - d)
+                p = p | (p >> 10)
+            elif fmt.justify == "high":
+                p = p | (p >> d)
+            else:
+                p = p << (16 - d)
+                p = p | (p >> d)
+        elif fmt.bits == 8 and 0 < d < 8:
+            # RGB15/16 family: r<<3 | r>>2 (video_orc_unpack_RGB16)
+            p = (p << (8 - d)) | (p >> (2 * d - 8))
+        return p
+
+    comps = []
+    n = fmt.n_components
+    for c in range(min(n, 3)):
+        p = widen(_xp.astype(xp, planes[c], dt), c)
+        if not (subsampled_chroma and c in (1, 2)):
+            if interlaced and c in (1, 2):
+                p = _dup_v_interlaced(xp, p, fmt.h_sub[c], height)
+            else:
+                p = _dup(xp, p, fmt.h_sub[c], -2, height)
+            p = _dup(xp, p, fmt.w_sub[c], -1, width)
+        comps.append(p)
+    if fmt.is_gray:
+        # GRAY unpacks with neutral chroma (video-format.c unpack_GRAY8)
+        half = _xp.full_like(xp, comps[0], 0x80 if fmt.bits == 8 else 0x8000)
+        comps = [comps[0], half, half]
+    if fmt.has_alpha:
+        a = planes[n - 1] if fmt.layout not in ("packed", "word32") \
+            else planes[3]
+        alpha = widen(_xp.astype(xp, a, dt), 3)
+    else:
+        alpha = _xp.full_like(xp, comps[0], 255 if fmt.bits == 8 else 0xFFFF)
+    return (alpha, comps[0], comps[1], comps[2])
+
+
 def pack_planes(xp, fmt: VideoFormatInfo, chans, width: int, height: int):
-    """Channel tuple (A, c0, c1, c2) -> component planes (uint8).
+    """Channel tuple (A, c0, c1, c2) -> component planes: uint8 for an 8-bit
+    container, uint16 for a 16-bit one.
 
     Values must already be in range (the converter clamps before pack).
-    A None alpha channel means opaque."""
-    check_supported(fmt)
+    A None alpha channel means opaque (materialized only if the output
+    format stores alpha)."""
     out = []
-    for c in range(min(fmt.n_components, 3)):
+    n = fmt.n_components
+
+    def store(p, c):
+        d = fmt.depth[c] if c < len(fmt.depth) else fmt.depth[0]
+        if fmt.bits == 8:
+            if 0 < d < 8:
+                # pack_RGB16: component >> (8 - depth)
+                p = _xp.astype(xp, p, "int32") >> (8 - d)
+            return _xp.astype(xp, p, "uint8")
+        # 16-bit containers: pack_I420_10LE truncates v >> (16-depth);
+        # P010/Y210 keep left-justified with low bits cleared; word32
+        # stores the raw bitfield value (pack_Y410: a = A >> 14)
+        p = _xp.astype(xp, p, "int32")
+        if d < 16:
+            if fmt.justify == "high":
+                p = p & (((1 << d) - 1) << (16 - d))
+            else:
+                p = p >> (16 - d)
+        return _xp.astype(xp, p, "uint16")
+
+    for c in range(min(n, 3)):
         hs, ws = fmt.h_sub[c], fmt.w_sub[c]
-        out.append(_xp.astype(
-            xp, chans[1 + c][..., ::(1 << hs), ::(1 << ws)], "uint8"))
+        out.append(store(chans[1 + c][..., ::(1 << hs), ::(1 << ws)], c))
+    if fmt.is_gray:
+        out = out[:1]
     if fmt.has_alpha:
         a = chans[0]
         if a is None:
-            a = _xp.full_like(xp, out[0], 255)
-        out.append(_xp.astype(xp, a, "uint8"))
+            a = _xp.full(xp, tuple(out[0].shape),
+                         255 if fmt.bits == 8 else 0xFFFF, out[0], "int32")
+        out.append(store(a, 3))
     return tuple(out)
+
+
+def unpack(xp, fmt: VideoFormatInfo, planes, width: int, height: int):
+    """planes -> canonical (..., H, W, 4) int32 (A, c0, c1, c2); the
+    channel-last view of unpack_planes."""
+    return _xp.stack(xp, list(unpack_planes(xp, fmt, planes, width, height)),
+                     -1)
 
 
 def pack(xp, fmt: VideoFormatInfo, canon, width: int, height: int):

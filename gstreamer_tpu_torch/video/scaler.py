@@ -63,12 +63,22 @@ class Resampler:
 
     # quantized view (filled lazily)
     _taps_s16: Optional[np.ndarray] = None
+    _heaviest: Optional[int] = None
 
     def taps_s16(self, precision: int = SCALE_U8) -> np.ndarray:
         if self._taps_s16 is None:
             self._taps_s16 = np.stack(
                 [convert_coeff(t, precision) for t in self.taps])
         return self._taps_s16
+
+    def heaviest(self, precision: int = SCALE_U8) -> int:
+        """Largest sum of |tap| over one output sample: bounds the
+        accumulator of a scale pass."""
+        if self._heaviest is None:
+            self._heaviest = int(
+                np.abs(self.taps_s16(precision).astype(np.int64))
+                .sum(axis=1).max())
+        return self._heaviest
 
 
 def make_resampler(method: str, in_size: int, out_size: int,
@@ -178,6 +188,30 @@ def make_resampler(method: str, in_size: int, out_size: int,
                      offset.astype(np.int64), taps)
 
 
+def make_resampler_interlaced(method: str, in_size: int, out_size: int,
+                              n_taps: int = 0, **kw) -> Resampler:
+    """GST_VIDEO_SCALER_FLAG_INTERLACED (video-scaler.c:229): build two
+    half-size field resamplers (top shifted +0.5*out/in with HALF_TAPS,
+    bottom shifted -0.5*out/in with the top's tap count) and zip them
+    (resampler_zip: output row i uses field resampler i&1 at row i/2,
+    source offset doubled onto the field's lines)."""
+    shift = (0.5 * out_size) / in_size
+    t_in = (in_size + 1) // 2
+    t_out = (out_size + 1) // 2
+    tr = make_resampler(method, t_in, t_out, n_taps, shift=shift,
+                        half_taps=True, **kw)
+    br = make_resampler(method, in_size - t_in, out_size - t_out,
+                        tr.max_taps, shift=-shift, **kw)
+    assert br.max_taps == tr.max_taps
+    max_taps = tr.max_taps
+    offset = np.zeros(out_size, np.int64)
+    taps = np.zeros((out_size, max_taps), np.float64)
+    for i in range(out_size):
+        r = br if (i & 1) else tr
+        offset[i] = r.offset[i // 2] * 2 + (i & 1)
+        taps[i] = r.taps[i // 2]
+    return Resampler(in_size, out_size, max_taps, offset, taps)
+
 
 def convert_coeff(src: np.ndarray, precision: int) -> np.ndarray:
     """resampler_convert_coeff (video-scaler.c:339): round float taps to
@@ -220,19 +254,23 @@ def tap_matrix(res: Resampler, precision: int = SCALE_U8) -> np.ndarray:
     return m
 
 
-def _exact_product(xp, x, mt: np.ndarray):
+def _exact_product(xp, x, mt: np.ndarray, wide: bool = False):
     """x (..., K) integer array times mt (K, N) integer taps, exactly:
-    int64 under numpy, int32 under torch (|acc| <= maxv * sum|taps|)."""
+    int64 under numpy; under torch int32 (an 8-bit sample times any row of
+    S16 taps stays far below 2**31), or int64 where the caller says the
+    sums need it (`wide`)."""
     if xp is np:
         return (np.asarray(x, np.float64) @ mt.astype(np.float64)
                 ).astype(np.int64)
     return (_xp.astype(xp, x, "float64")
-            @ _xp.const(xp, mt, "float64", x)).to(torch.int32)
+            @ _xp.const(xp, mt, "float64", x)
+            ).to(torch.int64 if wide else torch.int32)
 
 
 def _round(xp, acc, precision: int, value_bits: int):
     maxv = (1 << value_bits) - 1
-    return _xp.clip(xp, (acc + ((1 << precision) - 1)) >> precision, 0, maxv)
+    out = _xp.clip(xp, (acc + ((1 << precision) - 1)) >> precision, 0, maxv)
+    return out if xp is np else out.to(torch.int32)
 
 
 def scale_axis_exact(xp, img, axis: int, res: Resampler,
@@ -243,7 +281,13 @@ def scale_axis_exact(xp, img, axis: int, res: Resampler,
     ax = axis if axis >= 0 else img.ndim + axis
     m = tap_matrix(res, precision)
     src = xp.moveaxis(img, ax, -1)
-    out = _round(xp, _exact_product(xp, src, m.T), precision, value_bits)
+    # 16-bit samples overflow an int32 sum only under taps with large
+    # negative lobes (lanczos held to 2 taps): checked on the host, once
+    # for a resampler
+    wide = (((1 << value_bits) - 1) * res.heaviest(precision)
+            >= (1 << 31) - (1 << precision))
+    out = _round(xp, _exact_product(xp, src, m.T, wide), precision,
+                 value_bits)
     return xp.moveaxis(out, -1, ax)
 
 

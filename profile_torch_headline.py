@@ -6,9 +6,13 @@
 For each of chip_smoke.py's converter configurations (linear2, cubic,
 add_borders, and fused_ingest under GTPU_PALLAS=1) this runs
 ``VideoConverter.convert`` on a batch of 1920x1080 I420 frames already on
-the card, and for each of its launch paths (deint_chain, deint_rate_chain,
-headline_launch, headline_launch_noborders, quickstart and
-quickstart_fused) ``Pipeline.tick`` at the path's batch, with the frames
+the card; for each of its generic-route configurations (GENERIC:
+nv12_ingest, nv12_fused, upscale, same_size, encode_side, hdr_ingest,
+rgb16_out, rgb16_serial, gamma_remap, interlaced) the same at that configuration's
+formats, sizes and batch; and for each of its launch paths (deint_chain,
+deint_rate_chain, headline_launch, headline_launch_noborders, quickstart,
+quickstart_fused and launch_small_default) ``Pipeline.tick`` at the path's
+batch, with the frames
 pushed into appsrc as CUDA tensors (the quick-start paths' videotestsrc
 makes its own on the card).  Each runs two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
@@ -82,8 +86,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_headline: needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (CONFIGS, DUR, FUSED_CONFIGS, H, LAUNCH, OH, OW,
-                            W, opt_in)
+    from chip_smoke import (CONFIGS, DUR, FUSED_CONFIGS, GENERIC,
+                            GENERIC_LAUNCH, H, LAUNCH, OH, OW, W,
+                            generic_converter, generic_inputs, opt_in)
     from gstreamer_tpu_torch import VideoConverter, VideoInfo, parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer
     from gstreamer_tpu_torch.core.pipeline import State
@@ -93,16 +98,25 @@ def main() -> int:
     ii = VideoInfo(format="I420", width=W, height=H)
     oi = VideoInfo(format="RGB", width=OW, height=OH)
     rng = np.random.default_rng(args.seed)
-    planes = tuple(torch.as_tensor(rng.integers(0, 256, (args.batch,) + s,
-                                                dtype=np.uint8)).cuda()
-                   for s in ii.plane_shapes())
+    host = tuple(rng.integers(0, 256, (args.batch,) + s, dtype=np.uint8)
+                 for s in ii.plane_shapes())
+    planes = tuple(torch.as_tensor(p).cuda() for p in host)
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     for name, cfg in CONFIGS.items():
         conv = VideoConverter(ii, oi, cfg)
         with opt_in(name in FUSED_CONFIGS):
             report(name, args.batch, lambda: conv.convert(planes),
                    args.iters)
-    for name, (desc, batch, _, fused) in LAUNCH.items():
+    for name, g in GENERIC.items():
+        conv = generic_converter(name)
+        ins = tuple(torch.as_tensor(p).cuda()
+                    for p in generic_inputs(name, host, g["batch"]))
+        with opt_in(g.get("fused", False)):
+            report(name, g["batch"], lambda: conv.convert(ins), args.iters)
+        del ins
+        torch.cuda.empty_cache()
+    for name, (desc, batch, _, fused) in {**LAUNCH,
+                                          **GENERIC_LAUNCH}.items():
         # n: frames a videotestsrc makes (2 untraced ticks + iters traced)
         pipe = parse_launch(desc.format(w=W, h=H,
                                         n=batch * (args.iters + 2)),

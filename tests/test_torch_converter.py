@@ -91,13 +91,17 @@ def test_chroma_kernel_shapes_match_reference(monkeypatch, cfg, out_format):
 
 
 def test_generic_route_is_not_ported_yet():
-    # 130x62 -> 100x40 scales "vh" (v first): the generic line pipeline,
-    # which belongs to a later slice of the port
+    # (the name dates from the slice that raised here)  130x62 -> 100x40
+    # scales "vh" (v first): the generic line pipeline, equal to the
+    # reference like every other route
+    opts = {"resampler-method": "lanczos"}
     conv = VideoConverter(VideoInfo(format="I420", width=130, height=62),
                           VideoInfo(format="RGB", width=100, height=40),
-                          {"resampler-method": "lanczos"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        conv.convert(_frames(conv.in_info, 1, 5))
+                          opts, device="cpu")
+    jconv = JConverter(JInfo(format="I420", width=130, height=62),
+                       JInfo(format="RGB", width=100, height=40), opts)
+    assert conv.plan["scale_order"] == "vh"
+    _check(conv, jconv, _frames(conv.in_info, 1, 5))
 
 
 @pytest.mark.parametrize("site", ["mpeg2", "none", "cosited"])

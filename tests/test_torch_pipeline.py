@@ -35,8 +35,8 @@ SRC = ("appsrc name=in caps=video/x-raw,format=I420,width={w},height={h},"
 # chip_smoke.py's launch paths (bench_all.py:140-143 with an appsink; BASELINE
 # configs[3] with videorate; the headline launch string and its
 # add-borders=false variant).  At the small input size the headline scales
-# to 32x32 RGB instead of 224x224: an upscale takes the converter's generic
-# pipeline, which the port does not have yet.
+# to 32x32 RGB instead of 224x224, which keeps it on the downscale routes;
+# GENERIC_SIZES below sends the same strings down the generic pipeline.
 LAUNCH = {
     "deint_chain": SRC + "deinterlace method=linear ! videobalance "
     "contrast=1.1 brightness=0.05 ! appsink name=out",
@@ -58,9 +58,10 @@ DUR = 33333333
 
 def _i420(n, w, h, seed):
     rng = np.random.default_rng(seed)
+    cw, ch = (w + 1) // 2, (h + 1) // 2
     return (rng.integers(0, 256, (n, h, w), dtype=np.uint8),
-            rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8),
-            rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8))
+            rng.integers(0, 256, (n, ch, cw), dtype=np.uint8),
+            rng.integers(0, 256, (n, ch, cw), dtype=np.uint8))
 
 
 def _name_elements(pipe):
@@ -94,8 +95,8 @@ def _as_int64(x):
     return np.asarray(x, np.int64)
 
 
-def _check(desc, w, h, batch, ticks):
-    desc = desc.format(w=w, h=h, o=32)
+def _check(desc, w, h, batch, ticks, o=32):
+    desc = desc.format(w=w, h=h, o=o)
     jpipe, ref = _run(jparse_launch, JBuffer, desc, batch, ticks, w, h)
     tpipe, out = _run(gstreamer_tpu_torch.parse_launch, Buffer, desc, batch,
                       ticks, w, h, device="cpu")
@@ -117,6 +118,29 @@ def _check(desc, w, h, batch, ticks):
 def test_launch_matches_reference(name):
     tpipe = _check(LAUNCH[name], 64, 48, batch=4, ticks=2)
     assert tpipe._fused == name.startswith("headline")
+
+
+# (string, w, h, o): sizes at which the headline strings, scaling to o x o,
+# take the converter's generic pipeline.  With add-borders the picture keeps
+# its aspect ratio, so a downscale there always ties to "hv" order and stays
+# on the phase-split route: its generic cases are the upscales.
+GENERIC_LAUNCH = [
+    ("headline_launch_noborders", 48, 64, 40),    # "vh": v-scale first
+    ("headline_launch", 32, 24, 48),              # upscale, embedded
+    ("headline_launch_noborders", 32, 24, 48),
+    ("headline_launch", 33, 17, 40),              # odd input, embedded
+    ("headline_launch_noborders", 33, 17, 40),
+]
+
+
+@pytest.mark.parametrize("name,w,h,o", GENERIC_LAUNCH)
+def test_launch_takes_the_generic_route(name, w, h, o):
+    tpipe = _check(LAUNCH[name], w, h, batch=4, ticks=2, o=o)
+    assert tpipe._fused
+    plan = next(e for e in tpipe.iterate_elements()
+                if e.FACTORY == "videoconvertscale")._converter.plan
+    assert not (plan["scale_before_matrix"] and plan["scale_order"] == "hv")
+    assert plan["rect_active"] == (name == "headline_launch")
 
 
 def test_deint_chain_matches_reference_at_1080():

@@ -56,7 +56,8 @@ def _same_buffers(j, t, batches):
         for tp, jp in zip(tb.data, jb.data):
             jp = np.asarray(jp)
             tp = tp.numpy() if isinstance(tp, torch.Tensor) else tp
-            assert tp.dtype == jp.dtype == np.uint8
+            assert tp.dtype == jp.dtype
+            assert tp.dtype in (np.uint8, np.uint16)
             assert tp.shape == jp.shape
             assert np.array_equal(tp, jp)
 
@@ -88,6 +89,17 @@ def test_properties_match_reference(props):
 def test_snow_in_other_layouts_matches_reference(fmt):
     j, t = _elements(fmt, 36, 20, pattern="snow")
     _same_buffers(j, t, (2, 2))
+
+
+@pytest.mark.parametrize("pattern", ["smpte", "snow", "ball", "white"])
+@pytest.mark.parametrize("fmt", ["NV12", "YUY2", "I420_10LE", "RGB16",
+                                 "GRAY8", "P010_10LE", "AYUV64", "Y41B"])
+def test_every_layout_and_depth_matches_reference(fmt, pattern):
+    j, t = _elements(fmt, 36, 20, pattern=pattern)
+    _same_buffers(j, t, (2, 2))
+    want = np.uint16 if tformat.FORMATS[fmt].bits == 16 else np.uint8
+    t2 = _elements(fmt, 36, 20, pattern=pattern)[1]
+    assert all(np.asarray(p).dtype == want for p in t2.create(1).data)
 
 
 def test_noise_state_is_the_sequential_lcg():
@@ -129,11 +141,17 @@ def test_pack_matches_reference(fmt):
 
 
 def test_pack_of_an_unported_layout_raises():
+    # (the name dates from the slice that raised for NV12)  every layout
+    # of the format table packs now; only an unknown name raises
     canon = np.zeros((4, 4, 4), np.int64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tformat.pack(np, tformat.FORMATS["NV12"], canon, 4, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _elements("I420_10LE", 16, 16, pattern="white")
+    for name in tformat.FORMATS:
+        out = tformat.pack(np, tformat.FORMATS[name], canon, 4, 4)
+        assert [o.shape for o in out] == \
+            tformat.plane_shapes(tformat.FORMATS[name], 4, 4)
+    with pytest.raises(ValueError, match="unknown video format"):
+        tformat.format_info("NV12_LATER")
+    j, t = _elements("I420_10LE", 16, 16, pattern="white")
+    _same_buffers(j, t, (1,))
 
 
 def test_without_cuda_the_default_device_raises(monkeypatch):
@@ -152,6 +170,28 @@ QUICKSTART = ("videotestsrc num-buffers=6 pattern={p} ! "
 DEFAULTS = ("videotestsrc num-buffers=3 ! videoconvertscale "
             "add-borders=false ! video/x-raw,format=RGB,width=32,height=32 "
             "! appsink name=out")
+
+
+NV12_LAUNCH = ("videotestsrc num-buffers=6 pattern={p} ! "
+               "video/x-raw,format=NV12,width=64,height=48,framerate=30/1 ! "
+               "videoconvertscale ! "
+               "video/x-raw,format=RGB,width=40,height=40 ! appsink name=out")
+# other sources and sinks of the launched converter: 10-bit in, 16-bit
+# RGB out (the default bayer dither), packed 4:2:2 in with an upscale
+OTHER_LAUNCH = [
+    "videotestsrc num-buffers=3 pattern=smpte ! video/x-raw,format=I420_10LE,"
+    "width=64,height=48,framerate=30/1 ! videoconvertscale ! "
+    "video/x-raw,format=RGB,width=40,height=40 ! appsink name=out",
+    "videotestsrc num-buffers=3 pattern=ball ! video/x-raw,format=I420,"
+    "width=64,height=48,framerate=30/1 ! videoconvertscale ! "
+    "video/x-raw,format=RGB16,width=32,height=24 ! appsink name=out",
+    "videotestsrc num-buffers=3 pattern=snow ! video/x-raw,format=YUY2,"
+    "width=32,height=24,framerate=30/1 ! videoconvertscale method=lanczos ! "
+    "video/x-raw,format=BGRA,width=48,height=40 ! appsink name=out",
+    "videotestsrc num-buffers=3 ! video/x-raw,format=GRAY8,width=32,"
+    "height=24,framerate=30/1 ! videoconvert ! video/x-raw,format=NV12 ! "
+    "appsink name=out",
+]
 
 
 def _name_elements(pipe):
@@ -207,6 +247,65 @@ def test_quickstart_matches_reference(monkeypatch, desc, opt_in):
     assert bool(conv.plan["pallas_ok"]) == bool(jconv._plan["pallas_ok"])
     assert conv.plan["pallas_ok"] == ("format=I420" in desc)
     assert conv._pallas_enabled() == (opt_in is not None)
+
+
+@pytest.mark.parametrize("desc", [NV12_LAUNCH.format(p="smpte"),
+                                  NV12_LAUNCH.format(p="snow")]
+                         + OTHER_LAUNCH,
+                         ids=["nv12_smpte", "nv12_snow", "i420_10le", "rgb16",
+                              "yuy2_up", "gray8_nv12"])
+def test_launch_over_other_formats_matches_reference(monkeypatch, desc):
+    monkeypatch.delenv("GTPU_PALLAS", raising=False)
+    jpipe, ref = _run(jparse_launch, desc)
+    tpipe, out = _run(gstreamer_tpu_torch.parse_launch, desc, device="cpu")
+    _same_samples(out, ref)
+    for o, r in zip(out, ref):
+        for op, rp in zip(o.buffer.data, r.buffer.data):
+            assert op.numpy().dtype == np.asarray(rp).dtype
+    assert negotiated_caps(tpipe) == negotiated_caps(jpipe)
+
+
+def test_dither_property_reaches_the_converter():
+    desc = ("videotestsrc num-buffers=1 ! video/x-raw,format=I420,width=32,"
+            "height=24,framerate=30/1 ! videoconvertscale dither={d} ! "
+            "video/x-raw,format=RGB16,width=32,height=24 ! appsink name=out")
+    outs = {}
+    for d in ("bayer", "none", "verterr"):
+        pipe, samples = _run(gstreamer_tpu_torch.parse_launch,
+                             desc.format(d=d), device="cpu")
+        conv = next(e for e in pipe.iterate_elements()
+                    if e.FACTORY == "videoconvertscale")._converter
+        assert conv.config["dither-method"] == d
+        assert (conv.plan["dither"] is None) == (d == "none")
+        outs[d] = samples[0].buffer.data
+    assert not all(torch.equal(a, b)
+                   for a, b in zip(outs["bayer"], outs["none"]))
+
+
+def test_dither_property_at_its_default_matches_reference():
+    """The reference element accepts `dither` and never hands it to its
+    converter; the port's element does.  At the default (bayer) the launched
+    bytes are the reference's, RGB16 sink; at any other value they are the
+    reference converter's under that `dither-method`, which the reference's
+    own launch string cannot produce."""
+    desc = ("videotestsrc num-buffers=2 pattern=ball ! video/x-raw,"
+            "format=I420,width=32,height=24,framerate=30/1 ! "
+            "videoconvertscale{d} ! "
+            "video/x-raw,format=RGB16,width=32,height=24 ! appsink name=out")
+    _, ref = _run(jparse_launch, desc.format(d=""))
+    for d in ("", " dither=bayer"):
+        _, out = _run(gstreamer_tpu_torch.parse_launch, desc.format(d=d),
+                      device="cpu")
+        _same_samples(out, ref)
+    _, jnone = _run(jparse_launch, desc.format(d=" dither=none"))
+    for a, b in zip(jnone, ref):      # the reference ignores the property
+        for x, y in zip(a.buffer.data, b.buffer.data):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+    _, tnone = _run(gstreamer_tpu_torch.parse_launch,
+                    desc.format(d=" dither=none"), device="cpu")
+    assert not all(np.array_equal(x.numpy(), np.asarray(y))
+                   for a, b in zip(tnone, jnone)
+                   for x, y in zip(a.buffer.data, b.buffer.data))
 
 
 @pytest.fixture
