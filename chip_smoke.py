@@ -58,7 +58,26 @@ before it and read just after:
 
 5. the switches: linear2 and cubic again at batch 64 under
    GTPU_PALLAS_YSCALE=0 and GTPU_PALLAS_CHROMA=0: the same bytes, and no
-   launch of the kernel switched off.
+   launch of the kernel switched off;
+
+6. the audio front-end (BASELINE config 2; no kernel of the port on its
+   path, every launch count must stay 0), each with a rate line and its
+   device idle share:
+
+  asr_resample_f32  bench_all.py's config: AudioResampler("kaiser", 48000,
+                    16000).resample_fn("f32", 131072, 2) over 128 seeded
+                    chunks / 32768, channel mean after; per sample within 1
+                    ULP of the port's CPU path and the float64 gold, also
+                    with TF32 allowed process-wide
+  asr_resample_s16  the same shape on the s16 path: bit for bit against the
+                    CPU path and resample_ref
+  asr_launch        appsrc (48 kHz stereo S16, 10 s a tick as CUDA tensors)
+                    ! audioconvert ! mono ! audioresample ! 16 kHz !
+                    audioconvert ! F32 ! appsink: bytes equal a numpy gold of
+                    the chain on the first 2 ticks
+  asr_quickstart    tests/test_audio.py's string with audiotestsrc (host
+                    samples) at samplesperbuffer=48000
+  volume_s16/_f32   volume volume=0.5, bit for bit against numpy.
 
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
@@ -861,6 +880,321 @@ def switched_off(convs, planes, counters):
     return total
 
 
+# -- the audio front-end (BASELINE config 2) ------------------------------------
+
+ASR_CHUNKS, ASR_FRAMES = 128, 1 << 17     # bench_all.py:47-69: 128 x 2.7 s
+AUDIO_CHECK = 2                           # chunks / ticks held to the gold
+F32_ULPS = 1.0      # card vs the port's CPU path and the float64 gold
+ASR_SRC = ("appsrc name=in caps=audio/x-raw,format=S16LE,rate=48000,"
+           "channels=2,layout=interleaved ! ")
+ASR_CHAIN = ("audioconvert ! audio/x-raw,channels=1 ! audioresample ! "
+             "audio/x-raw,rate=16000 ! audioconvert ! "
+             "audio/x-raw,format=F32LE ! appsink name=out")
+# name: (launch string, input frames a tick, ticks); tests/test_audio.py:180
+# launches the ASR front-end; asr_launch feeds it 10 s a tick through
+# appsrc, asr_quickstart keeps its audiotestsrc (samples made on the host)
+AUDIO_LAUNCH = {
+    "asr_launch": (ASR_SRC + ASR_CHAIN, 480000, 4),
+    "asr_quickstart": ("audiotestsrc num-buffers={n} samplesperbuffer=48000 "
+                       "! audio/x-raw,format=S16LE,rate=48000,channels=2 ! "
+                       + ASR_CHAIN, 48000, 4),
+    "volume_s16": (ASR_SRC + "volume volume=0.5 ! appsink name=out",
+                   480000, 4),
+    "volume_f32": (ASR_SRC.replace("S16LE", "F32LE")
+                   + "volume volume=0.5 ! appsink name=out", 480000, 4),
+}
+
+
+def device_time(step, iters: int):
+    """Run `step` twice, then `iters` times under torch.profiler; returns
+    (wall ms, device busy ms, device idle share, profiler) per step; busy
+    is the union of the kernels' device intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy = busy_us / iters / 1e3
+    return wall, busy, max(0.0, 1.0 - busy / wall), prof
+
+
+def asr_inputs(seed: int):
+    """bench_all.py's input: 128 chunks of 2^17 frames of 48 kHz stereo
+    S16, seeded."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(-32768, 32767, (ASR_CHUNKS, ASR_FRAMES, 2),
+                        dtype=np.int16)
+
+
+def ulps32(a, b):
+    """|a - b| in ULPs of float32 at b (a float32, b float64)."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    return np.abs(a - b) / np.spacing(np.abs(b).astype(np.float32))
+
+
+def audio_resample(host, dev):
+    """asr_resample_f32 and asr_resample_s16: bench_all.py's config through
+    the port's AudioResampler("kaiser", 48000, 16000) on the card.  f32: the
+    chunks / 32768, resampled, the channel mean after; the first chunks are
+    held per output sample to the port's CPU path and to the float64 gold
+    (resample_ref from the same float32 inputs) within F32_ULPS, once with
+    TF32 allowed process-wide (the route sums in float64, so TF32, whose
+    10-bit mantissa is 2^13 ULPs of float32, cannot reach it).  s16: bit for
+    bit against the CPU path on the first chunks and resample_ref on a
+    prefix.  Returns {name: ms per call, ...}."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import AudioResampler
+    res = AudioResampler("kaiser", 48000, 16000, device=dev)
+    cpu_res = AudioResampler("kaiser", 48000, 16000, device="cpu")
+    x = torch.as_tensor(host).to(dev)
+    n_out = res.out_frames_for(ASR_FRAMES)
+    out = {}
+    rf = res.resample_fn("f32", ASR_FRAMES, 2)
+    xf = x.float() / 32768.0
+    first = xf[:AUDIO_CHECK].cpu()
+    want = cpu_res.resample_fn("f32", ASR_FRAMES, 2)(first).numpy()
+    for tf32 in (False, True):
+        old = (torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            got = rf(xf[:AUDIO_CHECK])
+            torch.cuda.synchronize()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = old
+        require(got.dtype == torch.float32 and tuple(got.shape) == (
+            AUDIO_CHECK, n_out, 2), f"asr_resample_f32: bad output "
+            f"{got.dtype} {tuple(got.shape)}")
+        d = ulps32(got.cpu().numpy(), want.astype(np.float64)).max()
+        require(d <= F32_ULPS, f"asr_resample_f32 (TF32 allowed: {tf32}): "
+                f"{d} ULPs from the port's CPU path")
+    gold_ulps = 0.0
+    for c in range(AUDIO_CHECK):
+        gold = cpu_res.resample_ref(first[c].numpy().astype(np.float64),
+                                    "f32")
+        gold_ulps = max(gold_ulps, float(ulps32(got[c].cpu().numpy(),
+                                                gold).max()))
+    require(gold_ulps <= F32_ULPS, f"asr_resample_f32: {gold_ulps} ULPs "
+            f"from the float64 gold")
+    mean = rf(xf).mean(dim=-1)
+    require(tuple(mean.shape) == (ASR_CHUNKS, n_out)
+            and bool(torch.isfinite(mean).all()), "asr_resample_f32: output")
+    out["asr_resample_f32"] = dict(
+        ms=cuda_ms(lambda: rf(x.float() / 32768.0).mean(dim=-1), 10),
+        check=f"CUDA vs port CPU path and vs float64 gold <= {F32_ULPS} ULP "
+              f"(gold: {gold_ulps:.3f}), also with TF32 allowed",
+        step=lambda: rf(x.float() / 32768.0).mean(dim=-1))
+    rs = res.resample_fn("s16", ASR_FRAMES, 2)
+    got = rs(x)
+    torch.cuda.synchronize()
+    require(got.dtype == torch.int16 and tuple(got.shape) == (
+        ASR_CHUNKS, n_out, 2), "asr_resample_s16: bad output")
+    cpu = cpu_res.resample_fn("s16", ASR_FRAMES, 2)(
+        torch.as_tensor(host[:AUDIO_CHECK]))
+    require(torch.equal(got[:AUDIO_CHECK].cpu(), cpu),
+            "asr_resample_s16: CUDA output differs from the port's CPU path")
+    prefix = 30000
+    gold = cpu_res.resample_ref(host[0, :prefix].astype(np.int64), "s16")
+    require(np.array_equal(got[0, :len(gold)].cpu().numpy(), gold),
+            "asr_resample_s16: CUDA output differs from resample_ref")
+    out["asr_resample_s16"] = dict(
+        ms=cuda_ms(lambda: rs(x), 10),
+        check=f"CUDA == port CPU path ({AUDIO_CHECK} chunks) == resample_ref "
+              f"({len(gold)} outputs), bit for bit", step=lambda: rs(x))
+    return out
+
+
+def asr_gold(ticks, res):
+    """A numpy gold of the ASR chain over S16 stereo ticks: unpack, the Q10
+    mix to mono with rounding, the quantizer (dither none) and pack to S16,
+    resample_ref carried across ticks as audioresample carries its history
+    and phase, then S16 -> F32 by the replicated S32 canon."""
+    import numpy as np
+    from gstreamer_tpu_torch.audio.channel_mixer import build_matrix, matrix_int
+
+    def canon(s):
+        w = s.astype(np.int64) & 0xFFFF
+        v = (w << 16) | (w ^ 0x8000)
+        return np.where(v >= 1 << 31, v - (1 << 32), v)
+
+    mint = matrix_int(build_matrix(("front-left", "front-right"),
+                                   ("mono",))).astype(np.int64)
+    hist, ph, outs = None, 0, []
+    up, down = res.out_red, res.in_red
+    for x in ticks:
+        m = np.clip((canon(x) @ mint + 512) >> 10, -(1 << 31), (1 << 31) - 1)
+        q = np.clip(m + (1 << 15), -(1 << 31), (1 << 31) - 1) & ~0xFFFF
+        s16 = (q >> 16).astype(np.int16)
+        x = s16 if hist is None else np.concatenate([hist, s16])
+        n_out = ((len(x) - res.n_taps) * up - (up - 1)) // down + 1
+        r = res.resample_ref(x.astype(np.int64), "s16", samp_phase=ph,
+                             n_out=n_out)
+        total = ph + n_out * down
+        hist, ph = x[total // up:], total % up
+        outs.append((canon(r) / 2147483648.0).astype(np.float32))
+    return outs
+
+
+def audio_drive(desc, frames, ticks, pushes, device):
+    """Push `pushes` (one array a tick) into appsrc where the string has one,
+    tick to EOS on `device`, each tick timed on the host clock between two
+    synchronises.  Returns (output arrays per tick, seconds per tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    cuda = torch.device(device).type == "cuda"
+    pipe = parse_launch(desc.format(n=ticks), device=device)
+    src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+    if src is not None:
+        for t, x in enumerate(pushes[:ticks]):
+            src.push_buffer(Buffer(data=x, pts=t * frames * 10**9 // 48000,
+                                   duration=frames * 10**9 // 48000))
+        src.end_of_stream()
+    pipe.set_state(State.PLAYING)
+    outs, secs = [], []
+    while True:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        if cuda:
+            torch.cuda.synchronize()
+        if not more:
+            break
+        secs.append(time.perf_counter() - t0)
+        got = []
+        while (s := sink.pull_sample()) is not None:
+            got.append(s.buffer.data)
+        outs.append(torch.cat(got) if got else None)
+    pipe.set_state(State.NULL)
+    return outs, secs
+
+
+def audio_launch(seed, dev):
+    """Drive every AUDIO_LAUNCH path on the card; hold its outputs to a
+    numpy gold (asr_launch: asr_gold; volume: the Q27 product and the
+    float32 product) and to the same string on the port's CPU path on the
+    first AUDIO_CHECK ticks.  Returns {name: rates, ...}."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import AudioResampler
+    rng = np.random.default_rng(seed + 1)
+    res = {}
+    for name, (desc, frames, ticks) in AUDIO_LAUNCH.items():
+        host = [rng.integers(-32768, 32767, (frames, 2), dtype=np.int16)
+                for _ in range(ticks)]
+        if name == "volume_f32":
+            host = [(h / 32768.0).astype(np.float32) for h in host]
+        pushes = [torch.as_tensor(h).to(dev) for h in host]
+        outs, secs = audio_drive(desc, frames, ticks, pushes, dev)
+        require(len(outs) == ticks and all(o is not None for o in outs),
+                f"{name}: {len(outs)} ticks of output, want {ticks}")
+        cpu, _ = audio_drive(desc, frames, AUDIO_CHECK,
+                                host[:AUDIO_CHECK], "cpu")
+        for o, c in zip(outs, cpu):
+            require(o.device.type == dev.type and torch.equal(o.cpu(), c),
+                    f"{name}: CUDA output differs from the port's CPU path")
+        if name == "asr_launch":
+            gold = asr_gold(host[:AUDIO_CHECK], AudioResampler(
+                "kaiser", 48000, 16000, device="cpu"))
+        elif name == "volume_s16":
+            gold = [np.clip((h.astype(np.int64) * (1 << 26)) >> 27,
+                            -32768, 32767).astype(np.int16)
+                    for h in host[:AUDIO_CHECK]]
+        elif name == "volume_f32":
+            gold = [h * np.float32(0.5) for h in host[:AUDIO_CHECK]]
+        else:
+            gold = None
+        if gold is not None:
+            for o, g in zip(outs, gold):
+                o = o.cpu().numpy()
+                require(o.dtype == g.dtype and o.shape == g.shape
+                        and np.array_equal(o.view(np.uint8),
+                                           g.view(np.uint8)),
+                        f"{name}: output differs from the numpy gold")
+        timed = sum(secs[1:])
+        res[name] = dict(
+            frames=frames, ticks=ticks, secs=secs,
+            msps=frames * (ticks - 1) / timed / 1e6,
+            out_frames=[len(o) for o in outs],
+            check=f"CUDA == port CPU path ({AUDIO_CHECK} ticks)"
+                  + (" == numpy gold" if gold is not None else ""))
+    return res
+
+
+def audio_phase(seed, counters, dev):
+    """The audio front-end on the card with the launch counts zeroed just
+    before each configuration and read just after (no kernel of the
+    port's runs on this path: every count must stay 0); a rate line and
+    the device idle share for each."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    host = asr_inputs(seed)
+    for c in counters.values():
+        c.launches = 0
+    rs = audio_resample(host, dev)
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    require(not counts, f"audio resample: kernels launched {counts}")
+    for name, r in rs.items():
+        _, busy, idle, _ = device_time(r["step"], 3)
+        print(f"audio {name}: {r['check']}; launches {counts}")
+        print(f"e2e {name}: {r['ms']:.3f} ms per call of {ASR_CHUNKS} x "
+              f"{ASR_FRAMES} frames, {ASR_CHUNKS * ASR_FRAMES / r['ms'] / 1e3:.1f}"
+              f" Msamples/s (input frames, as bench_all.py counts); device "
+              f"busy {busy:.3f} ms a call, idle share {idle:.3f}")
+    for c in counters.values():
+        c.launches = 0
+    paths = audio_launch(seed, dev)
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    require(not counts, f"audio launch paths: kernels launched {counts}")
+    for name, r in paths.items():
+        desc, frames, _ = AUDIO_LAUNCH[name]
+        print(f"audio {name}: {r['check']}; output frames per tick "
+              f"{r['out_frames']}; launches {counts}")
+        prof_pipe = parse_launch(desc.format(n=10 ** 6), device=dev)
+        src = prof_pipe.get_by_name("in")
+        sink = prof_pipe.get_by_name("out")
+        x = torch.zeros((frames, 2), device=dev,
+                        dtype=torch.float32 if "f32" in name else torch.int16)
+        prof_pipe.set_state(State.PLAYING)
+
+        def tick():
+            if src is not None:
+                src.push_buffer(Buffer(data=x))
+            prof_pipe.tick()
+            while sink.pull_sample() is not None:
+                pass
+        _, busy, idle, _ = device_time(tick, 3)
+        prof_pipe.set_state(State.NULL)
+        print(f"e2e {name}: {r['msps']:.3f} Msamples/s of 48 kHz stereo "
+              f"input frames over ticks 2..{r['ticks']} ({r['frames']} a "
+              f"tick; {[round(s * 1e3, 3) for s in r['secs']]} ms per tick, "
+              f"host clock between synchronises); device busy {busy:.3f} ms "
+              f"a tick, idle share {idle:.3f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1115,6 +1449,11 @@ def main() -> int:
               f"clock between synchronises)")
     for k, n in switched_off(convs, planes, counters).items():
         launches[k] += n
+    del planes, convs
+    torch.cuda.empty_cache()
+
+    # -- the audio front-end: no kernel of the port on its path -----------------
+    audio_phase(args.seed, counters, dev)
     print(f"main path launches, all paths: {launches}")
 
     smi = subprocess.run(

@@ -12,17 +12,23 @@ nothing of it (nor of jax).  It grows slice by slice.  So far it carries:
   ``Pipeline`` -- with the elements capsfilter, identity, queue, fakesink,
   appsink, appsrc, videoconvert/videoscale/videoconvertscale,
   deinterlace (linear and scalerbob, with a CUDA kernel for both field
-  parities), videorate, videobalance and videotestsrc.
+  parities), videorate, videobalance and videotestsrc;
+* the audio front-end (BASELINE config 2, ``audiotestsrc ! audioconvert !
+  audioresample``): AudioInfo, the sample formats, the channel mixer, the
+  quantizer and the polyphase ``AudioResampler``, and the elements
+  audiotestsrc, audioconvert, audioresample and volume.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``; without
 a card the default raises.
 """
 
+from .audio.info import AudioInfo
+from .audio.resampler import AudioResampler
 from .core.parse import parse_launch
 from .core.pipeline import Pipeline
 from .device import resolve as resolve_device
 from .video.converter import VideoConverter
 from .video.info import VideoInfo
 
-__all__ = ["Pipeline", "VideoConverter", "VideoInfo", "parse_launch",
-           "resolve_device"]
+__all__ = ["AudioInfo", "AudioResampler", "Pipeline", "VideoConverter",
+           "VideoInfo", "parse_launch", "resolve_device"]

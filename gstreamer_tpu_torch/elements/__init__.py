@@ -9,3 +9,4 @@ from . import videofilter        # noqa: F401  (videobalance)
 from . import videorate          # noqa: F401
 from . import deinterlace        # noqa: F401  (deinterlace, autodeinterlace)
 from . import videotestsrc      # noqa: F401
+from . import audio_elements    # noqa: F401  (audiotestsrc, audioconvert, audioresample, volume)

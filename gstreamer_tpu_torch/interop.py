@@ -1,4 +1,5 @@
-"""Carry state across packages as plain data: converter plans, caps.
+"""Carry state across packages as plain data: converter plans, audio
+state, caps.
 
 A VideoConverter's "weights" are its plan: the resamplers' offsets and S16
 taps, the prepared color matrices (the main one and the gamma chain's
@@ -12,6 +13,13 @@ accepts the JAX package's plan as well as this package's.
 dict, so the port can run on exactly the reference's plan
 (``VideoConverter.load_plan``).  ``negotiated_caps`` reads a negotiated
 pipeline's per-pad caps as strings, from either package's Pipeline.
+
+The audio side's state: ``resampler_arrays`` reads an AudioResampler's
+rates, tap count, filter mode and the taps of every compute dtype
+(``AudioResampler.load_taps`` runs the port on them); ``convert_arrays``
+reads an audioconvert's mix matrix (float32 and Q10) and its quantizer's
+parameters and PRNG state (``quantizer_from_arrays`` rebuilds the port's
+Quantizer from them).  Both accept either package's objects.
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ from typing import Dict
 
 import numpy as np
 
+from .audio.channel_mixer import matrix_int
+from .audio.quantize import Quantizer
+from .audio.resampler import DTYPES
 from .video.color import PreparedMatrix
 from .video.dither import VideoDither
 from .video.scaler import SCALE_U8, Resampler
@@ -105,3 +116,49 @@ def negotiated_caps(pipeline) -> Dict[str, str]:
     no caps maps to "None"."""
     return {f"{e.name}:{p.name}": str(p.caps)
             for e in pipeline._topo_order() for p in e.pads}
+
+
+def resampler_arrays(res) -> Dict[str, np.ndarray]:
+    """An AudioResampler (either package's) -> {name: numpy array}."""
+    out = {key: np.asarray(getattr(res, key), np.int64)
+           for key in ("in_red", "out_red", "n_taps")}
+    out["filter_mode"] = np.asarray(res.effective_filter_mode)
+    for dt in DTYPES:
+        out[f"taps.{dt}"] = np.asarray(res.taps_for(dt))
+    return out
+
+
+def convert_arrays(elem) -> Dict[str, np.ndarray]:
+    """A negotiated audioconvert (either package's) -> {name: numpy
+    array}: the mix matrix ("mix", float32, and "mix_int", Q10) where it
+    mixes, the quantizer's parameters and state where it quantizes.  The
+    matrix lives only in the element's function (a closure in both
+    packages), so it is read from there."""
+    out: Dict[str, np.ndarray] = {}
+    fn = elem._fn
+    if fn is None:
+        return out
+    cells = dict(zip(fn.__code__.co_freevars,
+                     (c.cell_contents for c in fn.__closure__)))
+    if cells.get("mix_m") is not None:
+        out["mix"] = np.asarray(cells["mix_m"], np.float32)
+        out["mix_int"] = matrix_int(out["mix"])
+    q = elem._quant
+    if q is not None:
+        for key in ("shift", "mask", "bias", "stride"):
+            out[f"quant.{key}"] = np.asarray(getattr(q, key), np.int64)
+        out["quant.dither"] = np.asarray(q.dither)
+        out["quant.ns"] = np.asarray(q.ns)
+        out["quant.rng_state"] = np.asarray(q.rng.state, np.uint64)
+        out["quant.last"] = np.asarray(q._last, np.int64)
+    return out
+
+
+def quantizer_from_arrays(arrays: Dict[str, np.ndarray]) -> Quantizer:
+    """The ``quant.*`` entries of convert_arrays -> this package's
+    Quantizer, its PRNG where the other one's stood."""
+    q = Quantizer(str(arrays["quant.dither"]), int(arrays["quant.shift"]),
+                  int(arrays["quant.stride"]), ns=str(arrays["quant.ns"]))
+    q.rng.state = int(arrays["quant.rng_state"])
+    q._last = np.array(arrays["quant.last"], np.int64)
+    return q

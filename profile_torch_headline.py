@@ -14,7 +14,11 @@ deint_rate_chain, headline_launch, headline_launch_noborders, quickstart,
 quickstart_fused and launch_small_default) ``Pipeline.tick`` at the path's
 batch, with the frames
 pushed into appsrc as CUDA tensors (the quick-start paths' videotestsrc
-makes its own on the card).  Each runs two times untraced,
+makes its own on the card); for the audio front-end (BASELINE config 2)
+chip_smoke.py's asr_resample_f32 and asr_resample_s16 (one call of
+AudioResampler's resample_fn over 128 chunks of 2^17 frames) and its
+AUDIO_LAUNCH paths (asr_launch, asr_quickstart, volume_s16, volume_f32: a
+tick each).  Each runs two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
 kernels' device intervals), the device idle share, and the ten kernels
@@ -28,7 +32,6 @@ import argparse
 import itertools
 import json
 import sys
-import time
 
 
 # names of the port's own CUDA kernels: listed even below the top ten
@@ -39,24 +42,10 @@ def report(name, batch, step, iters):
     """Run `step` twice, then `iters` times under torch.profiler; print
     the JSON line described above."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / iters * 1e3
+    from chip_smoke import device_time
+    wall, busy, idle, prof = device_time(step, iters)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in spans:            # union of the device intervals
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
     per_name: dict = {}
     for e in kernels:
         us, n = per_name.get(e.name, (0.0, 0))
@@ -64,11 +53,9 @@ def report(name, batch, step, iters):
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     top = ranked[:10]
     own = [kv for kv in ranked[10:] if any(w in kv[0] for w in OWN_KERNELS)]
-    busy = busy_us / iters / 1e3
     print(json.dumps({
         "config": name, "batch": batch, "wall_ms": wall,
-        "device_busy_ms": busy,
-        "device_idle_share": max(0.0, 1.0 - busy / wall),
+        "device_busy_ms": busy, "device_idle_share": idle,
         "top": [{"kernel": k[:90], "device_ms": us / iters / 1e3,
                  "calls": n // iters} for k, (us, n) in top + own]}))
 
@@ -86,9 +73,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_headline: needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (CONFIGS, DUR, FUSED_CONFIGS, GENERIC,
-                            GENERIC_LAUNCH, H, LAUNCH, OH, OW, W,
-                            generic_converter, generic_inputs, opt_in)
+    from chip_smoke import (ASR_CHUNKS, ASR_FRAMES, AUDIO_LAUNCH, CONFIGS,
+                            DUR, FUSED_CONFIGS, GENERIC, GENERIC_LAUNCH, H,
+                            LAUNCH, OH, OW, W, asr_inputs, generic_converter,
+                            generic_inputs, opt_in)
+    from gstreamer_tpu_torch import AudioResampler
     from gstreamer_tpu_torch import VideoConverter, VideoInfo, parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer
     from gstreamer_tpu_torch.core.pipeline import State
@@ -135,6 +124,32 @@ def main() -> int:
                 pass
         with opt_in(fused):
             report(name, batch, tick, args.iters)
+        pipe.set_state(State.NULL)
+    del planes
+    torch.cuda.empty_cache()
+
+    x = torch.as_tensor(asr_inputs(args.seed)).cuda()
+    res = AudioResampler("kaiser", 48000, 16000)
+    rf = res.resample_fn("f32", ASR_FRAMES, 2)
+    rs = res.resample_fn("s16", ASR_FRAMES, 2)
+    report("asr_resample_f32", ASR_CHUNKS,
+           lambda: rf(x.float() / 32768.0).mean(dim=-1), args.iters)
+    report("asr_resample_s16", ASR_CHUNKS, lambda: rs(x), args.iters)
+    del x
+    for name, (desc, frames, _) in AUDIO_LAUNCH.items():
+        pipe = parse_launch(desc.format(n=10 ** 6))
+        src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+        ins = torch.zeros((frames, 2), device="cuda", dtype=(
+            torch.float32 if name.endswith("f32") else torch.int16))
+        pipe.set_state(State.PLAYING)
+
+        def tick():
+            if src is not None:
+                src.push_buffer(Buffer(data=ins))
+            pipe.tick()
+            while sink.pull_sample() is not None:
+                pass
+        report(name, frames, tick, args.iters)
         pipe.set_state(State.NULL)
     return 0
 

@@ -211,16 +211,17 @@ def test_registry_is_the_ports_own():
     assert set(telement._REGISTRY) == {
         "capsfilter", "identity", "queue", "fakesink", "appsink", "appsrc",
         "videoconvert", "videoscale", "videoconvertscale", "videobalance",
-        "videorate", "deinterlace", "autodeinterlace", "videotestsrc"}
+        "videorate", "deinterlace", "autodeinterlace", "videotestsrc",
+        "audiotestsrc", "audioconvert", "audioresample", "volume"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("audiotestsrc")
+        telement.element_factory_make("compositor")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("audiotestsrc ! appsink",
+        gstreamer_tpu_torch.parse_launch("compositor ! appsink",
                                          device="cpu")
 
 
