@@ -79,6 +79,21 @@ before it and read just after:
                     samples) at samplesperbuffer=48000
   volume_s16/_f32   volume volume=0.5, bit for bit against numpy.
 
+7. N-to-1 aggregators through parse_launch, several appsrcs fed CUDA tensors
+   (AGGREGATORS), each with an e2e line and its device idle share:
+
+  compositor_4k     BASELINE config 3 as bench_all.py:90-132 builds it: four
+                    1920x1080 I420 pads placed 2x2 into a 3840x2160 mosaic,
+                    batch 32, 4 ticks; every quadrant must equal its input,
+                    no kernel; its byte bound printed beside it
+  compositor_wall   a monitoring wall: four 1080p I420 pads scaled to
+                    960x540 by their own converters (4 yscale and 8 chroma420
+                    launches a tick), OVER a checker in BGRA 1080p, one at
+                    alpha 0.5 and a picture-in-picture at alpha 0.6 on top;
+                    held to a numpy gold of the converters and the blend
+  audiomixer_s16/_f32  two 48 kHz stereo inputs, 10 s a tick, one near full
+                    scale: the int64 sum saturated / the float64 sum cast.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -1195,6 +1210,328 @@ def audio_phase(seed, counters, dev):
               f"a tick, idle share {idle:.3f}")
 
 
+# -- BASELINE config 3 and the audio mixer: N-to-1 aggregators -----------------
+
+def comp_src(k, w, h):
+    return (f"appsrc name=in{k} caps=video/x-raw,format=I420,width={w},"
+            f"height={h},framerate=30/1 ! c.sink_{k}")
+
+
+def mosaic_desc(w, h):
+    """bench_all.py:90-132's compositor string (BASELINE config 3), appsink
+    in place of fakesink: four I420 w x h pads placed 2x2 into a mosaic of
+    twice their size."""
+    return (f"compositor name=c sink_1::xpos={w} sink_2::ypos={h} "
+            f"sink_3::xpos={w} sink_3::ypos={h} ! video/x-raw,width={2 * w},"
+            f"height={2 * h} ! appsink name=out "
+            + " ".join(comp_src(k, w, h) for k in range(4)))
+
+
+def wall_pads(w, h):
+    """The monitoring wall's pads: (xpos, ypos, alpha, zorder), each an
+    I420 w x h stream scaled to w/2 x h/2; the fourth is a
+    picture-in-picture over the middle of the other three."""
+    return [(0, 0, 1.0, 0), (w // 2, 0, 0.5, 0), (0, h // 2, 1.0, 0),
+            (w // 4, h // 4, 0.6, 1)]
+
+
+def wall_desc(w, h):
+    props = " ".join(
+        f"sink_{k}::xpos={x} sink_{k}::ypos={y} sink_{k}::width={w // 2} "
+        f"sink_{k}::height={h // 2} sink_{k}::alpha={a} sink_{k}::zorder={z}"
+        for k, (x, y, a, z) in enumerate(wall_pads(w, h)))
+    return (f"compositor name=c background=checker {props} ! video/x-raw,"
+            f"format=BGRA,width={w},height={h} ! appsink name=out "
+            + " ".join(comp_src(k, w, h) for k in range(4)))
+
+
+def mixer_desc(fmt):
+    return ("audiomixer name=c ! appsink name=out "
+            + " ".join(f"appsrc name=in{k} caps=audio/x-raw,format={fmt},"
+                       f"rate=48000,channels=2,layout=interleaved ! c.sink_{k}"
+                       for k in range(2)))
+
+
+AGG_FRAMES = 480000           # audio frames a tick: 10 s of 48 kHz stereo
+# name: (launch string of (w, h), batch or audio frames a tick, ticks,
+# kernel launches per tick: tests/test_torch_compositor.py's CPU spy sees
+# one yscale and two chroma420 calls per scaled pad and tick)
+AGGREGATORS = {
+    "compositor_4k": (mosaic_desc, 32, 4, {}),
+    "compositor_wall": (wall_desc, 16, 4,
+                        {"yscale_hv": 4, "chroma420_scale": 8}),
+    "audiomixer_s16": (lambda w, h: mixer_desc("S16LE"), AGG_FRAMES, 4, {}),
+    "audiomixer_f32": (lambda w, h: mixer_desc("F32LE"), AGG_FRAMES, 4, {}),
+}
+
+
+def drive_multi(desc, batch, ticks, ins, device):
+    """Push `ticks` buffers into every appsrc of `ins` ({name: data}, the
+    same data each tick: a tuple of planes of `batch` frames, or one
+    (frames, 2) audio tensor at 48 kHz) and tick the pipeline to EOS, each
+    tick timed on the host clock between two synchronises.  Returns
+    (pipeline, samples per tick, seconds per tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    cuda = torch.device(device).type == "cuda"
+    pipe = parse_launch(desc, batch=batch, device=device)
+    for name, data in ins.items():
+        src = pipe.get_by_name(name)
+        for t in range(ticks):
+            if isinstance(data, tuple):
+                src.push_buffer(Buffer(data=data, pts=t * batch * DUR,
+                                       duration=DUR, batch=batch))
+            else:
+                n = data.shape[0]
+                src.push_buffer(Buffer(data=data, pts=t * n * 10**9 // 48000,
+                                       duration=n * 10**9 // 48000))
+        src.end_of_stream()
+    sink = pipe.get_by_name("out")
+    pipe.set_state(State.PLAYING)
+    outs, secs = [], []
+    while True:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        if cuda:
+            torch.cuda.synchronize()
+        if not more:
+            break
+        secs.append(time.perf_counter() - t0)
+        got = []
+        while (s := sink.pull_sample()) is not None:
+            got.append(s)
+        outs.append(got)
+    pipe.set_state(State.NULL)
+    return pipe, outs, secs
+
+
+def over_gold(dst, src, alpha_u8):
+    """compositor_orc_overlay_argb in numpy int64 on canonical (..., 4)
+    (A, c0, c1, c2) arrays: an independent gold of the OVER blend."""
+    import numpy as np
+    a_s = (((src[..., 0] * alpha_u8) & 0xFFFF) * 0x8081) >> 23
+    a_d = (((dst[..., 0] * (255 - a_s)) & 0xFFFF) * 0x8081) >> 23
+    a_out = (a_s + a_d) & 0xFF
+    acc = (src * a_s[..., None] + dst * a_d[..., None]) & 0xFFFF
+    out = np.where(a_out[..., None] == 0, 255, np.clip(
+        acc // np.maximum(a_out, 1)[..., None], 0, 255))
+    out[..., 0] = a_out
+    return out
+
+
+def wall_gold(pipe, host_ins, w, h):
+    """The wall's first frames in numpy: each pad through its converter's
+    numpy gold (convert_ref), OVER the checker in zorder, then pack."""
+    import numpy as np
+    from gstreamer_tpu_torch.video.format import format_info, pack, unpack
+    f = format_info("BGRA")
+    yy, xx = np.mgrid[0:h, 0:w]
+    val = np.array([80, 160, 80, 160])[((yy & 8) >> 3) + ((xx & 8) >> 3)]
+    n = len(next(iter(host_ins.values()))[0])
+    out = np.broadcast_to(np.stack([np.full_like(val, 255), val, val, val],
+                                   -1), (n, h, w, 4)).astype(np.int64)
+    comp = pipe.get_by_name("c")
+    pads = sorted(enumerate(wall_pads(w, h)), key=lambda kp: kp[1][3])
+    for k, (x0, y0, alpha, _z) in pads:
+        conv = comp._converters[f"sink_{k}"]
+        pw, ph = w // 2, h // 2
+        src = unpack(np, f, conv.convert_ref(host_ins[f"in{k}"]), pw, ph)
+        x1, y1 = min(x0 + pw, w), min(y0 + ph, h)
+        out[:, y0:y1, x0:x1] = over_gold(
+            out[:, y0:y1, x0:x1], src[:, :y1 - y0, :x1 - x0].astype(np.int64),
+            max(0, min(255, int(alpha * 255))))
+    return pack(np, f, out, w, h)
+
+
+def aggregator_inputs(name, host, rng, w, h, batch):
+    """{appsrc name: host data}: video pads take frames k*batch.. of the
+    seeded 1080p batch (cut to w x h); the mixers' first input is near full
+    scale so that S16 saturates, the second spans the range."""
+    import numpy as np
+    if name.startswith("audiomixer"):
+        lo = rng.integers(20000, 32767, (batch, 2), dtype=np.int16)
+        full = rng.integers(-32768, 32767, (batch, 2), dtype=np.int16)
+        if name.endswith("f32"):
+            return {"in0": (lo / 32768.0).astype(np.float32),
+                    "in1": (full / 40000.0).astype(np.float32)}
+        return {"in0": lo, "in1": full}
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    out = {}
+    for k in range(4):
+        sl = slice(k * batch, (k + 1) * batch)
+        if len(host[0][sl]) < batch:          # a small batch: reuse frames
+            sl = slice(0, batch)
+        out[f"in{k}"] = tuple(np.ascontiguousarray(p[sl, :hh, :ww]) for p, hh, ww
+                              in zip(host, (h, ch, ch), (w, cw, cw)))
+    return out
+
+
+def mixer_gold(ins):
+    """int64 sum clipped to S16, or the float64 sum in pad order cast."""
+    import numpy as np
+    a, b = ins["in0"], ins["in1"]
+    if a.dtype == np.float32:
+        return (a.astype(np.float64) + b).astype(np.float32)
+    return np.clip(a.astype(np.int64) + b, -32768, 32767).astype(np.int16)
+
+
+def aggregator_phase(seed, counters, dev, host, w=W, h=H):
+    """BASELINE config 3 (compositor_4k: bench_all.py's 4 x 1080p I420 -> 4K
+    mosaic), a monitoring wall whose scaled pads run the yscale and
+    chroma420 kernels, and the audio mixer at S16 and F32, each through the
+    port's parse_launch on the card with the launch counts zeroed just
+    before it and read just after.  Outputs equal the port's CPU path on
+    the first frames (ticks) and a numpy gold; launches per tick equal the
+    table's; the wall's converter holds yscale_hv and chroma420_scale to
+    their plain versions at its shapes.  Returns ({kernel: launches} summed
+    over the four, {kernel: largest difference from its plain version})."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import yscale_kernel as ysk
+    rng = np.random.default_rng(seed + 2)
+    total = {k: 0 for k in counters}
+    err = {}
+    for name, (make, batch, ticks, per_tick) in AGGREGATORS.items():
+        desc = make(w, h)
+        audio = name.startswith("audiomixer")
+        host_ins = aggregator_inputs(name, host, rng, w, h, batch)
+        ins = {k: (torch.as_tensor(v).to(dev) if audio else
+                   tuple(torch.as_tensor(p).to(dev) for p in v))
+               for k, v in host_ins.items()}
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        pipe, outs, secs = drive_multi(desc, batch, ticks, ins, dev)
+        counts = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: per_tick.get(k, 0) * ticks for k in counters}
+        require(counts == want, f"{name}: launches {counts}, want {want}")
+        for k, n in counts.items():
+            total[k] += n
+        require(len(outs) == ticks and all(len(o) == 1 for o in outs),
+                f"{name}: {[len(o) for o in outs]} samples per tick")
+        if audio:
+            _, cpu, _ = drive_multi(desc, batch, AUDIO_CHECK, host_ins, "cpu")
+            gold = mixer_gold(host_ins)
+            for t, o in enumerate(outs):
+                o = o[0].buffer.data
+                require(o.device.type == dev.type and o.dtype == torch.as_tensor(
+                    gold).dtype and tuple(o.shape) == gold.shape,
+                    f"{name}: bad output {o.dtype} {tuple(o.shape)}")
+                require(np.array_equal(o.cpu().numpy(), gold),
+                        f"{name}: tick {t} differs from the numpy gold")
+                if t < AUDIO_CHECK:
+                    require(torch.equal(o.cpu(), cpu[t][0].buffer.data),
+                            f"{name}: CUDA output differs from the port's "
+                            f"CPU path")
+            if name.endswith("s16"):
+                require(int(outs[0][0].buffer.data.max()) == 32767,
+                        f"{name}: the near-full-scale input did not saturate")
+            check = (f"CUDA == port CPU path ({AUDIO_CHECK} ticks) == numpy "
+                     f"gold ({ticks} ticks)")
+        else:
+            first = outs[0][0]
+            n = CPU_FRAMES
+            cpu_ins = {k: tuple(p[:n] for p in v)
+                       for k, v in host_ins.items()}
+            _, cpu, _ = drive_multi(desc, n, 1, cpu_ins, "cpu")
+            ref = cpu[0][0]
+            require(first.buffer.pts == ref.buffer.pts
+                    and str(first.caps) == str(ref.caps),
+                    f"{name}: first sample's pts/caps differ from the CPU run")
+            for o, r in zip(first.buffer.data, ref.buffer.data):
+                require(o.device.type == dev.type and o.dtype == torch.uint8,
+                        f"{name}: output {o.dtype} on {o.device}")
+                require(torch.equal(o[:n].cpu(), r),
+                        f"{name}: CUDA output differs from the port's CPU path")
+            if name == "compositor_4k":
+                # every quadrant of every plane is its input plane, on the
+                # whole first tick: no background shows
+                for ci, o in enumerate(first.buffer.data):
+                    ph, pw = o.shape[-2] // 2, o.shape[-1] // 2
+                    for k, (qy, qx) in enumerate([(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]):
+                        require(torch.equal(
+                            o[:, qy * ph:(qy + 1) * ph, qx * pw:(qx + 1) * pw],
+                            ins[f"in{k}"][ci]),
+                            f"{name}: plane {ci} quadrant {k} is not its input")
+                gold_what = "every quadrant == its input (whole tick)"
+            else:
+                # the kernels at the wall's shapes: a pad's batch of 1080p
+                # scaled to 960x540 under the converter's cubic plan
+                plan = pipe.get_by_name("c")._converters["sink_0"].plan
+                y, u, v = ins["in0"]
+                hr, vr = plan["h_res"], plan["v_res"]
+                err["yscale_hv"] = max_err([ysk.yscale_hv(y, hr, vr)],
+                                           [ysk.yscale_hv_plain(y, hr, vr)],
+                                           "yscale_hv")
+                cargs = (hr, vr, plan["up_h_cosited"], plan["up_v_cosited"])
+                err["chroma420_scale"] = max_err(
+                    [ck.chroma420_scale(c, *cargs, w, h) for c in (u, v)],
+                    [ck.chroma420_scale_plain(c, *cargs) for c in (u, v)],
+                    "chroma420_scale")
+                for kname, e in err.items():
+                    require(e == 0, f"{name}: {kname} differs from its plain "
+                            f"version by up to {e} at the wall's shapes")
+                gold = wall_gold(pipe, cpu_ins, w, h)
+                for o, g in zip(first.buffer.data, gold):
+                    require(np.array_equal(o[:n].cpu().numpy(), g),
+                            f"{name}: CUDA output differs from the numpy gold")
+                gold_what = (f"numpy gold ({n} frames); yscale_hv and "
+                             f"chroma420_scale == plain at {tuple(y.shape)} "
+                             f"-> {(vr.out_size, hr.out_size)}")
+            check = f"CUDA == port CPU path ({n} frames), {gold_what}"
+        print(f"aggregate {name}: batch {batch}, {ticks} ticks, "
+              f"{'fused' if pipe._fused else 'per-element'}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {check}; peak "
+              f"device memory {peak / 2**30:.2f} GiB")
+        del outs
+
+        prof = parse_launch(desc, batch=batch, device=dev)
+        sink = prof.get_by_name("out")
+        prof.set_state(State.PLAYING)
+
+        def tick():
+            for k, v in ins.items():
+                prof.get_by_name(k).push_buffer(
+                    Buffer(data=v, batch=1 if audio else batch))
+            prof.tick()
+            while sink.pull_sample() is not None:
+                pass
+        _, busy, idle, _ = device_time(tick, 3)
+        prof.set_state(State.NULL)
+        timed = sum(secs[1:])
+        tick_ms = [round(s * 1e3, 3) for s in secs]
+        if audio:
+            rate = (f"{batch * (ticks - 1) / timed / 1e6:.3f} Msamples/s of "
+                    f"48 kHz stereo input frames")
+        else:
+            rate = f"{batch * (ticks - 1) / timed:.1f} output frames/s"
+        extra = ""
+        if name == "compositor_4k":
+            # compulsory traffic: each input plane read once, each output
+            # plane written once
+            nbytes = sum(p.numel() for p in next(iter(ins.values()))) * 4 * 2
+            bms, by, unit = bound(nbytes, 0.0)
+            extra = (f"; bound {bms:.4f} ms a tick ({by}, {unit}, "
+                     f"{nbytes / batch / 1e6:.1f} MB an output frame), "
+                     f"{batch / bms * 1e3:.0f} frames/s")
+        print(f"e2e {name}: {rate} over ticks 2..{ticks} ({tick_ms} ms per "
+              f"tick, host clock between synchronises); device busy "
+              f"{busy:.3f} ms a tick, idle share {idle:.3f}{extra}")
+        del ins, prof
+        torch.cuda.empty_cache()
+    return total, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1454,6 +1791,13 @@ def main() -> int:
 
     # -- the audio front-end: no kernel of the port on its path -----------------
     audio_phase(args.seed, counters, dev)
+
+    # -- aggregators: BASELINE config 3, the wall, the audio mixer -------------
+    agg_launches, agg_err = aggregator_phase(args.seed, counters, dev, host)
+    for k, n in agg_launches.items():
+        launches[k] += n
+    for k, e in agg_err.items():
+        err[k] = max(err[k], e)
     print(f"main path launches, all paths: {launches}")
 
     smi = subprocess.run(

@@ -506,9 +506,10 @@ class AggregatorElement(Element):
     """GstAggregator equivalent (gstaggregator.c): N sink pads -> 1 src.
 
     The pipeline calls `aggregate_fn()` once all sink pads have data for
-    a tick; inputs arrive as a dict keyed by sink pad name.  Negotiation
-    handles it; no ported element is one yet, and the port's Pipeline
-    raises NotImplementedError when it compiles one."""
+    a tick; inputs arrive as a dict keyed by sink pad name, in the pads'
+    order.  A host aggregator (HOST_ELEMENT, e.g. smpte) defines
+    ``host_aggregate({pad name: Buffer}) -> Optional[Buffer]`` instead,
+    which the per-element path calls."""
 
     def aggregate_fn(self) -> Optional[Callable]:
         return None

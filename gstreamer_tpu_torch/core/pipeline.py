@@ -9,22 +9,24 @@ with its execution rewritten for torch.  ``Bus``, ``State``, ``Bin``,
 Execution model:
 
 * negotiation runs once, on the host, and fixes the caps of every pad;
-* every element contributes a torch function (``make_fn``).  When no host
-  element (deinterlace, videorate, a decoupling queue) splits the graph,
-  ``compile`` composes them in topological order into one step
-  (``_device_step``: plain Python calls, run eagerly by torch); otherwise
-  each element's function is called on its own, and host elements run
-  their ``host_process`` between them;
+* every element contributes a torch function (``make_fn``; an N-to-1
+  aggregator's ``aggregate_fn`` takes ``{sink pad name: value}``).  When
+  no host element (deinterlace, videorate, smpte, a decoupling queue)
+  splits the graph, ``compile`` composes them in topological order into
+  one step (``_device_step``: plain Python calls, run eagerly by torch);
+  otherwise each element's function is called on its own, and host
+  elements run their ``host_process`` between them;
 * the tick loop pulls a BATCH of frames from each source, moves every
   tensor of it to the pipeline's device (``_stage_buf``, in both paths),
-  runs the graph and hands the results to the sinks.
+  runs the graph and hands the results to the sinks.  With several
+  sources the tick is EOS as soon as any of them has nothing more.
 
 The device is explicit: a Pipeline runs on CUDA unless the caller names
 another device, and raises without a card (``device.resolve``).  Not
 ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``,
 ``prefetch``, scan-carried (stateful) elements, dynamic (controlled)
-properties, aggregators and multi-stream sources.  Tracer hooks, the dot
-dump, seek and queries are left out.
+properties and multi-stream sources.  Tracer hooks, the dot dump, seek and
+queries are left out.
 """
 
 from __future__ import annotations
@@ -455,13 +457,13 @@ class Pipeline(Bin):
         order = self._topo_order()
         fns: Dict[Element, Optional[Callable]] = {}
         for e in order:
-            if isinstance(e, AggregatorElement) \
-                    or getattr(e, "MULTI_STREAM", False):
+            if getattr(e, "MULTI_STREAM", False):
                 raise NotImplementedError(
-                    f"{e.name}: aggregators and multi-stream sources are "
-                    f"{_ROADMAP}")
+                    f"{e.name}: multi-stream sources are {_ROADMAP}")
             if isinstance(e, SourceElement):
                 fns[e] = e.generator_fn()
+            elif isinstance(e, AggregatorElement):
+                fns[e] = e.aggregate_fn()
             elif isinstance(e, SinkElement):
                 fns[e] = None
             elif e.make_scan_fn() is not None:
@@ -507,7 +509,8 @@ class Pipeline(Bin):
     def _compose(order, fns):
         def device_step(inputs: Dict[str, Any]) -> Dict[str, Any]:
             """Every element's function in topological order; tee fan-out
-            is value reuse."""
+            is value reuse; an aggregator takes every linked sink pad's
+            value, keyed by pad name in the pads' order."""
             values: Dict[Pad, Any] = {}
             outputs: Dict[str, Any] = {}
             for e in order:
@@ -521,6 +524,12 @@ class Pipeline(Bin):
                     pad = e.sink_pads()[0]
                     if pad.peer is not None and pad.peer in values:
                         outputs[e.name] = values[pad.peer]
+                elif isinstance(e, AggregatorElement):
+                    ins = {p.name: values[p.peer] for p in e.sink_pads()
+                           if p.peer is not None}
+                    v = fns[e](ins) if fns[e] is not None else ins
+                    for sp in e.src_pads():
+                        values[sp] = v
                 else:
                     pads = [p for p in e.sink_pads()
                             if p.peer is not None and p.peer in values]
@@ -680,6 +689,26 @@ class Pipeline(Bin):
                 if ret == FlowReturn.ERROR:
                     self.bus.post(Message("error", e.name, {}))
                     return False
+            elif isinstance(e, AggregatorElement):
+                # the output's metadata is the first linked pad's buffer;
+                # a host aggregator (smpte) takes every pad's buffer
+                pads = [p for p in e.sink_pads()
+                        if p.peer is not None and p.peer in buf_by_pad]
+                if not pads:
+                    continue
+                buf = buf_by_pad[pads[0].peer]
+                if (not self._fused and e in self._host_elems
+                        and hasattr(e, "host_aggregate")):
+                    buf = e.host_aggregate(
+                        {p.name: buf_by_pad[p.peer] for p in pads})
+                    if buf is None:
+                        continue
+                elif not self._fused and self._fns.get(e) is not None:
+                    buf = buf.with_(data=self._fns[e](
+                        {p.name: buf_by_pad[p.peer].data for p in pads}))
+                buf = e.process_meta(buf)
+                for sp in e.src_pads():
+                    buf_by_pad[sp] = buf
             else:
                 pads = [p for p in e.sink_pads()
                         if p.peer is not None and p.peer in buf_by_pad]

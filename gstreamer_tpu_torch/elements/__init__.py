@@ -10,3 +10,8 @@ from . import videorate          # noqa: F401
 from . import deinterlace        # noqa: F401  (deinterlace, autodeinterlace)
 from . import videotestsrc      # noqa: F401
 from . import audio_elements    # noqa: F401  (audiotestsrc, audioconvert, audioresample, volume)
+from . import compositor        # noqa: F401  (compositor, videomixer)
+from . import audio_mix         # noqa: F401  (audiomixer, adder, audiointerleave, audiorate)
+from . import interleave        # noqa: F401  (interleave, deinterleave)
+from . import smpte             # noqa: F401  (smpte, smptealpha)
+from . import shapewipe         # noqa: F401

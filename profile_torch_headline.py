@@ -2,6 +2,7 @@
 """Where the time goes in the torch port's main paths, on one GPU.
 
     python3 profile_torch_headline.py [--batch 256] [--iters 5] [--seed 0]
+                                      [--only NAME,NAME,...]
 
 For each of chip_smoke.py's converter configurations (linear2, cubic,
 add_borders, and fused_ingest under GTPU_PALLAS=1) this runs
@@ -18,12 +19,15 @@ makes its own on the card); for the audio front-end (BASELINE config 2)
 chip_smoke.py's asr_resample_f32 and asr_resample_s16 (one call of
 AudioResampler's resample_fn over 128 chunks of 2^17 frames) and its
 AUDIO_LAUNCH paths (asr_launch, asr_quickstart, volume_s16, volume_f32: a
-tick each).  Each runs two times untraced,
+tick each); and its aggregator configurations (AGGREGATORS: compositor_4k,
+BASELINE config 3; compositor_wall; audiomixer_s16, audiomixer_f32: a tick
+each, every appsrc fed CUDA tensors).  Each runs two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
 kernels' device intervals), the device idle share, and the ten kernels
 with the most device time, then the port's own kernels where they rank
-lower.  Needs a CUDA card.
+lower.  ``--only`` profiles just the named configurations.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -65,7 +69,14 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated configuration names")
     args = ap.parse_args()
+    only = None if args.only is None else set(args.only.split(","))
+
+    def profile(name, batch, step):
+        if only is None or name in only:
+            report(name, batch, step, args.iters)
 
     import numpy as np
     import torch
@@ -73,9 +84,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_headline: needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (ASR_CHUNKS, ASR_FRAMES, AUDIO_LAUNCH, CONFIGS,
-                            DUR, FUSED_CONFIGS, GENERIC, GENERIC_LAUNCH, H,
-                            LAUNCH, OH, OW, W, asr_inputs, generic_converter,
+    from chip_smoke import (AGGREGATORS, ASR_CHUNKS, ASR_FRAMES,
+                            AUDIO_LAUNCH, CONFIGS, DUR, FUSED_CONFIGS,
+                            GENERIC, GENERIC_LAUNCH, H, LAUNCH, OH, OW, W,
+                            aggregator_inputs, asr_inputs, generic_converter,
                             generic_inputs, opt_in)
     from gstreamer_tpu_torch import AudioResampler
     from gstreamer_tpu_torch import VideoConverter, VideoInfo, parse_launch
@@ -94,14 +106,13 @@ def main() -> int:
     for name, cfg in CONFIGS.items():
         conv = VideoConverter(ii, oi, cfg)
         with opt_in(name in FUSED_CONFIGS):
-            report(name, args.batch, lambda: conv.convert(planes),
-                   args.iters)
+            profile(name, args.batch, lambda: conv.convert(planes))
     for name, g in GENERIC.items():
         conv = generic_converter(name)
         ins = tuple(torch.as_tensor(p).cuda()
                     for p in generic_inputs(name, host, g["batch"]))
         with opt_in(g.get("fused", False)):
-            report(name, g["batch"], lambda: conv.convert(ins), args.iters)
+            profile(name, g["batch"], lambda: conv.convert(ins))
         del ins
         torch.cuda.empty_cache()
     for name, (desc, batch, _, fused) in {**LAUNCH,
@@ -123,7 +134,7 @@ def main() -> int:
             while sink.pull_sample() is not None:
                 pass
         with opt_in(fused):
-            report(name, batch, tick, args.iters)
+            profile(name, batch, tick)
         pipe.set_state(State.NULL)
     del planes
     torch.cuda.empty_cache()
@@ -132,9 +143,9 @@ def main() -> int:
     res = AudioResampler("kaiser", 48000, 16000)
     rf = res.resample_fn("f32", ASR_FRAMES, 2)
     rs = res.resample_fn("s16", ASR_FRAMES, 2)
-    report("asr_resample_f32", ASR_CHUNKS,
-           lambda: rf(x.float() / 32768.0).mean(dim=-1), args.iters)
-    report("asr_resample_s16", ASR_CHUNKS, lambda: rs(x), args.iters)
+    profile("asr_resample_f32", ASR_CHUNKS,
+            lambda: rf(x.float() / 32768.0).mean(dim=-1))
+    profile("asr_resample_s16", ASR_CHUNKS, lambda: rs(x))
     del x
     for name, (desc, frames, _) in AUDIO_LAUNCH.items():
         pipe = parse_launch(desc.format(n=10 ** 6))
@@ -149,8 +160,30 @@ def main() -> int:
             pipe.tick()
             while sink.pull_sample() is not None:
                 pass
-        report(name, frames, tick, args.iters)
+        profile(name, frames, tick)
         pipe.set_state(State.NULL)
+
+    for name, (make, batch, _, _) in AGGREGATORS.items():
+        audio = name.startswith("audiomixer")
+        ins = {k: (torch.as_tensor(v).cuda() if audio else
+                   tuple(torch.as_tensor(p).cuda() for p in v))
+               for k, v in aggregator_inputs(name, host, rng, W, H,
+                                             batch).items()}
+        pipe = parse_launch(make(W, H), batch=batch)
+        sink = pipe.get_by_name("out")
+        pipe.set_state(State.PLAYING)
+
+        def tick():
+            for k, v in ins.items():
+                pipe.get_by_name(k).push_buffer(
+                    Buffer(data=v, batch=1 if audio else batch))
+            pipe.tick()
+            while sink.pull_sample() is not None:
+                pass
+        profile(name, batch, tick)
+        pipe.set_state(State.NULL)
+        del ins
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -212,16 +212,19 @@ def test_registry_is_the_ports_own():
         "capsfilter", "identity", "queue", "fakesink", "appsink", "appsrc",
         "videoconvert", "videoscale", "videoconvertscale", "videobalance",
         "videorate", "deinterlace", "autodeinterlace", "videotestsrc",
-        "audiotestsrc", "audioconvert", "audioresample", "volume"}
+        "audiotestsrc", "audioconvert", "audioresample", "volume",
+        "compositor", "videomixer", "audiomixer", "adder", "audiointerleave",
+        "audiorate", "interleave", "deinterleave", "smpte", "smptealpha",
+        "shapewipe"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("compositor")
+        telement.element_factory_make("textoverlay")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("compositor ! appsink",
+        gstreamer_tpu_torch.parse_launch("textoverlay ! appsink",
                                          device="cpu")
 
 
