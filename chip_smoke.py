@@ -94,6 +94,25 @@ before it and read just after:
   audiomixer_s16/_f32  two 48 kHz stereo inputs, 10 s a tick, one near full
                     scale: the int64 sum saturated / the float64 sum cast.
 
+8. stateful and controlled elements (stateful_phase), each with an e2e line,
+   its device idle share and peak memory:
+
+  deint_<method>    BASELINE config 4 with each of the nine methods that have
+                    no kernel (tomsmocomp, greedyh, greedyl, vfir,
+                    linearblend, weave, weave-tff, weave-bff, yadif) at
+                    1920x1080 I420, batch 64, 3 ticks: output frames per tick
+                    (latency held back on the first), and the card's bytes
+                    equal the port's CPU path over ticks of 2, 1 and 2 frames
+  deint_chain_controlled  deint_chain with contrast and brightness keyframed
+                    (a new value every tick): 3 deint launches a tick, each
+                    tick equal to the plain deinterlace and videobalance's
+                    float32 tables at that tick's values
+  effectv_chain     bench_all.py:177-209's edgetv ! vertigotv scan at 640x480
+                    RGB, batch 128, 3 ticks; it and each of the twelve effects
+                    alone equal the port's CPU path over two ticks of 4 frames
+  volume_controlled_s16/_f32  a volume ramp, 10 s of 48 kHz stereo a tick,
+                    equal to the port's CPU path on every tick.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -1532,6 +1551,350 @@ def aggregator_phase(seed, counters, dev, host, w=W, h=H):
     return total, err
 
 
+# -- stateful and controlled elements: BASELINE config 4 in full, effectv ---
+
+# the deinterlace methods with no kernel (plain torch); the fields each
+# holds back at the stream's start (gstdeinterlacemethod.h latency)
+DEINT_NEW = ("tomsmocomp", "greedyh", "greedyl", "vfir", "linearblend",
+             "weave", "weave-tff", "weave-bff", "yadif")
+DEINT_HELD = {"greedyh": 1, "greedyl": 1, "yadif": 2}
+DEINT_TICKS = 3
+DEINT_CHECK = (2, 1, 2)     # input frames a tick of the CPU check
+BALANCE = "videobalance contrast=1.1 brightness=0.05 ! appsink name=out"
+# a fade: contrast and brightness keyframed, a new value every tick
+FADE = {"vb": {"contrast": [(0, 1.3), (DEINT_TICKS * DEINT_BATCH * DUR,
+                                       0.7)],
+               "brightness": [(0, -0.1), (DEINT_TICKS * DEINT_BATCH * DUR,
+                                          0.2)]}}
+EW, EH = 640, 480           # bench_all.py:177-209's 480p camera feed
+ESRC = (f"appsrc name=in caps=video/x-raw,format=RGB,width={EW},"
+        f"height={EH},framerate=30/1 ! ")
+EFFECT_CHAIN = ("edgetv ! vertigotv", 128, 3)      # string, batch, ticks
+EFFECTS = ("edgetv", "streaktv", "shagadelictv", "vertigotv", "quarktv",
+           "revtv", "dicetv", "warptv", "rippletv", "agingtv", "optv",
+           "radioactv")
+EFFECT_CHECK = (4, 4)       # frames a tick, card and CPU
+VOLUME_RAMP = {"v": {"volume": [(0, 0.2), (4 * 10**10, 1.4)]}}
+
+
+def controlled(desc, device, batch, controls=None):
+    """parse_launch(desc) with `controls` ({element: {prop: [(ts, value),
+    ...]}}) bound as linear InterpolationControlSources."""
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.controller import \
+        InterpolationControlSource
+    pipe = parse_launch(desc, batch=batch, device=device)
+    for name, props in (controls or {}).items():
+        for prop, points in props.items():
+            cs = InterpolationControlSource("linear")
+            for ts, v in points:
+                cs.set(ts, v)
+            pipe.get_by_name(name).set_control_source(prop, cs)
+    return pipe
+
+
+def push_tick(src, data, pts):
+    """Push one tick's data (a tuple of planes, or one (frames, 2) audio
+    tensor at 48 kHz) at `pts`; returns the next tick's pts."""
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    if isinstance(data, tuple):
+        n = data[0].shape[0]
+        src.push_buffer(Buffer(data=data, pts=pts, duration=DUR, batch=n))
+        return pts + n * DUR
+    n = data.shape[0] * 10**9 // 48000
+    src.push_buffer(Buffer(data=data, pts=pts, duration=n))
+    return pts + n
+
+
+def drive_seq(desc, pushes, device, batch, controls=None):
+    """Push `pushes` into appsrc ``in``, one a tick (push_tick), under
+    `controls` (controlled), and tick the pipeline to EOS, each tick timed
+    on the host clock between two synchronises.  Returns (pipeline,
+    samples per tick, seconds per tick)."""
+    import torch
+    from gstreamer_tpu_torch.core.pipeline import State
+    cuda = torch.device(device).type == "cuda"
+    pipe = controlled(desc, device, batch, controls)
+    src = pipe.get_by_name("in")
+    pts = 0
+    for data in pushes:
+        pts = push_tick(src, data, pts)
+    src.end_of_stream()
+    sink = pipe.get_by_name("out")
+    pipe.set_state(State.PLAYING)
+    outs, secs = [], []
+    while True:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        if cuda:
+            torch.cuda.synchronize()
+        if not more:
+            break
+        secs.append(time.perf_counter() - t0)
+        got = []
+        while (s := sink.pull_sample()) is not None:
+            got.append(s)
+        outs.append(got)
+    pipe.set_state(State.NULL)
+    return pipe, outs, secs
+
+
+def same_samples(a, b, what, dev):
+    """Samples per tick of a run on `dev` equal a CPU run's: data bytes,
+    pts, batch, caps."""
+    import torch
+    require(len(a) == len(b) and all(len(x) == len(y) for x, y in
+                                     zip(a, b)),
+            f"{what}: {[len(x) for x in a]} samples per tick on the card, "
+            f"{[len(y) for y in b]} on the CPU")
+    for x, y in zip(a, b):
+        for s, r in zip(x, y):
+            require((s.buffer.pts, s.buffer.batch, str(s.caps))
+                    == (r.buffer.pts, r.buffer.batch, str(r.caps)),
+                    f"{what}: sample metadata differs from the CPU run")
+            sd, rd = s.buffer.data, r.buffer.data
+            sd = sd if isinstance(sd, tuple) else (sd,)
+            rd = rd if isinstance(rd, tuple) else (rd,)
+            for o, c in zip(sd, rd):
+                require(o.device.type == dev.type and torch.equal(o.cpu(), c),
+                        f"{what}: CUDA output differs from the port's CPU "
+                        f"path")
+
+
+def profile_ticks(desc, push, dev, batch, controls=None):
+    """Device busy ms and idle share a tick (device_time: 3 ticks traced
+    after 2), the pipeline fed `push` every tick."""
+    from gstreamer_tpu_torch.core.pipeline import State
+    pipe = controlled(desc, dev, batch, controls)
+    src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+    pipe.set_state(State.PLAYING)
+    pts = [0]
+
+    def tick():
+        pts[0] = push_tick(src, push, pts[0])
+        pipe.tick()
+        while sink.pull_sample() is not None:
+            pass
+    _, busy, idle, _ = device_time(tick, 3)
+    pipe.set_state(State.NULL)
+    return busy, idle
+
+
+def fade_gold(host, ticks):
+    """deint_chain_controlled's gold: the plain linear deinterlace of the
+    first CPU_FRAMES frames, then videobalance's float32 tables (one
+    rounding a step, cos / sin correctly rounded) at each tick's values."""
+    import math
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.controller import \
+        InterpolationControlSource
+    from gstreamer_tpu_torch.ops import deint_kernel as dk
+    fields = [dk.deint_both_parities_plain(torch.as_tensor(p[:CPU_FRAMES]),
+                                           "linear", 0).flatten(0, 1).numpy()
+              for p in host]
+    f32 = np.float32
+    golds = []
+    for t in range(ticks):
+        vals = {}
+        for prop, points in FADE["vb"].items():
+            cs = InterpolationControlSource("linear")
+            for ts, v in points:
+                cs.set(ts, v)
+            vals[prop] = f32(cs.value_at(t * DEINT_BATCH * DUR))
+        c, b = vals["contrast"], vals["brightness"]
+        i = np.arange(256, dtype=np.float32)
+        ty = np.clip(np.rint(f32(16) + (i - f32(16)) * c + b * f32(255)),
+                     0, 255).astype(np.int64)
+        arg = f32(np.pi) * f32(0.0)
+        hc, hs = f32(math.cos(float(arg))), f32(math.sin(float(arg)))
+        ii, jj = (i - f32(128))[:, None], (i - f32(128))[None, :]
+        tu = np.clip(np.rint(f32(128) + (ii * hc + jj * hs) * f32(1.0)),
+                     0, 255).astype(np.int64)
+        tv = np.clip(np.rint(f32(128) + (-ii * hs + jj * hc) * f32(1.0)),
+                     0, 255).astype(np.int64)
+        y, u, v = (f.astype(np.int64) for f in fields)
+        golds.append((ty[y], tu[u, v], tv[u, v], (float(c), float(b))))
+    return golds
+
+
+def stateful_phase(seed, counters, dev, host):
+    """The stateful and controlled paths on the card, each with the
+    launch counts zeroed just before it and read just after: every
+    deinterlace method of BASELINE config 4 (deint_<method>), the linear
+    chain under a keyframed fade (deint_chain_controlled, 3 deint launches
+    a tick), bench_all.py's edgetv ! vertigotv scan chain and each effectv
+    effect alone, and a volume ramp.  Outputs equal the port's CPU path
+    across tick boundaries (and the fade a host gold).  Returns
+    {kernel: launches}."""
+    import numpy as np
+    import torch
+    total = {k: 0 for k in counters}
+    b = DEINT_BATCH
+    ins = tuple(torch.as_tensor(p[:b]).to(dev) for p in host)
+    src = SRC.format(w=W, h=H)
+    chk = []
+    off = 0
+    for n in DEINT_CHECK:
+        chk.append(tuple(p[off:off + n] for p in host))
+        off += n
+
+    def counted(fn):
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = fn()
+        counts = {k: c.launches for k, c in counters.items()}
+        for k, v in counts.items():
+            total[k] += v
+        return res, counts, torch.cuda.max_memory_allocated()
+
+    # -- every other deinterlace method, BASELINE config 4's chain -------
+    for m in DEINT_NEW:
+        name = f"deint_{m}"
+        desc = src + f"deinterlace method={m} ! " + BALANCE
+        (pipe, outs, secs), counts, peak = counted(
+            lambda: drive_seq(desc, [ins] * DEINT_TICKS, dev, b))
+        require(not any(counts.values()),
+                f"{name}: kernels launched {counts} (no kernel on its path)")
+        frames = [sum(s.buffer.batch for s in o) for o in outs]
+        want = [2 * b - DEINT_HELD.get(m, 0)] + [2 * b] * (DEINT_TICKS - 1)
+        require(frames == want, f"{name}: output frames per tick {frames}, "
+                f"want {want}")
+        del outs
+        _, on_card, _ = drive_seq(desc, [tuple(torch.as_tensor(x).to(dev)
+                                               for x in c) for c in chk],
+                                  dev, max(DEINT_CHECK))
+        _, on_cpu, _ = drive_seq(desc, [tuple(torch.as_tensor(x) for x in c)
+                                        for c in chk], "cpu",
+                                 max(DEINT_CHECK))
+        same_samples(on_card, on_cpu, name, dev)
+        busy, idle = profile_ticks(desc, ins, dev, b)
+        fps = sum(frames[1:]) / sum(secs[1:])
+        print(f"path {name}: batch {b}, {DEINT_TICKS} ticks, per-element; "
+              f"launches none; output frames per tick {frames}; CUDA == "
+              f"port CPU path over ticks of {DEINT_CHECK} frames; peak "
+              f"device memory {peak / 2**30:.2f} GiB")
+        print(f"e2e {name}: {fps:.1f} output frames/s over ticks 2.."
+              f"{DEINT_TICKS} ({[round(s * 1e3, 3) for s in secs]} ms per "
+              f"tick, host clock between synchronises); device busy "
+              f"{busy:.3f} ms a tick, idle share {idle:.3f}; peak "
+              f"{peak / 2**30:.2f} GiB")
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+
+    # -- the linear chain under a keyframed fade ---------------------------
+    name = "deint_chain_controlled"
+    desc = src + "deinterlace method=linear ! videobalance name=vb ! " \
+        "appsink name=out"
+    (pipe, outs, secs), counts, peak = counted(
+        lambda: drive_seq(desc, [ins] * DEINT_TICKS, dev, b, FADE))
+    require(counts["deint_both_parities"] == 3 * DEINT_TICKS
+            and sum(counts.values()) == 3 * DEINT_TICKS,
+            f"{name}: launches {counts}, want 3 deint_both_parities a tick")
+    golds = fade_gold(host, DEINT_TICKS)
+    for t, (o, g) in enumerate(zip(outs, golds)):
+        require(len(o) == 1 and o[0].buffer.batch == 2 * b,
+                f"{name}: tick {t} gave {[s.buffer.batch for s in o]}")
+        for p, gp in zip(o[0].buffer.data, g[:3]):
+            require(np.array_equal(p[:2 * CPU_FRAMES].cpu().numpy()
+                                   .astype(np.int64), gp),
+                    f"{name}: tick {t} differs from the plain deinterlace "
+                    f"and the float32 tables at {g[3]}")
+    require(not torch.equal(outs[0][0].buffer.data[0],
+                            outs[-1][0].buffer.data[0]),
+            f"{name}: the fade did not change the output")
+    busy, idle = profile_ticks(desc, ins, dev, b, FADE)
+    fps = 2 * b * (DEINT_TICKS - 1) / sum(secs[1:])
+    print(f"path {name}: batch {b}, {DEINT_TICKS} ticks, per-element; "
+          f"launches { {k: v for k, v in counts.items() if v} }; each tick "
+          f"== plain deinterlace + float32 tables at its values "
+          f"{[g[3] for g in golds]} ({CPU_FRAMES} frames); peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"e2e {name}: {fps:.1f} output frames/s over ticks 2.."
+          f"{DEINT_TICKS} ({[round(s * 1e3, 3) for s in secs]} ms per tick, "
+          f"host clock between synchronises); device busy {busy:.3f} ms a "
+          f"tick, idle share {idle:.3f}")
+    del outs, ins
+    torch.cuda.empty_cache()
+
+    # -- effectv: bench_all.py's scan chain, then every effect alone -------
+    rng = np.random.default_rng(seed + 3)
+    chain, eb, eticks = EFFECT_CHAIN
+    rgb = tuple(rng.integers(0, 256, (eb, EH, EW), dtype=np.uint8)
+                for _ in range(3))
+    rgb_dev = tuple(torch.as_tensor(p).to(dev) for p in rgb)
+    name = "effectv_chain"
+    desc = ESRC + chain + " ! appsink name=out"
+    (pipe, outs, secs), counts, peak = counted(
+        lambda: drive_seq(desc, [rgb_dev] * eticks, dev, eb))
+    require(not any(counts.values()) and pipe._fused,
+            f"{name}: want one fused step and no kernel, got {counts}")
+    require([sum(s.buffer.batch for s in o) for o in outs] == [eb] * eticks,
+            f"{name}: output frames per tick")
+    del outs
+    busy, idle = profile_ticks(desc, rgb_dev, dev, eb)
+    fps = eb * (eticks - 1) / sum(secs[1:])
+    checked = []
+    for effect in (chain,) + EFFECTS:
+        d = ESRC + effect + " ! appsink name=out"
+        pushes = []
+        off = 0
+        for n in EFFECT_CHECK:
+            pushes.append(tuple(p[off:off + n] for p in rgb))
+            off += n
+        (_, on_card, _), counts, _ = counted(lambda: drive_seq(
+            d, [tuple(torch.as_tensor(x).to(dev) for x in c)
+                for c in pushes], dev, EFFECT_CHECK[0]))
+        require(not any(counts.values()), f"{effect}: kernels {counts}")
+        _, on_cpu, _ = drive_seq(d, [tuple(torch.as_tensor(x) for x in c)
+                                     for c in pushes], "cpu",
+                                 EFFECT_CHECK[0])
+        same_samples(on_card, on_cpu, effect, dev)
+        checked.append(effect.split()[0] if effect in EFFECTS else "chain")
+    print(f"path {name}: batch {eb}, {eticks} ticks, fused scan; launches "
+          f"none; CUDA == port CPU path over ticks of {EFFECT_CHECK} frames "
+          f"at {EW}x{EH} for {checked}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"e2e {name}: {fps:.1f} output frames/s over ticks 2..{eticks} "
+          f"({[round(s * 1e3, 3) for s in secs]} ms per tick, host clock "
+          f"between synchronises; {2 * eb} scan steps a tick); device busy "
+          f"{busy:.3f} ms a tick, idle share {idle:.3f}")
+    del rgb_dev
+    torch.cuda.empty_cache()
+
+    # -- a volume ramp, S16 and F32, 10 s a tick ---------------------------
+    arng = np.random.default_rng(seed + 4)
+    for fmt in ("S16LE", "F32LE"):
+        name = f"volume_controlled_{fmt[:3].lower()}"
+        desc = (ASR_SRC.replace("S16LE", fmt)
+                + "volume name=v ! appsink name=out")
+        host_a = [arng.integers(-32768, 32767, (AGG_FRAMES, 2),
+                                dtype=np.int16) for _ in range(4)]
+        if fmt == "F32LE":
+            host_a = [(h / 32768.0).astype(np.float32) for h in host_a]
+        (_, outs, secs), counts, _ = counted(lambda: drive_seq(
+            desc, [torch.as_tensor(h).to(dev) for h in host_a], dev, 1,
+            VOLUME_RAMP))
+        require(not any(counts.values()), f"{name}: kernels {counts}")
+        _, cpu, _ = drive_seq(desc, [torch.as_tensor(h) for h in host_a],
+                              "cpu", 1, VOLUME_RAMP)
+        same_samples(outs, cpu, name, dev)
+        busy, idle = profile_ticks(desc, torch.as_tensor(host_a[0]).to(dev),
+                                   dev, 1, VOLUME_RAMP)
+        msps = AGG_FRAMES * (len(secs) - 1) / sum(secs[1:]) / 1e6
+        print(f"audio {name}: CUDA == port CPU path on every tick "
+              f"({len(outs)} ticks of {AGG_FRAMES} frames, a new gain each "
+              f"tick); launches none")
+        print(f"e2e {name}: {msps:.3f} Msamples/s of 48 kHz stereo input "
+              f"frames over ticks 2..{len(secs)} "
+              f"({[round(s * 1e3, 3) for s in secs]} ms per tick); device "
+              f"busy {busy:.3f} ms a tick, idle share {idle:.3f}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1798,6 +2161,10 @@ def main() -> int:
         launches[k] += n
     for k, e in agg_err.items():
         err[k] = max(err[k], e)
+
+    # -- stateful and controlled elements -------------------------------------
+    for k, n in stateful_phase(args.seed, counters, dev, host).items():
+        launches[k] += n
     print(f"main path launches, all paths: {launches}")
 
     smi = subprocess.run(

@@ -11,12 +11,19 @@ nothing of it (nor of jax).  It grows slice by slice.  So far it carries:
 * the launch-string runtime -- caps negotiation, ``parse_launch`` and
   ``Pipeline`` -- with the elements capsfilter, identity, queue, fakesink,
   appsink, appsrc, videoconvert/videoscale/videoconvertscale,
-  deinterlace (linear and scalerbob, with a CUDA kernel for both field
-  parities), videorate, videobalance and videotestsrc;
+  deinterlace (every method; linear and scalerbob on a CUDA kernel for
+  both field parities), videorate, videobalance and videotestsrc;
 * the audio front-end (BASELINE config 2, ``audiotestsrc ! audioconvert !
   audioresample``): AudioInfo, the sample formats, the channel mixer, the
   quantizer and the polyphase ``AudioResampler``, and the elements
-  audiotestsrc, audioconvert, audioresample and volume.
+  audiotestsrc, audioconvert, audioresample and volume;
+* the aggregators (compositor, videomixer, audiomixer, adder,
+  audiointerleave, audiorate, interleave, deinterleave, smpte, smptealpha,
+  shapewipe);
+* stateful elements (``make_scan_fn``: a step over the frames of a tick,
+  its carry kept on the device across ticks) and controlled properties
+  (``core.controller`` sources bound to ``DYNAMIC_PROPS``: keyframed
+  videobalance and volume), and the effectv family.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``; without
 a card the default raises.

@@ -191,9 +191,9 @@ class Element:
     def set_control_source(self, prop: str, source) -> None:
         """Attach a ControlSource to a property
         (gst_object_add_control_binding).  Properties listed in the
-        element's DYNAMIC_PROPS become per-tick inputs; the port's
-        Pipeline does not run them yet and raises NotImplementedError
-        (ROADMAP.md)."""
+        element's DYNAMIC_PROPS become per-tick inputs of ``make_dyn_fn``
+        -- value changes never rebuild anything; other properties are
+        not sampled by the Pipeline."""
         prop = prop.replace("_", "-")
         if prop not in self.PROPERTIES:
             raise ValueError(f"{self.FACTORY}: no property {prop!r}")
@@ -210,6 +210,12 @@ class Element:
         srcs = getattr(self, "_dyn_sources", {})
         return {p: s for p, s in srcs.items()
                 if p in self.DYNAMIC_PROPS}
+
+    def make_dyn_fn(self):
+        """fn(x, dyn: dict) for elements with DYNAMIC_PROPS; dyn maps
+        prop name -> the tick's float32 value (a Python float rounded
+        to float32)."""
+        return None
 
     def set_property(self, key: str, value: Any) -> None:
         key = key.replace("_", "-")
@@ -361,11 +367,24 @@ class Element:
         return None
 
     def make_scan_fn(self):
-        """Optional (step, init_carry) for STATEFUL per-frame elements:
-        step(carry, x) -> (carry, out_frame) over the batch axis.  No
-        ported element has one yet; the port's Pipeline raises
-        NotImplementedError for one (ROADMAP.md).  Returns None for
+        """Optional (step, init_carry) for STATEFUL per-frame elements.
+
+        step(carry, x) -> (carry, out_frame) runs over the batch axis
+        (``core.pipeline.run_scan``: a Python loop over the frames of a
+        tick, each output frame written into a preallocated tensor);
+        `carry` (a tuple tree of tensors and Python ints) is the
+        element's streaming state, kept on the pipeline's device across
+        ticks -- the analog of GstElement instance state for
+        frame-feedback effects.  x is the per-frame input tree, or
+        (frame, aux) when scan_aux is defined.  Returns None for
         stateless elements."""
+        return None
+
+    def scan_aux(self, batch: int):
+        """Per-tick host-computed auxiliary scan inputs (leading axis =
+        batch).  Host-side sequential parameters (phase counters, PRNG
+        draws) are precomputed here and fed to make_scan_fn's step as
+        x[1]."""
         return None
 
     def process_meta(self, buf: Buffer) -> Buffer:

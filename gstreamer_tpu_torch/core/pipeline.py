@@ -19,14 +19,19 @@ Execution model:
 * the tick loop pulls a BATCH of frames from each source, moves every
   tensor of it to the pipeline's device (``_stage_buf``, in both paths),
   runs the graph and hands the results to the sinks.  With several
-  sources the tick is EOS as soon as any of them has nothing more.
+  sources the tick is EOS as soon as any of them has nothing more;
+* a stateful element (``make_scan_fn``) runs its step over the frames of
+  the tick (``run_scan``), its carry kept on the device across ticks
+  (``_elem_states``, reset whenever ``compile`` builds the program); a
+  controlled property (``DYNAMIC_PROPS`` with a control source) is
+  sampled at the tick's timestamp as a float32 and handed to the
+  element's ``make_dyn_fn``.
 
 The device is explicit: a Pipeline runs on CUDA unless the caller names
 another device, and raises without a card (``device.resolve``).  Not
 ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``,
-``prefetch``, scan-carried (stateful) elements, dynamic (controlled)
-properties and multi-stream sources.  Tracer hooks, the dot dump, seek and
-queries are left out.
+``prefetch`` and multi-stream sources.  Tracer hooks, the dot dump, seek
+and queries are left out.
 """
 
 from __future__ import annotations
@@ -47,6 +52,61 @@ from .element import (AggregatorElement, Element, Pad, PadDirection,
 log = logging.getLogger("gstreamer_tpu_torch.pipeline")
 
 _ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
+
+
+def run_scan(step, carry, xs, aux=None):
+    """lax.scan's plain torch form: ``step(carry, x) -> (carry, y)`` over
+    the leading axis of every leaf of `xs` (a tensor or a tuple / list of
+    them), with x = (frame, aux[k]) when `aux` (host rows, one a frame)
+    is given.  Each frame's outputs are written into tensors allocated at
+    the first frame.  Returns (carry, stacked outputs)."""
+    n = int(_leaves(xs)[0].shape[0])
+    if aux is not None and len(aux) != n:
+        raise ValueError(f"scan: {len(aux)} aux rows for {n} frames")
+    out = None
+    for k in range(n):
+        x = map_leaves(lambda a: a[k], xs)
+        carry, y = step(carry, x if aux is None else (x, aux[k]))
+        if out is None:
+            out = map_leaves(
+                lambda a: a.new_empty((n,) + tuple(a.shape)), y)
+        for o, v in zip(_leaves(out), _leaves(y)):
+            o[k] = v
+    return carry, (xs if out is None else out)
+
+
+def _leaves(tree) -> list:
+    found = []
+    map_leaves(found.append, tree)
+    return found
+
+
+def _carry_to(carry, dev):
+    """An initial carry (numpy arrays, numpy or Python scalars, tensors,
+    in tuples / lists) on the pipeline's device: arrays become tensors
+    there (copies: a scan may update its carry in place), scalars Python
+    numbers."""
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, copy=True)
+        if isinstance(x, np.ndarray) and x.ndim:
+            return torch.from_numpy(np.array(x)).to(dev)
+        if isinstance(x, (np.generic, np.ndarray)):
+            return x.item()
+        return x
+    return map_leaves(to, carry)
+
+
+def _first_leaf(tree):
+    """The first leaf of a tree whose dicts are walked in sorted key
+    order (jax.tree_util.tree_leaves' order)."""
+    while True:
+        if isinstance(tree, dict):
+            tree = tree[sorted(tree)[0]]
+        elif isinstance(tree, (tuple, list)):
+            tree = tree[0]
+        else:
+            return tree
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +505,10 @@ class Pipeline(Bin):
         build device state in ``set_info``, like videoconvertscale, build
         it there).  With no host element in the graph the elements'
         functions are composed into one step; otherwise each runs on its
-        own.  ``mesh`` and ``prefetch`` are not ported and raise."""
+        own.  A stateful element contributes its scan (``make_scan_fn``),
+        an element with controlled properties its ``make_dyn_fn``.  Every
+        carried state is dropped here and rebuilt at the next tick.
+        ``mesh`` and ``prefetch`` are not ported and raise."""
         if mesh is not None:
             raise NotImplementedError(f"Pipeline.compile(mesh=...): {_ROADMAP}")
         if prefetch:
@@ -456,6 +519,8 @@ class Pipeline(Bin):
         self.negotiate()
         order = self._topo_order()
         fns: Dict[Element, Optional[Callable]] = {}
+        scan_fns: Dict[Element, tuple] = {}
+        dyn_elems: Dict[Element, tuple] = {}   # controlled-prop inputs
         for e in order:
             if getattr(e, "MULTI_STREAM", False):
                 raise NotImplementedError(
@@ -466,16 +531,18 @@ class Pipeline(Bin):
                 fns[e] = e.aggregate_fn()
             elif isinstance(e, SinkElement):
                 fns[e] = None
-            elif e.make_scan_fn() is not None:
-                raise NotImplementedError(
-                    f"{e.name}: scan-carried (stateful) elements are "
-                    f"{_ROADMAP}")
-            elif e.dyn_props():
-                raise NotImplementedError(
-                    f"{e.name}: controlled (dynamic) properties are "
-                    f"{_ROADMAP}")
             else:
-                fns[e] = e.make_fn()
+                sf = e.make_scan_fn()
+                if sf is not None:
+                    scan_fns[e] = sf
+                    fns[e] = None
+                elif e.dyn_props():
+                    dfn = e.make_dyn_fn()
+                    fns[e] = dfn if dfn is not None else e.make_fn()
+                    if dfn is not None:
+                        dyn_elems[e] = tuple(sorted(e.dyn_props()))
+                else:
+                    fns[e] = e.make_fn()
 
         host_elems = {e for e in order if getattr(e, "HOST_ELEMENT", False)}
         # explicit memory:Host caps features force a host boundary on
@@ -498,21 +565,29 @@ class Pipeline(Bin):
                     e._pending_buf = None
                     host_elems.add(e)
         self._fns = fns
+        self._scan_fns = scan_fns
+        self._dyn_elems = dyn_elems
+        self._elem_states = None
         self._host_elems = host_elems
         self._fused = not host_elems
-        self._device_step = self._compose(order, fns) if self._fused else None
+        self._device_step = (self._compose(order, fns, scan_fns)
+                             if self._fused else None)
         self._order = order
         self._batch = batch or self.default_batch
         self._plan = True
 
     @staticmethod
-    def _compose(order, fns):
-        def device_step(inputs: Dict[str, Any]) -> Dict[str, Any]:
+    def _compose(order, fns, scan_fns):
+        def device_step(inputs: Dict[str, Any], states: Dict[str, Any]):
             """Every element's function in topological order; tee fan-out
             is value reuse; an aggregator takes every linked sink pad's
-            value, keyed by pad name in the pads' order."""
+            value, keyed by pad name in the pads' order; a stateful
+            element runs its step over the tick's frames with its carry
+            threaded through (states in -> states out).  Returns
+            (outputs, new states)."""
             values: Dict[Pad, Any] = {}
             outputs: Dict[str, Any] = {}
+            new_states: Dict[str, Any] = {}
             for e in order:
                 if isinstance(e, SourceElement):
                     v = inputs[e.name]
@@ -536,11 +611,17 @@ class Pipeline(Bin):
                     if not pads:
                         continue
                     v = values[pads[0].peer]
-                    if fns[e] is not None:
-                        v = fns[e](v)
+                    if e in scan_fns:
+                        carry, v = run_scan(scan_fns[e][0], states[e.name],
+                                            v, inputs.get(e.name + "__aux"))
+                        new_states[e.name] = carry
+                    elif fns[e] is not None:
+                        dyn = inputs.get(e.name + "__dyn")
+                        v = (fns[e](v, dyn) if dyn is not None
+                             else fns[e](v))
                     for sp in e.src_pads():
                         values[sp] = v
-            return outputs
+            return outputs, new_states
         return device_step
 
     def _distribute_sticky(self) -> None:
@@ -638,7 +719,7 @@ class Pipeline(Bin):
                     if not any(getattr(e, "_pending_buf", None) is not None
                                for e in self._order):
                         break
-                    self._propagate({}, {}, drain=True)
+                    self._propagate({}, {}, {}, drain=True)
             from .events import eos_event
             for s in sources:
                 for sp in s.src_pads():
@@ -646,18 +727,48 @@ class Pipeline(Bin):
             self.bus.post(Message("eos", self.name))
             return False
         inputs, metas = pulled
+        # stateful elements: carries built lazily on the device, the
+        # tick's host aux rows computed for the ACTUAL batch (the leading
+        # size of the flowing data, not the configured pull size)
+        if self._scan_fns:
+            if self._elem_states is None:
+                self._elem_states = {
+                    e.name: _carry_to(init, self.device)
+                    for e, (_, init) in self._scan_fns.items()}
+            nb = int(_first_leaf(inputs).shape[0])
+            for e in self._scan_fns:
+                aux = e.scan_aux(nb)
+                if aux is not None:
+                    inputs[e.name + "__aux"] = aux
+        # controlled properties at the tick's timestamp (the first
+        # source buffer's pts, else the position), as float32
+        if self._dyn_elems:
+            ts = self._position_ns
+            for m in metas.values():
+                if getattr(m, "pts", None) is not None:
+                    ts = m.pts
+                    break
+            for e, props in self._dyn_elems.items():
+                inputs[e.name + "__dyn"] = {
+                    p: float(np.float32(e._dyn_sources[p].value_at(ts)))
+                    for p in props}
         outputs: Dict[str, Any] = {}
         with torch.no_grad():
             if self._fused:
                 try:
-                    outputs = self._device_step(inputs)
+                    outputs, new_states = self._device_step(
+                        inputs, self._elem_states or {})
                 except Exception as e:
                     self.bus.post(Message("error", self.name,
                                           {"error": str(e)}))
                     raise
-            return self._propagate(metas, outputs)
+                if self._scan_fns:
+                    self._elem_states = dict(self._elem_states,
+                                             **new_states)
+            return self._propagate(inputs, metas, outputs)
 
-    def _propagate(self, metas, outputs, drain: bool = False) -> bool:
+    def _propagate(self, inputs, metas, outputs,
+                   drain: bool = False) -> bool:
         """Buffer propagation through the graph: metadata always on the
         host; in the per-element path each element's function runs here.
         drain=True: sources contribute nothing -- decoupling queues flush
@@ -723,7 +834,7 @@ class Pipeline(Bin):
                 else:
                     buf = buf_by_pad[pads[0].peer]
                     if not self._fused:
-                        buf = self._run_element(e, buf)
+                        buf = self._run_element(e, buf, inputs)
                 if buf is None:   # host element swallowed the buffer
                     continue
                 buf = e.process_meta(buf)
@@ -740,8 +851,12 @@ class Pipeline(Bin):
                         buf_by_pad[sp] = buf
         return True
 
-    def _run_element(self, e: Element, buf: Buffer) -> Optional[Buffer]:
-        """One transform's work in the per-element path."""
+    def _run_element(self, e: Element, buf: Buffer,
+                     inputs) -> Optional[Buffer]:
+        """One transform's work in the per-element path: a stateful
+        element's scan with its carry, a controlled element's function
+        with the tick's values (sampled at the position when the tick
+        computed none: the EOS drain)."""
         fn = self._fns.get(e)
         if e._forced_host:
             # explicit memory:Host boundary: round trip through host
@@ -753,7 +868,21 @@ class Pipeline(Bin):
             return buf if fn is None else buf.with_(data=fn(buf.data))
         if e in self._host_elems:
             return e.host_process(buf)
-        return buf if fn is None else buf.with_(data=fn(buf.data))
+        if e in self._scan_fns:
+            carry, v = run_scan(self._scan_fns[e][0],
+                                self._elem_states[e.name], buf.data,
+                                inputs.get(e.name + "__aux"))
+            self._elem_states[e.name] = carry
+            return buf.with_(data=v)
+        if fn is None:
+            return buf
+        dyn = inputs.get(e.name + "__dyn")
+        if dyn is None and e in self._dyn_elems:
+            dyn = {p: float(np.float32(
+                e._dyn_sources[p].value_at(self._position_ns)))
+                for p in self._dyn_elems[e]}
+        return buf.with_(data=fn(buf.data, dyn) if dyn is not None
+                         else fn(buf.data))
 
     def run(self, max_ticks: Optional[int] = None) -> None:
         """Run until EOS (gst-launch main loop equivalent)."""

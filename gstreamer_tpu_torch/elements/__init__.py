@@ -15,3 +15,4 @@ from . import audio_mix         # noqa: F401  (audiomixer, adder, audiointerleav
 from . import interleave        # noqa: F401  (interleave, deinterleave)
 from . import smpte             # noqa: F401  (smpte, smptealpha)
 from . import shapewipe         # noqa: F401
+from . import effectv           # noqa: F401  (edgetv, streaktv, shagadelictv, vertigotv, quarktv, revtv, dicetv, warptv, rippletv, agingtv, optv, radioactv)

@@ -424,6 +424,26 @@ class Volume(TransformElement):
     def set_info(self, incaps, outcaps):
         self._info = AudioInfo.from_caps_structure(incaps[0])
 
+    def make_dyn_fn(self):
+        """Keyframed gain: `volume` arrives each tick as float32 (the
+        control-binding path), no rebuild on value changes.  The float
+        path multiplies by the float32 gain; the integer path takes its
+        Q27 factor from the float32 product vol * 2**27 (``make_fn``
+        takes it from the float64 one)."""
+        f = self._info.finfo
+        mute = self.props["mute"]
+
+        def fn(x, dyn):
+            vol = np.float32(0.0) if mute else np.float32(dyn["volume"])
+            if f.is_float:
+                return (x * float(vol)).to(x.dtype)
+            q = int(vol * np.float32(1 << 27))
+            v = (x.to(torch.int64) * q) >> 27
+            lim = 1 << (f.width - 1)
+            return torch.clamp(v, -lim, lim - 1).to(x.dtype)
+
+        return fn
+
     def make_fn(self):
         vol = 0.0 if self.props["mute"] else self.props["volume"]
         if vol == 1.0:

@@ -6,9 +6,11 @@ Y LUT y' = clamp(rint(16 + (y-16)*contrast + brightness*255)); U/V via hue
 rotation u' = 128 + ((u-128)cos(pi*hue) + (v-128)sin(pi*hue))*saturation;
 256x256 LUTs).  The same float64 tables are built on the host; where
 float32 arithmetic reproduces every table entry, the device evaluates the
-affine maps per pixel in float32, else it looks the tables up.  The
-family's other filters (gamma, videoflip, videocrop, videobox,
-videomedian, alpha) are not ported yet.
+affine maps per pixel in float32, else it looks the tables up.  A
+controlled (keyframed) balance builds the same tables on the device every
+tick in float32 from the tick's values (``make_dyn_fn``).  The family's
+other filters (gamma, videoflip, videocrop, videobox, videomedian, alpha)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +48,43 @@ class VideoBalance(_VideoFilterBase):
         "saturation": (float, 1.0, "[0,2]"),
     }
     DYNAMIC_PROPS = ("contrast", "brightness", "hue", "saturation")
+
+    def make_dyn_fn(self):
+        """Keyframed balance: the four values arrive each tick as float32
+        (``Pipeline.tick``) and the LUTs are built on the planes' device
+        with the rint/clip math of the static tables, in float32, one
+        rounding per operation (no fused multiply-add), then looked up.
+        The scalar products and the hue's cos / sin are taken on the host
+        in float32 (cos / sin correctly rounded from float64), so every
+        device builds the same tables."""
+
+        def fn(planes, dyn):
+            f32 = np.float32
+            c, b, hue, sat = (f32(dyn.get(k, self.props[k])) for k in
+                              ("contrast", "brightness", "hue",
+                               "saturation"))
+            arg = f32(np.pi) * hue
+            hc = float(f32(math.cos(float(arg))))
+            hs = float(f32(math.sin(float(arg))))
+            b255 = float(b * f32(255))
+            dev = planes[0].device
+            i = torch.arange(256, dtype=torch.float32, device=dev)
+            ty = torch.clamp(torch.round(16.0 + (i - 16.0) * float(c)
+                                         + b255), 0, 255).to(torch.int32)
+            ii = (i - 128.0)[:, None]
+            jj = (i - 128.0)[None, :]
+            tu = torch.clamp(torch.round(128.0 + (ii * hc + jj * hs)
+                                         * float(sat)), 0, 255)
+            tv = torch.clamp(torch.round(128.0 + (-ii * hs + jj * hc)
+                                         * float(sat)), 0, 255)
+            y = planes[0].to(torch.int64)
+            idx = planes[1].to(torch.int64) * 256 + planes[2].to(torch.int64)
+            out = [ty[y].to(torch.uint8),
+                   tu.reshape(-1).to(torch.uint8)[idx],
+                   tv.reshape(-1).to(torch.uint8)[idx]]
+            return tuple(out) + tuple(planes[3:])
+
+        return fn
 
     def _tables(self):
         c, b = self.props["contrast"], self.props["brightness"]

@@ -20,17 +20,28 @@ rates, tap count, filter mode and the taps of every compute dtype
 reads an audioconvert's mix matrix (float32 and Q10) and its quantizer's
 parameters and PRNG state (``quantizer_from_arrays`` rebuilds the port's
 Quantizer from them).  Both accept either package's objects.
+
+A pipeline's streaming state: ``element_states`` reads, by element name,
+the carries of its stateful (scan) elements (``_elem_states``), a
+deinterlacer's carried frames and pending fields, and the host counters
+that feed a scan's aux rows (vertigotv's phase, warptv's counter), all as
+numpy or Python numbers; ``load_element_states`` puts them into the port's
+pipeline (after ``set_state(PLAYING)``), so a tick run by one package can
+continue in the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .audio.channel_mixer import matrix_int
 from .audio.quantize import Quantizer
 from .audio.resampler import DTYPES
+from .core.buffer import map_leaves
+from .core.pipeline import _carry_to
 from .video.color import PreparedMatrix
 from .video.dither import VideoDither
 from .video.scaler import SCALE_U8, Resampler
@@ -162,3 +173,62 @@ def quantizer_from_arrays(arrays: Dict[str, np.ndarray]) -> Quantizer:
     q.rng.state = int(arrays["quant.rng_state"])
     q._last = np.array(arrays["quant.last"], np.int64)
     return q
+
+
+# host attributes that a scan's aux rows or a deinterlacer's output range
+# are computed from
+_HOST_STATE = ("_phase", "_tval", "_pending")
+
+
+def element_states(pipeline) -> Dict[str, Dict[str, Any]]:
+    """A pipeline's carried state (either package's) -> {element name:
+    {"carry": the scan carry as numpy arrays (0-d for scalars),
+    "carry_planes": a deinterlacer's carried frames, and the host
+    counters in _HOST_STATE}}; elements with none of these are left
+    out."""
+    def to_np(x):
+        if hasattr(x, "cpu"):
+            x = x.cpu()
+        return np.asarray(x)
+
+    states = getattr(pipeline, "_elem_states", None) or {}
+    out: Dict[str, Dict[str, Any]] = {}
+    for e in pipeline._topo_order():
+        entry: Dict[str, Any] = {}
+        if e.name in states:
+            entry["carry"] = map_leaves(to_np, states[e.name])
+        if getattr(e, "_carry_planes", None) is not None:
+            entry["carry_planes"] = tuple(to_np(p) for p in e._carry_planes)
+        for attr in _HOST_STATE:
+            if hasattr(e, attr):
+                entry[attr] = getattr(e, attr)
+        if entry:
+            out[e.name] = entry
+    return out
+
+
+def load_element_states(pipeline, states: Dict[str, Dict[str, Any]]) -> None:
+    """Put element_states' dict into this package's pipeline, started
+    (``set_state(PLAYING)``): carries on the pipeline's device (the
+    carries of stateful elements missing from `states` start from their
+    initial values), carried frames as tensors there, host counters as
+    they are."""
+    dev = pipeline.device
+    if pipeline._scan_fns and pipeline._elem_states is None:
+        pipeline._elem_states = {
+            e.name: _carry_to(init, dev)
+            for e, (_, init) in pipeline._scan_fns.items()}
+    for name, entry in states.items():
+        e = pipeline.get_by_name(name)
+        if e is None:
+            raise ValueError(f"no element {name!r} in {pipeline.name}")
+        if "carry" in entry:
+            if name not in (pipeline._elem_states or {}):
+                raise ValueError(f"{name}: not a stateful element here")
+            pipeline._elem_states[name] = _carry_to(entry["carry"], dev)
+        if "carry_planes" in entry:
+            e._carry_planes = tuple(torch.from_numpy(np.array(p)).to(dev)
+                                    for p in entry["carry_planes"])
+        for attr in _HOST_STATE:
+            if attr in entry:
+                setattr(e, attr, entry[attr])

@@ -21,7 +21,11 @@ AudioResampler's resample_fn over 128 chunks of 2^17 frames) and its
 AUDIO_LAUNCH paths (asr_launch, asr_quickstart, volume_s16, volume_f32: a
 tick each); and its aggregator configurations (AGGREGATORS: compositor_4k,
 BASELINE config 3; compositor_wall; audiomixer_s16, audiomixer_f32: a tick
-each, every appsrc fed CUDA tensors).  Each runs two times untraced,
+each, every appsrc fed CUDA tensors); and its stateful and controlled
+paths (deint_<method> for the nine deinterlace methods without a kernel,
+deint_chain_controlled, effectv_chain, volume_controlled_s16 and _f32: a
+tick each, control sources bound as chip_smoke.py binds them).  Each runs
+two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
 kernels' device intervals), the device idle share, and the ten kernels
@@ -183,6 +187,50 @@ def main() -> int:
         profile(name, batch, tick)
         pipe.set_state(State.NULL)
         del ins
+        torch.cuda.empty_cache()
+
+    from chip_smoke import (AGG_FRAMES, ASR_SRC, BALANCE, DEINT_BATCH,
+                            DEINT_NEW, EFFECT_CHAIN, EH, ESRC, EW, FADE, SRC,
+                            VOLUME_RAMP, controlled, push_tick)
+    video = tuple(p[:DEINT_BATCH] for p in host)
+    rgb = tuple(rng.integers(0, 256, (EFFECT_CHAIN[1], EH, EW),
+                             dtype=np.uint8) for _ in range(3))
+    audio = rng.integers(-32768, 32767, (AGG_FRAMES, 2), dtype=np.int16)
+    stateful = {f"deint_{m}": (SRC.format(w=W, h=H) + f"deinterlace "
+                               f"method={m} ! " + BALANCE, video, None)
+                for m in DEINT_NEW}
+    stateful["deint_chain_controlled"] = (
+        SRC.format(w=W, h=H) + "deinterlace method=linear ! videobalance "
+        "name=vb ! appsink name=out", video, FADE)
+    stateful["effectv_chain"] = (ESRC + EFFECT_CHAIN[0] + " ! appsink "
+                                 "name=out", rgb, None)
+    stateful["volume_controlled_s16"] = (
+        ASR_SRC + "volume name=v ! appsink name=out", audio, VOLUME_RAMP)
+    stateful["volume_controlled_f32"] = (
+        ASR_SRC.replace("S16LE", "F32LE") + "volume name=v ! appsink "
+        "name=out", (audio / 32768.0).astype(np.float32), VOLUME_RAMP)
+    for name, (desc, data, ctl) in stateful.items():
+        if only is not None and name not in only:
+            continue
+        if isinstance(data, tuple):
+            batch = data[0].shape[0]
+            data = tuple(torch.as_tensor(p).cuda() for p in data)
+        else:
+            batch = data.shape[0]
+            data = torch.as_tensor(data).cuda()
+        pipe = controlled(desc, "cuda", batch, ctl)
+        src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+        pipe.set_state(State.PLAYING)
+        pts = [0]
+
+        def tick():
+            pts[0] = push_tick(src, data, pts[0])
+            pipe.tick()
+            while sink.pull_sample() is not None:
+                pass
+        profile(name, batch, tick)
+        pipe.set_state(State.NULL)
+        del data
         torch.cuda.empty_cache()
     return 0
 

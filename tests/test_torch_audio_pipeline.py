@@ -168,13 +168,38 @@ def test_volume_matches_reference(fmt, props):
            f"appsink name=o")
 
 
-def test_controlled_volume_is_not_ported():
-    pipe = gstreamer_tpu_torch.parse_launch(
-        "audiotestsrc num-buffers=1 ! volume name=v ! appsink name=o",
-        device="cpu")
-    pipe.get_by_name("v").set_control_source("volume", object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.compile()
+def test_controlled_volume_matches_reference():
+    """A volume ramp from a control source (the tests/test_pipeline.py
+    TestDynamicProperties string): the gain is sampled each buffer at its
+    pts, as float32, in both packages."""
+    from gstreamer_tpu.core.controller import \
+        InterpolationControlSource as JSource
+
+    from gstreamer_tpu_torch.core.controller import \
+        InterpolationControlSource
+
+    desc = ("audiotestsrc wave=sine freq=440 num-buffers=10 "
+            "samplesperbuffer=1000 ! audio/x-raw,format=F32LE,rate=10000,"
+            "channels=1 ! volume name=v ! appsink name=o")
+    outs = []
+    for parse, source, kw in ((jparse_launch, JSource, {}),
+                              (gstreamer_tpu_torch.parse_launch,
+                               InterpolationControlSource,
+                               dict(device="cpu"))):
+        pipe = parse(desc, **kw)
+        cs = source()
+        cs.set(0, 0.0)
+        cs.set(1_000_000_000, 1.0)
+        pipe.get_by_name("v").set_control_source("volume", cs)
+        pipe.run()
+        sink = pipe.get_by_name("o")
+        outs.append([np.asarray(s.buffer.data) for s in
+                     iter(sink.pull_sample, None)])
+    ref, out = outs
+    assert len(out) == len(ref) == 10
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and np.array_equal(o, r)
+    assert np.abs(out[0]).max() < 0.05 < 0.6 < np.abs(out[-1]).max()
 
 
 def test_noise_shaping_matches_reference():

@@ -3,10 +3,10 @@ against the JAX package, bit for bit.
 
 The plain version beside the CUDA kernel (what a CPU tensor runs) is held
 against the JAX Pallas kernel in interpret mode and against the JAX
-element's XLA route; the port's Deinterlace element against the JAX
-element over two ticks.  All inputs are seeded numpy; tolerance 0.  The
-kernel itself runs only on a CUDA card: those cases skip here (the fixture
-decides at run time).
+element's XLA route; the port's Deinterlace element, every method,
+against the JAX element over two ticks.  All inputs are seeded numpy;
+tolerance 0.  The kernel itself runs only on a CUDA card: those cases skip
+here (the fixture decides at run time).
 """
 
 import numpy as np
@@ -26,7 +26,8 @@ from gstreamer_tpu_torch.elements.deinterlace import Deinterlace
 from gstreamer_tpu_torch.ops import deint_kernel as tdk
 
 METHODS = ("linear", "scalerbob")
-UNPORTED = ("tomsmocomp", "greedyh", "greedyl", "vfir", "linearblend",
+# the element's other methods (plain torch, no kernel)
+TEMPORAL = ("tomsmocomp", "greedyh", "greedyl", "vfir", "linearblend",
             "weave", "weave-tff", "weave-bff", "yadif")
 
 
@@ -134,7 +135,7 @@ def _element(cls, caps_cls, **props):
     return d
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", METHODS + TEMPORAL)
 @pytest.mark.parametrize("fields", ["all", "top", "bottom"])
 @pytest.mark.parametrize("layout", ["tff", "bff"])
 def test_element_matches_reference_over_two_ticks(method, fields, layout):
@@ -154,12 +155,6 @@ def test_element_matches_reference_over_two_ticks(method, fields, layout):
             assert o.dtype == torch.uint8
             assert np.array_equal(o.numpy().astype(np.int64),
                                   np.asarray(r, np.int64))
-
-
-@pytest.mark.parametrize("method", UNPORTED)
-def test_unported_method_raises(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _element(Deinterlace, Caps, method=method)
 
 
 @pytest.mark.parametrize("shape", [(64, 1080, 1920), (64, 540, 960),

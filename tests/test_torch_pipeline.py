@@ -215,7 +215,9 @@ def test_registry_is_the_ports_own():
         "audiotestsrc", "audioconvert", "audioresample", "volume",
         "compositor", "videomixer", "audiomixer", "adder", "audiointerleave",
         "audiorate", "interleave", "deinterleave", "smpte", "smptealpha",
-        "shapewipe"}
+        "shapewipe", "edgetv", "streaktv", "shagadelictv", "vertigotv",
+        "quarktv", "revtv", "dicetv", "warptv", "rippletv", "agingtv", "optv",
+        "radioactv"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
