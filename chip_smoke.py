@@ -113,6 +113,31 @@ before it and read just after:
   volume_controlled_s16/_f32  a volume ramp, 10 s of 48 kHz stereo a tick,
                     equal to the port's CPU path on every tick.
 
+9. ingest from disk (ingest_phase; the files are written under a temporary
+   directory and removed):
+
+  ingest_y4m        bench_e2e.py's path: 96 seeded random 1080p I420 frames
+                    in a y4m (about 300 MB) through filesrc !
+                    videoconvertscale add-borders=false ! RGB 224x224 !
+                    appsink at batch 16 and 64, prefetch off and on, three
+                    passes with seek(0) between them: bytes equal the
+                    port's VideoConverter on the frames read with numpy,
+                    prefetch equal to no prefetch, duration and position
+                    queries, the native reader and yscale_hv once a tick;
+                    frames/s per pass, the H2D ceiling (pinned and pageable
+                    probes around each pass) and its fraction, busy ms and
+                    idle share, peak memory; then once under GTPU_PALLAS=1
+                    (fused_i420_up_hscale once a tick, same bytes)
+  ingest_jpeg       BASELINE config 5: 64 1080p 4:2:0 JPEGs at quality 85
+                    (videotestsrc pattern=smpte plus seeded noise, written
+                    by the port's jpegenc) and 8 each of 500x375 4:4:4 and
+                    gray through multifilesrc ! jpegdec ! videoconvertscale
+                    add-borders=false ! RGB 224x224: the card's planes equal
+                    the port's CPU decode, the RGB the converter on them,
+                    every scan decoded natively; frames/s, host entropy ms
+                    and device IDCT ms an image against its byte bound
+  ml_ingest         examples/ml_ingest_torch.py's train loop: a finite loss.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -1895,6 +1920,449 @@ def stateful_phase(seed, counters, dev, host):
     return total
 
 
+# -- ingest from disk: BASELINE config 5 and bench_e2e.py's path -------------
+INGEST_FRAMES = 96                # bench_e2e.py:23-31's clip, about 300 MB
+INGEST_BATCHES = (16, 64)
+INGEST_PASSES = 3
+INGEST = ("filesrc name=src location={path} ! videoconvertscale name=conv "
+          "add-borders=false ! video/x-raw,format=RGB,width=224,height=224 "
+          "! appsink name=out")
+FRAME_BYTES = W * H * 3 // 2      # one 1080p I420 frame
+JPEG_FILES, JPEG_BATCH, JPEG_QUALITY = 64, 16, 85
+JPEG_SMALL = (500, 375, 8)        # width, height, files of 4:4:4 and of gray
+JPEG_DECODE = ("multifilesrc location={pat} ! jpegdec name=dec ! "
+               "videoconvertscale name=conv add-borders=false ! "
+               "video/x-raw,format=RGB,width=224,height=224 ! appsink "
+               "name=out")
+ML_FRAMES, ML_BATCH = 64, 16
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_y4m(path, frames, seed):
+    """bench_e2e.py:23-31's input: seeded random 1080p I420 frames; returns
+    the frames as one (frames, FRAME_BYTES) uint8 array."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, (frames, FRAME_BYTES), dtype=np.uint8)
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{W} H{H} F30:1 Ip A1:1 C420mpeg2\n".encode())
+        for k in range(frames):
+            f.write(b"FRAME\n")
+            f.write(raw[k].tobytes())
+    return raw
+
+
+def h2d_ceiling(dev):
+    """Host-to-device rate of 16 1080p luma planes (bench_e2e.py:141-167's
+    probe), page-locked and pageable: (pinned GB/s, pageable GB/s), median
+    of 5 warm copies on the host clock between synchronises; None off the
+    card."""
+    import numpy as np
+    import torch
+    if dev.type != "cuda":
+        return None
+    x = np.random.default_rng(1).integers(0, 256, (16, H, W),
+                                          dtype=np.uint8)
+    pinned = torch.from_numpy(x).pin_memory()
+    rates = []
+    for src, kw in ((pinned, {"non_blocking": True}),
+                    (torch.from_numpy(x), {})):
+        src.to(dev, **kw)
+        torch.cuda.synchronize()
+        r = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            src.to(dev, **kw)
+            torch.cuda.synchronize()
+            r.append(x.nbytes / (time.perf_counter() - t0) / 1e9)
+        rates.append(float(np.median(r)))
+    return tuple(rates)
+
+
+def traced(step, dev):
+    """(wall ms, device busy ms, idle share) of ONE call of `step` under
+    torch.profiler, no warm-up call (a pass ends at EOS): the union of the
+    device's kernel and copy intervals, as device_time counts them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        step()
+        return (time.perf_counter() - t0) * 1e3, 0.0, 1.0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy = busy_us / 1e3
+    return wall, busy, max(0.0, 1.0 - busy / wall)
+
+
+def drain(sink):
+    out = []
+    while (s := sink.pull_sample()) is not None:
+        out.append(s)
+    return out
+
+
+def ingest_pass(pipe, sink, dev):
+    """Tick `pipe` to EOS; (samples, ticks, seconds on the host clock, the
+    last sync included)."""
+    samples, ticks = [], 0
+    sync(dev)
+    t0 = time.perf_counter()
+    while pipe.tick():
+        ticks += 1
+        samples += drain(sink)
+    sync(dev)
+    return samples, ticks, time.perf_counter() - t0
+
+
+def same_rgb(samples, gold, what):
+    """The samples' RGB planes, in order, equal `gold` (three (n, 224, 224)
+    tensors); returns (pts list, batch list)."""
+    import torch
+    got = [torch.cat([s.buffer.data[c] for s in samples]) for c in range(3)]
+    require(all(tuple(g.shape) == tuple(r.shape) and torch.equal(g, r)
+                for g, r in zip(got, gold)),
+            f"{what}: RGB differs from the converter on the same frames")
+    return ([s.buffer.pts for s in samples],
+            [s.buffer.batch for s in samples])
+
+
+def ingest_y4m(seed, counters, dev, tmp):
+    """filesrc ! videoconvertscale add-borders=false ! RGB 224 ! appsink over
+    bench_e2e.py's clip at batch 16 and 64, prefetch off and on, three passes
+    with seek(0) between them; then once under GTPU_PALLAS=1.  Returns the
+    kernels' launches."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import VideoConverter, parse_launch
+    from gstreamer_tpu_torch.core.pipeline import State
+    path = os.path.join(tmp, "ingest.y4m")
+    raw = write_y4m(path, INGEST_FRAMES, seed)
+    ys = W * H
+    host = (raw[:, :ys].reshape(-1, H, W),
+            raw[:, ys:ys + ys // 4].reshape(-1, H // 2, W // 2),
+            raw[:, ys + ys // 4:].reshape(-1, H // 2, W // 2))
+    del raw
+    dur_ns = INGEST_FRAMES * 10**9 // 30
+    launches = {k: 0 for k in counters}
+    runs, gold = {}, None
+    for batch in INGEST_BATCHES:
+        for prefetch in (False, True):
+            tag = f"batch {batch}, prefetch {'on' if prefetch else 'off'}"
+            pipe = parse_launch(INGEST.format(path=path), device=dev)
+            pipe.compile(batch=batch, donate_inputs=True, prefetch=prefetch)
+            src, sink = pipe.get_by_name("src"), pipe.get_by_name("out")
+            pipe.set_state(State.PLAYING)
+            if gold is None:
+                # the port's VideoConverter, built from the element's
+                # config, on the same frames read with numpy
+                conv = pipe.get_by_name("conv")._converter
+                ref = VideoConverter(conv.in_info, conv.out_info, conv.config,
+                                     device=dev)
+                gold = ref.convert(tuple(torch.as_tensor(p).to(dev)
+                                         for p in host))
+                del ref
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            fps, ceil, frac, meta = [], [], [], None
+            for k in range(INGEST_PASSES):
+                if k:
+                    require(pipe.seek(0), f"ingest_y4m [{tag}]: seek(0) "
+                            "refused")
+                pre = h2d_ceiling(dev)
+                for c in counters.values():
+                    c.launches = 0
+                before = src.native_batches
+                samples, ticks, secs = ingest_pass(pipe, sink, dev)
+                counts = {n: c.launches for n, c in counters.items()}
+                post = h2d_ceiling(dev)
+                for n, v in counts.items():
+                    launches[n] += v
+                want = -(-INGEST_FRAMES // batch)
+                require(ticks == want, f"ingest_y4m [{tag}]: {ticks} ticks, "
+                        f"want {want}")
+                require(counts["yscale_hv"] == ticks
+                        and sum(counts.values()) == ticks,
+                        f"ingest_y4m [{tag}]: launches {counts}, want "
+                        f"yscale_hv once a tick ({ticks})")
+                require(src.native_batches - before == ticks,
+                        f"ingest_y4m [{tag}]: the native reader delivered "
+                        f"{src.native_batches - before} of {ticks} ticks")
+                m = same_rgb(samples, gold, f"ingest_y4m [{tag}] pass {k}")
+                require(m[0] == [i * batch * 10**9 // 30
+                                 for i in range(ticks)],
+                        f"ingest_y4m [{tag}]: pts {m[0]}")
+                require(meta in (None, m), f"ingest_y4m [{tag}]: pass {k} "
+                        "timestamps differ from pass 0")
+                meta = m
+                require(pipe.query_duration() == dur_ns,
+                        f"ingest_y4m [{tag}]: duration "
+                        f"{pipe.query_duration()}, want {dur_ns}")
+                last = (ticks - 1) * batch      # the last tick's first frame
+                want_pos = (last * 10**9 // 30
+                            + (INGEST_FRAMES - last) * (10**9 // 30))
+                require(pipe.query_position() == want_pos,
+                        f"ingest_y4m [{tag}]: position "
+                        f"{pipe.query_position()}, want {want_pos} (the "
+                        "last buffer's pts + its frames' durations)")
+                fps.append(INGEST_FRAMES / secs)
+                if pre is not None:
+                    ceil.append((pre, post))
+                    frac.append(fps[-1] / float(
+                        np.median([pre[0], post[0]]) * 1e9 / FRAME_BYTES))
+            require(pipe.seek(0), f"ingest_y4m [{tag}]: seek(0) refused")
+            wall, busy, idle = traced(lambda: ingest_pass(pipe, sink, dev),
+                                      dev)
+            peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if dev.type == "cuda" else 0.0)
+            pipe.set_state(State.NULL)
+            runs[(batch, prefetch)] = meta
+            ticks = -(-INGEST_FRAMES // batch)
+            probes = [[round(v, 2) for v in pair] for pc in ceil
+                      for pair in pc]
+            as_fps = [[round(pc[0][k] * 1e9 / FRAME_BYTES, 1) for pc in ceil]
+                      for k in (0, 1)]
+            print(f"e2e ingest_y4m [{tag}]: "
+                  f"{[round(f, 1) for f in fps]} frames/s per pass; H2D "
+                  f"ceiling (pinned, pageable) GB/s before / after each "
+                  f"pass {probes} = pinned {as_fps[0]}, pageable "
+                  f"{as_fps[1]} 1080p-frames/s (before each pass); fraction "
+                  f"of the pinned ceiling {[round(f, 4) for f in frac]}; "
+                  f"traced pass: {wall:.2f} ms wall, {busy:.3f} busy ms = "
+                  f"{busy / ticks:.3f} a tick, idle {idle:.1%}; peak device "
+                  f"memory {peak:.2f} GiB")
+        require(runs[(batch, True)] == runs[(batch, False)],
+                f"ingest_y4m [batch {batch}]: prefetch changed the ticks or "
+                "pts")
+    # the fused-ingest route: same bytes, its kernel once a tick
+    with opt_in():
+        pipe = parse_launch(INGEST.format(path=path), device=dev)
+        pipe.compile(batch=64, prefetch=True)
+        pipe.set_state(State.PLAYING)
+        for c in counters.values():
+            c.launches = 0
+        samples, ticks, secs = ingest_pass(pipe, pipe.get_by_name("out"), dev)
+        counts = {n: c.launches for n, c in counters.items()}
+        pipe.set_state(State.NULL)
+    for n, v in counts.items():
+        launches[n] += v
+    require(counts["fused_i420_up_hscale"] == ticks
+            and sum(counts.values()) == ticks,
+            f"ingest_y4m [GTPU_PALLAS=1]: launches {counts}")
+    same_rgb(samples, gold, "ingest_y4m [GTPU_PALLAS=1]")
+    print(f"e2e ingest_y4m [batch 64, prefetch on, GTPU_PALLAS=1]: "
+          f"{INGEST_FRAMES / secs:.1f} frames/s, same bytes, "
+          f"fused_i420_up_hscale once a tick")
+    return launches
+
+
+def jpeg_set(dev, pattern, fmt, w, h, files, batch, seed):
+    """`files` JPEGs at quality JPEG_QUALITY written by the port's jpegenc
+    from videotestsrc pattern=smpte plus seeded noise (drawn on `dev`), at
+    `pattern` % index."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    caps = f"video/x-raw,format={fmt},width={w},height={h},framerate=30/1"
+    bars = parse_launch(f"videotestsrc pattern=smpte num-buffers=1 ! {caps} "
+                        "! appsink name=out", device=dev)
+    bars.set_state("playing")
+    bars.tick()
+    frame = bars.get_by_name("out").pull_sample().buffer.data
+    bars.set_state("null")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc = parse_launch(f"appsrc name=in caps={caps} ! jpegenc quality="
+                       f"{JPEG_QUALITY} ! multifilesink location={pattern}",
+                       batch=batch, device=dev)
+    src = enc.get_by_name("in")
+    for k in range(0, files, batch):
+        n = min(batch, files - k)
+        planes = tuple(
+            (p.expand((n,) + tuple(p.shape[1:])).to(torch.int16)
+             + torch.randint(-12, 13, (n,) + tuple(p.shape[1:]),
+                             generator=gen, device=dev, dtype=torch.int16)
+             ).clamp_(0, 255).to(torch.uint8) for p in frame)
+        src.push_buffer(Buffer(data=planes, pts=k * DUR, duration=DUR,
+                               batch=n))
+    src.end_of_stream()
+    enc.run()
+
+
+def decode_planes(pattern, files, batch, dev):
+    """multifilesrc ! jpegdec ! appsink on `dev`: the decoded planes of every
+    file, one tuple a file."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(f"multifilesrc location={pattern} ! jpegdec ! "
+                        "appsink name=out", batch=batch, device=dev)
+    pipe.set_state("playing")
+    out = []
+    while pipe.tick():
+        for s in drain(pipe.get_by_name("out")):
+            out += [tuple(p[k] for p in s.buffer.data)
+                    for k in range(s.buffer.batch)]
+    pipe.set_state("null")
+    require(len(out) == files, f"jpegdec: {len(out)} images of {files}")
+    return out
+
+
+def ingest_jpeg(seed, counters, dev, tmp):
+    """BASELINE config 5: multifilesrc ! jpegdec ! videoconvertscale
+    add-borders=false ! RGB 224 ! appsink over 64 1080p 4:2:0 JPEGs, and 16
+    small 4:4:4 / gray ones.  Returns the kernels' launches."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import VideoConverter, parse_launch
+    from gstreamer_tpu_torch.codecs import jpeg as cj
+    from gstreamer_tpu_torch.native import jpeg as njpeg
+    require(njpeg.available(), "ingest_jpeg: the native entropy coder did "
+            "not build")
+    sets = {"1080p_420": ("I420", W, H, JPEG_FILES, JPEG_BATCH),
+            "small_444": ("Y444",) + JPEG_SMALL[:2] + (JPEG_SMALL[2],) * 2,
+            "small_gray": ("GRAY8",) + JPEG_SMALL[:2] + (JPEG_SMALL[2],) * 2}
+    launches = {k: 0 for k in counters}
+    for i, (sname, (fmt, w, h, files, batch)) in enumerate(sets.items()):
+        pattern = os.path.join(tmp, f"{sname}_%05d.jpg")
+        t0 = time.perf_counter()
+        jpeg_set(dev, pattern, fmt, w, h, files, batch, seed + i)
+        enc_s = time.perf_counter() - t0
+        blobs = []
+        for k in range(files):
+            with open(pattern % k, "rb") as f:
+                blobs.append(f.read())
+        # the card's decoded planes against the port's CPU decode
+        card = decode_planes(pattern, files, batch, dev)
+        for k, (planes, blob) in enumerate(zip(card, blobs)):
+            cpu, _, _, _ = cj.jpeg_decode(blob, device="cpu")
+            if fmt == "I420":
+                cw, ch = -(-w // 2), -(-h // 2)
+                cpu = (cpu[0],) + tuple(p[:ch, :cw] for p in cpu[1:])
+            require(len(planes) == len(cpu) and all(
+                p.device.type == dev.type and torch.equal(p.cpu(), c)
+                for p, c in zip(planes, cpu)),
+                f"ingest_jpeg [{sname}]: file {k}: the card's planes differ "
+                "from the CPU decode")
+        # the launched string: counts zeroed just before, read just after
+        pipe = parse_launch(JPEG_DECODE.format(pat=pattern), batch=batch,
+                            device=dev)
+        pipe.set_state("playing")
+        dec, sink = pipe.get_by_name("dec"), pipe.get_by_name("out")
+        for c in counters.values():
+            c.launches = 0
+        samples, ticks, secs = ingest_pass(pipe, sink, dev)
+        counts = {n: c.launches for n, c in counters.items()}
+        for n, v in counts.items():
+            launches[n] += v
+        require(dec.native_decodes == files,
+                f"ingest_jpeg [{sname}]: {dec.native_decodes} of {files} "
+                "scans decoded natively")
+        if fmt == "I420":
+            require(counts["yscale_hv"] == ticks
+                    and sum(counts.values()) == ticks,
+                    f"ingest_jpeg [{sname}]: launches {counts}, want "
+                    f"yscale_hv once a tick ({ticks})")
+        conv = pipe.get_by_name("conv")._converter
+        ref = VideoConverter(conv.in_info, conv.out_info, conv.config,
+                             device=dev)
+        gold = ref.convert(tuple(torch.stack([p[c] for p in card])
+                                 for c in range(len(card[0]))))
+        same_rgb(samples, gold, f"ingest_jpeg [{sname}]")
+        pipe.set_state("null")
+        # where the time goes: host entropy decode, device IDCT, idle share
+        t0 = time.perf_counter()
+        coded = [cj.decode_entropy(b) for b in blobs[:batch]]
+        entropy_ms = (time.perf_counter() - t0) * 1e3 / len(coded)
+        zz = torch.as_tensor(np.concatenate(
+            [c["coef"] for img in coded for c in img.comps]), device=dev)
+        zz = zz[:, torch.as_tensor(cj.UNZIGZAG, device=dev)].reshape(
+            -1, 8, 8).contiguous()
+        counts_ = [c["coef"].shape[0] for img in coded for c in img.comps]
+        q = torch.as_tensor(np.stack(
+            [img.qtabs[c["tq"]] for img in coded for c in img.comps]
+        ).astype(np.float32), device=dev)
+        qb = q[torch.repeat_interleave(
+            torch.arange(len(counts_), device=dev),
+            torch.as_tensor(counts_, device=dev))].contiguous()
+        nblk = zz.shape[0]
+        idct_ms = (cuda_ms(lambda: cj._idct(zz, qb), 5, 1)
+                   if dev.type == "cuda" else 0.0) / len(coded)
+        bound_ms = (nblk * 64 * (4 + 1) / HBM_BYTES_PER_S * 1e3
+                    / len(coded))
+        transform_ms = (cuda_ms(lambda: cj.decode_transform(coded, dev), 3, 1)
+                        if dev.type == "cuda" else 0.0) / len(coded)
+        del zz, qb
+        pipe = parse_launch(JPEG_DECODE.format(pat=pattern), batch=batch,
+                            device=dev)
+        pipe.set_state("playing")
+        wall, busy, idle = traced(
+            lambda: ingest_pass(pipe, pipe.get_by_name("out"), dev), dev)
+        pipe.set_state("null")
+        print(f"e2e ingest_jpeg [{sname}: {files} {w}x{h} {fmt} JPEGs, "
+              f"quality {JPEG_QUALITY}, batch {batch}]: "
+              f"{files / secs:.1f} frames/s ({ticks} ticks); written by "
+              f"jpegenc in {enc_s:.2f} s; host entropy decode "
+              f"{entropy_ms:.3f} ms an image; IDCT on the device "
+              f"{idct_ms:.4f} ms an image against a byte bound of "
+              f"{bound_ms:.4f} ms (int32 coefficients in, uint8 out), the "
+              f"device half with its copies {transform_ms:.4f} ms an image; "
+              f"traced pass {wall:.1f} ms wall, {busy:.3f} busy ms, idle "
+              f"{idle:.1%}; kernel launches {counts}")
+    return launches
+
+
+def ml_ingest(dev, tmp):
+    """examples/ml_ingest_torch.py's loop on `dev`: a finite loss."""
+    import importlib.util
+    import math
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "ml_ingest_torch", os.path.join(here, "examples",
+                                        "ml_ingest_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    clip = os.path.join(tmp, "train.y4m")
+    ex.make_dataset(clip, ML_FRAMES, dev)
+    t0 = time.perf_counter()
+    frames, steps, loss = ex.train(clip, ML_BATCH, dev, seed=0)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    require(frames == ML_FRAMES and steps == ML_FRAMES // ML_BATCH
+            and math.isfinite(loss),
+            f"ml_ingest: {frames} frames, {steps} steps, loss {loss}")
+    print(f"e2e ml_ingest: {frames} frames in {steps} train steps, "
+          f"{frames / secs:.1f} frames/s including the steps (first calls "
+          f"included), final loss {loss:.6f}")
+
+
+def ingest_phase(seed, counters, dev):
+    """ingest_y4m, ingest_jpeg and ml_ingest in one temporary directory;
+    returns the kernels' launches."""
+    import tempfile
+    launches = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (ingest_y4m, ingest_jpeg):
+            for k, n in part(seed, counters, dev, tmp).items():
+                launches[k] += n
+        ml_ingest(dev, tmp)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2164,6 +2632,10 @@ def main() -> int:
 
     # -- stateful and controlled elements -------------------------------------
     for k, n in stateful_phase(args.seed, counters, dev, host).items():
+        launches[k] += n
+
+    # -- ingest from disk: y4m, JPEG, the example's train loop ----------------
+    for k, n in ingest_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

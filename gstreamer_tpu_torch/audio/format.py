@@ -12,8 +12,8 @@ U16 samples widen to int64 on unpack, and ``torch.uint16`` is only the final
 cast of ``pack``.
 
 The host byte layout (``from_bytes`` / ``to_bytes``: endianness, packed
-24-bit, interleave) has no caller in the port yet and raises
-``NotImplementedError`` (ROADMAP.md).
+24-bit, interleave) is a copy of the reference's numpy code; ``to_bytes``
+also takes a tensor, which it brings to the host first.
 """
 
 from __future__ import annotations
@@ -21,9 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict
 
+import numpy as np
 import torch
-
-_ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
 
 
 @dataclass(frozen=True)
@@ -165,9 +164,50 @@ def double_to_s32(d: torch.Tensor) -> torch.Tensor:
     return torch.clamp(t, -2147483648.0, 2147483647.0).to(torch.int32)
 
 
-def from_bytes(fmt: AudioFormatInfo, data, channels: int):
-    raise NotImplementedError(f"audio from_bytes: {_ROADMAP}")
+# host byte-layout (interleaved)
+_NP_DTYPES = {
+    "S8": "i1", "U8": "u1",
+    "S16LE": "<i2", "S16BE": ">i2", "U16LE": "<u2", "U16BE": ">u2",
+    "S24_32LE": "<i4", "S24_32BE": ">i4", "S32LE": "<i4", "S32BE": ">i4",
+    "U32LE": "<u4", "S20LE": "<i4", "F32LE": "<f4", "F32BE": ">f4",
+    "F64LE": "<f8", "F64BE": ">f8",
+}
 
 
-def to_bytes(fmt: AudioFormatInfo, samples):
-    raise NotImplementedError(f"audio to_bytes: {_ROADMAP}")
+def from_bytes(fmt: AudioFormatInfo, data: np.ndarray, channels: int):
+    """Interleaved bytes -> (frames, channels) native-dtype numpy array."""
+    data = np.asarray(data, np.uint8)
+    if fmt.name in ("S24LE", "S24BE", "S18LE"):
+        b = data.reshape(-1, 3)
+        if fmt.endianness == "le":
+            v = (b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8)
+                 | (b[:, 2].astype(np.int32) << 16))
+        else:
+            v = (b[:, 2].astype(np.int32) | (b[:, 1].astype(np.int32) << 8)
+                 | (b[:, 0].astype(np.int32) << 16))
+        v = np.where(v >= 1 << 23, v - (1 << 24), v)
+        return v.reshape(-1, channels)
+    arr = data.view(np.dtype(_NP_DTYPES[fmt.name]))
+    return arr.reshape(-1, channels)
+
+
+def to_bytes(fmt: AudioFormatInfo, samples) -> np.ndarray:
+    """(frames, channels) samples (numpy or a tensor) -> interleaved
+    bytes, flat uint8."""
+    if isinstance(samples, torch.Tensor):
+        samples = samples.cpu().numpy()
+    samples = np.asarray(samples)
+    if fmt.name in ("S24LE", "S24BE", "S18LE"):
+        v = samples.astype(np.int32).reshape(-1)
+        out = np.empty((v.size, 3), np.uint8)
+        if fmt.endianness == "le":
+            out[:, 0] = v & 0xFF
+            out[:, 1] = (v >> 8) & 0xFF
+            out[:, 2] = (v >> 16) & 0xFF
+        else:
+            out[:, 2] = v & 0xFF
+            out[:, 1] = (v >> 8) & 0xFF
+            out[:, 0] = (v >> 16) & 0xFF
+        return out.reshape(-1)
+    return samples.astype(np.dtype(_NP_DTYPES[fmt.name])).reshape(-1).view(
+        np.uint8)

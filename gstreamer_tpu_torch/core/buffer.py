@@ -16,6 +16,9 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
+import torch
+
 CLOCK_TIME_NONE = -1
 
 
@@ -89,6 +92,12 @@ def map_leaves(fn, data):
     if isinstance(data, dict):
         return {k: map_leaves(fn, v) for k, v in data.items()}
     return fn(data)
+
+
+def host_array(x) -> np.ndarray:
+    """A leaf on the host: a tensor is copied from its device, anything
+    else goes through ``np.asarray``."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass

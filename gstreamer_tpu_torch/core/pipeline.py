@@ -17,9 +17,14 @@ Execution model:
   otherwise each element's function is called on its own, and host
   elements run their ``host_process`` between them;
 * the tick loop pulls a BATCH of frames from each source, moves every
-  tensor of it to the pipeline's device (``_stage_buf``, in both paths),
-  runs the graph and hands the results to the sinks.  With several
-  sources the tick is EOS as soon as any of them has nothing more;
+  array of it to the pipeline's device (``core/staging.py``: page-locked
+  buffers reused across ticks and a copy stream on CUDA; in both paths,
+  except for a source that feeds only elements with ``HOST_INPUT`` set,
+  the parsers and decoders of host bytes), runs the graph and hands the
+  results to the sinks.  With several sources the tick is EOS as soon as
+  any of them has nothing more.  ``compile(prefetch=True)`` pulls and
+  stages the next tick right after the current tick's step is queued
+  (composed path), so the copy overlaps the step;
 * a stateful element (``make_scan_fn``) runs its step over the frames of
   the tick (``run_scan``), its carry kept on the device across ticks
   (``_elem_states``, reset whenever ``compile`` builds the program); a
@@ -27,11 +32,13 @@ Execution model:
   sampled at the tick's timestamp as a float32 and handed to the
   element's ``make_dyn_fn``.
 
+``seek`` and ``query`` (POSITION, DURATION, LATENCY, SEEKING, ALLOCATION)
+and the ``query_*`` helpers are the reference's.
+
 The device is explicit: a Pipeline runs on CUDA unless the caller names
 another device, and raises without a card (``device.resolve``).  Not
-ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``,
-``prefetch`` and multi-stream sources.  Tracer hooks, the dot dump, seek
-and queries are left out.
+ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``
+and multi-stream sources.  Tracer hooks and the dot dump are left out.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from .buffer import Buffer, FlowReturn, map_leaves
 from .caps import Caps
 from .element import (AggregatorElement, Element, Pad, PadDirection,
                       SinkElement, SourceElement)
+from .staging import Stager
 
 log = logging.getLogger("gstreamer_tpu_torch.pipeline")
 
@@ -266,6 +274,11 @@ class Pipeline(Bin):
         self._plan = None
         self.default_batch = 1
         self._position_ns = 0
+        self._prefetch = False
+        self._donate = False
+        self._staged = None
+        self._pending_reconf = False
+        self._stager = None
 
     # -- graph helpers -----------------------------------------------------
     def _nodes(self) -> List[Element]:
@@ -498,6 +511,7 @@ class Pipeline(Bin):
 
     # -- compile (build the elements' torch functions) ---------------------
     def compile(self, batch: Optional[int] = None, mesh=None,
+                donate_inputs: bool = False,
                 prefetch: bool = False) -> None:
         """Negotiate and build the step the tick loop runs.
 
@@ -508,12 +522,27 @@ class Pipeline(Bin):
         own.  A stateful element contributes its scan (``make_scan_fn``),
         an element with controlled properties its ``make_dyn_fn``.  Every
         carried state is dropped here and rebuilt at the next tick.
-        ``mesh`` and ``prefetch`` are not ported and raise."""
+
+        prefetch: double-buffered ingest (the reference's protocol, the
+        queue-decoupling analog, gstqueue.c:211): in the composed path the
+        NEXT tick's source buffers are pulled and staged right after the
+        current tick's step is queued, so the host-to-device copy (on the
+        staging copy stream) overlaps the step; the compute stream waits
+        on the copy's event instead of the host blocking.
+
+        donate_inputs: accepted for the reference's signature and reported
+        by the ALLOCATION query; it has no torch counterpart (JAX donates
+        the staging arrays to the jitted program).  The port recycles its
+        page-locked staging buffers across ticks instead
+        (``core/staging.py``), and the caching allocator reuses device
+        memory.  ``mesh`` is not ported and raises."""
         if mesh is not None:
             raise NotImplementedError(f"Pipeline.compile(mesh=...): {_ROADMAP}")
-        if prefetch:
-            raise NotImplementedError(f"Pipeline.compile(prefetch=True): "
-                                      f"{_ROADMAP}")
+        self._prefetch = prefetch
+        self._donate = donate_inputs
+        self._staged = None
+        if self._stager is None:
+            self._stager = Stager(self.device)
         for e in self._nodes():
             e.device = self.device
         self.negotiate()
@@ -570,6 +599,14 @@ class Pipeline(Bin):
         self._elem_states = None
         self._host_elems = host_elems
         self._fused = not host_elems
+        # a source whose every linked peer parses or decodes host bytes
+        # (HOST_INPUT: rawvideoparse, jpegdec, ...) hands them over as they
+        # are: nothing to stage
+        self._host_fed = {
+            e for e in order if isinstance(e, SourceElement)
+            and any(sp.peer is not None for sp in e.src_pads())
+            and all(getattr(sp.peer.element, "HOST_INPUT", False)
+                    for sp in e.src_pads() if sp.peer is not None)}
         self._device_step = (self._compose(order, fns, scan_fns)
                              if self._fused else None)
         self._order = order
@@ -664,37 +701,25 @@ class Pipeline(Bin):
         CAPS events.  The RECONFIGURE/CAPS-event path of the reference
         (gstbasetransform.c:1341 setcaps, gstevent.c:905)."""
         log.info("%s: reconfiguring (mid-stream caps change)", self.name)
-        self.compile(batch=self._batch)
+        self.compile(batch=self._batch, donate_inputs=self._donate,
+                     prefetch=self._prefetch)
         for e in self._order:
             e.start()
         self._distribute_sticky()
         self.bus.post(Message("caps-changed", self.name))
 
-    def _stage_buf(self, buf: Buffer) -> Buffer:
-        """Move every array of a pulled buffer to the pipeline's device,
-        in both execution paths: numpy arrays become tensors there, a
-        tensor already there stays as it is, text leaves stay on the
-        host."""
-        dev = self.device
-
-        def stage(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(dev)
-            if isinstance(x, np.ndarray):
-                return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            return x
-        return buf.with_(data=map_leaves(stage, buf.data))
-
     def _pull_sources(self, sources):
-        """Pull one batch from every source, staged on the device.
-        Returns (inputs, metas) or None at EOS."""
+        """Pull one batch from every source, staged on the device (unless
+        the source feeds HOST_INPUT elements only).  Returns (inputs,
+        metas) or None at EOS."""
         inputs: Dict[str, Any] = {}
         metas: Dict[str, Buffer] = {}
         for s in sources:
             buf = s.create(self._batch)
             if buf is None:
                 return None
-            buf = self._stage_buf(buf)
+            if s not in self._host_fed:
+                buf = buf.with_(data=self._stager.stage(buf.data))
             inputs[s.name] = buf.data
             metas[s.name] = buf
         return inputs, metas
@@ -706,12 +731,19 @@ class Pipeline(Bin):
         sources = [e for e in self._order if isinstance(e, SourceElement)]
         if not sources:
             raise RuntimeError("pipeline has no sources")
-        # mid-stream caps change? (CAPS event / RECONFIGURE mark)
-        if any(s.check_reconfigure() for s in sources):
+        # mid-stream caps change? (CAPS event / RECONFIGURE mark; under
+        # prefetch the mark may have been seen while staging)
+        if self._pending_reconf or (
+                self._staged is None
+                and any(s.check_reconfigure() for s in sources)):
+            self._pending_reconf = False
             self._reconfigure()
             sources = [e for e in self._order
                        if isinstance(e, SourceElement)]
-        pulled = self._pull_sources(sources)
+        if self._staged is not None:
+            pulled, self._staged = self._staged, None
+        else:
+            pulled = self._pull_sources(sources)
         if pulled is None:
             # flush decoupling queues (each holds one pending tick)
             if not self._fused:
@@ -765,6 +797,13 @@ class Pipeline(Bin):
                 if self._scan_fns:
                     self._elem_states = dict(self._elem_states,
                                              **new_states)
+                # double-buffered ingest: stage the NEXT tick's inputs now
+                # so their copy overlaps the step just queued
+                if self._prefetch:
+                    if any(s.check_reconfigure() for s in sources):
+                        self._pending_reconf = True
+                    else:
+                        self._staged = self._pull_sources(sources)
             return self._propagate(inputs, metas, outputs)
 
     def _propagate(self, inputs, metas, outputs,
@@ -892,6 +931,126 @@ class Pipeline(Bin):
                 break
             n += 1
         self.set_state(State.NULL)
+
+    # -- seek / flush (gstevent.c SEEK + FLUSH_START/STOP semantics) ------
+    def seek(self, start: int, stop: Optional[int] = None,
+             rate: float = 1.0, flush: bool = True) -> bool:
+        """Seek every source to `start` (ns) and flush element state.
+
+        Mirrors gst_element_seek on the pipeline: the SEEK event travels
+        to the sources; a flushing seek resets the streaming state of
+        every element (here: the host-side histories).  A tick that
+        prefetch staged from the old position is dropped (the reference
+        keeps it: ROADMAP.md section 3)."""
+        from .segment import Segment
+
+        if self._plan is None:
+            self.compile()
+        # elements must be started before seeking (set_state would reset
+        # their positions otherwise)
+        if self.state != State.PLAYING:
+            self.set_state(State.PLAYING)
+        seg = Segment(rate=rate, start=start,
+                      stop=stop if stop is not None else -1, time=start,
+                      position=start)
+        ok = False
+        for e in self._order:
+            if isinstance(e, SourceElement) and hasattr(e, "do_seek"):
+                if e.do_seek(seg):
+                    ok = True
+        if ok:
+            self._staged = None
+        if flush:
+            for e in self._order:
+                if getattr(e, "HOST_ELEMENT", False) or hasattr(e, "flush"):
+                    fl = getattr(e, "flush", None)
+                    if fl is not None:
+                        fl()
+                    else:
+                        e.start()     # host elements reset their history
+        if ok:
+            self.bus.post(Message("segment", self.name,
+                                  {"start": start, "rate": rate}))
+        return ok
+
+    # -- queries (gstquery.c:2936 family, answered at the pipeline level
+    #    like gst_element_query on a bin: sinks first, walk upstream) ------
+    def query(self, q) -> bool:
+        from .query import QueryType
+
+        if self._plan is None:
+            try:
+                self.compile()
+            except NegotiationError:
+                return False
+        if q.type == QueryType.POSITION:
+            q.result["position"] = self._position_ns
+            return True
+        if q.type == QueryType.DURATION:
+            for e in self._order:
+                if isinstance(e, SourceElement) and e.query(q):
+                    return True
+            return False
+        if q.type == QueryType.LATENCY:
+            # gst_bin_query LATENCY: max of source min-latencies, plus the
+            # batch window (a batch must fill before the step runs -- the
+            # batching analog of queue latency)
+            live, mn, mx = False, 0, -1
+            for e in self._order:
+                if isinstance(e, SourceElement):
+                    sq = type(q)(q.type)
+                    if e.query(sq):
+                        live = live or sq.result.get("live", False)
+                        mn = max(mn, sq.result.get("min-latency", 0))
+            batch_ns = 0
+            for e in self._order:
+                if isinstance(e, SourceElement):
+                    for sp in e.src_pads():
+                        if sp.caps is None:
+                            continue
+                        s = sp.caps[0] if len(sp.caps) else None
+                        fr = s.get("framerate") if s is not None else None
+                        if fr is not None and getattr(fr, "num", 0):
+                            batch_ns = max(batch_ns, int(
+                                self._batch * 1e9 * fr.denom / fr.num))
+            q.result.update({"live": live, "min-latency": mn + batch_ns,
+                             "max-latency": mx})
+            return True
+        if q.type == QueryType.SEEKING:
+            for e in self._order:
+                if isinstance(e, SourceElement):
+                    return e.query(q)
+            return False
+        if q.type == QueryType.ALLOCATION:
+            # the buffer-pool analog (gstbufferpool.c:125): staging is
+            # device tensors from reused page-locked buffers
+            q.result.update({
+                "device-staging": True,
+                "donate-inputs": self._donate,
+                "prefetch": self._prefetch,
+                "batch": self._batch,
+            })
+            return True
+        # fall back to sink-side upstream walk
+        for e in self._order:
+            if isinstance(e, SinkElement) and e.query(q):
+                return True
+        return False
+
+    def query_position(self) -> Optional[int]:
+        from .query import position_query
+        q = position_query()
+        return q.result.get("position") if self.query(q) else None
+
+    def query_duration(self) -> Optional[int]:
+        from .query import duration_query
+        q = duration_query()
+        return q.result.get("duration") if self.query(q) else None
+
+    def query_latency(self):
+        from .query import latency_query
+        q = latency_query()
+        return q.result if self.query(q) else None
 
 
 class NegotiationError(Exception):

@@ -16,3 +16,6 @@ from . import interleave        # noqa: F401  (interleave, deinterleave)
 from . import smpte             # noqa: F401  (smpte, smptealpha)
 from . import shapewipe         # noqa: F401
 from . import effectv           # noqa: F401  (edgetv, streaktv, shagadelictv, vertigotv, quarktv, revtv, dicetv, warptv, rippletv, agingtv, optv, radioactv)
+from . import file_elements     # noqa: F401  (filesrc, filesink, multifilesrc, multifilesink, y4menc, dataurisrc, fdsrc, fdsink, giosrc, giosink)
+from . import rawparse          # noqa: F401  (rawvideoparse, rawaudioparse)
+from . import image_codecs      # noqa: F401  (jpegenc, jpegdec, pngenc, pngdec)

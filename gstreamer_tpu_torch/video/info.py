@@ -103,6 +103,16 @@ class VideoInfo:
         return plane_shapes(self.finfo, self.width, self.height)
 
     # -- caps interop -----------------------------------------------------
+    def to_caps_structure(self) -> Structure:
+        return Structure(
+            "video/x-raw",
+            format=self.format,
+            width=self.width,
+            height=self.height,
+            framerate=self.fps,
+            **({"pixel-aspect-ratio": self.par} if self.par != Fraction(1) else {}),
+        )
+
     @staticmethod
     def from_caps_structure(s: Structure) -> "VideoInfo":
         if s.name != "video/x-raw":

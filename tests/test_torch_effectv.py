@@ -271,7 +271,8 @@ def test_mesh_and_prefetch_still_raise():
         f"appsrc name=in caps={CAPS} ! edgetv ! appsink name=s", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         p.compile(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        p.compile(prefetch=True)
+    # prefetch is ported: it compiles the same scan
+    p.compile(prefetch=True)
+    assert p._prefetch and [e.FACTORY for e in p._scan_fns] == ["edgetv"]
     p.compile()
     assert p._fused and [e.FACTORY for e in p._scan_fns] == ["edgetv"]

@@ -217,7 +217,10 @@ def test_registry_is_the_ports_own():
         "audiorate", "interleave", "deinterleave", "smpte", "smptealpha",
         "shapewipe", "edgetv", "streaktv", "shagadelictv", "vertigotv",
         "quarktv", "revtv", "dicetv", "warptv", "rippletv", "agingtv", "optv",
-        "radioactv"}
+        "radioactv", "filesrc", "filesink", "multifilesrc", "multifilesink",
+        "y4menc", "dataurisrc", "fdsrc", "fdsink", "giosrc", "giosink",
+        "rawvideoparse", "rawaudioparse", "jpegenc", "jpegdec", "pngenc",
+        "pngdec"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
