@@ -138,6 +138,25 @@ before it and read just after:
                     and device IDCT ms an image against its byte bound
   ml_ingest         examples/ml_ingest_torch.py's train loop: a finite loss.
 
+10. the common filters and fittings (fittings_phase, FITTINGS), each with
+   an e2e line, its device idle share and peak memory:
+
+  filters_tee       seeded 1080p I420 frames, batch 64, 4 ticks, through
+                    videocrop top=60 bottom=60 ! videoflip method=clockwise
+                    ! videomedian ! gamma ! tee into two RGB 224x224
+                    branches (bilinear and catrom: the plan scales v before
+                    h, the generic route, no kernel), a portrait RGB 112x224
+                    branch (catrom: yscale once and chroma420 twice a tick
+                    on the 960x1920 plane, each also held to its plain
+                    version there) and a closed valve whose fakesink must
+                    get nothing; run again under GTPU_TRACERS="stats;latency"
+                    and GTPU_DEBUG_DUMP_DOT_DIR: the same bytes, a dot file,
+                    every buffer counted
+  selector_box      two 1080p I420 appsrcs, batch 32, 3 ticks, through
+                    input-selector active-pad=sink_1 ! videobox left=-64
+                    right=-64 ! alpha method=green ! AYUV: the active pad's
+                    luma inside black borders.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -2363,6 +2382,287 @@ def ingest_phase(seed, counters, dev):
     return launches
 
 
+# -- the common filters and fittings ------------------------------------------
+
+FIT_CROP = 60                    # videocrop top and bottom: 1080 -> 960 rows
+FIT_BOX = 64                     # videobox's border left and right
+FIT_SQUARE = (224, 224)          # the tee's two square branches
+FIT_PORTRAIT = (112, 224)        # its portrait branch: the input's aspect
+FIT_TEE = (SRC + "videocrop top={c} bottom={c} ! videoflip method=clockwise "
+           "! videomedian ! gamma gamma=1.2 ! tee name=t "
+           "t. ! queue ! videoconvertscale add-borders=false ! video/x-raw,"
+           "format=RGB,width={sw},height={sh} ! appsink name=out "
+           "t. ! queue2 ! videoconvertscale method=catrom add-borders=false ! "
+           "video/x-raw,format=RGB,width={sw},height={sh} ! appsink "
+           "name=out_cubic "
+           "t. ! queue ! videoconvertscale method=catrom add-borders=false ! "
+           "video/x-raw,format=RGB,width={pw},height={ph} ! appsink "
+           "name=out_portrait "
+           "t. ! queue ! valve drop=true ! fakesink name=drop")
+FIT_SELECTOR = ("input-selector name=s active-pad=sink_1 ! videobox "
+                "left=-{b} right=-{b} ! alpha method=green ! "
+                "video/x-raw,format=AYUV ! appsink name=out "
+                + " ".join(SRC.replace("name=in", f"name=in{k}")[:-2]
+                           + f"! s.sink_{k}" for k in range(2)))
+# name: (launch string, appsrc names, appsinks, batch, ticks, the route each
+# converter branch takes (the plan's scale_order), launches a tick)
+FITTINGS = {
+    "filters_tee": (FIT_TEE, ("in",), ("out", "out_cubic", "out_portrait"),
+                    64, 4, {"out": "vh", "out_cubic": "vh",
+                            "out_portrait": "hv"},
+                    {"yscale_hv": 1, "chroma420_scale": 2}),
+    "selector_box": (FIT_SELECTOR, ("in0", "in1"), ("out",), 32, 3, {}, {}),
+}
+
+
+def fit_desc(name, w, h):
+    c, b = FIT_CROP, FIT_BOX
+    return FITTINGS[name][0].format(
+        w=w, h=h, c=c, b=b, sw=FIT_SQUARE[0], sh=FIT_SQUARE[1],
+        pw=FIT_PORTRAIT[0], ph=FIT_PORTRAIT[1])
+
+
+def drive_sinks(desc, batch, ticks, ins, sinks, device):
+    """Push `ticks` buffers of the same data into every appsrc of `ins`
+    ({name: tuple of planes}) and tick the pipeline to EOS, each tick timed
+    on the host clock between two synchronises.  The EOS tick flushes the
+    queues that a host element (here the closed valve) makes one-tick
+    double buffers, so its samples are the last entry.  Returns (pipeline,
+    {sink: [samples of each tick and of the EOS tick]}, seconds per tick
+    before the EOS tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    dev = torch.device(device)
+    pipe = parse_launch(desc, batch=batch, device=dev)
+    for name, data in ins.items():
+        src = pipe.get_by_name(name)
+        for t in range(ticks):
+            src.push_buffer(Buffer(data=data, pts=t * batch * DUR,
+                                   duration=DUR, batch=batch))
+        src.end_of_stream()
+    pipe.set_state(State.PLAYING)
+    outs, secs = {s: [] for s in sinks}, []
+    while True:
+        sync(dev)
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        sync(dev)
+        if more:
+            secs.append(time.perf_counter() - t0)
+        for s in sinks:
+            outs[s].append(drain(pipe.get_by_name(s)))
+        if not more:
+            break
+    pipe.set_state(State.NULL)
+    return pipe, outs, secs
+
+
+def converter_of(pipe, sink):
+    """The videoconvertscale feeding `sink` through its capsfilter."""
+    up = pipe.get_by_name(sink).sink_pads()[0].peer.element
+    return up.sink_pads()[0].peer.element._converter
+
+
+def fittings_inputs(name, host, rng, batch):
+    """{appsrc: host planes}: the tee takes the seed's 1080p frames, the
+    selector two sets of seeded frames (sink_1's the active one)."""
+    import numpy as np
+    if name == "filters_tee":
+        return {"in": tuple(p[:batch] for p in host)}
+    return {f"in{k}": tuple(rng.integers(0, 256, p[:batch].shape,
+                                         dtype=np.uint8) for p in host)
+            for k in range(2)}
+
+
+def smi_line():
+    """nvidia-smi's name and power limit of the card as one line, or None
+    when it prints nothing."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return out[0] if out else None
+
+
+def fittings_phase(seed, counters, dev, host, w=W, h=H):
+    """The slice's path at full width, through the port's parse_launch on
+    the card with the launch counts zeroed just before each path and read
+    just after (FITTINGS): filters_tee (videocrop, videoflip, videomedian,
+    gamma and a four-way tee at batch 64; its portrait branch runs yscale
+    and chroma420 on the cropped, rotated plane, each also held to its plain
+    version at that shape; the closed valve's sink gets nothing) and
+    selector_box (input-selector, videobox's borders and alpha's green key
+    into AYUV at batch 32).  Every branch's first frames equal the port's
+    CPU path; the tee runs once more under GTPU_TRACERS="stats;latency" and
+    GTPU_DEBUG_DUMP_DOT_DIR with the same bytes, the dot file written and
+    every buffer counted.  Prints frames/s, device busy ms and idle share
+    and peak memory beside the card's name and power limit; returns
+    ({kernel: launches}, {kernel: largest difference from its plain
+    version})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    from gstreamer_tpu_torch.core.tracer import hooks
+    from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import yscale_kernel as ysk
+    rng = np.random.default_rng(seed + 5)
+    total = {k: 0 for k in counters}
+    err = {}
+    card = (smi_line() or "nvidia-smi printed nothing") \
+        if dev.type == "cuda" else "CPU rehearsal"
+    for name, (_, srcs, sinks, batch, ticks, order, per_tick) in \
+            FITTINGS.items():
+        desc = fit_desc(name, w, h)
+        host_ins = fittings_inputs(name, host, rng, batch)
+        ins = {k: tuple(torch.as_tensor(p).to(dev) for p in v)
+               for k, v in host_ins.items()}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        pipe, outs, secs = drive_sinks(desc, batch, ticks, ins, sinks, dev)
+        counts = {k: c.launches for k, c in counters.items()}
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else 0)
+        want = {k: per_tick.get(k, 0) * ticks for k in counters}
+        require(counts == want, f"{name}: launches {counts}, want {want}")
+        for k, n in counts.items():
+            total[k] += n
+        got_order = {s: converter_of(pipe, s).plan["scale_order"]
+                     for s in order}
+        require(got_order == order, f"{name}: routes {got_order}, want "
+                f"{order}")
+        for s in sinks:
+            frames = sum(x.buffer.batch for tick in outs[s] for x in tick)
+            require(frames == batch * ticks,
+                    f"{name}: {s} got {frames} frames, want {batch * ticks}")
+        if name == "filters_tee":
+            require(pipe.get_by_name("drop").n_rendered == 0,
+                    "filters_tee: the closed valve let buffers through")
+        firsts = {s: next(x for tick in outs[s] for x in tick)
+                  for s in sinks}
+        n = CPU_FRAMES
+        cpu_ins = {k: tuple(p[:n] for p in v) for k, v in host_ins.items()}
+        _, cpu, _ = drive_sinks(desc, n, 1, cpu_ins, sinks, "cpu")
+        for s in sinks:
+            ref = next(x for tick in cpu[s] for x in tick)
+            first = firsts[s]
+            require(first.buffer.pts == ref.buffer.pts
+                    and str(first.caps) == str(ref.caps),
+                    f"{name}: {s}'s first sample's pts/caps differ from the "
+                    f"CPU run")
+            for o, r in zip(first.buffer.data, ref.buffer.data):
+                require(o.device.type == dev.type and o.dtype == torch.uint8,
+                        f"{name}: {s} output {o.dtype} on {o.device}")
+                require(torch.equal(o[:n].cpu(), r),
+                        f"{name}: {s} differs from the port's CPU path")
+        if name == "filters_tee":
+            # the kernels at the portrait branch's shapes, on the cropped
+            # and rotated input planes
+            plan = converter_of(pipe, "out_portrait").plan
+            hr, vr = plan["h_res"], plan["v_res"]
+            crops = (FIT_CROP, FIT_CROP // 2, FIT_CROP // 2)
+            y, u, v = (p[:, c:p.shape[1] - c].flip(-2).transpose(-1, -2)
+                       .contiguous() for c, p in zip(crops, ins["in"]))
+            err["yscale_hv"] = max_err([ysk.yscale_hv(y, hr, vr)],
+                                       [ysk.yscale_hv_plain(y, hr, vr)],
+                                       "yscale_hv")
+            cargs = (hr, vr, plan["up_h_cosited"], plan["up_v_cosited"])
+            err["chroma420_scale"] = max_err(
+                [ck.chroma420_scale(c, *cargs, y.shape[-1], y.shape[-2])
+                 for c in (u, v)],
+                [ck.chroma420_scale_plain(c, *cargs) for c in (u, v)],
+                "chroma420_scale")
+            for kname, e in err.items():
+                require(e == 0, f"{name}: {kname} differs from its plain "
+                        f"version by up to {e} at the portrait shape")
+            check = (f"yscale_hv and chroma420_scale == plain at "
+                     f"{tuple(y.shape)} -> {(vr.out_size, hr.out_size)}")
+            del y, u, v
+            # once more with two tracers and the dot dump: the same bytes
+            with tempfile.TemporaryDirectory() as tmp, switches(
+                    GTPU_TRACERS="stats;latency",
+                    GTPU_DEBUG_DUMP_DOT_DIR=tmp):
+                hooks.reset()
+                try:
+                    tpipe, touts, tsecs = drive_sinks(desc, batch, ticks,
+                                                      ins, sinks, dev)
+                    rep = hooks.reports()
+                finally:
+                    hooks.reset()
+                dot = os.path.join(tmp, f"{tpipe.name}.dot")
+                require(os.path.exists(dot) and "valve" in open(dot).read(),
+                        f"{name}: no dot file {dot}")
+            stats = rep.get("stats", {})
+            require(stats.get("ticks") == ticks and all(
+                stats["frames"].get(s) == batch * ticks for s in sinks)
+                and "drop" not in stats["frames"]
+                and set(rep.get("latency", {})) == set(sinks),
+                f"{name}: tracer reports {rep}")
+            for s in sinks:
+                again = next(x for tick in touts[s] for x in tick)
+                require(all(torch.equal(a, b) for a, b in zip(
+                    again.buffer.data, firsts[s].buffer.data)),
+                    f"{name}: {s} changed under the tracers")
+            del touts
+            check += (f"; traced run: same bytes, dot written, stats "
+                      f"frames { {s: stats['frames'][s] for s in sinks} }, "
+                      f"{[round(t * 1e3, 3) for t in tsecs]} ms per tick "
+                      f"(untraced {[round(t * 1e3, 3) for t in secs]})")
+        else:
+            # the active pad's frames inside videobox's borders
+            b = FIT_BOX
+            y = firsts["out"].buffer.data[0]
+            require(torch.equal(y[:, :, b:-b], ins["in1"][0])
+                    and bool((y[:, :, :b] == 16).all()),
+                    f"{name}: luma is not sink_1's frames in black borders")
+            check = "luma == sink_1's frames inside the borders"
+        print(f"fittings {name}: batch {batch}, {ticks} ticks, "
+              f"{'fused' if pipe._fused else 'per-element'}; routes "
+              f"{got_order}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; CUDA == port "
+              f"CPU path ({n} frames) on {list(sinks)}; {check}")
+        pipe_order = pipe._order
+        del outs, firsts, pipe
+
+        prof = parse_launch(desc, batch=batch, device=dev)
+        prof.set_state(State.PLAYING)
+
+        def tick():
+            for k, v in ins.items():
+                prof.get_by_name(k).push_buffer(Buffer(data=v, batch=batch))
+            prof.tick()
+            for s in sinks:
+                drain(prof.get_by_name(s))
+        if dev.type == "cuda":
+            _, busy, idle, _ = device_time(tick, 3)
+        else:
+            busy, idle = 0.0, 1.0
+        prof.set_state(State.NULL)
+        # the first tick makes first calls; where a host element turns the
+        # queues into one-tick double buffers, the elements after them make
+        # theirs in the second
+        warm = 2 if any(getattr(e, "_decouple", False)
+                        for e in pipe_order) else 1
+        timed = sum(secs[warm:])
+        print(f"e2e {name}: {batch * (ticks - warm) / timed:.1f} input "
+              f"frames/s over ticks {warm + 1}..{ticks} "
+              f"({[round(s * 1e3, 3) for s in secs]} ms per tick, host "
+              f"clock between synchronises); device busy {busy:.3f} ms a "
+              f"tick, idle share {idle:.3f}; peak device memory "
+              f"{peak / 2**30:.2f} GiB; {card}")
+        del ins, prof
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return total, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2637,12 +2937,16 @@ def main() -> int:
     # -- ingest from disk: y4m, JPEG, the example's train loop ----------------
     for k, n in ingest_phase(args.seed, counters, dev).items():
         launches[k] += n
+
+    # -- the common filters and fittings ---------------------------------------
+    fit_launches, fit_err = fittings_phase(args.seed, counters, dev, host)
+    for k, n in fit_launches.items():
+        launches[k] += n
+    for k, e in fit_err.items():
+        err[k] = max(err[k], e)
     print(f"main path launches, all paths: {launches}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
+    smi = smi_line()
     sources = {"yscale_hv": ("gstreamer_tpu_torch/csrc/yscale.cu",
                              "gstreamer_tpu/ops/yscale_kernel.py:109",
                              "linear2"),
@@ -2670,8 +2974,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"]})
-    require(bool(smi), "nvidia-smi printed nothing")
-    print(smi[0])
+    require(smi is not None, "nvidia-smi printed nothing")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

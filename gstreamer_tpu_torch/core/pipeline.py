@@ -33,12 +33,17 @@ Execution model:
   element's ``make_dyn_fn``.
 
 ``seek`` and ``query`` (POSITION, DURATION, LATENCY, SEEKING, ALLOCATION)
-and the ``query_*`` helpers are the reference's.
+and the ``query_*`` helpers are the reference's, and so are the pipeline
+clock (``use_clock`` / ``get_clock``: a ``check.TestClock`` gates
+clocksync), the tracer hooks (``core/tracer.py``, ``GTPU_TRACERS``: fired
+at the reference's points of ``compile``, ``tick`` and ``_propagate``, all
+on the host) and the dot dump at negotiation (``utils/dot.py``,
+``GTPU_DEBUG_DUMP_DOT_DIR``).
 
 The device is explicit: a Pipeline runs on CUDA unless the caller names
 another device, and raises without a card (``device.resolve``).  Not
 ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``
-and multi-stream sources.  Tracer hooks and the dot dump are left out.
+and multi-stream sources.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .caps import Caps
 from .element import (AggregatorElement, Element, Pad, PadDirection,
                       SinkElement, SourceElement)
 from .staging import Stager
+from .tracer import hooks
 
 log = logging.getLogger("gstreamer_tpu_torch.pipeline")
 
@@ -279,6 +285,18 @@ class Pipeline(Bin):
         self._staged = None
         self._pending_reconf = False
         self._stager = None
+        self.clock = None              # pipeline clock (use_clock)
+
+    def use_clock(self, clock) -> None:
+        """Force the pipeline clock (gst_pipeline_use_clock; selection
+        normally happens at PLAYING, gstpipeline.c:433).  Pass a
+        check.testclock.TestClock for deterministic timing tests --
+        clock-aware elements (clocksync) then hold buffers until the clock
+        is cranked past their timestamps."""
+        self.clock = clock
+
+    def get_clock(self):
+        return self.clock
 
     # -- graph helpers -----------------------------------------------------
     def _nodes(self) -> List[Element]:
@@ -545,7 +563,11 @@ class Pipeline(Bin):
             self._stager = Stager(self.device)
         for e in self._nodes():
             e.device = self.device
+        hooks.load_env()
         self.negotiate()
+        hooks.fire("pipeline-negotiated", self)
+        from ..utils.dot import maybe_dump
+        maybe_dump(self)
         order = self._topo_order()
         fns: Dict[Element, Optional[Callable]] = {}
         scan_fns: Dict[Element, tuple] = {}
@@ -757,7 +779,9 @@ class Pipeline(Bin):
                 for sp in s.src_pads():
                     sp.push_event(eos_event())
             self.bus.post(Message("eos", self.name))
+            hooks.fire("eos", self)
             return False
+        hooks.fire("tick-pre", self)
         inputs, metas = pulled
         # stateful elements: carries built lazily on the device, the
         # tick's host aux rows computed for the ACTUAL batch (the leading
@@ -804,7 +828,10 @@ class Pipeline(Bin):
                         self._pending_reconf = True
                     else:
                         self._staged = self._pull_sources(sources)
-            return self._propagate(inputs, metas, outputs)
+            if not self._propagate(inputs, metas, outputs):
+                return False
+        hooks.fire("tick-post", self)
+        return True
 
     def _propagate(self, inputs, metas, outputs,
                    drain: bool = False) -> bool:
@@ -832,7 +859,12 @@ class Pipeline(Bin):
                         continue      # upstream stream ended this tick
                     buf = buf.with_(data=outputs[e.name])
                 buf = e.process_meta(buf)
+                if hooks.active:
+                    hooks.fire("buffer-pre", e, buf)
                 ret = e.render(buf)
+                if hooks.active:
+                    hooks.fire("buffer-post", e, buf)
+                    hooks.fire("flow-return", e, ret)
                 if buf.pts is not None:
                     end = buf.pts + (buf.duration or 0) * max(buf.batch, 1)
                     self._position_ns = max(self._position_ns, end)
@@ -877,6 +909,8 @@ class Pipeline(Bin):
                 if buf is None:   # host element swallowed the buffer
                     continue
                 buf = e.process_meta(buf)
+                if hooks.active:
+                    hooks.fire("buffer-post", e, buf)
                 route = getattr(e, "route_outputs", None)
                 if route is not None:
                     # one-to-N elements with DIFFERENT data per src pad

@@ -3,9 +3,9 @@ ported factories in ``gstreamer_tpu_torch.core.element._REGISTRY`` (the
 registry-scan equivalent of gstregistry.c).  Only these exist; any other
 factory name raises ``ValueError`` in ``element_factory_make``."""
 
-from . import util_elements      # noqa: F401  (capsfilter, identity, queue, fakesink, appsink, appsrc)
+from . import util_elements      # noqa: F401  (capsfilter, identity, queue, queue2, downloadbuffer, tee, valve, fakesink, appsink, appsrc, fakesrc, autovideosink, autoaudiosink, watchdog)
 from . import videoconvertscale  # noqa: F401  (videoconvert, videoscale, videoconvertscale)
-from . import videofilter        # noqa: F401  (videobalance)
+from . import videofilter        # noqa: F401  (videobalance, gamma, videoflip, videocrop, videobox, videomedian, alpha)
 from . import videorate          # noqa: F401
 from . import deinterlace        # noqa: F401  (deinterlace, autodeinterlace)
 from . import videotestsrc      # noqa: F401
@@ -19,3 +19,7 @@ from . import effectv           # noqa: F401  (edgetv, streaktv, shagadelictv, v
 from . import file_elements     # noqa: F401  (filesrc, filesink, multifilesrc, multifilesink, y4menc, dataurisrc, fdsrc, fdsink, giosrc, giosink)
 from . import rawparse          # noqa: F401  (rawvideoparse, rawaudioparse)
 from . import image_codecs      # noqa: F401  (jpegenc, jpegdec, pngenc, pngdec)
+from . import debug_elements    # noqa: F401  (progressreport, taginject, capssetter, breakmydata, cpureport, fakevideosink)
+from . import audio_sinks       # noqa: F401  (fakeaudiosink)
+from . import flow_elements     # noqa: F401  (concat, funnel, input-selector, output-selector, streamiddemux, clocksync, multiqueue)
+from . import autoconvert       # noqa: F401  (switchbin, autoconvert, autovideoconvert)

@@ -14,9 +14,9 @@ torch:
 * ``audioresample`` is a host element for its state (history, phase,
   timestamps); the history stays on the pipeline's device and the FIR runs
   there (``audio/resampler.py``).
-* ``volume``: the static gain, float or Q27 integer.  A controlled
-  ``volume`` (``make_dyn_fn`` in the reference) is not ported: the port's
-  Pipeline raises for controlled properties (ROADMAP.md).
+* ``volume``: the static gain, float or Q27 integer, or a controlled gain
+  (``make_dyn_fn``: the tick's float32 value from a control source bound
+  to ``volume``).
 """
 
 from __future__ import annotations

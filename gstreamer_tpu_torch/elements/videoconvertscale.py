@@ -8,8 +8,10 @@ GstVideoConverter :906, transform_frame :1981).
 
 The element is a thin negotiation shell around this package's
 :class:`~gstreamer_tpu_torch.video.converter.VideoConverter`, built on the
-pipeline's device; its compute is the converter's ``convert``.  Buffer
-metas pass unchanged: the port registers no meta transforms yet.
+pipeline's device; its compute is the converter's ``convert``.  On a size
+change the buffer's metas go through their registered "scale" transforms
+(``core/meta.py``: a crop meta scales with the frame, a strided video meta
+is dropped), as in the reference.
 """
 
 from __future__ import annotations
@@ -163,6 +165,20 @@ class _ConvertScaleBase(TransformElement):
         if self._passthrough or self._converter is None:
             return None
         return self._converter.convert
+
+    def process_meta(self, buf):
+        # geometry changed: run registered meta transforms (crop meta
+        # scales with the frame, strided video meta drops --
+        # gstvideometa.c transform functions)
+        if self._converter is None:
+            return buf
+        from ..core.meta import transform_metas
+        ii, oi = self._converter.in_info, self._converter.out_info
+        if buf.meta and (ii.width, ii.height) != (oi.width, oi.height):
+            return transform_metas(buf, "scale",
+                                   in_size=(ii.width, ii.height),
+                                   out_size=(oi.width, oi.height))
+        return buf
 
 
 @register_element

@@ -23,11 +23,12 @@ Quantizer from them).  Both accept either package's objects.
 
 A pipeline's streaming state: ``element_states`` reads, by element name,
 the carries of its stateful (scan) elements (``_elem_states``), a
-deinterlacer's carried frames and pending fields, and the host counters
-that feed a scan's aux rows (vertigotv's phase, warptv's counter), all as
-numpy or Python numbers; ``load_element_states`` puts them into the port's
-pipeline (after ``set_state(PLAYING)``), so a tick run by one package can
-continue in the other.
+deinterlacer's carried frames and pending fields, the host counters that
+feed a scan's aux rows (vertigotv's phase, warptv's counter), and the
+buffers a clocksync holds for its clock (``_held``), all as numpy or Python
+numbers; ``load_element_states`` puts them into the port's pipeline (after
+``set_state(PLAYING)``), so a tick run by one package can continue in the
+other.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 from .audio.channel_mixer import matrix_int
 from .audio.quantize import Quantizer
 from .audio.resampler import DTYPES
-from .core.buffer import map_leaves
+from .core.buffer import Buffer, map_leaves
 from .core.pipeline import _carry_to
 from .video.color import PreparedMatrix
 from .video.dither import VideoDither
@@ -202,6 +203,11 @@ def element_states(pipeline) -> Dict[str, Dict[str, Any]]:
         for attr in _HOST_STATE:
             if hasattr(e, attr):
                 entry[attr] = getattr(e, attr)
+        if getattr(e, "_held", None):
+            entry["held"] = [
+                dict(data=map_leaves(to_np, b.data), pts=b.pts, dts=b.dts,
+                     duration=b.duration, offset=b.offset, flags=b.flags,
+                     batch=b.batch, meta=dict(b.meta)) for b in e._held]
         if entry:
             out[e.name] = entry
     return out
@@ -232,3 +238,7 @@ def load_element_states(pipeline, states: Dict[str, Dict[str, Any]]) -> None:
         for attr in _HOST_STATE:
             if attr in entry:
                 setattr(e, attr, entry[attr])
+        if "held" in entry:
+            e._held = [Buffer(**dict(b, data=map_leaves(
+                lambda x: torch.from_numpy(np.array(x)).to(dev), b["data"])))
+                for b in entry["held"]]

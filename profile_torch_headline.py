@@ -24,7 +24,9 @@ BASELINE config 3; compositor_wall; audiomixer_s16, audiomixer_f32: a tick
 each, every appsrc fed CUDA tensors); and its stateful and controlled
 paths (deint_<method> for the nine deinterlace methods without a kernel,
 deint_chain_controlled, effectv_chain, volume_controlled_s16 and _f32: a
-tick each, control sources bound as chip_smoke.py binds them).  Each runs
+tick each, control sources bound as chip_smoke.py binds them); and its
+fittings paths (FITTINGS: filters_tee, selector_box; ``--only fittings``
+names both: a tick each, every appsrc fed CUDA tensors).  Each runs
 two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
@@ -77,6 +79,8 @@ def main() -> int:
                     help="comma-separated configuration names")
     args = ap.parse_args()
     only = None if args.only is None else set(args.only.split(","))
+    if only is not None and "fittings" in only:
+        only |= {"filters_tee", "selector_box"}
 
     def profile(name, batch, step):
         if only is None or name in only:
@@ -231,6 +235,26 @@ def main() -> int:
         profile(name, batch, tick)
         pipe.set_state(State.NULL)
         del data
+        torch.cuda.empty_cache()
+
+    from chip_smoke import FITTINGS, drain, fit_desc, fittings_inputs
+    for name, (_, _, sinks, batch, _, _, _) in FITTINGS.items():
+        if only is not None and name not in only:
+            continue
+        ins = {k: tuple(torch.as_tensor(p).cuda() for p in v)
+               for k, v in fittings_inputs(name, host, rng, batch).items()}
+        pipe = parse_launch(fit_desc(name, W, H), batch=batch)
+        pipe.set_state(State.PLAYING)
+
+        def tick():
+            for k, v in ins.items():
+                pipe.get_by_name(k).push_buffer(Buffer(data=v, batch=batch))
+            pipe.tick()
+            for s in sinks:
+                drain(pipe.get_by_name(s))
+        profile(name, batch, tick)
+        pipe.set_state(State.NULL)
+        del ins
         torch.cuda.empty_cache()
     return 0
 

@@ -73,6 +73,15 @@ def run_both(desc, pushes=None, sinks=("out",), batch=1):
     jpipe, ref = _run(jparse_launch, JBuffer, desc, pushes, sinks, batch)
     tpipe, out = _run(gstreamer_tpu_torch.parse_launch, Buffer, desc, pushes,
                       sinks, batch, device="cpu")
+    assert_same_samples(out, ref, sinks)
+    assert negotiated_caps(tpipe) == negotiated_caps(jpipe)
+    return tpipe, out
+
+
+def assert_same_samples(out, ref, sinks):
+    """Every sample of every sink: the same pts, duration, batch, caps
+    string and data, a CPU tensor in the port against a numpy-able array
+    in the JAX package."""
     for s in sinks:
         assert len(out[s]) == len(ref[s]) >= 1, s
         for o, r in zip(out[s], ref[s]):
@@ -87,8 +96,6 @@ def run_both(desc, pushes=None, sinks=("out",), batch=1):
                 b = np.asarray(b)
                 assert a.numpy().dtype == b.dtype and a.shape == b.shape
                 assert np.array_equal(a.numpy(), b)
-    assert negotiated_caps(tpipe) == negotiated_caps(jpipe)
-    return tpipe, out
 
 
 def planes(fmt, w, h, n, seed, alpha_edges=True):

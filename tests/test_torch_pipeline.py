@@ -220,7 +220,13 @@ def test_registry_is_the_ports_own():
         "radioactv", "filesrc", "filesink", "multifilesrc", "multifilesink",
         "y4menc", "dataurisrc", "fdsrc", "fdsink", "giosrc", "giosink",
         "rawvideoparse", "rawaudioparse", "jpegenc", "jpegdec", "pngenc",
-        "pngdec"}
+        "pngdec", "gamma", "videoflip", "videocrop", "videobox",
+        "videomedian", "alpha", "progressreport", "taginject", "capssetter",
+        "breakmydata", "cpureport", "fakevideosink", "fakeaudiosink",
+        "queue2", "downloadbuffer", "tee", "valve", "fakesrc",
+        "autovideosink", "autoaudiosink", "watchdog", "concat", "funnel",
+        "input-selector", "output-selector", "streamiddemux", "clocksync",
+        "multiqueue", "switchbin", "autoconvert", "autovideoconvert"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
