@@ -157,6 +157,32 @@ before it and read just after:
                     right=-64 ! alpha method=green ! AYUV: the active pad's
                     luma inside black borders.
 
+11. overlays and the device video effects (overlays_phase, OVERLAY_PATHS),
+   each with an e2e line, its device idle share and peak memory:
+
+  burnin            seeded 1080p I420, batch 64, 3 ticks, through
+                    timeoverlay ! qroverlay pixel-size=4 ! gdkpixbufoverlay
+                    (a seeded PNG written by the port's PNG encoder) !
+                    videoconvertscale method=catrom add-borders=false ! RGB
+                    224x224: yscale once and chroma420 twice a tick; the
+                    overlays are host elements, so the graph runs per
+                    element
+  camera_raw_rggb / _rggb16le  a seeded 1080p Bayer mosaic at 8 and 16
+                    bits, batch 64, 3 ticks, through bayer2rgb !
+                    videoconvertscale add-borders=false ! RGB 224x224 (the
+                    generic route, no kernel); the 8-bit mosaic also through
+                    bayer2rgb ! ARGB ! rgb2bayer, equal to itself
+  augment           seeded 1080p I420, batch 32, 3 ticks, through
+                    videoconvertscale ! AYUV ! rotate angle=0.3 !
+                    gaussianblur sigma=1.2 ! coloreffects preset=sepia !
+                    videoconvertscale method=catrom add-borders=false ! RGB
+                    224x224 (no kernel)
+
+   Each tick's first 2 frames equal the port's CPU path.  Then each of the
+   27 effect and 13 overlay factories alone (OVL_FACTORIES) over two ticks
+   of 4 1080p frames (texts, a PNG and an SVG for the renderers and
+   decoders): the card's samples equal the CPU path's, no kernel launched.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -1699,8 +1725,8 @@ def same_samples(a, b, what, dev):
                     == (r.buffer.pts, r.buffer.batch, str(r.caps)),
                     f"{what}: sample metadata differs from the CPU run")
             sd, rd = s.buffer.data, r.buffer.data
-            sd = sd if isinstance(sd, tuple) else (sd,)
-            rd = rd if isinstance(rd, tuple) else (rd,)
+            sd = sd if isinstance(sd, (tuple, list)) else (sd,)
+            rd = rd if isinstance(rd, (tuple, list)) else (rd,)
             for o, c in zip(sd, rd):
                 require(o.device.type == dev.type and torch.equal(o.cpu(), c),
                         f"{what}: CUDA output differs from the port's CPU "
@@ -2663,6 +2689,386 @@ def fittings_phase(seed, counters, dev, host, w=W, h=H):
     return total, err
 
 
+# -- overlays and the device video effects ------------------------------------
+
+OVL_QR = "tpu-media burn-in 0001"      # qroverlay's payload
+OVL_LOGO = (96, 160)                     # the logo PNG: height, width (RGBA)
+OVL_SVG = ("<svg width='320' height='120'><rect x='8' y='8' width='150' "
+           "height='60' fill='#ff0000' stroke='blue' stroke-width='4'/>"
+           "<circle cx='240' cy='60' r='40' fill='#00ff00'/>"
+           "<text x='20' y='100' fill='white'>tpu-media</text></svg>")
+BURNIN = (SRC + "timeoverlay name=stamp ! qroverlay data=\"{qr}\" pixel-size=4 ! "
+          "gdkpixbufoverlay location={png} offset-x=-32 offset-y=-32 ! "
+          "videoconvertscale method=catrom add-borders=false ! video/x-raw,"
+          "format=RGB,width={ow},height={oh} ! appsink name=out")
+RAW = ("appsrc name=in caps=video/x-bayer,format={fmt},width={w},height={h},"
+       "framerate=30/1 ! bayer2rgb ! videoconvertscale add-borders=false ! "
+       "video/x-raw,format=RGB,width={ow},height={oh} ! appsink name=out")
+RAW_ROUND = ("appsrc name=in caps=video/x-bayer,format={fmt},width={w},"
+             "height={h},framerate=30/1 ! bayer2rgb ! video/x-raw,format=ARGB "
+             "! rgb2bayer ! video/x-bayer,format={fmt} ! appsink name=out")
+AUGMENT = (SRC + "videoconvertscale ! video/x-raw,format=AYUV ! rotate "
+           "angle=0.3 ! gaussianblur sigma=1.2 ! coloreffects preset=sepia ! "
+           "videoconvertscale method=catrom add-borders=false ! video/x-raw,"
+           "format=RGB,width={ow},height={oh} ! appsink name=out")
+# name: (launch string, bayer format or None, batch, ticks, launches a tick)
+OVERLAY_PATHS = {
+    "burnin": (BURNIN, None, 64, 3, {"yscale_hv": 1, "chroma420_scale": 2}),
+    "camera_raw_rggb": (RAW, "rggb", 64, 3, {}),
+    "camera_raw_rggb16le": (RAW, "rggb16le", 64, 3, {}),
+    "augment": (AUGMENT, None, 32, 3, {}),
+}
+OVL_ALONE = (2, 4)               # ticks and frames a tick of each factory
+GEOMETRIC = ("bulge", "circle", "diffuse", "fisheye", "kaleidoscope",
+             "marble", "mirror", "perspective", "pinch", "rotate", "sphere",
+             "square", "stretch", "tunnel", "twirl", "waterripple")
+# each factory alone: (its string, the input: a video format, "bayer",
+# "text", "png" or "svg")
+OVL_FACTORIES = (
+    [("coloreffects preset=xpro", "AYUV"), ("chromahold", "AYUV"),
+     ("burn", "RGBx"), ("chromium", "BGRA"), ("dilate", "BGRx"),
+     ("dodge", "RGBA"), ("exclusion", "RGBx"), ("gaussianblur", "AYUV"),
+     ("solarize", "RGBx")]
+    + [(f"{g} off-edge-pixels={('ignore', 'clamp', 'wrap')[k % 3]}",
+        ("AYUV", "ARGB", "BGRA", "ABGR", "RGBA")[k % 5])
+       for k, g in enumerate(GEOMETRIC)]
+    + [("bayer2rgb", "bayer"), ("rgb2bayer", "ARGB")]
+    + [("overlaycomposition name=e", "I420"),
+       ("textoverlay text=\"tpu-media\" shaded-background=true", "NV12"),
+       ("timeoverlay halignment=right", "I420"),
+       ("clockoverlay", "AYUV"), ("textrender", "text"),
+       ("gdkpixbufdec", "png"),
+       ("gdkpixbufoverlay location={png} alpha=0.7", "RGBA"),
+       ("cairooverlay name=e", "RGB"),
+       ("qroverlay data=\"{qr}\" x=10 y=90", "Y444"),
+       ("debugqroverlay name=e span-buffer=3", "I420"),
+       ("gdkpixbufsink name=out", "RGB"), ("rsvgdec", "svg"),
+       ("rsvgoverlay location={svg} fit-to-frame=true", "BGRx")])
+
+
+def drive_bufs(desc, bufs, device, batch, setup=None):
+    """parse_launch(desc) on `device`, `setup(pipeline)` where given, push
+    `bufs` (Buffer keyword dicts) into appsrc "in" and tick to EOS, each
+    tick timed on the host clock between two synchronises.  Returns
+    (pipeline, the samples of each tick from appsink "out", seconds per
+    tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    dev = torch.device(device)
+    pipe = parse_launch(desc, batch=batch, device=dev)
+    if setup is not None:
+        setup(pipe)
+    src = pipe.get_by_name("in")
+    for b in bufs:
+        src.push_buffer(Buffer(**b))
+    src.end_of_stream()
+    sink = pipe.get_by_name("out")
+    pipe.set_state(State.PLAYING)
+    outs, secs = [], []
+    while True:
+        sync(dev)
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        sync(dev)
+        if not more:
+            break
+        secs.append(time.perf_counter() - t0)
+        outs.append(drain(sink) if hasattr(sink, "pull_sample") else [])
+    pipe.set_state(State.NULL)
+    return pipe, outs, secs
+
+
+@contextlib.contextmanager
+def fixed_localtime():
+    """time.localtime pinned inside the block, so that clockoverlay draws
+    the same text on the card and on the CPU."""
+    real = time.localtime
+    stamp = real(1_700_000_000)
+    time.localtime = lambda *a: stamp
+    try:
+        yield
+    finally:
+        time.localtime = real
+
+
+def overlay_setup(factory):
+    """The callbacks overlaycomposition and cairooverlay take from an
+    application, or None: a composition a buffer (a scaled, clipped,
+    translucent rectangle, a premultiplied one every other buffer) and a
+    drawing a frame."""
+    import numpy as np
+    from gstreamer_tpu_torch.video.overlay import (VideoOverlayComposition,
+                                                   VideoOverlayRectangle)
+    px = np.random.default_rng(7).integers(0, 256, (120, 200, 4),
+                                           dtype=np.uint8)
+    if factory == "overlaycomposition":
+        def setup(pipe):
+            e = pipe.get_by_name("e")
+            e.composition = VideoOverlayComposition([VideoOverlayRectangle(
+                px, render_x=-50, render_y=900, render_width=400,
+                render_height=240, global_alpha=0.7)])
+            e.draw = lambda buf: (VideoOverlayComposition([
+                VideoOverlayRectangle(px, render_x=1800, render_y=20,
+                                      premultiplied=True)])
+                if buf.pts % 2 else None)
+        return setup
+    if factory == "cairooverlay":
+        def draw(surface, pts, dur):
+            k = pts // DUR
+            surface[100 + 10 * k:300, 200:600 + 20 * k] = (255, 40, 0, 160)
+        return lambda pipe: setattr(pipe.get_by_name("e"), "draw", draw)
+    return None
+
+
+def alone_inputs(kind, rng, w, h, frame_png):
+    """Host buffers for one factory alone: OVL_ALONE's ticks of frames of a
+    video format (seeded), of a bayer mosaic, or of texts / encoded w x h
+    images (each a frame)."""
+    import numpy as np
+    from gstreamer_tpu_torch.video.info import VideoInfo
+    ticks, n = OVL_ALONE
+    if kind in ("text", "png", "svg"):
+        blob = {"png": lambda: frame_png,
+                "svg": lambda: OVL_SVG.replace(
+                    "width='320' height='120'",
+                    f"width='{w}' height='{h}'").encode(),
+                "text": lambda: None}[kind]()
+        return [dict(data=[blob or f"frame {t * n + k}".encode()
+                           for k in range(n)], pts=t * n * DUR,
+                     duration=DUR, batch=n) for t in range(ticks)]
+    if kind == "bayer":
+        data = [rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+                for _ in range(ticks)]
+    else:
+        info = VideoInfo(format=kind, width=w, height=h)
+        data = [tuple(rng.integers(0, 256, (n,) + s, dtype=np.uint8)
+                      for s in info.plane_shapes()) for _ in range(ticks)]
+    return [dict(data=d, pts=t * n * DUR, duration=DUR, batch=n)
+            for t, d in enumerate(data)]
+
+
+def alone_desc(factory, kind, w, h, png, svg):
+    if kind == "bayer":
+        head = (f"appsrc name=in caps=video/x-bayer,format=rggb,width={w},"
+                f"height={h},framerate=30/1 ! ")
+    elif kind == "text":
+        head = "appsrc name=in ! text/x-raw,format=utf8 ! "
+    elif kind == "png":
+        head = "appsrc name=in ! image/png ! "
+    elif kind == "svg":
+        head = "appsrc name=in ! image/svg+xml ! "
+    else:
+        head = (f"appsrc name=in caps=video/x-raw,format={kind},width={w},"
+                f"height={h},framerate=30/1 ! ")
+    tail = {"textrender": f" ! video/x-raw,format=ARGB,width={w},"
+                          f"height={h} ! appsink name=out",
+            "gdkpixbufsink": ""}.get(factory.split()[0],
+                                     " ! appsink name=out")
+    return head + factory.format(png=png, svg=svg, qr=OVL_QR) + tail
+
+
+def on_device(bufs, dev):
+    import torch
+
+    def put(x):
+        return torch.as_tensor(x).to(dev) if hasattr(x, "dtype") else x
+    out = []
+    for b in bufs:
+        d = b["data"]
+        d = tuple(put(x) for x in d) if isinstance(d, tuple) else (
+            d if isinstance(d, list) else put(d))
+        out.append(dict(b, data=d))
+    return out
+
+
+def write_logo(tmp, rng):
+    """The burn-in logo: a seeded RGBA PNG of OVL_LOGO's size in `tmp`,
+    written by the port's PNG encoder; returns its path."""
+    import numpy as np
+    from gstreamer_tpu_torch.codecs.png import png_encode
+    png = os.path.join(tmp, "logo.png")
+    with open(png, "wb") as f:
+        f.write(png_encode(rng.integers(0, 256, OVL_LOGO + (4,),
+                                        dtype=np.uint8)))
+    return png
+
+
+def overlay_path(name, png, host, rng, w=W, h=H):
+    """OVERLAY_PATHS' `name` at w x h: (launch string, host data of one
+    tick: I420 planes or a Bayer mosaic)."""
+    import numpy as np
+    tmpl, fmt, batch, _, _ = OVERLAY_PATHS[name]
+    desc = tmpl.format(w=w, h=h, ow=OW, oh=OH, png=png, qr=OVL_QR, fmt=fmt)
+    if fmt is None:
+        return desc, tuple(p[:batch] for p in host)
+    top = 256 if fmt == "rggb" else 65536
+    return desc, rng.integers(0, top, (batch, h, w)).astype(
+        np.uint8 if top == 256 else np.uint16)
+
+
+def overlays_phase(seed, counters, dev, host, w=W, h=H):
+    """The overlays and the device video effects at full width, each path
+    with the launch counts zeroed just before it and read just after
+    (OVERLAY_PATHS): burnin (timeoverlay ! qroverlay ! gdkpixbufoverlay
+    on 1080p I420, then the catrom converter to RGB 224x224: yscale once
+    and chroma420 twice a tick), camera_raw (bayer2rgb at 8 and 16 bits,
+    then the converter's generic route; the 8-bit mosaic also through
+    bayer2rgb ! ARGB ! rgb2bayer, equal to itself at every site) and
+    augment (rotate ! gaussianblur ! coloreffects on AYUV between two
+    converters).  Each tick's first frames equal the port's CPU path (for
+    burnin with the buffer's duration scaled, so each frame's stamp is the
+    same).  Then each of the 27 effect and 13 overlay factories alone on
+    OVL_ALONE's ticks of 1080p frames (texts, a PNG, an SVG for the
+    renderers and decoders): the card's samples equal the CPU path's, no
+    kernel launched.  Prints frames/s, device busy ms and idle share and
+    peak memory beside the card's name and power limit; returns {kernel:
+    launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs.png import png_encode
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    rng = np.random.default_rng(seed + 6)
+    total = {k: 0 for k in counters}
+    card = (smi_line() or "nvidia-smi printed nothing") \
+        if dev.type == "cuda" else "CPU rehearsal"
+    n = CPU_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_logo(tmp, rng)
+        svg = os.path.join(tmp, "logo.svg")
+        with open(svg, "w") as f:
+            f.write(OVL_SVG)
+        # the decoders' w x h image: seeded colour stripes, one a column,
+        # which the PNG "Up" filter makes cheap to decode on the host
+        frame_png = png_encode(np.broadcast_to(
+            rng.integers(0, 256, (1, w, 3), dtype=np.uint8), (h, w, 3)))
+        for name, (_, fmt, batch, ticks, per_tick) in OVERLAY_PATHS.items():
+            desc, data = overlay_path(name, png, host, rng, w, h)
+            ins = on_device([dict(data=data)], dev)[0]["data"]
+            bufs = [dict(data=ins, pts=t * batch * DUR, duration=DUR,
+                         batch=batch) for t in range(ticks)]
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            pipe, outs, secs = drive_bufs(desc, bufs, dev, batch)
+            counts = {k: c.launches for k, c in counters.items()}
+            peak = (torch.cuda.max_memory_allocated()
+                    if dev.type == "cuda" else 0)
+            want = {k: per_tick.get(k, 0) * ticks for k in counters}
+            require(counts == want, f"{name}: launches {counts}, want {want}")
+            for k, v in counts.items():
+                total[k] += v
+            require([[s.buffer.batch for s in o] for o in outs]
+                     == [[batch]] * ticks, f"{name}: samples per tick")
+            # the CPU path on each tick's first frames, at the same pts;
+            # timeoverlay stamps frame k at pts + k * duration // batch
+            cut = (tuple(p[:n] for p in data) if fmt is None
+                   else data[:n])
+            dur = n * (DUR // batch) if "timeoverlay" in desc else DUR
+            _, cpu, _ = drive_bufs(desc, [dict(b, data=cut, duration=dur,
+                                               batch=n) for b in bufs],
+                                   "cpu", n)
+            for t, (o, c) in enumerate(zip(outs, cpu)):
+                require(o[0].buffer.pts == c[0].buffer.pts
+                        and str(o[0].caps) == str(c[0].caps),
+                        f"{name}: tick {t} pts/caps differ from the CPU run")
+                for x, y in zip(o[0].buffer.data, c[0].buffer.data):
+                    require(x.device.type == dev.type
+                            and torch.equal(x[:n].cpu(), y),
+                            f"{name}: tick {t} differs from the port's CPU "
+                            f"path")
+            check = f"CUDA == port CPU path ({n} frames of each tick)"
+            if name == "burnin":
+                first = Buffer(**bufs[0])
+                stamps = {pipe.get_by_name("stamp")._text_for_frame(first, k)
+                          for k in range(batch)}
+                check += f"; {len(stamps)} distinct time stamps a tick"
+            if fmt == "rggb":
+                rdesc = RAW_ROUND.format(w=w, h=h, fmt=fmt)
+                _, rt, _ = drive_bufs(rdesc, bufs[:1], dev, batch)
+                require(torch.equal(rt[0][0].buffer.data, ins),
+                        f"{name}: rgb2bayer(bayer2rgb(x)) != x")
+                check += "; bayer2rgb ! ARGB ! rgb2bayer == the mosaic"
+                del rt
+            print(f"overlays {name}: batch {batch}, {ticks} ticks, "
+                  f"{'fused' if pipe._fused else 'per-element'}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} or 'none'}; "
+                  f"{check}")
+            del outs, cpu, pipe
+
+            prof = parse_launch(desc, batch=batch, device=dev)
+            prof.set_state(State.PLAYING)
+            tick_no = [0]
+
+            def tick():
+                prof.get_by_name("in").push_buffer(Buffer(
+                    data=ins, pts=tick_no[0] * batch * DUR, duration=DUR,
+                    batch=batch))
+                tick_no[0] += 1
+                prof.tick()
+                drain(prof.get_by_name("out"))
+            if dev.type == "cuda":
+                _, busy, idle, _ = device_time(tick, 3)
+            else:
+                busy, idle = 0.0, 1.0
+            prof.set_state(State.NULL)
+            print(f"e2e {name}: {batch * (ticks - 1) / sum(secs[1:]):.1f} "
+                  f"input frames/s over ticks 2..{ticks} "
+                  f"({[round(s * 1e3, 3) for s in secs]} ms per tick, host "
+                  f"clock between synchronises); device busy {busy:.3f} ms "
+                  f"a tick, idle share {idle:.3f}; peak device memory "
+                  f"{peak / 2**30:.2f} GiB; {card}")
+            del ins, bufs, prof
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        # -- each factory alone: the card's samples equal the CPU path's ---
+        checked = []
+        for factory, kind in OVL_FACTORIES:
+            fname = factory.split()[0]
+            desc = alone_desc(factory, kind, w, h, png, svg)
+            host_bufs = alone_inputs(kind, rng, w, h, frame_png)
+            setup = overlay_setup(fname)
+            for c in counters.values():
+                c.launches = 0
+            with fixed_localtime():
+                pipe, on_card, _ = drive_bufs(desc, on_device(host_bufs, dev),
+                                              dev, OVL_ALONE[1], setup)
+                counts = {k: c.launches for k, c in counters.items()}
+                cpipe, on_cpu, _ = drive_bufs(desc, host_bufs, "cpu",
+                                              OVL_ALONE[1], setup)
+            require(not any(counts.values()), f"{fname}: kernels {counts}")
+            if fname == "gdkpixbufsink":
+                got = [m.data["pixbuf"] for p in (pipe, cpipe)
+                       for m in iter(p.bus.pop, None)
+                       if m.type == "element"
+                       and m.data.get("name") == "pixbuf"]
+                half = len(got) // 2
+                require(half == OVL_ALONE[0] * OVL_ALONE[1] and all(
+                    np.array_equal(a, b) for a, b in zip(got[:half],
+                                                         got[half:])),
+                        f"{fname}: pixbuf messages differ from the CPU run")
+            else:
+                require(sum(len(o) for o in on_card) == OVL_ALONE[0],
+                        f"{fname}: samples per tick "
+                        f"{[len(o) for o in on_card]}")
+                same_samples(on_card, on_cpu, fname, dev)
+            checked.append(fname)
+            del pipe, cpipe, on_card, on_cpu
+        require(len(checked) == 40, f"{len(checked)} factories checked")
+        print(f"overlays each factory alone: CUDA == port CPU path over "
+              f"{OVL_ALONE[0]} ticks of {OVL_ALONE[1]} frames at {w}x{h} "
+              f"(texts, a PNG and an SVG for the renderers and decoders), no "
+              f"kernel launched, for {checked}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2944,6 +3350,10 @@ def main() -> int:
         launches[k] += n
     for k, e in fit_err.items():
         err[k] = max(err[k], e)
+
+    # -- overlays and the device video effects ---------------------------------
+    for k, n in overlays_phase(args.seed, counters, dev, host).items():
+        launches[k] += n
     print(f"main path launches, all paths: {launches}")
 
     smi = smi_line()

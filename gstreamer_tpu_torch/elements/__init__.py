@@ -23,3 +23,10 @@ from . import debug_elements    # noqa: F401  (progressreport, taginject, capsse
 from . import audio_sinks       # noqa: F401  (fakeaudiosink)
 from . import flow_elements     # noqa: F401  (concat, funnel, input-selector, output-selector, streamiddemux, clocksync, multiqueue)
 from . import autoconvert       # noqa: F401  (switchbin, autoconvert, autovideoconvert)
+from . import overlay           # noqa: F401  (overlaycomposition)
+from . import textoverlay       # noqa: F401  (textoverlay, timeoverlay, clockoverlay, textrender)
+from . import pixbuf_overlay    # noqa: F401  (gdkpixbufdec, gdkpixbufoverlay, cairooverlay, qroverlay, debugqroverlay, gdkpixbufsink, rsvgdec, rsvgoverlay)
+from . import coloreffects      # noqa: F401  (coloreffects, chromahold)
+from . import gaudieffects      # noqa: F401  (burn, chromium, dilate, dodge, exclusion, gaussianblur, solarize)
+from . import geometrictransform  # noqa: F401  (bulge, circle, diffuse, fisheye, kaleidoscope, marble, mirror, perspective, pinch, rotate, sphere, square, stretch, tunnel, twirl, waterripple)
+from . import bayer             # noqa: F401  (bayer2rgb, rgb2bayer)

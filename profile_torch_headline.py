@@ -26,7 +26,11 @@ paths (deint_<method> for the nine deinterlace methods without a kernel,
 deint_chain_controlled, effectv_chain, volume_controlled_s16 and _f32: a
 tick each, control sources bound as chip_smoke.py binds them); and its
 fittings paths (FITTINGS: filters_tee, selector_box; ``--only fittings``
-names both: a tick each, every appsrc fed CUDA tensors).  Each runs
+names both: a tick each, every appsrc fed CUDA tensors); and its overlay
+paths (OVERLAY_PATHS: burnin, camera_raw_rggb, camera_raw_rggb16le,
+augment; ``--only overlays`` names all four: a tick each, the JSON line
+also holding the host functions with the most time over 3 more ticks
+under cProfile, ``host_top``).  Each runs
 two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
@@ -48,9 +52,26 @@ import sys
 OWN_KERNELS = ("scale2pass", "fused_ingest", "deint_both_parities")
 
 
-def report(name, batch, step, iters):
+def host_top(step, ticks=3, n=8):
+    """The n host functions with the most own time over `ticks` calls of
+    `step` under cProfile: [{"function", "ms" a call, "calls" a call}]."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(ticks):
+        step()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    ranked = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return [{"function": f"{fn[0].split('/')[-1]}:{fn[1]}:{fn[2]}",
+             "ms": tt / ticks * 1e3, "calls": nc // ticks}
+            for fn, (_, nc, tt, _, _) in ranked]
+
+
+def report(name, batch, step, iters, host=False):
     """Run `step` twice, then `iters` times under torch.profiler; print
-    the JSON line described above."""
+    the JSON line described above (with ``host_top`` where `host`)."""
     import torch
     from chip_smoke import device_time
     wall, busy, idle, prof = device_time(step, iters)
@@ -63,11 +84,14 @@ def report(name, batch, step, iters):
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     top = ranked[:10]
     own = [kv for kv in ranked[10:] if any(w in kv[0] for w in OWN_KERNELS)]
-    print(json.dumps({
+    line = {
         "config": name, "batch": batch, "wall_ms": wall,
         "device_busy_ms": busy, "device_idle_share": idle,
         "top": [{"kernel": k[:90], "device_ms": us / iters / 1e3,
-                 "calls": n // iters} for k, (us, n) in top + own]}))
+                 "calls": n // iters} for k, (us, n) in top + own]}
+    if host:
+        line["host_top"] = host_top(step)
+    print(json.dumps(line))
 
 
 def main() -> int:
@@ -81,10 +105,13 @@ def main() -> int:
     only = None if args.only is None else set(args.only.split(","))
     if only is not None and "fittings" in only:
         only |= {"filters_tee", "selector_box"}
+    if only is not None and "overlays" in only:
+        only |= {"burnin", "camera_raw_rggb", "camera_raw_rggb16le",
+                 "augment"}
 
-    def profile(name, batch, step):
+    def profile(name, batch, step, host=False):
         if only is None or name in only:
-            report(name, batch, step, args.iters)
+            report(name, batch, step, args.iters, host)
 
     import numpy as np
     import torch
@@ -256,6 +283,33 @@ def main() -> int:
         pipe.set_state(State.NULL)
         del ins
         torch.cuda.empty_cache()
+
+    import tempfile
+    from chip_smoke import DUR, OVERLAY_PATHS, overlay_path, write_logo
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_logo(tmp, rng)
+        for name, (_, _, batch, _, _) in OVERLAY_PATHS.items():
+            if only is not None and name not in only:
+                continue
+            desc, data = overlay_path(name, png, host, rng, W, H)
+            data = (tuple(torch.as_tensor(p).cuda() for p in data)
+                    if isinstance(data, tuple)
+                    else torch.as_tensor(data).cuda())
+            pipe = parse_launch(desc, batch=batch)
+            pipe.set_state(State.PLAYING)
+            ticks = [0]
+
+            def tick():
+                pipe.get_by_name("in").push_buffer(Buffer(
+                    data=data, pts=ticks[0] * batch * DUR, duration=DUR,
+                    batch=batch))
+                ticks[0] += 1
+                pipe.tick()
+                drain(pipe.get_by_name("out"))
+            profile(name, batch, tick, host=True)
+            pipe.set_state(State.NULL)
+            del data
+            torch.cuda.empty_cache()
     return 0
 
 

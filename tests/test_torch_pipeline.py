@@ -226,16 +226,24 @@ def test_registry_is_the_ports_own():
         "queue2", "downloadbuffer", "tee", "valve", "fakesrc",
         "autovideosink", "autoaudiosink", "watchdog", "concat", "funnel",
         "input-selector", "output-selector", "streamiddemux", "clocksync",
-        "multiqueue", "switchbin", "autoconvert", "autovideoconvert"}
+        "multiqueue", "switchbin", "autoconvert", "autovideoconvert",
+        "overlaycomposition", "textoverlay", "timeoverlay", "clockoverlay",
+        "textrender", "gdkpixbufdec", "gdkpixbufoverlay", "cairooverlay",
+        "qroverlay", "debugqroverlay", "gdkpixbufsink", "rsvgdec",
+        "rsvgoverlay", "coloreffects", "chromahold", "burn", "chromium",
+        "dilate", "dodge", "exclusion", "gaussianblur", "solarize", "bulge",
+        "circle", "diffuse", "fisheye", "kaleidoscope", "marble", "mirror",
+        "perspective", "pinch", "rotate", "sphere", "square", "stretch",
+        "tunnel", "twirl", "waterripple", "bayer2rgb", "rgb2bayer"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("textoverlay")
+        telement.element_factory_make("audiodynamic")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("textoverlay ! appsink",
+        gstreamer_tpu_torch.parse_launch("audiodynamic ! appsink",
                                          device="cpu")
 
 

@@ -103,7 +103,12 @@ def test_dot_text_and_dump(tmp_path, monkeypatch):
                     ("out",), 2, device="cpu")
     text = pipeline_to_dot(tpipe)
     assert text == jpipeline_to_dot(jpipe)
-    assert "videoflip" in text and "format=RGB" in text
+    # an edge label is the first 60 characters of the pad's caps, whose
+    # field order follows the process's string hashing: the whole label of
+    # the last edge is in the text, and the caps hold format=RGB
+    caps = str(tpipe.get_by_name("out").sink_pads()[0].caps)
+    assert "videoflip" in text and f'[label="{caps[:60]}"' in text
+    assert "format=RGB" in caps
     tpipe.name = "port"
     tpipe.compile(batch=2)
     assert (tmp_path / "port.dot").read_text() == text
