@@ -183,6 +183,29 @@ before it and read just after:
    of 4 1080p frames (texts, a PNG and an SVG for the renderers and
    decoders): the card's samples equal the CPU path's, no kernel launched.
 
+12. the audio DSP family (dsp_phase, DSP_PATHS): freeverb's and the VAD's
+   kernels (two per-sample recursions; the JAX package ran each as a jitted
+   lax.scan) against their plain versions bit for bit (freeverb at 8, 44.1,
+   48, 96 and 192 kHz, mono and stereo, two pushes with the state carried,
+   the rings in shared memory up to 96 kHz and in device memory at 192 kHz;
+   the main path's push on its first frames; the
+   VAD on 4 streams), timed beside their roofline and latency bounds, then:
+
+  music_master      a mastering chain before encoding: 48 kHz stereo F32,
+                    3 pushes of 10 s, through equalizer-10bands !
+                    audiodynamic ! freeverb ! audiopanorama ! rgvolume !
+                    rglimiter ! spectrum ! level: freeverb once a push
+  voice_chain       a call-centre or ASR ingest: 48 kHz mono S16, 250
+                    pushes of 20 ms (1 s of speech-band tones, 1 s near
+                    silence in turns), through removesilence remove=true
+                    squash=true ! audioamplify ! audiowsincband ! 8 kHz !
+                    mulawenc ! mulawdec: the VAD once a push
+
+   each with frames/s, busy ms, idle share, top device items and peak
+   memory, and again on short pushes on the card and the CPU (samples and
+   bus messages equal); then each of the 31 factories alone over two
+   pushes, the card equal to the CPU.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -3069,6 +3092,394 @@ def overlays_phase(seed, counters, dev, host, w=W, h=H):
     return total
 
 
+# -- 12. the audio DSP family ---------------------------------------------------
+
+FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the
+#                                 tensor cores
+# the latency of one dependent float32 or 32-bit integer operation on
+# Hopper, in cycles (published microbenchmarks): the unit of the two
+# recursions' latency bounds
+DEP_CYCLES = 4
+# float32 operations a frame of freeverb: 16 combs x 5, 16 sums, 8
+# allpasses x 3, 4 for the input, 2 for DC, 2 x 5 for the mix
+FV_FLOPS = 136
+# int32-lane operations a sample of the VAD: 11 integer operations, 64-bit
+# ones as two
+VAD_OPS = 22
+DSP_SRC = ("appsrc name=in caps=audio/x-raw,format={fmt},rate=48000,"
+           "channels={ch},layout=interleaved ! ")
+MUSIC_CHAIN = ("equalizer-10bands band0=3.0 band9=-3.0 ! audiodynamic "
+               "ratio=0.5 threshold=0.3 ! freeverb room-size=0.6 ! "
+               "audiopanorama panorama=0.3 ! rgvolume fallback-gain=-3.0 ! "
+               "rglimiter ! spectrum ! level")
+VOICE_CHAIN = ("removesilence remove=true squash=true ! audioamplify "
+               "amplification=1.5 ! audiowsincband lower-frequency=300 "
+               "upper-frequency=3400 ! audioresample ! audio/x-raw,rate=8000 "
+               "! mulawenc ! mulawdec")
+DSP_PATHS = {
+    # name: (format, channels, chain, frames a push, pushes, its kernel,
+    #        frames a push and pushes of the card-against-CPU check)
+    "music_master": ("F32LE", 2, MUSIC_CHAIN, 480000, 3, "freeverb", 4800, 3),
+    "voice_chain": ("S16LE", 1, VOICE_CHAIN, 960, 250, "vad_power", 960,
+                    100),
+}
+FV_RATES = (8000, 44100, 48000, 96000, 192000)
+FV_CHECK = 4800                 # frames a push of freeverb's check, 2 pushes
+VAD_CHECK = (4, 24000)          # streams, samples a push of the VAD's, 2
+DSP_ALONE = 4800                # frames a push of each factory alone, 2
+DSP_FACTORIES = (               # (chain, format, channels)
+    ("mulawenc", "S16LE", 2), ("mulawdec", "mulaw", 2),
+    ("alawenc", "S16LE", 2), ("alawdec", "alaw", 2),
+    ("audioamplify amplification=1.5 clipping-method=none", "S16LE", 2),
+    ("audioinvert degree=0.3", "S16LE", 2),
+    ("audiokaraoke level=0.7", "F32LE", 2),
+    ("audioecho delay=5000000 intensity=0.5 feedback=0.3", "F32LE", 2),
+    ("audiodynamic ratio=0.5 threshold=0.3", "S16LE", 2),
+    ("spectrum bands=64 interval=20000000", "F32LE", 2),
+    ("level interval=20000000", "S16LE", 2),
+    ("equalizer-3bands band0=6.0", "F32LE", 2),
+    ("equalizer-10bands band0=3.0 band9=-3.0", "S16LE", 2),
+    ("equalizer-nbands num-bands=5", "F32LE", 2),
+    ("audiopanorama panorama=-0.4", "S16LE", 1),
+    ("audiowsinclimit cutoff=4000", "F32LE", 2),
+    ("audiowsincband lower-frequency=300 upper-frequency=3400", "S16LE", 1),
+    ("audiofirfilter", "F32LE", 2), ("audioiirfilter", "F32LE", 2),
+    ("audiocheblimit cutoff=4000", "F32LE", 2),
+    ("audiochebband lower-frequency=500 upper-frequency=3000", "F32LE", 2),
+    ("stereo stereo=0.5", "S16LE", 2), ("rganalysis", "S16LE", 2),
+    ("rgvolume fallback-gain=-3.0", "F32LE", 2), ("rglimiter", "F32LE", 2),
+    ("removesilence remove=true silent=false", "S16LE", 1),
+    ("freeverb", "F32LE", 2), ("cutter", "S16LE", 2),
+    ("scaletempo rate=1.5", "F32LE", 2), ("pitch pitch=1.2", "F32LE", 2),
+    ("bs2b", "F32LE", 2))
+
+
+def dsp_signal(fmt, ch, frames, pushes, rng):
+    """A path's pushes, seeded: F32 two detuned tones under noise (peaks
+    above -6 dBFS, so the limiter works); S16 mono one second of
+    speech-band tones and noise and one second near silence in turns, so
+    the VAD drops and squashes buffers; a coded format random bytes."""
+    import numpy as np
+    n = frames * pushes
+    t = np.arange(n) / 48000.0
+    if fmt in ("mulaw", "alaw"):
+        x = rng.integers(0, 256, (n, ch), dtype=np.uint8)
+    elif fmt == "F32LE":
+        x = (0.25 * rng.standard_normal((n, ch)) + 0.3 * np.sin(
+            2 * np.pi * np.array([220.0, 331.0])[:ch] * t[:, None])
+             ).astype(np.float32)
+    else:
+        speech = sum(np.sin(2 * np.pi * f * t) for f in (310, 870, 2400)) \
+            * 5000 + rng.standard_normal(n) * 800
+        quiet = rng.standard_normal(n) * 3
+        x = np.where((np.arange(n) // 48000) % 2 == 0, speech, quiet)
+        x = np.repeat(x[:, None], ch, axis=1).astype(np.int16)
+    return np.split(x, pushes)
+
+
+def dsp_desc(fmt, ch, chain):
+    src = (DSP_SRC.format(fmt=fmt, ch=ch) if fmt not in ("mulaw", "alaw")
+           else f"appsrc name=in caps=audio/x-{fmt},rate=48000,"
+                f"channels={ch} ! ")
+    return src + chain + " ! appsink name=out"
+
+
+def dsp_bufs(arrays, frames):
+    dur = frames * 10**9 // 48000
+    return [dict(data=a, pts=t * dur, duration=dur)
+            for t, a in enumerate(arrays)]
+
+
+def bus_messages(pipe):
+    """The element and tag messages a run posted: (type, data)."""
+    return [(m.type, m.data) for m in iter(pipe.bus.pop, None)
+            if m.type in ("element", "tag")]
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock from nvidia-smi, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    require(bool(out), "nvidia-smi printed no SM clock")
+    return float(out[0]) * 1e6
+
+
+def check_dsp_kernels(rng, dev):
+    """Each recursion's kernel against its plain version on the same inputs
+    (the plain version on CPU copies), bit for bit: freeverb at FV_RATES,
+    mono and stereo, two pushes of FV_CHECK frames with the state carried
+    (outputs and the final rings, indices and filterstores; 192 kHz keeps
+    its rings in device memory, the others in shared memory), and the main
+    path's push (480 000 frames of 48 kHz stereo)
+    against the plain version on its first FV_CHECK frames; the VAD on
+    VAD_CHECK's streams over two pushes.  Returns {kernel: max abs error}."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.ops import freeverb_kernel as fvk
+    from gstreamer_tpu_torch.ops import vad_kernel as vk
+    prm = fvk.params(0.6, 0.2, 1.0, 0.5)
+    err = {"freeverb": 0.0, "vad_power": 0}
+    paths = {}
+    for rate in FV_RATES:
+        sizes = fvk.ring_sizes(rate)
+        for ch in (1, 2):
+            kst = fvk.fresh_state(1, sizes, dev)
+            pst = fvk.fresh_state(1, sizes, "cpu")
+            for _ in range(2):
+                x = torch.from_numpy((rng.standard_normal((1, FV_CHECK, ch))
+                                      * 0.3).astype(np.float32))
+                k = fvk.freeverb(x.to(dev), kst, sizes, prm).cpu()
+                p = fvk.freeverb_plain(x, pst, sizes, prm)
+                require(k.shape == p.shape and torch.equal(
+                    k.view(torch.int32), p.view(torch.int32)),
+                        f"freeverb at {rate} Hz, {ch} ch: the kernel differs "
+                        f"from its plain version")
+                err["freeverb"] = max(err["freeverb"],
+                                      float((k - p).abs().max()))
+            for key in ("rings", "idx", "fs"):
+                require(torch.equal(kst[key].cpu(), pst[key]),
+                        f"freeverb at {rate} Hz: state {key} differs")
+            paths[rate] = ("shared" if fvk.uses_shared(sizes)
+                           else "device memory")
+    sizes = fvk.ring_sizes(48000)
+    x = torch.from_numpy((rng.standard_normal((1, 480000, 2)) * 0.3)
+                         .astype(np.float32))
+    k = fvk.freeverb(x.to(dev), fvk.fresh_state(1, sizes, dev), sizes, prm)
+    p = fvk.freeverb_plain(x[:, :FV_CHECK].contiguous(),
+                           fvk.fresh_state(1, sizes, "cpu"), sizes, prm)
+    require(torch.equal(k[:, :FV_CHECK].cpu(), p),
+            "freeverb: the main path's push differs from the plain version")
+    s, n = VAD_CHECK
+    p0 = torch.tensor([0, 7, 123456789, 2**32], dtype=torch.int64)[:s]
+    pk, pp = p0.to(dev), p0
+    for _ in range(2):
+        xv = torch.from_numpy((rng.standard_normal((s, n)) * 9000)
+                              .astype(np.int16))
+        pk = vk.vad_power(xv.to(dev), pk)
+        pp = vk.vad_power_plain(xv, pp)
+        torch.cuda.synchronize()
+        err["vad_power"] = max(err["vad_power"],
+                               int((pk.cpu() - pp).abs().max()))
+    require(err["vad_power"] == 0, "vad_power: the kernel differs from its "
+            "plain version")
+    print(f"dsp kernel vs plain (bit for bit): {err}; freeverb at {FV_RATES} "
+          f"Hz, mono and stereo, 2 pushes of {FV_CHECK} frames (rings: "
+          f"{paths}), the main path's 480000-frame push on its first "
+          f"{FV_CHECK} frames; vad_power on {s} streams, 2 pushes of {n} "
+          f"samples")
+    return err
+
+
+def time_dsp_kernels(rng, dev):
+    """Kernel, plain version (on the card) and bounds: freeverb on one
+    FV_CHECK-frame push of 48 kHz stereo (the check's shape; the plain
+    version's loop makes the main path's push too long to time it) and on
+    the main path's 480 000-frame push; the VAD on the voice path's
+    960-sample push.  The roofline bound counts the samples in and out and
+    the state read and written once; the latency bound the recursion's
+    dependent chain at the card's maximum SM clock."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.ops import freeverb_kernel as fvk
+    from gstreamer_tpu_torch.ops import vad_kernel as vk
+    clock = sm_clock_hz()
+    prm = fvk.params(0.6, 0.2, 1.0, 0.5)
+    sizes = fvk.ring_sizes(48000)
+    state_bytes = (sum(sizes) + fvk.N_RINGS + fvk.N_COMBS) * 4
+    out = {}
+    for tag, frames, iters in (("4800", FV_CHECK, 20),
+                               ("480000", 480000, 3)):
+        x = torch.from_numpy((rng.standard_normal((1, frames, 2)) * 0.3)
+                             .astype(np.float32)).to(dev)
+        st = fvk.fresh_state(1, sizes, dev)
+        ms = cuda_ms(lambda: fvk.freeverb(x, st, sizes, prm), iters, 1)
+        plain = None
+        if frames == FV_CHECK:
+            pst = fvk.fresh_state(1, sizes, dev)
+            plain = cuda_ms(lambda: fvk.freeverb_plain(x, pst, sizes, prm),
+                            1, 0)
+        nbytes = frames * 2 * 4 * 2 + 2 * state_bytes
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = frames * FV_FLOPS / FP32_OPS_PER_S * 1e3
+        out[("freeverb", tag)] = dict(
+            ms=ms, plain_ms=plain, library_ms=None,
+            bound=((t_bytes, "bytes", f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+                   if t_bytes >= t_ops else
+                   (t_ops, "operations", "fp32 67 T ops/s")),
+            latency_ms=frames * 2 * DEP_CYCLES / clock * 1e3)
+    xv = torch.from_numpy((rng.standard_normal((1, 960)) * 9000)
+                          .astype(np.int16)).to(dev)
+    p0 = torch.zeros(1, dtype=torch.int64, device=dev)
+    t_bytes = (960 * 2 + 16) / HBM_BYTES_PER_S * 1e3
+    t_ops = 960 * VAD_OPS / INT32_OPS_PER_S * 1e3
+    out[("vad_power", "960")] = dict(
+        ms=cuda_ms(lambda: vk.vad_power(xv, p0), 50),
+        plain_ms=cuda_ms(lambda: vk.vad_power_plain(xv, p0), 3, 1),
+        library_ms=None,
+        bound=((t_bytes, "bytes", f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+               if t_bytes >= t_ops else
+               (t_ops, "operations", "int32 33.5 T ops/s")),
+        latency_ms=960 * 3 * DEP_CYCLES / clock * 1e3)
+    for (kname, tag), t in out.items():
+        plain = ("plain not timed at this shape" if t["plain_ms"] is None
+                 else f"plain {t['plain_ms']:.4f} ms")
+        print(f"time {kname} [{tag} frames a push]: kernel {t['ms']:.4f} ms, "
+              f"{plain}, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}, "
+              f"{t['bound'][2]}), latency bound {t['latency_ms']:.4f} ms (the "
+              f"dependent chain, {DEP_CYCLES} cycles an operation at "
+              f"{clock / 1e6:.0f} MHz; binds: "
+              f"{'latency' if t['latency_ms'] > t['bound'][0] else 'roofline'}"
+              f"); library: none (no single PyTorch call)")
+        require(t["ms"] >= max(t["bound"][0], t["latency_ms"]),
+                f"{kname}: {t['ms']:.4f} ms reads under its bound")
+    return out
+
+
+def top_device_items(prof, iters, n=6):
+    """The n kernels with the most device time a step: (name, ms, calls a
+    step)."""
+    import torch
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, c = per.get(e.name, (0.0, 0))
+            per[e.name] = (us + e.time_range.elapsed_us(), c + 1)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k[:60], round(us / iters / 1e3, 4), round(c / iters, 2))
+            for k, (us, c) in ranked]
+
+
+def dsp_phase(seed, counters, dev):
+    """The audio DSP family on the card.  Checks each recursion's kernel
+    against its plain version (check_dsp_kernels) and times both
+    (time_dsp_kernels); drives each of DSP_PATHS at full width with the
+    launch counts zeroed just before it and read just after (music_master:
+    48 kHz stereo F32, 3 pushes of 10 s, freeverb once a push; voice_chain:
+    48 kHz mono S16, 250 pushes of 20 ms, the VAD once a push), printing
+    frames/s on the host clock, device busy ms and idle share with the top
+    device items, and peak memory; runs each path again with its check's
+    short pushes on the card and the CPU (samples and bus messages equal);
+    then each of the 31 factories alone over two pushes of DSP_ALONE frames
+    (card equal to the CPU, freeverb's and the VAD's kernels launched once
+    a push where they run, none elsewhere).  Returns ({kernel: launches},
+    {kernel: max abs error}, {(kernel, shape): timings})."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    rng = np.random.default_rng(seed + 7)
+    cuda = dev.type == "cuda"
+    card = (smi_line() or "nvidia-smi printed nothing") if cuda \
+        else "CPU rehearsal"
+    err = check_dsp_kernels(rng, dev) if cuda else {}
+    timings = time_dsp_kernels(rng, dev) if cuda else {}
+    total = {k: 0 for k in counters}
+    for name, (fmt, ch, chain, frames, pushes, kname, cframes,
+               cpushes) in DSP_PATHS.items():
+        desc = dsp_desc(fmt, ch, chain)
+        arrays = dsp_signal(fmt, ch, frames, pushes, rng)
+        bufs = on_device(dsp_bufs(arrays, frames), dev)
+        base = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        pipe, outs, secs = drive_bufs(desc, bufs, dev, 1)
+        counts = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        want = {k: pushes if k == kname else 0 for k in counters}
+        require(counts == want, f"{name}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        got = [s for o in outs for s in o]
+        require(all(torch.isfinite(s.buffer.data.float()).all()
+                    for s in got), f"{name}: non-finite output")
+        out_frames = sum(int(s.buffer.data.shape[0]) for s in got)
+        msgs = bus_messages(pipe)
+        del outs, got, bufs, pipe
+        # the card against the port's CPU path on short pushes
+        short = dsp_bufs(dsp_signal(fmt, ch, cframes, cpushes, rng), cframes)
+        cpipe, on_card, _ = drive_bufs(desc, on_device(short, dev), dev, 1)
+        hpipe, on_cpu, _ = drive_bufs(desc, short, "cpu", 1)
+        same_samples(on_card, on_cpu, name, dev)
+        cmsgs, hmsgs = bus_messages(cpipe), bus_messages(hpipe)
+        require(cmsgs == hmsgs, f"{name}: bus messages differ from the CPU "
+                f"run")
+        kept = sum(len(o) for o in on_card)
+        print(f"dsp {name}: {pushes} pushes of {frames} frames, "
+              f"{'fused' if cpipe._fused else 'per-element'}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {out_frames} "
+              f"output frames, {len(msgs)} bus messages; CUDA == port CPU "
+              f"path over {cpushes} pushes of {cframes} frames ({kept} "
+              f"buffers kept, {len(cmsgs)} bus messages equal)")
+        del on_card, on_cpu, cpipe, hpipe
+
+        prof = parse_launch(desc, device=dev)
+        prof.set_state(State.PLAYING)
+        x = on_device(dsp_bufs(arrays[:1], frames), dev)[0]["data"]
+        tick_no = [0]
+
+        def tick():
+            dur = frames * 10**9 // 48000
+            prof.get_by_name("in").push_buffer(Buffer(
+                data=x, pts=tick_no[0] * dur, duration=dur))
+            tick_no[0] += 1
+            prof.tick()
+            drain(prof.get_by_name("out"))
+        iters = 2 if frames > 10000 else 20
+        if cuda:
+            _, busy, idle, tr = device_time(tick, iters)
+            top = top_device_items(tr, iters)
+        else:
+            busy, idle, top = 0.0, 1.0, []
+        prof.set_state(State.NULL)
+        timed = sum(secs[1:])
+        print(f"e2e {name}: {frames * (pushes - 1) / timed:.1f} input "
+              f"frames/s over pushes 2..{pushes} ({frames} frames a push, "
+              f"{timed / (pushes - 1) * 1e3:.3f} ms a push on average, host "
+              f"clock between synchronises); device busy {busy:.3f} ms a "
+              f"push, idle share {idle:.3f}; top device items {top}; peak "
+              f"device memory {peak / 2**20:.1f} MiB above the path's start "
+              f"(its inputs included); {card}")
+        del x, prof
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # -- each factory alone: the card's samples equal the CPU path's -------
+    checked = []
+    for chain, fmt, ch in DSP_FACTORIES:
+        fname = chain.split()[0]
+        desc = dsp_desc(fmt, ch, chain)
+        arrays = dsp_signal(fmt, ch, DSP_ALONE, 2, rng)
+        if fname == "rglimiter":
+            arrays = [a * np.float32(2.0) for a in arrays]
+        bufs = dsp_bufs(arrays, DSP_ALONE)
+        for c in counters.values():
+            c.launches = 0
+        pipe, on_card, _ = drive_bufs(desc, on_device(bufs, dev), dev, 1)
+        counts = {k: c.launches for k, c in counters.items() if c.launches}
+        want = ({"freeverb": 2} if fname == "freeverb" else
+                {"vad_power": 2} if fname == "removesilence" else {})
+        require(counts == want or not cuda,
+                f"{fname}: launches {counts}, want {want}")
+        cpipe, on_cpu, _ = drive_bufs(desc, bufs, "cpu", 1)
+        same_samples(on_card, on_cpu, fname, dev)
+        require(bus_messages(pipe) == bus_messages(cpipe),
+                f"{fname}: bus messages differ from the CPU run")
+        checked.append(fname)
+        del pipe, cpipe, on_card, on_cpu
+    require(len(set(checked)) == 31, f"{len(set(checked))} factories checked")
+    print(f"dsp each factory alone: CUDA == port CPU path (samples and bus "
+          f"messages) over 2 pushes of {DSP_ALONE} frames, freeverb and "
+          f"removesilence 2 launches of their kernel, none elsewhere, for "
+          f"{checked}")
+    return total, err, timings
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3091,8 +3502,10 @@ def main() -> int:
     from gstreamer_tpu_torch.ops import chroma420_kernel as ck
     from gstreamer_tpu_torch.ops import convert_kernel as fk
     from gstreamer_tpu_torch.ops import deint_kernel as dk
+    from gstreamer_tpu_torch.ops import freeverb_kernel as fvk
     from gstreamer_tpu_torch.ops import hscale_kernel as hk
     from gstreamer_tpu_torch.ops import scale2d_kernel as s2k
+    from gstreamer_tpu_torch.ops import vad_kernel as vk
     from gstreamer_tpu_torch.ops import yscale_kernel as ysk
 
     torch.set_float32_matmul_precision("highest")   # yardstick: no TF32
@@ -3242,7 +3655,9 @@ def main() -> int:
                 "deint_both_parities": dk.deint_both_parities,
                 "fused_i420_up_hscale": fk.fused_i420_up_hscale,
                 "scale_hv_u8": s2k.scale_hv_u8,
-                "hscale_u8": hk.hscale_u8}
+                "hscale_u8": hk.hscale_u8,
+                "freeverb": fvk.freeverb,
+                "vad_power": vk.vad_power}
     for c in counters.values():
         c.launches = 0
     outs, per_cfg = {}, {}
@@ -3354,6 +3769,13 @@ def main() -> int:
     # -- overlays and the device video effects ---------------------------------
     for k, n in overlays_phase(args.seed, counters, dev, host).items():
         launches[k] += n
+
+    # -- the audio DSP family: freeverb's and the VAD's kernels -----------------
+    dsp_launches, dsp_err, dsp_timings = dsp_phase(args.seed, counters, dev)
+    for k, n in dsp_launches.items():
+        launches[k] += n
+    err.update(dsp_err)
+    timings.update(dsp_timings)
     print(f"main path launches, all paths: {launches}")
 
     smi = smi_line()
@@ -3374,7 +3796,14 @@ def main() -> int:
                                "linear2"),
                "hscale_u8": ("gstreamer_tpu_torch/csrc/hscale.cu",
                              "gstreamer_tpu/ops/hscale_kernel.py:73",
-                             "linear2")}
+                             "linear2"),
+               # no Pallas counterpart: each replaces a jitted lax.scan
+               "freeverb": ("gstreamer_tpu_torch/csrc/freeverb.cu",
+                            "gstreamer_tpu/elements/freeverb.py:198",
+                            str(FV_CHECK)),
+               "vad_power": ("gstreamer_tpu_torch/csrc/vad.cu",
+                             "gstreamer_tpu/elements/removesilence.py:76",
+                             "960")}
     kernels = []
     for kname, (src, repl, tag) in sources.items():
         t = timings[(kname, tag)]

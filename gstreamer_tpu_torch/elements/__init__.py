@@ -30,3 +30,12 @@ from . import coloreffects      # noqa: F401  (coloreffects, chromahold)
 from . import gaudieffects      # noqa: F401  (burn, chromium, dilate, dodge, exclusion, gaussianblur, solarize)
 from . import geometrictransform  # noqa: F401  (bulge, circle, diffuse, fisheye, kaleidoscope, marble, mirror, perspective, pinch, rotate, sphere, square, stretch, tunnel, twirl, waterripple)
 from . import bayer             # noqa: F401  (bayer2rgb, rgb2bayer)
+from . import law_elements      # noqa: F401  (mulawenc, mulawdec, alawenc, alawdec)
+from . import audiofx           # noqa: F401  (audioamplify, audioinvert, audiokaraoke, audioecho, audiodynamic, spectrum, level, equalizer-3bands, equalizer-10bands, equalizer-nbands, audiopanorama, audiowsinclimit, audiowsincband, audiofirfilter, audioiirfilter, audiocheblimit, audiochebband, stereo)
+from . import replaygain        # noqa: F401  (rganalysis, rgvolume, rglimiter)
+from . import removesilence     # noqa: F401
+from . import freeverb          # noqa: F401
+from . import cutter            # noqa: F401
+from . import scaletempo        # noqa: F401
+from . import pitch             # noqa: F401
+from . import bs2b              # noqa: F401

@@ -25,8 +25,10 @@ A pipeline's streaming state: ``element_states`` reads, by element name,
 the carries of its stateful (scan) elements (``_elem_states``), a
 deinterlacer's carried frames and pending fields, the host counters that
 feed a scan's aux rows (vertigotv's phase, warptv's counter), and the
-buffers a clocksync holds for its clock (``_held``), all as numpy or Python
-numbers; ``load_element_states`` puts them into the port's pipeline (after
+buffers a clocksync holds for its clock (``_held``), a freeverb's rings,
+ring indices and filterstores (``freeverb_arrays``) and a removesilence's
+VAD and guards (``vad_arrays``), all as numpy or Python numbers;
+``load_element_states`` puts them into the port's pipeline (after
 ``set_state(PLAYING)``), so a tick run by one package can continue in the
 other.
 """
@@ -179,33 +181,67 @@ def quantizer_from_arrays(arrays: Dict[str, np.ndarray]) -> Quantizer:
 # host attributes that a scan's aux rows or a deinterlacer's output range
 # are computed from
 _HOST_STATE = ("_phase", "_tval", "_pending")
+# a Vad's state, and removesilence's guards and timeline offset
+_VAD_STATE = ("power", "ring", "head", "filled", "state", "samples")
+_SILENCE_STATE = ("_consec", "_consec_ns", "_ts_offset", "_was_silence")
+
+
+def _numpy(x) -> np.ndarray:
+    if hasattr(x, "cpu"):
+        x = x.cpu()
+    return np.asarray(x)
+
+
+def freeverb_arrays(state) -> Dict[str, np.ndarray]:
+    """A freeverb's state (either package's ``_state``) -> {"rings": the 24
+    rings end to end (combs left, combs right, allpasses left, allpasses
+    right), "idx": their 24 indices, "fs": the 16 filterstores}."""
+    if "rings" in state:                 # this package's: one stream a row
+        return {k: _numpy(state[k])[0] for k in ("rings", "idx", "fs")}
+    banks = ("combL", "combR", "apL", "apR")
+    return {
+        "rings": np.concatenate([np.asarray(b, np.float32) for k in banks
+                                 for b in state[k][0]]),
+        "idx": np.asarray([int(i) for k in banks for i in state[k][1]],
+                          np.int32),
+        "fs": np.asarray([float(f) for k in ("combL", "combR")
+                          for f in state[k][2]], np.float32),
+    }
+
+
+def vad_arrays(elem) -> Dict[str, Any]:
+    """A removesilence (either package's) -> its Vad's state and its
+    guards, as numpy arrays and Python numbers."""
+    out = {k: getattr(elem._vad, k) for k in _VAD_STATE}
+    out["ring"] = np.array(out["ring"], np.int16)
+    out.update({k: getattr(elem, k) for k in _SILENCE_STATE})
+    return out
 
 
 def element_states(pipeline) -> Dict[str, Dict[str, Any]]:
     """A pipeline's carried state (either package's) -> {element name:
     {"carry": the scan carry as numpy arrays (0-d for scalars),
-    "carry_planes": a deinterlacer's carried frames, and the host
-    counters in _HOST_STATE}}; elements with none of these are left
-    out."""
-    def to_np(x):
-        if hasattr(x, "cpu"):
-            x = x.cpu()
-        return np.asarray(x)
-
+    "carry_planes": a deinterlacer's carried frames, the host counters in
+    _HOST_STATE, "freeverb": ``freeverb_arrays`` and "vad":
+    ``vad_arrays``}}; elements with none of these are left out."""
     states = getattr(pipeline, "_elem_states", None) or {}
     out: Dict[str, Dict[str, Any]] = {}
     for e in pipeline._topo_order():
         entry: Dict[str, Any] = {}
         if e.name in states:
-            entry["carry"] = map_leaves(to_np, states[e.name])
+            entry["carry"] = map_leaves(_numpy, states[e.name])
         if getattr(e, "_carry_planes", None) is not None:
-            entry["carry_planes"] = tuple(to_np(p) for p in e._carry_planes)
+            entry["carry_planes"] = tuple(_numpy(p) for p in e._carry_planes)
         for attr in _HOST_STATE:
             if hasattr(e, attr):
                 entry[attr] = getattr(e, attr)
+        if e.FACTORY == "freeverb" and getattr(e, "_state", None):
+            entry["freeverb"] = freeverb_arrays(e._state)
+        if e.FACTORY == "removesilence":
+            entry["vad"] = vad_arrays(e)
         if getattr(e, "_held", None):
             entry["held"] = [
-                dict(data=map_leaves(to_np, b.data), pts=b.pts, dts=b.dts,
+                dict(data=map_leaves(_numpy, b.data), pts=b.pts, dts=b.dts,
                      duration=b.duration, offset=b.offset, flags=b.flags,
                      batch=b.batch, meta=dict(b.meta)) for b in e._held]
         if entry:
@@ -238,6 +274,17 @@ def load_element_states(pipeline, states: Dict[str, Dict[str, Any]]) -> None:
         for attr in _HOST_STATE:
             if attr in entry:
                 setattr(e, attr, entry[attr])
+        if "freeverb" in entry:
+            fv = entry["freeverb"]
+            e._state = {k: torch.from_numpy(np.array(fv[k]))[None].to(dev)
+                        for k in ("rings", "idx", "fs")}
+        if "vad" in entry:
+            for k, v in entry["vad"].items():
+                if k in _VAD_STATE:
+                    setattr(e._vad, k, np.array(v, np.int16) if k == "ring"
+                            else v)
+                else:
+                    setattr(e, k, v)
         if "held" in entry:
             e._held = [Buffer(**dict(b, data=map_leaves(
                 lambda x: torch.from_numpy(np.array(x)).to(dev), b["data"])))

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with nvcc at first use; load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash
-covers the source, the shared headers and the flags, so an edited source is
-rebuilt).  The libraries have a plain C interface and include no PyTorch
-header, so a build takes seconds.  Nothing is built when a module is
-imported: only when a kernel is first launched, or when ``build`` is called.
+covers the source, the shared headers and the flags, the source's own
+included, so an edited source or flag is rebuilt).  The libraries have a
+plain C interface and include no PyTorch header, so a build takes seconds.
+Nothing is built when a module is imported: only when a kernel is first
+launched, or when ``build`` is called.
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("yscale", "chroma420", "deint", "scale2d", "hscale",
-           "fused_ingest")
+           "fused_ingest", "freeverb", "vad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source, after NVCC_FLAGS: freeverb must round every float
+# product and sum on its own, as the scalar reference does
+SOURCE_FLAGS = {"freeverb": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -42,8 +46,13 @@ def nvcc_path() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for csrc/<name>.cu."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for p in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -62,7 +71,7 @@ def build(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *flags(n), "-o", str(tmp),
                str(CSRC_DIR / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
@@ -93,13 +102,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-_C_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_C_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def function(name: str, symbol: str, signature: str):
     """(library, C function) of csrc/<name>.cu with its argument types set
     from `signature`: one letter per argument, "p" for a pointer or stream
-    (passed whole, as c_void_p) and "i" for an int.  Returns an int."""
+    (passed whole, as c_void_p), "i" for an int and "f" for a float.
+    Returns an int."""
     lib = load(name)
     fn = getattr(lib, symbol)
     fn.argtypes = [_C_TYPES[c] for c in signature]

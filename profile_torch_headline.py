@@ -30,7 +30,10 @@ names both: a tick each, every appsrc fed CUDA tensors); and its overlay
 paths (OVERLAY_PATHS: burnin, camera_raw_rggb, camera_raw_rggb16le,
 augment; ``--only overlays`` names all four: a tick each, the JSON line
 also holding the host functions with the most time over 3 more ticks
-under cProfile, ``host_top``).  Each runs
+under cProfile, ``host_top``); and its audio DSP paths (DSP_PATHS:
+music_master, a 10 s push of 48 kHz stereo F32, and voice_chain, a 20 ms
+push of 48 kHz mono S16; ``--only dsp`` names both: a push each, with
+``host_top``).  Each runs
 two times untraced,
 then ``--iters`` times under ``torch.profiler``, and prints one JSON line:
 the wall time per batch or tick, the device busy time (the union of the
@@ -49,7 +52,8 @@ import sys
 
 
 # names of the port's own CUDA kernels: listed even below the top ten
-OWN_KERNELS = ("scale2pass", "fused_ingest", "deint_both_parities")
+OWN_KERNELS = ("scale2pass", "fused_ingest", "deint_both_parities",
+               "freeverb_kernel", "vad_power_kernel")
 
 
 def host_top(step, ticks=3, n=8):
@@ -108,6 +112,8 @@ def main() -> int:
     if only is not None and "overlays" in only:
         only |= {"burnin", "camera_raw_rggb", "camera_raw_rggb16le",
                  "augment"}
+    if only is not None and "dsp" in only:
+        only |= {"music_master", "voice_chain"}
 
     def profile(name, batch, step, host=False):
         if only is None or name in only:
@@ -310,6 +316,27 @@ def main() -> int:
             pipe.set_state(State.NULL)
             del data
             torch.cuda.empty_cache()
+
+    from chip_smoke import DSP_PATHS, drain, dsp_desc, dsp_signal
+    for name, (fmt, ch, chain, frames, _, _, _, _) in DSP_PATHS.items():
+        if only is not None and name not in only:
+            continue
+        data = torch.as_tensor(dsp_signal(fmt, ch, frames, 1, rng)[0]).cuda()
+        pipe = parse_launch(dsp_desc(fmt, ch, chain))
+        pipe.set_state(State.PLAYING)
+        ticks = [0]
+        dur = frames * 10**9 // 48000
+
+        def tick():
+            pipe.get_by_name("in").push_buffer(Buffer(
+                data=data, pts=ticks[0] * dur, duration=dur))
+            ticks[0] += 1
+            pipe.tick()
+            drain(pipe.get_by_name("out"))
+        profile(name, frames, tick, host=True)
+        pipe.set_state(State.NULL)
+        del data
+        torch.cuda.empty_cache()
     return 0
 
 

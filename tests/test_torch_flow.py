@@ -72,7 +72,7 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 128
+    assert len(telement._REGISTRY) == 159
     assert set(NEW_FACTORIES) <= set(telement._REGISTRY)
 
 
