@@ -185,11 +185,14 @@ before it and read just after:
 
 12. the audio DSP family (dsp_phase, DSP_PATHS): freeverb's and the VAD's
    kernels (two per-sample recursions; the JAX package ran each as a jitted
-   lax.scan) against their plain versions bit for bit (freeverb at 8, 44.1,
-   48, 96 and 192 kHz, mono and stereo, two pushes with the state carried,
-   the rings in shared memory up to 96 kHz and in device memory at 192 kHz;
-   the main path's push on its first frames; the
-   VAD on 4 streams), timed beside their roofline and latency bounds, then:
+   lax.scan) against their plain versions bit for bit (freeverb at 1 Hz to
+   768 kHz, mono and stereo, two pushes with the state carried, every
+   block schedule the layout derives, every ring in shared memory to 48
+   kHz, the allpasses to 384 kHz, none at 768 kHz; the main path's push in
+   one launch against 100 launches and on its first frames against the plain
+   version; the VAD from six carried powers, 2^62 among them, at four
+   lengths), timed beside their roofline and latency bounds and the
+   previous kernels' times, then:
 
   music_master      a mastering chain before encoding: 48 kHz stereo F32,
                     3 pushes of 10 s, through equalizer-10bands !
@@ -282,6 +285,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device ms a call of fn: `iters` calls captured in one CUDA graph and
+    replayed, so no host time falls between the launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -3106,6 +3129,8 @@ FV_FLOPS = 136
 # int32-lane operations a sample of the VAD: 11 integer operations, 64-bit
 # ones as two
 VAD_OPS = 22
+# dependent operations a sample on the VAD's chain: one multiply-high-add
+VAD_CHAIN = 1
 DSP_SRC = ("appsrc name=in caps=audio/x-raw,format={fmt},rate=48000,"
            "channels={ch},layout=interleaved ! ")
 MUSIC_CHAIN = ("equalizer-10bands band0=3.0 band9=-3.0 ! audiodynamic "
@@ -3123,9 +3148,17 @@ DSP_PATHS = {
     "voice_chain": ("S16LE", 1, VOICE_CHAIN, 960, 250, "vad_power", 960,
                     100),
 }
-FV_RATES = (8000, 44100, 48000, 96000, 192000)
-FV_CHECK = 4800                 # frames a push of freeverb's check, 2 pushes
+FV_RATES = (1, 1000, 8000, 44100, 48000, 96000, 192000, 384000, 768000)
+FV_CHECK = 4800                 # frames of freeverb's check's first push
+FV_ODD = 777                    # and of its second: no multiple of a block
 VAD_CHECK = (4, 24000)          # streams, samples a push of the VAD's, 2
+VAD_P0 = (0, 5, 2**32, 2**33 - 1, 2**40, 2**62)   # carried powers
+VAD_LENGTHS = (1, 7, 960, 24000)
+# the times of the kernels these versions replace (freeverb one warp a
+# stream, the VAD one thread a stream; a call back to back on an H100 80GB
+# HBM3, 700 W): {(kernel, frames a push): ms}
+PREVIOUS_MS = {("freeverb", "4800"): 0.9478,
+               ("freeverb", "480000"): 92.9153, ("vad_power", "960"): 0.0337}
 DSP_ALONE = 4800                # frames a push of each factory alone, 2
 DSP_FACTORIES = (               # (chain, format, channels)
     ("mulawenc", "S16LE", 2), ("mulawdec", "mulaw", 2),
@@ -3209,48 +3242,79 @@ def sm_clock_hz():
 def check_dsp_kernels(rng, dev):
     """Each recursion's kernel against its plain version on the same inputs
     (the plain version on CPU copies), bit for bit: freeverb at FV_RATES,
-    mono and stereo, two pushes of FV_CHECK frames with the state carried
-    (outputs and the final rings, indices and filterstores; 192 kHz keeps
-    its rings in device memory, the others in shared memory), and the main
-    path's push (480 000 frames of 48 kHz stereo)
-    against the plain version on its first FV_CHECK frames; the VAD on
-    VAD_CHECK's streams over two pushes.  Returns {kernel: max abs error}."""
+    mono and stereo, a push of FV_CHECK frames and one of FV_ODD with the
+    state carried (outputs and the final rings, indices and filterstores;
+    every schedule the layout derives: blocks of 1 frame at lag 1 and 2,
+    blocks of 12 to 512, all rings in shared memory to 48 kHz, the
+    allpasses to 384 kHz, none at 768 kHz); the main path's push (480 000
+    frames of 48 kHz stereo) in one launch against 100 launches of 4800
+    frames with the state carried (outputs and state), and on its first
+    FV_CHECK frames against the plain version; the kernel's own schedule
+    (gst_freeverb_schedule) equal to its Python mirror at every rate; the
+    VAD from VAD_P0 at VAD_LENGTHS, and on VAD_CHECK's streams over two
+    pushes.  Returns {kernel: max abs error}."""
     import numpy as np
     import torch
     from gstreamer_tpu_torch.ops import freeverb_kernel as fvk
     from gstreamer_tpu_torch.ops import vad_kernel as vk
     prm = fvk.params(0.6, 0.2, 1.0, 0.5)
     err = {"freeverb": 0.0, "vad_power": 0}
+
+    def same(k, p, what):
+        require(k.shape == p.shape and torch.equal(
+            k.view(torch.int32), p.view(torch.int32)),
+                f"freeverb: {what}: the kernel differs from its plain version")
+        err["freeverb"] = max(err["freeverb"], float((k - p).abs().max()))
+
     paths = {}
     for rate in FV_RATES:
         sizes = fvk.ring_sizes(rate)
         for ch in (1, 2):
             kst = fvk.fresh_state(1, sizes, dev)
             pst = fvk.fresh_state(1, sizes, "cpu")
-            for _ in range(2):
-                x = torch.from_numpy((rng.standard_normal((1, FV_CHECK, ch))
+            for frames in (FV_CHECK, FV_ODD):
+                x = torch.from_numpy((rng.standard_normal((1, frames, ch))
                                       * 0.3).astype(np.float32))
-                k = fvk.freeverb(x.to(dev), kst, sizes, prm).cpu()
-                p = fvk.freeverb_plain(x, pst, sizes, prm)
-                require(k.shape == p.shape and torch.equal(
-                    k.view(torch.int32), p.view(torch.int32)),
-                        f"freeverb at {rate} Hz, {ch} ch: the kernel differs "
-                        f"from its plain version")
-                err["freeverb"] = max(err["freeverb"],
-                                      float((k - p).abs().max()))
+                same(fvk.freeverb(x.to(dev), kst, sizes, prm).cpu(),
+                     fvk.freeverb_plain(x, pst, sizes, prm),
+                     f"{rate} Hz, {ch} ch, {frames} frames")
             for key in ("rings", "idx", "fs"):
                 require(torch.equal(kst[key].cpu(), pst[key]),
                         f"freeverb at {rate} Hz: state {key} differs")
-            paths[rate] = ("shared" if fvk.uses_shared(sizes)
-                           else "device memory")
+        sc = fvk.schedule(sizes)
+        require(fvk.kernel_schedule(sizes) == sc,
+                f"freeverb at {rate} Hz: the kernel's schedule "
+                f"{fvk.kernel_schedule(sizes)} differs from its mirror {sc}")
+        paths[rate] = (f"block {sc['block']} lag {sc['lag']} chunk "
+                       f"{sc['chunk']}, rings in shared memory: "
+                       + ("all", "the allpasses", "none")[2 - sc["shared"]])
     sizes = fvk.ring_sizes(48000)
     x = torch.from_numpy((rng.standard_normal((1, 480000, 2)) * 0.3)
-                         .astype(np.float32))
-    k = fvk.freeverb(x.to(dev), fvk.fresh_state(1, sizes, dev), sizes, prm)
-    p = fvk.freeverb_plain(x[:, :FV_CHECK].contiguous(),
+                         .astype(np.float32)).to(dev)
+    one = fvk.fresh_state(1, sizes, dev)
+    k = fvk.freeverb(x, one, sizes, prm)
+    many = fvk.fresh_state(1, sizes, dev)
+    parts = [fvk.freeverb(c.contiguous(), many, sizes, prm)
+             for c in x.split(4800, dim=1)]
+    bits = {"rings": torch.int32, "idx": torch.int32, "fs": torch.int32}
+    require(len(parts) == 100 and torch.equal(
+        k.view(torch.int32), torch.cat(parts, dim=1).view(torch.int32))
+            and all(torch.equal(one[key].view(t), many[key].view(t))
+                    for key, t in bits.items()),
+            "freeverb: the main path's push in one launch differs from 100 "
+            "launches of 4800 frames")
+    p = fvk.freeverb_plain(x[:, :FV_CHECK].cpu(),
                            fvk.fresh_state(1, sizes, "cpu"), sizes, prm)
-    require(torch.equal(k[:, :FV_CHECK].cpu(), p),
-            "freeverb: the main path's push differs from the plain version")
+    same(k[:, :FV_CHECK].cpu(), p, "the main path's push")
+    del x, k, parts
+    for n in VAD_LENGTHS:
+        xv = torch.from_numpy((rng.standard_normal((len(VAD_P0), n)) * 12000)
+                              .astype(np.int16))
+        xv[0, :3] = -32768
+        p0 = torch.tensor(VAD_P0, dtype=torch.int64)
+        pk = vk.vad_power(xv.to(dev), p0.to(dev)).cpu()
+        err["vad_power"] = max(err["vad_power"], int(
+            (pk - vk.vad_power_plain(xv, p0)).abs().max()))
     s, n = VAD_CHECK
     p0 = torch.tensor([0, 7, 123456789, 2**32], dtype=torch.int64)[:s]
     pk, pp = p0.to(dev), p0
@@ -3265,15 +3329,20 @@ def check_dsp_kernels(rng, dev):
     require(err["vad_power"] == 0, "vad_power: the kernel differs from its "
             "plain version")
     print(f"dsp kernel vs plain (bit for bit): {err}; freeverb at {FV_RATES} "
-          f"Hz, mono and stereo, 2 pushes of {FV_CHECK} frames (rings: "
-          f"{paths}), the main path's 480000-frame push on its first "
-          f"{FV_CHECK} frames; vad_power on {s} streams, 2 pushes of {n} "
+          f"Hz, mono and stereo, pushes of {FV_CHECK} and {FV_ODD} frames "
+          f"(schedules: {paths}); the main path's 480000-frame push in one "
+          f"launch == 100 launches of 4800 (outputs and state), == plain on "
+          f"its first {FV_CHECK} frames; vad_power from {VAD_P0} at "
+          f"{VAD_LENGTHS} samples, and on {s} streams, 2 pushes of {n} "
           f"samples")
     return err
 
 
 def time_dsp_kernels(rng, dev):
-    """Kernel, plain version (on the card) and bounds: freeverb on one
+    """Kernel, plain version (on the card) and bounds: a call's time back
+    to back (``ms``: CUDA events, as every other kernel and the previous
+    kernels are timed; the wrapper's host cost where it is longer) and the
+    kernel's device time (``device_ms``: graph_ms); freeverb on one
     FV_CHECK-frame push of 48 kHz stereo (the check's shape; the plain
     version's loop makes the main path's push too long to time it) and on
     the main path's 480 000-frame push; the VAD on the voice path's
@@ -3295,6 +3364,7 @@ def time_dsp_kernels(rng, dev):
                              .astype(np.float32)).to(dev)
         st = fvk.fresh_state(1, sizes, dev)
         ms = cuda_ms(lambda: fvk.freeverb(x, st, sizes, prm), iters, 1)
+        device = graph_ms(lambda: fvk.freeverb(x, st, sizes, prm), iters)
         plain = None
         if frames == FV_CHECK:
             pst = fvk.fresh_state(1, sizes, dev)
@@ -3304,7 +3374,7 @@ def time_dsp_kernels(rng, dev):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = frames * FV_FLOPS / FP32_OPS_PER_S * 1e3
         out[("freeverb", tag)] = dict(
-            ms=ms, plain_ms=plain, library_ms=None,
+            ms=ms, device_ms=device, plain_ms=plain, library_ms=None,
             bound=((t_bytes, "bytes", f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
                    if t_bytes >= t_ops else
                    (t_ops, "operations", "fp32 67 T ops/s")),
@@ -3316,24 +3386,29 @@ def time_dsp_kernels(rng, dev):
     t_ops = 960 * VAD_OPS / INT32_OPS_PER_S * 1e3
     out[("vad_power", "960")] = dict(
         ms=cuda_ms(lambda: vk.vad_power(xv, p0), 50),
+        device_ms=graph_ms(lambda: vk.vad_power(xv, p0), 50),
         plain_ms=cuda_ms(lambda: vk.vad_power_plain(xv, p0), 3, 1),
         library_ms=None,
         bound=((t_bytes, "bytes", f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
                if t_bytes >= t_ops else
                (t_ops, "operations", "int32 33.5 T ops/s")),
-        latency_ms=960 * 3 * DEP_CYCLES / clock * 1e3)
+        latency_ms=960 * VAD_CHAIN * DEP_CYCLES / clock * 1e3)
     for (kname, tag), t in out.items():
         plain = ("plain not timed at this shape" if t["plain_ms"] is None
                  else f"plain {t['plain_ms']:.4f} ms")
-        print(f"time {kname} [{tag} frames a push]: kernel {t['ms']:.4f} ms, "
-              f"{plain}, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}, "
+        print(f"time {kname} [{tag} frames a push]: kernel {t['ms']:.4f} ms "
+              f"a call back to back (CUDA events; the previous kernel, so "
+              f"timed: {PREVIOUS_MS[(kname, tag)]:.4f} ms), "
+              f"{t['device_ms']:.4f} ms on the device (a CUDA graph of the "
+              f"calls), {plain}, "
+              f"bound {t['bound'][0]:.6f} ms ({t['bound'][1]}, "
               f"{t['bound'][2]}), latency bound {t['latency_ms']:.4f} ms (the "
               f"dependent chain, {DEP_CYCLES} cycles an operation at "
               f"{clock / 1e6:.0f} MHz; binds: "
               f"{'latency' if t['latency_ms'] > t['bound'][0] else 'roofline'}"
               f"); library: none (no single PyTorch call)")
-        require(t["ms"] >= max(t["bound"][0], t["latency_ms"]),
-                f"{kname}: {t['ms']:.4f} ms reads under its bound")
+        require(t["device_ms"] >= max(t["bound"][0], t["latency_ms"]),
+                f"{kname}: {t['device_ms']:.4f} ms reads under its bound")
     return out
 
 
@@ -3812,7 +3887,8 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": err[kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **({"device_ms": t["device_ms"]} if "device_ms" in t else {})})
     require(smi is not None, "nvidia-smi printed nothing")
     print(smi)
     print(json.dumps({"kernels": kernels}))

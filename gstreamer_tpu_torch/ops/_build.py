@@ -31,6 +31,7 @@ SOURCE_FLAGS = {"freeverb": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
+_functions: dict = {}
 
 
 def nvcc_path() -> str:
@@ -109,12 +110,16 @@ def function(name: str, symbol: str, signature: str):
     """(library, C function) of csrc/<name>.cu with its argument types set
     from `signature`: one letter per argument, "p" for a pointer or stream
     (passed whole, as c_void_p), "i" for an int and "f" for a float.
-    Returns an int."""
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [_C_TYPES[c] for c in signature]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    Returns an int.  Set up once, then looked up."""
+    key = (name, symbol, signature)
+    got = _functions.get(key)
+    if got is None:
+        lib = load(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = [_C_TYPES[c] for c in signature]
+        fn.restype = ctypes.c_int
+        got = _functions[key] = (lib, fn)
+    return got
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

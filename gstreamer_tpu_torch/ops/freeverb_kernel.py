@@ -14,17 +14,33 @@ every operation rounded to float32 on its own, as the scalar reference
 does (the kernel is built with ``-fmad=false``).  A stream's state is one
 flat float32 row of rings (24 rings: combs left, combs right, allpasses
 left, allpasses right, at ``layout``'s offsets), 24 int32 ring indices and
-16 float32 filterstores; both versions update it in place.  The kernel is
-``csrc/freeverb.cu``: one warp a stream, the rings staged in shared memory
-when they fit (``uses_shared``).
+16 float32 filterstores; both versions update it in place.
 
-Bound on the H100: latency — the chain each filterstore carries from one
-sample to the next (a float32 multiply and add) and the sum and allpass
-chain inside a sample, not bytes or operations.
+The kernel is ``csrc/freeverb.cu``, a block-pipelined schedule of one
+8-warp block a stream.  Every ring is a delay at least as long as itself,
+so in a block of B frames (``schedule``: at most half the shortest comb
+ring, at most 512) no comb reads what the block writes, and in a chunk of
+C frames (the shortest allpass ring) no allpass does.  One warp runs only
+the 16 comb recursions (``fs = tmp*damp2 + fs*damp1``, the one dependency
+from frame to frame), reading each block's ring values from a
+shared-memory window and writing the new ones over them.  Seven warps stay
+a block behind it and ahead of it: they stage the windows of later blocks
+from the comb rings with the comb inputs and the channels' comb sums,
+write the comb warp's values back, and run the allpasses chunk by chunk,
+DC and the mix.  The rings sit in shared memory for the call where they
+fit (``schedule``), else in device memory.  Only independent operations
+are reordered, so the bits are the reference's.  ``schedule`` mirrors the
+kernel's own derivation, which ``kernel_schedule`` reads back on a card;
+the kernel refuses a launch whose placement differs from its own.
+
+Bound on the H100: latency — the filterstore's float32 multiply and add a
+frame (8 cycles), not bytes or operations.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Sequence
 
 import numpy as np
@@ -42,6 +58,8 @@ DC_OFFSET = np.float32(1e-8)
 
 N_COMBS = 16
 N_RINGS = 24
+MAX_BLOCK = 512                 # the kernel's frames a block at most
+SLOT_ROWS = N_COMBS + 6         # a slot: 16 windows, 2 inputs, sums, samples
 # the opt-in shared memory of a block on the H100 (232 448 bytes)
 SHARED_LIMIT = 227 * 1024
 
@@ -71,9 +89,49 @@ def layout(sizes: Sequence[int]) -> np.ndarray:
         np.concatenate([off, sizes, [sum(sizes)]]), dtype=np.int32)
 
 
-def uses_shared(sizes: Sequence[int]) -> bool:
-    """Whether the kernel stages a stream's rings in shared memory."""
-    return sum(int(s) for s in sizes) * 4 <= SHARED_LIMIT
+def schedule(sizes: Sequence[int]) -> Dict[str, int]:
+    """The kernel's schedule, derived from the ring lengths as
+    ``csrc/freeverb.cu``'s ``schedule`` derives it: frames a block (at most
+    half the shortest comb ring, at most MAX_BLOCK, at least 1), the lag
+    (blocks the consumers stage ahead of the comb warp: 2 when a block is
+    at most half the shortest comb ring, else 1), frames an allpass chunk
+    (the shortest allpass ring), the floats of a row of the block buffers,
+    and which rings the kernel keeps in shared memory for the call beside
+    its two slots of block buffers (``shared``: 2 all 24 when they fit, 1
+    the allpasses when they do, else 0; the rest stay in device
+    memory)."""
+    sizes = [int(v) for v in sizes]
+    cmin, amin = min(sizes[:N_COMBS]), min(sizes[N_COMBS:])
+    block = min(cmin // 2, MAX_BLOCK) if cmin >= 2 else 1
+    pitch = (block + 31) // 32 * 32 + 4
+    buffers = 2 * SLOT_ROWS * pitch * 4
+    shared = (2 if buffers + sum(sizes) * 4 <= SHARED_LIMIT else
+              1 if buffers + sum(sizes[N_COMBS:]) * 4 <= SHARED_LIMIT else 0)
+    return {"block": block, "lag": 2 if 2 * block <= cmin else 1,
+            "chunk": amin, "pitch": pitch, "shared": shared}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(sizes: tuple) -> tuple:
+    """(layout, schedule) of a tuple of ring lengths, derived once: a
+    stream's ring lengths are fixed by its rate, and deriving them costs
+    more host time than the kernel takes on a short push."""
+    lay = layout(sizes)
+    lay.setflags(write=False)
+    return lay, schedule(sizes)
+
+
+def kernel_schedule(sizes: Sequence[int]) -> Dict[str, int]:
+    """The schedule ``csrc/freeverb.cu`` itself derives for these ring
+    lengths (``gst_freeverb_schedule``; builds the kernel, so it needs
+    nvcc), to hold ``schedule`` to it.  The kernel refuses a launch whose
+    placement differs from its own."""
+    lay, _ = _plan(tuple(int(v) for v in sizes))
+    lib, fn = _build.function("freeverb", "gst_freeverb_schedule", "pp")
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, fn(lay.ctypes.data, ctypes.addressof(out)),
+                 "freeverb schedule")
+    return dict(zip(("block", "lag", "chunk", "pitch", "shared"), out))
 
 
 def fresh_state(streams: int, sizes: Sequence[int],
@@ -105,8 +163,8 @@ def params(room_size: float, damping: float, width: float,
     return tuple(f(v) for v in (feedback, damp1, damp2, wet1, wet2, dry))
 
 
-def _check_args(x, state, sizes, prm) -> np.ndarray:
-    lay = layout(sizes)
+def _check_args(x, state, sizes, prm) -> tuple:
+    lay, sc = _plan(tuple(int(v) for v in sizes))
     if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] not in (1, 2):
         raise ValueError("freeverb: needs (streams, n, 1 or 2) float32 "
                          f"samples, got {tuple(x.shape)} {x.dtype}")
@@ -123,7 +181,7 @@ def _check_args(x, state, sizes, prm) -> np.ndarray:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if len(prm) != 6:
         raise ValueError(f"freeverb: need 6 parameters, got {len(prm)}")
-    return lay
+    return lay, sc
 
 
 def freeverb_plain(x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -131,7 +189,7 @@ def freeverb_plain(x: torch.Tensor, state: Dict[str, torch.Tensor],
     """The plain version: a torch loop over the samples, each step
     vectorised over the streams and the 16 combs (and the two channels'
     allpasses), every operation a float32 one."""
-    lay = _check_args(x, state, sizes, prm)
+    lay, _ = _check_args(x, state, sizes, prm)
     feedback, damp1, damp2, wet1, wet2, dry = (float(v) for v in prm)
     dc, gain = float(DC_OFFSET), float(FIXED_GAIN)
     dev = x.device
@@ -186,13 +244,13 @@ def freeverb(x: torch.Tensor, state: Dict[str, torch.Tensor],
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     on the current stream (without synchronising) or raises.  The kernel
-    keeps the rings in shared memory when they fit (``uses_shared``), else
-    in device memory."""
+    keeps the rings in shared memory for the call where they fit
+    (``schedule``), else in device memory."""
     if x.device.type == "cpu":
         return freeverb_plain(x, state, sizes, prm)
     if x.device.type != "cuda":
         raise ValueError(f"freeverb: unsupported device {x.device}")
-    lay = _check_args(x, state, sizes, prm)
+    lay, sc = _check_args(x, state, sizes, prm)
     if not (x.is_contiguous()
             and all(t.is_contiguous() for t in state.values())):
         raise ValueError("freeverb: the samples and the state must be "
@@ -207,7 +265,7 @@ def freeverb(x: torch.Tensor, state: Dict[str, torch.Tensor],
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), out.data_ptr(), state["rings"].data_ptr(),
                     state["idx"].data_ptr(), state["fs"].data_ptr(), s, n,
-                    ch, lay.ctypes.data, int(uses_shared(sizes)),
+                    ch, lay.ctypes.data, sc["shared"],
                     *(float(v) for v in prm), float(FIXED_GAIN),
                     float(DC_OFFSET), stream)
     _build.check(lib, status, "freeverb")

@@ -8,12 +8,20 @@ run at :76-77; Pallas has no counterpart).  Per sample (vad_private.c
   u  = ((s * s) >> 14) & 0xFFFF
   p' = 0x0800*u + 0xF7FF*(p >> 16) + ((0xF7FF*(p & 0xFFFF)) >> 16)
 
-The value stays below 2^33, so int64 holds it.  The kernel is
-``csrc/vad.cu``: one thread a stream.
+The value stays below 2^33 from any real state (the plain version's int64
+holds it), and once below 2^32 it stays there: p' <= 0x0800*65535 +
+((0xF7FF*(2^32-1)) >> 16) = 4 294 899 711.  While p < 2^48 the last two
+terms are (0xF7FF*p) >> 16 exactly (p = 2^16*h + l).
 
-Bound on the H100: latency.  Two bytes in a sample; the chain through p (a
-64-bit shift, multiply and add a sample) inside one thread is what limits
-it.
+The kernel is ``csrc/vad.cu``, one warp a stream: the warp computes
+0x0800*u for a tile of samples into shared memory from 16-byte loads, then
+lane 0 carries p through the tile in three phases, each a prefix of the
+loop — the split form while p >= 2^48, (0xF7FF*p) >> 16 in 64 bits while
+p >= 2^32, then one ``mad.hi.u32`` a sample (the high word of
+p * 0xF7FF0000, plus 0x0800*u).  Exact for 0 <= p0 < 2^63.
+
+Bound on the H100: latency.  Two bytes in a sample; the chain through p,
+one multiply-high-add a sample in the 32-bit phase, is what limits it.
 """
 
 from __future__ import annotations

@@ -10,11 +10,17 @@ largest distance).  removesilence: the VAD's power and states, the dropped
 buffers, squashed timestamps and bus messages equal the JAX package's.  Both
 continue mid-stream from the JAX package's state through ``interop``.  The
 kernels themselves run only on the card: those cases skip without one.
+What the CPU can check of them is their arithmetic: ``block_model`` walks
+``csrc/freeverb.cu``'s block-pipelined schedule in numpy and equals the
+plain version bit for bit, and the VAD kernel's identities and its
+three-phase loop hold against the plain version.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from gstreamer_tpu.core.buffer import Buffer as JBuffer
 from gstreamer_tpu.core.parse import parse_launch as jparse_launch
@@ -154,8 +160,145 @@ def test_ring_sizes_match_reference():
         assert fk.params(0.6, 0.3, 0.8, 0.4) == tuple(
             F(v) for v in JFreeverb(**{"room-size": 0.6, "damping": 0.3,
                                        "width": 0.8, "level": 0.4})._params())
-    assert fk.uses_shared(fk.ring_sizes(96000))
-    assert not fk.uses_shared(fk.ring_sizes(192000))
+    # the rings the kernel keeps in shared memory: all 24 to 48 kHz, the
+    # allpasses to 384 kHz, none above
+    assert [fk.schedule(fk.ring_sizes(r))["shared"]
+            for r in (1, 48000, 96000, 384000, 768000)] == [2, 2, 1, 1, 0]
+
+
+def test_schedule_from_layout():
+    """Block and chunk lengths come from the ring lengths: a block is at
+    most half the shortest comb ring (lag 2) or a single frame when that
+    ring is one float (lag 1); a chunk is the shortest allpass ring."""
+    want = {1: (1, 1, 1), 100: (1, 2, 1), 1000: (12, 2, 5),
+            8000: (101, 2, 40), 48000: (512, 2, 244),
+            192000: (512, 2, 979)}
+    for rate, (block, lag, chunk) in want.items():
+        sc = fk.schedule(fk.ring_sizes(rate))
+        assert (sc["block"], sc["lag"], sc["chunk"]) == (block, lag, chunk)
+        assert sc["pitch"] % 32 == 4 and sc["pitch"] >= block
+
+
+def block_model(x, rings, idx, fs, sizes, prm):
+    """A numpy walk of csrc/freeverb.cu's schedule over one stream, in one
+    order its barriers allow: (frames, 1 or 2) float32 -> (frames, 2);
+    `rings`, `idx`, `fs` (numpy) updated in place.  Two slots of block
+    buffers (windows, comb inputs, comb sums); the consumers stage block
+    b + lag's slot after writing block b back; the comb warp's chains read
+    and overwrite a slot's windows; the allpasses run a chunk at a time.
+    Every ring position needs at most one wrap, as the kernel assumes."""
+    f32 = np.float32
+    feedback, damp1, damp2, wet1, wet2, dry = (f32(v) for v in prm)
+    dc, gain = fk.DC_OFFSET, fk.FIXED_GAIN
+    sc = fk.schedule(sizes)
+    B, lag, C = sc["block"], sc["lag"], sc["chunk"]
+    lay = fk.layout(sizes).astype(np.int64)
+    off, size = lay[:fk.N_RINGS], lay[fk.N_RINGS:2 * fk.N_RINGS]
+    coff, csize = off[:16, None], size[:16, None]
+    aoff, asize = off[16:, None], size[16:, None]
+    n, ch = x.shape
+    nblocks = -(-n // B)
+    slots = [{"win": np.zeros((16, B), f32), "in": np.zeros((2, B), f32),
+              "sum": np.zeros((2, B), f32)} for _ in range(2)]
+    sb = idx[:16, None].astype(np.int64)      # next block staged
+    wb = sb.copy()                            # next block written back
+    ab = idx[16:, None].astype(np.int64)      # next allpass chunk
+    out = np.empty((n, 2), f32)
+
+    def wrap(pos, sz):
+        assert (pos < 2 * sz).all()
+        return np.where(pos >= sz, pos - sz, pos)
+
+    def frames(b):
+        return b * B + np.arange(min(B, n - b * B))
+
+    def stage(b):
+        nonlocal sb
+        t = frames(b)
+        nb, sl = len(t), slots[b & 1]
+        if ch == 2:
+            sl["in"][:, :nb] = ((x[t] + dc) * gain).T
+        else:
+            sl["in"][:, :nb] = (x[t, 0] * f32(2.0) + dc) * gain
+        win = rings[coff + wrap(sb + np.arange(nb), csize)]
+        sl["win"][:, :nb] = win
+        for c in range(2):
+            v = np.zeros(nb, f32)
+            for k in range(8):
+                v = v + win[8 * c + k]
+            sl["sum"][c, :nb] = v
+        sb = wrap(sb + nb, csize)
+
+    def combs(b):                             # the comb warp
+        sl = slots[b & 1]
+        ins = sl["in"][[0] * 8 + [1] * 8]
+        for f in range(len(frames(b))):
+            fs[:] = sl["win"][:, f] * damp2 + fs * damp1
+            sl["win"][:, f] = ins[:, f] + fs * feedback
+
+    def write_back(b):
+        nonlocal wb
+        nb = len(frames(b))
+        rings[coff + wrap(wb + np.arange(nb), csize)] = \
+            slots[b & 1]["win"][:, :nb]
+        wb = wrap(wb + nb, csize)
+
+    def finish(b):
+        nonlocal ab
+        t = frames(b)
+        sl = slots[b & 1]
+        for f0 in range(0, len(t), C):
+            j = np.arange(min(C, len(t) - f0))
+            pos = aoff + wrap(ab + j, asize)
+            bo = rings[pos]                   # every ring read first
+            v = sl["sum"][:, f0 + j].copy()
+            for a in range(4):
+                o = bo[[a, 4 + a]] - v
+                rings[pos[[a, 4 + a]]] = v + bo[[a, 4 + a]] * f32(0.5)
+                v = o
+            v = v - dc
+            in2 = x[t[f0 + j]] if ch == 2 else x[t[f0 + j]][:, [0, 0]]
+            out[t[f0 + j], 0] = v[0] * wet1 + v[1] * wet2 + in2[:, 0] * dry
+            out[t[f0 + j], 1] = v[1] * wet1 + v[0] * wet2 + in2[:, 1] * dry
+            ab = wrap(ab + len(j), asize)
+
+    for b in range(min(lag, nblocks)):
+        stage(b)
+    for b in range(nblocks):
+        combs(b)
+        write_back(b)
+        if lag == 1 and b + 1 < nblocks:
+            stage(b + 1)
+        finish(b)
+        if lag == 2 and b + 2 < nblocks:
+            stage(b + 2)
+    idx[:] = (idx.astype(np.int64) + n) % size
+    return out
+
+
+MODEL_RATES = (1, 100, 1000, 8000, 44100, 48000, 96000, 192000)
+
+
+@pytest.mark.parametrize("rate", MODEL_RATES)
+@pytest.mark.parametrize("ch", [1, 2])
+def test_block_schedule_equals_plain(rate, ch):
+    """The kernel's schedule, walked in numpy at the block and chunk
+    lengths it derives from the layout, equals the plain version bit for
+    bit: two pushes (1200 then 777 frames, neither a multiple of a block)
+    with the state carried — outputs, rings, indices and filterstores."""
+    rng = np.random.default_rng(rate * 3 + ch)
+    sizes = fk.ring_sizes(rate)
+    prm = fk.params(0.6, 0.3, 0.8, 0.4)
+    pst = fk.fresh_state(1, sizes, "cpu")
+    mst = {k: v[0].numpy().copy() for k, v in pst.items()}
+    for frames in (1200, 777):
+        x = (rng.standard_normal((frames, ch)) * 0.3).astype(np.float32)
+        want = fk.freeverb_plain(torch.from_numpy(x[None]), pst, sizes,
+                                 prm)[0].numpy()
+        got = block_model(x, mst["rings"], mst["idx"], mst["fs"], sizes, prm)
+        assert same_bits(got, want)
+        for key in ("rings", "idx", "fs"):
+            assert same_bits(mst[key], pst[key][0].numpy()), key
 
 
 def _split_run(parse, buffer_cls, desc, bufs, k, states=None, **kw):
@@ -223,6 +366,64 @@ def test_vad_power_plain_exact():
     got = vk.vad_power(torch.from_numpy(x), p0)
     assert got.tolist() == [gold_vad_power(int(p), row)
                             for p, row in zip(p0.tolist(), x)]
+
+
+NALPHA = vk.NALPHA
+
+
+@settings(max_examples=3000, deadline=None, database=None)
+@given(st.integers(0, 2**48 - 1), st.integers(0, 0xFFFF))
+def test_vad_split_form_equals_compact(p, u):
+    """Below 2^48 the reference's split form is (0xF7FF*p) >> 16, and
+    below 2^32 that is the high word of p * 0xF7FF0000."""
+    split = NALPHA * (p >> 16) + ((NALPHA * (p & 0xFFFF)) >> 16)
+    assert split == (NALPHA * p) >> 16
+    assert NALPHA * p < 2**64
+    if p < 2**32:
+        assert split == (p * (NALPHA << 16)) >> 32
+
+
+@settings(max_examples=3000, deadline=None, database=None)
+@given(st.integers(0, 2**32 - 1), st.integers(0, 0xFFFF))
+def test_vad_32bit_invariant(p, u):
+    """p < 2^32 implies p' < 2^32: the 32-bit phase never wraps."""
+    nxt = vk.ALPHA * u + ((NALPHA * p) >> 16)
+    assert nxt < 2**32
+    assert vk.ALPHA * 0xFFFF + ((NALPHA * (2**32 - 1)) >> 16) \
+        == 4294899711 < 2**32
+
+
+def vad_phase_model(p, samples):
+    """csrc/vad.cu's chain in Python: the split form while p >= 2^48, the
+    compact form in 64 bits while p >= 2^32, then the 32-bit multiply-high
+    and add, each phase a prefix of the loop."""
+    a = [(((int(s) * int(s)) >> 14) & 0xFFFF) << 11 for s in samples]
+    i = 0
+    while i < len(a) and p >= 2**48:
+        p = a[i] + NALPHA * (p >> 16) + ((NALPHA * (p & 0xFFFF)) >> 16)
+        i += 1
+    while i < len(a) and p >= 2**32:
+        p = a[i] + ((NALPHA * p) >> 16)
+        assert p < 2**64
+        i += 1
+    for v in a[i:]:
+        p = (((p * (NALPHA << 16)) >> 32) + v)
+        assert p < 2**32
+    return p
+
+
+VAD_P0 = (0, 5, 2**32, 2**33 - 1, 2**40, 2**62)
+
+
+@pytest.mark.parametrize("n", [1, 7, 960, 24000])
+def test_vad_phase_model_equals_plain(n):
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((len(VAD_P0), n)) * 12000).astype(np.int16)
+    x[0, :3] = -32768
+    want = vk.vad_power_plain(torch.from_numpy(x),
+                              torch.tensor(VAD_P0, dtype=torch.int64))
+    assert [vad_phase_model(p, row) for p, row in zip(VAD_P0, x)] \
+        == want.tolist()
 
 
 def test_vad_states_match_reference():
@@ -324,16 +525,19 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("rate", [8000, 44100, 48000, 96000, 192000])
+@pytest.mark.parametrize("rate", [1, 1000, 8000, 44100, 48000, 96000,
+                                  192000, 384000, 768000])
 @pytest.mark.parametrize("ch", [1, 2])
 def test_freeverb_kernel_matches_plain(cuda, rate, ch):
     rng = np.random.default_rng(rate + ch)
     sizes = fk.ring_sizes(rate)
+    # the kernel's own schedule is the one block_model walks
+    assert fk.kernel_schedule(sizes) == fk.schedule(sizes)
     prm = fk.params(0.6, 0.3, 0.8, 0.4)
     kst = fk.fresh_state(2, sizes, cuda)
     pst = fk.fresh_state(2, sizes, "cpu")
-    for _ in range(2):
-        x = torch.from_numpy((rng.standard_normal((2, 1200, ch)) * 0.3)
+    for frames in (1200, 777):
+        x = torch.from_numpy((rng.standard_normal((2, frames, ch)) * 0.3)
                              .astype(np.float32))
         k = fk.freeverb(x.to(cuda), kst, sizes, prm)
         p = fk.freeverb_plain(x, pst, sizes, prm)
@@ -342,11 +546,12 @@ def test_freeverb_kernel_matches_plain(cuda, rate, ch):
         assert same_bits(kst[key].cpu().numpy(), pst[key].numpy())
 
 
-def test_vad_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.standard_normal((3, 24000)) * 12000)
+@pytest.mark.parametrize("n", [1, 7, 960, 24000])
+def test_vad_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal((len(VAD_P0), n)) * 12000)
                          .astype(np.int16))
-    p0 = torch.tensor([0, 5, 2**32], dtype=torch.int64)
+    p0 = torch.tensor(VAD_P0, dtype=torch.int64)
     k = vk.vad_power(x.to(cuda), p0.to(cuda))
     assert k.cpu().tolist() == vk.vad_power_plain(x, p0).tolist()
 

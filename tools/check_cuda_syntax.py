@@ -49,6 +49,7 @@ struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
+struct float4 { float x, y, z, w; };
 extern uint3 threadIdx, blockIdx, blockDim, gridDim;
 const char* cudaGetErrorString(cudaError_t);
 cudaError_t cudaGetLastError();
@@ -73,6 +74,7 @@ int __dp4a(int, int, int);
 int __dp4a(unsigned, unsigned, unsigned);
 void __syncwarp(unsigned = 0xffffffffu);
 void __syncthreads();
+void __threadfence_block();
 """
 
 
