@@ -210,20 +210,23 @@ before it and read just after:
    pushes, the card equal to the CPU.
 
 13. the OpenCV family (cv_phase): the kernels of segmentation's per-pixel
-   Gaussian mixture (gmm) and of disparity's semi-global pass (sgbm; the
-   JAX package ran each as a jitted lax.scan) against their plain versions
-   bit for bit at odd heights, widths that are no multiple of 32, with the
-   mixture's carry continued over ticks, tied and five-mode scenes and
-   weights at backgroundRatio; each timed beside its roofline and latency
-   bounds, then:
+   Gaussian mixture (gmm) and of disparity's cost volume and semi-global
+   pass in one (disparity; the JAX package ran a jitted expression and
+   lax.scans) against their plain versions bit for bit at odd heights,
+   widths that are no multiple of 32, with the mixture's carry continued
+   over ticks, tied and five-mode scenes and weights at backgroundRatio,
+   and disparity from H < 9 and W < 16 to 1280x720; each timed beside its
+   roofline and latency bounds, then:
 
   cv_segment        seeded RGBA 1920x1080, batch 64, 4 ticks, through
                     segmentation (mog2): the mixture's kernel once a tick,
                     every tick's masks and carry equal to the plain
-                    version's; mog and test-mode once each
+                    version's and, on a crop, the CPU path's; mog and
+                    test-mode once each
   cv_stereo         a seeded 1280x720 stereo pair, batch 8, 3 ticks,
-                    through disparity (sgbm): the pass's kernel once a
-                    tick, the output equal to the plain versions'; sbm once
+                    through disparity (sgbm): the fused kernel once a tick,
+                    the output equal to the plain versions' and, on a band,
+                    the CPU path's; sbm once
   cv_edges          seeded RGB 1920x1080, batch 32, 3 ticks, through
                     cvsmooth type=gaussian kernel-width=5 ! edgedetect (no
                     kernel): the hysteresis' grows and host tests a tick
@@ -3179,10 +3182,14 @@ VAD_CHECK = (4, 24000)          # streams, samples a push of the VAD's, 2
 VAD_P0 = (0, 5, 2**32, 2**33 - 1, 2**40, 2**62)   # carried powers
 VAD_LENGTHS = (1, 7, 960, 24000)
 # the times of the kernels these versions replace (freeverb one warp a
-# stream, the VAD one thread a stream; a call back to back on an H100 80GB
-# HBM3, 700 W): {(kernel, frames a push): ms}
+# stream, the VAD one thread a stream, the mixture with ranks and gathers,
+# the pass over a volume in device memory; a call back to back on an H100
+# 80GB HBM3, 700 W): {(kernel, frames a push or shape): ms}
 PREVIOUS_MS = {("freeverb", "4800"): 0.9478,
-               ("freeverb", "480000"): 92.9153, ("vad_power", "960"): 0.0337}
+               ("freeverb", "480000"): 92.9153, ("vad_power", "960"): 0.0337,
+               # the mixture's first kernel, and the semi-global pass alone
+               # on a volume made in plain torch (about 30 ms more)
+               ("gmm", "1080p64"): 2.3962, ("disparity", "720p8"): 0.5909}
 DSP_ALONE = 4800                # frames a push of each factory alone, 2
 DSP_FACTORIES = (               # (chain, format, channels)
     ("mulawenc", "S16LE", 2), ("mulawdec", "mulaw", 2),
@@ -3583,37 +3590,49 @@ def dsp_phase(seed, counters, dev):
 
 CV_SEGMENT = (1920, 1080, 64, 4)        # width, height, batch, ticks
 CV_STEREO = (1280, 720, 8, 3)
+CV_BAND = 64                            # rows of the stereo CPU check
+CV_CROP = 64                            # side of the segmentation CPU check
 CV_EDGES = (1920, 1080, 32, 3)
 CV_EDGE_CHAIN = "cvsmooth type=gaussian kernel-width=5 ! edgedetect"
 CV_CHECK_FRAMES = 2                     # frames of the CPU checks
 CV_ALONE = (96, 64, 2)                  # width, height, frames a factory
 # awkward shapes of the kernel checks: (frames, H, W) with odd heights and
-# widths that are no multiple of 32; (rows, H, W) cost volumes
+# widths that are no multiple of 32; (pairs, H, W) of the disparity
+# kernel: H < 9, W < 16, one pixel, 257 columns (two levels of its W-scan),
+# 4100 (three, a short H), heights that are no multiple of its 23-row
+# strips, 640x480 and 1280x720 (the order of the integral image's adds
+# decides the sums there)
 CV_GMM_SHAPES = ((3, 37, 45), (5, 17, 33), (4, 1, 1), (2, 64, 96))
-CV_SGBM_SHAPES = ((2, 13, 45), (1, 7, 1), (3, 5, 64), (1, 33, 70))
+CV_DISP_SHAPES = ((2, 5, 20), (1, 1, 1), (2, 30, 7), (1, 12, 257),
+                  (1, 3, 4100), (2, 50, 33), (1, 47, 70), (1, 480, 640),
+                  (1, 720, 1280))
 # float operations the mixture needs a pixel and frame, counted from
 # csrc/gmm.cu, a fused multiply-add as two, a comparison or a division as
-# one: for each of the five modes the distance 8, ownership 2, the weight
-# 4 and its liveness 1; the owned mode's update 13 (one mode); the total
-# 5, the normalisation 5, the ranks' comparisons 30, the running sum and
-# its tests 14, the background test 10
-GMM_OPS = 5 * 15 + 13 + 5 + 5 + 30 + 14 + 10
-# and the shadow test's, for each of the five modes of a pixel-frame that
-# matches no background mode (mog2 only): three dot products 15, the
-# ratio 2, the shadowed colour 6, the tests 6
-GMM_SHADOW_OPS = 5 * 29
+# one: for each of the five modes the distance 8, ownership 2, the match
+# within Tb 2, the weight 4 and its liveness 1; the owned mode's update 13
+# (one mode); the total 5, the normalisation 5, the heaviest mode's search
+# 4 and its test 1.  The sorting network's 10 comparisons and the running
+# sum's 14 run only where the heaviest mode holds less than 0.9001 of the
+# weight and are not counted: a lower bound.
+GMM_OPS = 5 * 17 + 13 + 5 + 5 + 5
+# and the shadow test's, on a pixel-frame that matches no background mode
+# (mog2 only), for each background mode; the heaviest live mode always is
+# one, so at least once: three dot products 15, the ratio 2, the shadowed
+# colour 6, the tests 6
+GMM_SHADOW_OPS = 29
 # dependent operations a frame on one pixel's chain through its carry (the
 # distance, ownership, weight update, total, division, rank, running sum,
 # background and shadow tests), counted from the source
 GMM_CHAIN = 48
-# operations a disparity and column of the semi-global pass (the minimum's
-# share, two neighbours, three minima, an add, a subtract, the argmin's
-# share) and dependent operations a column on the chain through prev (the
-# warp minimum's redux, its key back to a float, m + P2, three minima, an
-# add and a subtract), each counted at DEP_CYCLES (the redux takes longer:
-# a lower bound)
-SGBM_OPS = 12
-SGBM_CHAIN = 9
+# operations a pixel and disparity of the fused disparity kernel: |L - R|
+# 2, the column's sum 1, the W-scan's running sum and base 2, the box 3;
+# then the semi-global pass 12 (the minimum's share, two neighbours, three
+# minima, an add, a subtract, the argmin's share); and dependent operations
+# a column on the pass's chain through prev (the warp minimum's redux, its
+# key back to a float, m + P2, three minima, an add and a subtract), each
+# counted at DEP_CYCLES (the redux takes longer: a lower bound)
+DISP_OPS = 2 + 1 + 2 + 3 + 12
+DISP_CHAIN = 9
 CV_K = ((90.0, 0.0, 48.0), (0.0, 90.0, 32.0), (0.0, 0.0, 1.0))
 CV_DIST = (-0.25, 0.08, 0.0, 0.0, 0.0)
 CV_FACTORIES = (                 # (launch, input format; {t}: temp dir)
@@ -3719,15 +3738,16 @@ def check_cv_kernels(rng, dev):
     """The two kernels against their plain versions on the same inputs (the
     plain version on the card too), bit for bit: the mixture at
     CV_GMM_SHAPES, both methods, the noisy, flat and five-mode scenes, the
-    carry continued over three ticks, and the straddling carry; the
-    semi-global pass at CV_SGBM_SHAPES (aggregated volume and disparities)
-    and on an image's cost volume, which also equals the CPU's.  Returns
-    {kernel: max abs error}."""
+    carry continued over three ticks, and the straddling carry; the fused
+    disparity kernel from gray planes at CV_DISP_SHAPES, sgbm and sbm (the
+    cost volume, the aggregated volume and the disparities it gives on
+    request, and the disparities alone), and on a stereo image against
+    the CPU path.  Returns {kernel: max abs error}."""
     import numpy as np
     import torch
     from gstreamer_tpu_torch.ops import gmm_kernel as gk
     from gstreamer_tpu_torch.ops import sgbm_kernel as sk
-    err = {"gmm": 0, "sgbm": 0.0}
+    err = {"gmm": 0, "disparity": 0}
     cases = 0
     for n, h, w in CV_GMM_SHAPES:
         for method in ("mog2", "mog"):
@@ -3756,31 +3776,40 @@ def check_cv_kernels(rng, dev):
                                           for k in kc)
             and bool((pm == 0).any()) and bool((pm != 0).any()),
             "gmm: the kernel differs at backgroundRatio")
-    for shape in CV_SGBM_SHAPES:
-        cost = torch.from_numpy(rng.integers(0, 2000, shape + (32,))
-                                .astype(np.float32)).to(dev)
-        disp, agg = sk.sgbm(cost, want_agg=True)
-        plain = sk.sgbm_plain(cost)
-        err["sgbm"] = max(err["sgbm"], float((agg - plain).abs().max()))
-        require(cv_bits_equal(agg, plain)
-                and cv_bits_equal(disp, sk.first_argmin(plain)),
-                f"sgbm: the kernel differs from its plain version at {shape}")
-    gl = torch.from_numpy(rng.integers(0, 256, (2, 37, 70))
-                          .astype(np.float32))
+    for pairs, h, w in CV_DISP_SHAPES:
+        gl = torch.from_numpy(rng.integers(0, 256, (pairs, h, w),
+                                           dtype=np.uint8))
+        gr = torch.roll(gl, -5, -1) ^ torch.from_numpy(
+            (rng.random((pairs, h, w)) < 0.1).astype(np.uint8))
+        gl, gr = gl.to(dev), gr.to(dev)
+        cost = sk.cost_volume(gl.float(), gr.float())
+        for method in ("sgbm", "sbm"):
+            disp, kc, ka = sk.disparity(gl, gr, method, want_volumes=True)
+            vol = sk.sgbm_plain(cost) if method == "sgbm" else cost
+            want = sk.first_argmin(vol)
+            err["disparity"] = max(err["disparity"], int(
+                (disp.int() - want.int()).abs().max()))
+            require(cv_bits_equal(kc, cost)
+                    and (ka is None) == (method == "sbm")
+                    and (ka is None or cv_bits_equal(ka, vol))
+                    and cv_bits_equal(disp, want)
+                    and cv_bits_equal(sk.disparity(gl, gr, method)[0], want),
+                    f"disparity: the kernel differs from its plain versions "
+                    f"({method}, {(pairs, h, w)})")
+    gl = torch.from_numpy(rng.integers(0, 256, (2, 37, 70), dtype=np.uint8))
     gr = torch.roll(gl, 3, -1)
-    cv = sk.cost_volume(gl.to(dev), gr.to(dev))
-    require(cv_bits_equal(cv, sk.cost_volume(gl, gr)),
-            "cost volume: the card differs from the CPU")
-    disp, agg = sk.sgbm(cv, want_agg=True)
-    plain = sk.sgbm_plain(cv)
-    require(cv_bits_equal(agg, plain)
-            and cv_bits_equal(disp, sk.first_argmin(plain)),
-            "sgbm: the kernel differs on an image's cost volume")
+    for method in ("sgbm", "sbm"):
+        card = sk.disparity(gl.to(dev), gr.to(dev), method, want_volumes=True)
+        cpu = sk.disparity(gl, gr, method, want_volumes=True)
+        require(all((a is None and b is None) or cv_bits_equal(a, b)
+                    for a, b in zip(card, cpu)),
+                f"disparity ({method}): the card differs from the CPU path")
     print(f"cv kernel vs plain (bit for bit): {err}; gmm at {CV_GMM_SHAPES} "
           f"(frames, H, W), mog2 and mog, noisy / flat (tied spawns) / "
           f"five-mode scenes, the carry over 3 ticks ({cases} cases), and "
-          f"at backgroundRatio; sgbm at {CV_SGBM_SHAPES} (rows, H, W) and on "
-          f"a 2x37x70 image cost volume (== the CPU's)")
+          f"at backgroundRatio; disparity at {CV_DISP_SHAPES} (pairs, H, W), "
+          f"sgbm and sbm, cost volume, aggregated volume and disparities, "
+          f"and on a 2x37x70 stereo image (== the CPU path)")
     return err
 
 
@@ -3894,14 +3923,17 @@ def disparity_plain(left, right, method):
     return torch.clamp(disp.to(torch.float32) * step, 0, 255).to(torch.uint8)
 
 
-def time_cv_kernels(carry, frames, cost, dev):
+def time_cv_kernels(carry, frames, gray, dev):
     """Each kernel at its main path's shape: a call back to back (CUDA
     events), the device time of a CUDA graph of calls, the plain version on
     the card, the roofline bound (inputs read once, outputs written once,
     at 3.35 TB/s, against the operations at the fp32 peak) and the latency
     bound (the dependent chain at DEP_CYCLES an operation and the card's
     maximum SM clock).  The mixture's operations count its shadow test on
-    the share of pixel-frames that the timed call finds foreground."""
+    the share of pixel-frames that the timed call finds foreground; the
+    disparity kernel's plain version is the cost volume, the pass and the
+    argmin, and the plain cost volume alone (the part that ran in plain
+    torch before the fusion) is timed too."""
     from gstreamer_tpu_torch.ops import gmm_kernel as gk
     from gstreamer_tpu_torch.ops import sgbm_kernel as sk
     clock = sm_clock_hz()
@@ -3928,25 +3960,37 @@ def time_cv_kernels(carry, frames, cost, dev):
                f"{GMM_SHADOW_OPS} x foreground share {fg:.4f} a "
                "pixel-frame"),
         latency_ms=n * GMM_CHAIN * DEP_CYCLES / clock * 1e3)
-    rows, cw = cost.numel() // (cost.shape[-2] * 32), cost.shape[-2]
+    gl, gr = gray
+    pairs, h, w = gl.shape
 
-    def sgbm_call():
-        return sk.sgbm(cost)
-    nbytes = rows * cw * (32 * 4 + 1)
+    def disp_call():
+        return sk.disparity(gl, gr, "sgbm")
+
+    def disp_plain():
+        return sk.first_argmin(sk.sgbm_plain(sk.cost_volume(gl.float(),
+                                                            gr.float())))
+    nbytes = 3 * pairs * h * w
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = rows * cw * 32 * SGBM_OPS / FP32_OPS_PER_S * 1e3
-    out[("sgbm", "720p8")] = dict(
-        ms=cuda_ms(sgbm_call, 10, 1), device_ms=graph_ms(sgbm_call, 5),
-        plain_ms=cuda_ms(lambda: sk.sgbm_plain(cost), 1, 0),
+    t_o = pairs * h * w * sk.NUM_DISP * DISP_OPS / FP32_OPS_PER_S * 1e3
+    out[("disparity", "720p8")] = dict(
+        ms=cuda_ms(disp_call, 10, 1), device_ms=graph_ms(disp_call, 5),
+        plain_ms=cuda_ms(disp_plain, 1, 0),
+        volume_plain_ms=cuda_ms(lambda: sk.cost_volume(gl.float(),
+                                                       gr.float()), 3, 1),
         library_ms=None,
         bound=((t_b, "bytes", "3.35 TB/s") if t_b >= t_o
                else (t_o, "operations", "fp32 67 T ops/s")),
-        terms=f"bytes {t_b:.4f}, operations {t_o:.4f}",
-        latency_ms=cw * SGBM_CHAIN * DEP_CYCLES / clock * 1e3)
+        terms=(f"bytes {t_b:.4f}, operations {t_o:.4f}: {DISP_OPS} a "
+               f"pixel-disparity"),
+        latency_ms=w * DISP_CHAIN * DEP_CYCLES / clock * 1e3)
     for (kname, tag), t in out.items():
+        extra = (f"; the plain cost volume alone {t['volume_plain_ms']:.4f} "
+                 f"ms" if "volume_plain_ms" in t else "")
         print(f"time {kname} [{tag}]: kernel {t['ms']:.4f} ms a call back to "
-              f"back (CUDA events), {t['device_ms']:.4f} ms on the device (a "
-              f"CUDA graph of the calls), plain {t['plain_ms']:.4f} ms, bound "
+              f"back (CUDA events; the previous kernel, so timed: "
+              f"{PREVIOUS_MS[(kname, tag)]:.4f} ms), {t['device_ms']:.4f} ms "
+              f"on the device (a CUDA graph of the calls), plain "
+              f"{t['plain_ms']:.4f} ms{extra}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]}, {t['bound'][2]}; "
               f"{t['terms']}), latency bound {t['latency_ms']:.4f} ms "
               f"({DEP_CYCLES} cycles an operation at {clock / 1e6:.0f} MHz; "
@@ -4035,6 +4079,26 @@ def cv_profile(desc, pushes, batch, dev, iters=2, kernel=None):
     return wall, busy, idle, top, events, kernel_ms
 
 
+def traced_busy(wall, busy, idle, events, kernel_ms, symbol, cuda):
+    """(busy ms, idle share, note) of a traced tick whose kernel is a ctypes
+    launch of `symbol` (cv_profile's `kernel`): where the trace holds the
+    kernel's events, its own union; where it holds none, the union of the
+    trace's other device events plus the kernel's device time from the CUDA
+    events around its launches (one stream: nothing overlaps; a span adds
+    the launch's latency), so every path's busy counts the same work."""
+    note = (f" (the trace's kernel events: {events}; CUDA events around the "
+            f"traced ticks' launches of {symbol}: {kernel_ms:.3f} ms a tick)")
+    if cuda and events == 0:
+        require(kernel_ms > 0, f"{symbol}: no device time in a traced tick")
+        busy += kernel_ms
+        idle = max(0.0, 1.0 - busy / wall)
+        note = (f" (the trace held no event of the kernel: busy is the "
+                f"trace's other device time plus the CUDA events around the "
+                f"traced ticks' launches of {symbol}, {kernel_ms:.3f} ms, "
+                f"against the traced tick's {wall:.3f} ms)")
+    return busy, idle, note
+
+
 def cv_alone_inputs(fmt, w, h, n, rng):
     """Seeded frames for one factory alone: a noisy dark background with a
     bright 12x12 square moving 2 pixels a frame (what the synthetic cascade
@@ -4069,7 +4133,7 @@ def cv_factories_alone(counters, dev, rng, tmp):
     """Each of the 24 launch rows of CV_FACTORIES (the 23 factories,
     segmentation with two methods) on 2 frames at CV_ALONE's size on the card
     and on the CPU: samples and bus messages equal; the mixture's kernel
-    launched once where segmentation runs mog2, the semi-global pass's once
+    launched once where segmentation runs mog2, the disparity kernel once
     where disparity runs, none elsewhere."""
     import numpy as np
     from gstreamer_tpu_torch.codecs.png import png_encode
@@ -4110,7 +4174,8 @@ def cv_factories_alone(counters, dev, rng, tmp):
         cpipe, on_card, _ = drive_multi(full, n, 1, card, dev)
         counts = {k: c.launches for k, c in counters.items() if c.launches}
         want = ({"gmm": 1} if desc.startswith("segmentation") and "codebook"
-                not in desc else {"sgbm": 1} if fname == "disparity" else {})
+                not in desc else {"disparity": 1} if fname == "disparity"
+                else {})
         require(counts == want or dev.type != "cuda",
                 f"{fname}: launches {counts}, want {want}")
         hpipe, on_cpu, _ = drive_multi(full, n, 1, {
@@ -4123,7 +4188,8 @@ def cv_factories_alone(counters, dev, rng, tmp):
     require(len(set(checked)) == 23, f"{len(set(checked))} factories checked")
     print(f"cv each factory alone: CUDA == port CPU path (samples and bus "
           f"messages) on {n} frames of {w}x{h}, gmm once for segmentation "
-          f"(mog2), sgbm once for disparity, no kernel elsewhere, for "
+          f"(mog2), the disparity kernel once for disparity, no kernel "
+          f"elsewhere, for "
           f"{checked}")
 
 
@@ -4133,19 +4199,21 @@ def torch_to(p, dev):
 
 
 def cv_phase(seed, counters, dev):
-    """The OpenCV family on the card.  Checks the mixture's and the
-    semi-global pass's kernels against their plain versions
-    (check_cv_kernels), then drives, each with the launch counts zeroed
-    just before it and read just after:
+    """The OpenCV family on the card.  Checks the mixture's and the fused
+    disparity kernels against their plain versions (check_cv_kernels),
+    then drives, each with the launch counts zeroed just before it and read
+    just after:
 
     cv_segment  seeded RGBA 1920x1080 at batch 64, 4 ticks, through
                 segmentation (mog2): the mixture's kernel once a tick; every
-                tick's masks and carry equal the plain version's; mog and
-                test-mode once each
+                tick's masks and carry equal the plain version's and, on a
+                CV_CROP square, the CPU path's; mog and test-mode once each
     cv_stereo   a seeded 1280x720 stereo pair at batch 8, 3 ticks, through
-                disparity (sgbm): the pass's kernel once a tick; the output
-                equals the plain versions'; sbm once; the cost volume of a
-                frame equals the CPU's
+                disparity (sgbm): the disparity kernel (cost volume, pass
+                and argmin) once a tick; every tick's output equals the
+                plain versions' and, on the first pair's top rows, the CPU
+                path's; sbm once; the cost volume of a frame equals the
+                CPU's
     cv_edges    seeded RGB 1920x1080 at batch 32 of a structured scene
                 (cv_edge_frames), 3 ticks, through cvsmooth type=gaussian
                 kernel-width=5 ! edgedetect: no kernel; the hysteresis'
@@ -4218,6 +4286,12 @@ def cv_phase(seed, counters, dev):
     alpha, act = gk.rates(0.01, True)
     pc = {k: torch.from_numpy(v).to(dev)
           for k, v in gk.init_carry(h, w).items()}
+    # the CPU path on a CV_CROP square across the shadowed quarter's corner
+    # (each pixel's mixture is its own), its carry continued tick to tick
+    ys = slice(h // 2 - CV_CROP // 2, h // 2 + CV_CROP // 2)
+    xs = slice(w // 2 - CV_CROP // 2, w // 2 + CV_CROP // 2)
+    cc = {k: torch.from_numpy(v)
+          for k, v in gk.init_carry(CV_CROP, CV_CROP).items()}
     fg = []
     for t, planes in enumerate(frames):
         pc, pm = gk.gmm_plain(pc, *planes[:3], alpha, act, True)
@@ -4229,6 +4303,11 @@ def cv_phase(seed, counters, dev):
         require(all(cv_bits_equal(carries[t][k], pc[k]) for k in pc),
                 f"cv_segment: tick {t + 1}'s carry differs from the plain "
                 f"version")
+        cc, cm = gk.gmm_plain(cc, *(p[:, ys, xs].cpu() for p in planes[:3]),
+                              alpha, act, True)
+        require(torch.equal(data[3][:, ys, xs].cpu(), cm) and all(
+            cv_bits_equal(carries[t][k][ys, xs].cpu(), cc[k]) for k in cc),
+                f"cv_segment: tick {t + 1} differs from the CPU path")
         fg.append(round(float((pm != 0).float().mean()), 4))
     once = []
     for props, on in (("method=mog", False), ("test-mode=true", True)):
@@ -4260,37 +4339,49 @@ def cv_phase(seed, counters, dev):
     base = start("cv_stereo")
     _, outs, secs = drive_multi(stereo.format("sgbm"), n, ticks,
                                 {"l": left, "r": right}, dev)
-    counts = finish("cv_stereo", {"sgbm": ticks})
+    counts = finish("cv_stereo", {"disparity": ticks})
     mem = peak(base)
     gold = disparity_plain(left, right, "sgbm")
+    # the CPU path on a band of the first pair: a row's output depends on
+    # the rows within 4 of it, so the band's top CV_BAND - 4 rows are whole
+    band = tuple(p[:1, :CV_BAND].cpu() for p in left), \
+        tuple(p[:1, :CV_BAND].cpu() for p in right)
+    cpu = disparity_plain(*band, "sgbm")[:, :CV_BAND - 4]
     require(len(outs) == ticks and all(
         len(o) == 1 and all(torch.equal(x, gold) for x in o[0].buffer.data)
-        for o in outs), "cv_stereo: the output differs from the plain versions")
+        and torch.equal(o[0].buffer.data[0][:1, :CV_BAND - 4].cpu(), cpu)
+        for o in outs), "cv_stereo: the output differs from the plain "
+            "versions or the CPU path")
     _, o2, _ = drive_multi(stereo.format("sbm"), n, 1,
                            {"l": left, "r": right}, dev)
     require(all(torch.equal(x, disparity_plain(left, right, "sbm"))
                 for x in o2[0][0].buffer.data),
             "cv_stereo sbm: differs from the plain version")
-    gl = cvk.rgb2gray_u8(torch, *left).to(torch.float32)
-    gr = cvk.rgb2gray_u8(torch, *right).to(torch.float32)
-    cost = sk.cost_volume(gl, gr)
-    require(cv_bits_equal(cost[:1], sk.cost_volume(gl[:1].cpu(),
-                                                   gr[:1].cpu())),
+    gl = cvk.rgb2gray_u8(torch, *left)
+    gr = cvk.rgb2gray_u8(torch, *right)
+    require(cv_bits_equal(sk.cost_volume(gl[:1].float(), gr[:1].float()),
+                          sk.cost_volume(gl[:1].cpu().float(),
+                                         gr[:1].cpu().float())),
             "cv_stereo: the cost volume on the card differs from the CPU's")
-    _, busy, idle, top, _, _ = cv_profile(stereo.format("sgbm"),
-                                       {"l": left, "r": right}, n, dev)
+    wall, busy, idle, top, events, kernel_ms = cv_profile(
+        stereo.format("sgbm"), {"l": left, "r": right}, n, dev,
+        kernel=("gst_disparity", "disparity_kernel"))
+    busy, idle, note = traced_busy(wall, busy, idle, events, kernel_ms,
+                                   "gst_disparity", cuda)
     timed = sum(secs[1:])
     hist = torch.bincount(gold.flatten().long(), minlength=256)
     print(f"cv_stereo: {ticks} ticks of {n} RGB {w}x{h} pairs, launches "
-          f"{counts}; output == plain versions on every tick (disparity "
+          f"{counts}; output == plain versions on every tick, and == the "
+          f"CPU path on the first pair's top {CV_BAND - 4} rows (disparity "
           f"levels most used: {hist.topk(3).indices.tolist()}); sbm once == "
           f"plain; the cost volume of a frame == the CPU's")
     print(f"e2e cv_stereo: {n * (ticks - 1) / timed:.1f} input pairs/s over "
           f"ticks 2..{ticks} ({timed / (ticks - 1) * 1e3:.3f} ms a tick on "
           f"average); device busy {busy:.3f} ms a tick, idle share "
-          f"{idle:.3f}; top device items {top}; peak device memory "
+          f"{idle:.3f}{note}; top device items {top}; peak device memory "
           f"{mem:.1f} MiB above the path's start; {card}")
-    del outs, gold, gl, gr
+    stereo_gray = (gl, gr)
+    del outs, gold
 
     # -- cv_edges --------------------------------------------------------------
     w, h, n, ticks = CV_EDGES
@@ -4328,28 +4419,18 @@ def cv_phase(seed, counters, dev):
           f"{mem:.1f} MiB above the path's start; {card}")
     del outs, planes
 
-    timings = time_cv_kernels(carry, seg_frames, cost, dev) if cuda else {}
-    del carry, seg_frames, cost
+    timings = (time_cv_kernels(carry, seg_frames, stereo_gray, dev) if cuda
+               else {})
+    del carry, seg_frames, stereo_gray
     w, h, n, ticks = CV_SEGMENT
     rate, tick_ms, mem, counts, fg, once = seg_rate
     wall, busy, idle, top, events, kernel_ms = seg_prof
-    note = (f" (the trace's gmm kernel events: {events}; CUDA events around "
-            f"the traced ticks' launches: {kernel_ms:.3f} ms a tick)")
-    if cuda and events == 0:
-        # the trace holds no event of the kernel: busy is its device time
-        # on the traced ticks themselves, from the CUDA events around its
-        # launches (the tick's only device work; a span adds the launch's
-        # latency)
-        require(kernel_ms > 0, "cv_segment: no device time in a traced tick")
-        busy = kernel_ms
-        idle = max(0.0, 1.0 - busy / wall)
-        note = (" (the trace held no gmm kernel event: busy from CUDA "
-                "events around the traced ticks' launches of gst_gmm, the "
-                f"tick's only device work, against the traced tick's "
-                f"{wall:.3f} ms)")
+    busy, idle, note = traced_busy(wall, busy, idle, events, kernel_ms,
+                                   "gst_gmm", cuda)
     print(f"cv_segment: {ticks} ticks of {n} RGBA {w}x{h} frames, launches "
-          f"{counts}; masks and carry == plain version on every tick "
-          f"(foreground share {fg}); {once} once each == plain")
+          f"{counts}; masks and carry == plain version on every tick, and "
+          f"== the CPU path on a {CV_CROP}x{CV_CROP} crop (foreground share "
+          f"{fg}); {once} once each == plain")
     print(f"e2e cv_segment: {rate:.1f} input frames/s over ticks 2..{ticks} "
           f"({tick_ms:.3f} ms a tick on average, host clock between "
           f"synchronises); device busy {busy:.3f} ms a tick, idle share "
@@ -4544,7 +4625,7 @@ def main() -> int:
                 "freeverb": fvk.freeverb,
                 "vad_power": vk.vad_power,
                 "gmm": gk.gmm,
-                "sgbm": sk.sgbm}
+                "disparity": sk.disparity}
     for c in counters.values():
         c.launches = 0
     outs, per_cfg = {}, {}
@@ -4664,7 +4745,7 @@ def main() -> int:
     err.update(dsp_err)
     timings.update(dsp_timings)
 
-    # -- the OpenCV family: the mixture's and the semi-global pass's kernels --
+    # -- the OpenCV family: the mixture's and the disparity kernels ----------
     cv_launches, cv_err, cv_timings = cv_phase(args.seed, counters, dev)
     for k, n in cv_launches.items():
         launches[k] += n
@@ -4701,9 +4782,9 @@ def main() -> int:
                "gmm": ("gstreamer_tpu_torch/csrc/gmm.cu",
                        "gstreamer_tpu/elements/opencv_analysis.py:313",
                        "1080p64"),
-               "sgbm": ("gstreamer_tpu_torch/csrc/sgbm.cu",
-                        "gstreamer_tpu/elements/opencv_analysis.py:964",
-                        "720p8")}
+               "disparity": ("gstreamer_tpu_torch/csrc/disparity.cu",
+                             "gstreamer_tpu/elements/opencv_analysis.py:964",
+                             "720p8")}
     kernels = []
     for kname, (src, repl, tag) in sources.items():
         t = timings[(kname, tag)]

@@ -14,8 +14,16 @@
 //   fma(-ratio, mean, x)                                        (:232-236)
 // The weights' total is summed left to right, and so is the sorted weights'
 // cumsum (jnp.cumsum is XLA's reduce-window, in order for five).  The stable
-// argsort of -w (zeros equal) places a mode after the heavier modes and the
-// equal modes before it; the weakest-slot argmin takes the first index.
+// argsort of -w (zeros equal) is an odd-even transposition network of ten
+// adjacent exchanges that carries each mode's bit, so the background modes
+// come out as a bitmask; the weakest-slot argmin takes the first index.
+//
+// Built to issue few instructions a frame: one pass over the modes finds
+// the owned mode and updates it in place (a branch: in a warp most lanes
+// own the same mode), the modes' tests are bitmasks, a pixel whose heaviest
+// mode holds at least kSoleBg of the weight skips the sort, the shadow test
+// runs only for background modes, and the next frame's pixel is loaded a
+// frame ahead.
 //
 // The carry is the reference's layout: weight (P, 5), mean (P, 5, 3),
 // var (P, 5) float32 and nmodes (P,) int32 for P pixels; it is read once
@@ -34,6 +42,9 @@ constexpr int kK = 5;
 constexpr float kTb = 16.0f;        // varThreshold
 constexpr float kTg = 9.0f;         // varThresholdGen
 constexpr float kBgRatio = 0.9f;    // backgroundRatio
+// a heaviest weight from which it is the only background mode: above
+// backgroundRatio by more than the 2^-23 the running sums can lose
+constexpr float kSoleBg = 0.9001f;
 constexpr float kVarInit = 15.0f;
 constexpr float kVarMin = 4.0f;
 constexpr float kVarMax = 75.0f;
@@ -43,6 +54,20 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return fmaf(a[2], b[2], fmaf(a[1], b[1], a[0] * b[0]));
+}
+
+// one adjacent exchange of the descending sort: only a strictly heavier
+// weight on the right moves left, so equal weights (0.0 and -0.0 among
+// them) keep their order and the network is stable
+__device__ __forceinline__ void exchange(float& wa, float& wb, unsigned& pa,
+                                         unsigned& pb) {
+  const bool s = wb > wa;
+  const float w0 = s ? wb : wa, w1 = s ? wa : wb;
+  const unsigned p0 = s ? pb : pa, p1 = s ? pa : pb;
+  wa = w0;
+  wb = w1;
+  pa = p0;
+  pb = p1;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -66,54 +91,56 @@ gmm_kernel(const uint8_t* __restrict__ rp, const uint8_t* __restrict__ gp,
   }
   int n = n_in[p];
 
+  // the next frame's pixel is loaded a frame ahead
+  unsigned nr = rp[p], ng = gp[p], nb = bp[p];
   for (int f = 0; f < frames; ++f) {
     const size_t off = static_cast<size_t>(f) * pixels + p;
-    const float x[3] = {static_cast<float>(rp[off]),
-                        static_cast<float>(gp[off]),
-                        static_cast<float>(bp[off])};
-    float d[kK][3], dist2[kK];
-    int first = -1;                        // first active mode within Tg
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) d[k][c] = x[c] - m[k][c];
-      dist2[k] = dot3(d[k], d[k]);
-      if (first < 0 && k < n && dist2[k] < v[k] * kTg) first = k;
+    const float x[3] = {static_cast<float>(nr), static_cast<float>(ng),
+                        static_cast<float>(nb)};
+    if (f + 1 < frames) {
+      nr = rp[off + pixels];
+      ng = gp[off + pixels];
+      nb = bp[off + pixels];
     }
-    const bool has_own = first >= 0;
-
-    float nw[kK], nm[kK][3], nv[kK];
-    int nn = 0;
+    // one pass over the modes: the distance, the match within Tb of the
+    // old variance (near, a bitmask), the weight (the reference's o - w with
+    // o = 0 is -w), and the first active mode within Tg takes the owned
+    // update in place: its weight with o = 1, its mean and variance
+    unsigned near = 0, live = 0;
+    int first = -1;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      const float o = (k == first) ? 1.0f : 0.0f;
-      nw[k] = fmaf(alpha, o - w[k], w[k]) - act;
-      if (k == first) {
-        const float rho = alpha / fmaxf(nw[k], kEps);
+      float d[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) nm[k][c] = fmaf(rho, d[k][c], m[k][c]);
-        // var's rate is the reference's second alpha / max(w', eps):
-        // the same value as rho
-        nv[k] = fminf(fmaxf(fmaf(rho, dist2[k] - v[k], v[k]), kVarMin),
-                      kVarMax);
-      } else {
+      for (int c = 0; c < 3; ++c) d[c] = x[c] - m[k][c];
+      const float dist2 = dot3(d, d);
+      if (dist2 < v[k] * kTb) near |= 1u << k;
+      const float w0 = w[k];
+      w[k] = fmaf(alpha, -w0, w0) - act;
+      if (first < 0 && k < n && dist2 < v[k] * kTg) {
+        first = k;
+        w[k] = fmaf(alpha, 1.0f - w0, w0) - act;
+        // var's rate is the reference's second alpha / max(w', eps): the
+        // same value as rho
+        const float rho = alpha / fmaxf(w[k], kEps);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) nm[k][c] = m[k][c];
-        nv[k] = v[k];
+        for (int c = 0; c < 3; ++c) m[k][c] = fmaf(rho, d[c], m[k][c]);
+        v[k] = fminf(fmaxf(fmaf(rho, dist2 - v[k], v[k]), kVarMin), kVarMax);
       }
-      const bool alive = k < n && nw[k] > 0.0f;
-      if (!alive) nw[k] = 0.0f;
-      nn += alive ? 1 : 0;
+      const bool alive = k < n && w[k] > 0.0f;
+      if (!alive) w[k] = 0.0f;
+      live |= alive ? 1u << k : 0u;
     }
-    if (!has_own) {                          // spawn in the weakest slot
+    int nn = __popc(live);
+    if (first < 0) {                         // spawn in the weakest slot
       int slot = nn;
       if (nn >= kK) {                        // every mode alive here
         slot = 0;
-        float best = nw[0];
+        float best = w[0];
 #pragma unroll
         for (int k = 1; k < kK; ++k) {
-          if (nw[k] < best) {
-            best = nw[k];
+          if (w[k] < best) {
+            best = w[k];
             slot = k;
           }
         }
@@ -121,87 +148,83 @@ gmm_kernel(const uint8_t* __restrict__ rp, const uint8_t* __restrict__ gp,
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
         if (k == slot) {
-          nw[k] = alpha;
+          w[k] = alpha;
 #pragma unroll
-          for (int c = 0; c < 3; ++c) nm[k][c] = x[c];
-          nv[k] = kVarInit;
+          for (int c = 0; c < 3; ++c) m[k][c] = x[c];
+          v[k] = kVarInit;
         }
       }
       nn = min(nn + 1, kK);
     }
-    const float tot = fmaxf((((nw[0] + nw[1]) + nw[2]) + nw[3]) + nw[4], kEps);
+    const float tot = fmaxf((((w[0] + w[1]) + w[2]) + w[3]) + w[4], kEps);
 #pragma unroll
-    for (int k = 0; k < kK; ++k) nw[k] = (k < nn) ? nw[k] / tot : 0.0f;
+    for (int k = 0; k < kK; ++k) w[k] = (k < nn) ? w[k] / tot : 0.0f;
 
-    // a mode's place in the stable descending sort, the sorted weights and
-    // the cumulative weight before each place
-    int rank[kK];
+    // the background modes as a bitmask.  Where the heaviest weight is at
+    // least kSoleBg, it alone is background: it sorts first (no other
+    // weight can equal it), and every later place's running sum less its
+    // own weight stays at or above the heaviest less 2^-23, so above
+    // backgroundRatio.  Elsewhere, the stable descending sort of (weight,
+    // mode bit): odd-even transposition, five rounds of adjacent
+    // exchanges; then the running sum in sorted order.
+    float wmax = w[0];
+    int kmax = 0;
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      int r = 0;
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        r += (nw[j] > nw[k] || (j < k && nw[j] == nw[k])) ? 1 : 0;
+    for (int k = 1; k < kK; ++k) {
+      if (w[k] > wmax) {
+        wmax = w[k];
+        kmax = k;
       }
-      rank[k] = r;
     }
-    float ws[kK];
-#pragma unroll
-    for (int q = 0; q < kK; ++q) {
-      ws[q] = 0.0f;
+    unsigned bg = 1u << kmax;
+    if (wmax < kSoleBg) {
+      float ws[kK];
+      unsigned pm[kK];
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
-        if (rank[k] == q) ws[q] = nw[k];
+        ws[k] = w[k];
+        pm[k] = 1u << k;
       }
-    }
-    bool bg_at[kK];
-    float csum = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kK; ++q) {
-      csum = q ? csum + ws[q] : ws[0];
-      bg_at[q] = (csum - ws[q]) < kBgRatio;
-    }
-
-    bool is_bg[kK];
-    bool matches_bg = false;
+      for (int r = 0; r < kK; ++r) {
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      bool b = false;
+        for (int i = r & 1; i + 1 < kK; i += 2) {
+          exchange(ws[i], ws[i + 1], pm[i], pm[i + 1]);
+        }
+      }
+      bg = 0;
+      float csum = 0.0f;
 #pragma unroll
       for (int q = 0; q < kK; ++q) {
-        if (rank[k] == q) b = bg_at[q];
+        csum = q ? csum + ws[q] : ws[0];
+        if ((csum - ws[q]) < kBgRatio) bg |= pm[q];
       }
-      is_bg[k] = b && k < nn;
-      if (is_bg[k] && dist2[k] < v[k] * kTb) matches_bg = true;
     }
+    bg &= (1u << nn) - 1u;                   // the modes below nn
+    const bool matches_bg = (bg & near) != 0;
+
     uint8_t out = matches_bg ? 0 : 255;
-    if (!matches_bg && with_shadow) {
+    if (!matches_bg && with_shadow) {        // only background modes count
       bool shadow = false;
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
-        const float num = dot3(x, nm[k]);
-        const float den = fmaxf(dot3(nm[k], nm[k]), kEps);
-        const float ratio = num / den;
-        float ds[3];
+        if (bg & (1u << k)) {
+          const float num = dot3(x, m[k]);
+          const float den = fmaxf(dot3(m[k], m[k]), kEps);
+          const float ratio = num / den;
+          float ds[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) ds[c] = fmaf(-ratio, nm[k][c], x[c]);
-        const float dist2s = dot3(ds, ds);
-        if (is_bg[k] && ratio >= kShadowTau && ratio <= 1.0f &&
-            dist2s < (nv[k] * kTb) * (ratio * ratio)) {
-          shadow = true;
+          for (int c = 0; c < 3; ++c) ds[c] = fmaf(-ratio, m[k][c], x[c]);
+          const float dist2s = dot3(ds, ds);
+          if (ratio >= kShadowTau && ratio <= 1.0f &&
+              dist2s < (v[k] * kTb) * (ratio * ratio)) {
+            shadow = true;
+          }
         }
       }
       if (shadow) out = 127;
     }
     mask[off] = out;
-
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      w[k] = nw[k];
-      v[k] = nv[k];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) m[k][c] = nm[k][c];
-    }
     n = nn;
   }
 

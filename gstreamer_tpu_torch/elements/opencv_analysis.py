@@ -770,13 +770,11 @@ class Disparity(AggregatorElement):
 
         def fn(inputs):
             left, right = inputs["sink_left"], inputs["sink_right"]
-            gl = cvk.rgb2gray_u8(torch, *left[:3]).to(torch.float32)
-            gr = cvk.rgb2gray_u8(torch, *right[:3]).to(torch.float32)
-            cost = sk.cost_volume(gl, gr, nd, self.BLOCK)
-            if method == "sgbm":
-                disp, _ = sk.sgbm(cost)
-            else:
-                disp = sk.first_argmin(cost)
+            gl = cvk.rgb2gray_u8(torch, *left[:3])
+            gr = cvk.rgb2gray_u8(torch, *right[:3])
+            # the cost volume, the pass (sgbm) and the first minimum in one
+            # kernel on the card; the plain versions on the CPU
+            disp, _, _ = sk.disparity(gl, gr, method)
             g = torch.clamp(disp.to(torch.float32) * step, 0, 255) \
                 .to(torch.uint8)
             return (g, g.clone(), g.clone())

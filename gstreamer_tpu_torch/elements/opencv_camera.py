@@ -117,9 +117,18 @@ def parse_calibrated_event(event) -> Optional[str]:
 
 def _bilinear(f00, f01, f10, f11, fx, fy):
     """f00*(1-fy)*(1-fx) + f01*(1-fy)*fx + f10*fy*(1-fx) + f11*fy*fx with
-    XLA's contractions: the first two products' sum fused, then each later
-    product fused into the sum."""
+    XLA's contractions on the CPU: the first product fused into the sum of
+    the first two, then each later product fused into the sum.
+
+    Which products XLA forms depends on the number of frames.  Over a
+    batch the maps' weights are broadcast over the frames, and each term
+    is (f * wy) * wx.  With one frame the broadcast is a reshape, and
+    XLA's simplifier multiplies the two weights first: f * (wy * wx)."""
     gy, gx = 1 - fy, 1 - fx
+    if f00.numel() == fx.numel():                  # one frame
+        v = fma32(f00, gy * gx, f01 * (gy * fx))
+        v = fma32(f10, fy * gx, v)
+        return fma32(f11, fy * fx, v)
     v = fma32(f00 * gy, gx, (f01 * gy) * fx)
     v = fma32(f10 * fy, gx, v)
     return fma32(f11 * fy, fx, v)

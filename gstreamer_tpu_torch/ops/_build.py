@@ -22,7 +22,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("yscale", "chroma420", "deint", "scale2d", "hscale",
-           "fused_ingest", "freeverb", "vad", "gmm", "sgbm")
+           "fused_ingest", "freeverb", "vad", "gmm", "disparity")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source, after NVCC_FLAGS: freeverb must round every float

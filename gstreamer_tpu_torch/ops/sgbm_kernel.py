@@ -1,10 +1,11 @@
-"""disparity's SAD cost volume and its left-to-right semi-global pass:
-CUDA kernel, plain version, count.
+"""disparity's SAD cost volume, its left-to-right semi-global pass and the
+first argmin: one CUDA kernel from the gray planes, the plain versions,
+the count.
 
-Replaces the jitted ``lax.scan`` of the JAX package's
-``elements/opencv_analysis.py`` (``Disparity.aggregate_fn``, ``col_step``
-:954, run at :964; Pallas has no counterpart).  Over the columns of a
-(..., H, W, D) cost volume, D = NUM_DISP = 32:
+Replaces the jitted expression and ``lax.scan`` of the JAX package's
+``elements/opencv_analysis.py`` (``Disparity.aggregate_fn``: the volume
+:928-944, ``col_step`` :954, run at :964; Pallas has no counterpart).  Over
+the columns of a (..., H, W, D) cost volume, D = NUM_DISP = 32:
 
   m     = min_d prev[d]
   trans = min_d' min(prev[d'] + P1*[|d-d'| == 1] + P2*[|d-d'| > 1], m + P2)
@@ -15,9 +16,7 @@ transition; only three of its candidates can be the minimum: prev[d],
 prev[d +- 1] + P1 and m + P2 (rounding is monotone, so
 prev[d'] + P2 >= m + P2 for every far d').  The plain version
 (``sgbm_plain``) is the reference's dense form, a torch loop over the
-columns; the kernel (``csrc/sgbm.cu``) takes the three, one warp a row
-(lane d holding disparity d, neighbours and the minimum by shuffles) and
-also gives each pixel's first minimal disparity.
+columns.
 
 ``cost_volume`` is the reference's SAD volume in plain torch: |L - R
 shifted by d|, edge-padded by BLOCK // 2, summed over BLOCK x BLOCK boxes
@@ -28,6 +27,14 @@ blocks of 16 summed in order, the blocks' totals scanned the same way and
 added back (``scan_cumsum`` replays that order as elementwise adds, the
 same on every device); numpy's, torch's and ``lax.associative_scan``'s
 orders each differ from it.
+
+``disparity`` runs the three on the card as one kernel
+(``csrc/disparity.cu``) that walks the columns left to right and never
+writes the volume: the sums down a column are exact integers (|L - R| is
+one, and (H + 8) * 255 < 2^24), the sums along a row replay
+``scan_cumsum``'s order with one running float32 sum a level, and the pass
+and the argmin run 8 columns behind the boxes (``STRIP_ROWS`` output rows
+a block).
 """
 
 from __future__ import annotations
@@ -136,35 +143,81 @@ def first_argmin(volume: torch.Tensor) -> torch.Tensor:
     return volume.argmin(-1).to(torch.uint8)
 
 
-def sgbm(cost: torch.Tensor, want_agg: bool = False):
-    """(..., H, W, 32) float32 costs -> (each pixel's first minimal
-    disparity after the pass, (..., H, W) uint8; the aggregated volume
-    when `want_agg`, else None).
+# the kernel's schedule (csrc/disparity.cu): a strip's padded rows, one a
+# lane, and the output rows that leaves; the padded width the W-scan's four
+# levels reach
+STRIP_LANES = 32
+STRIP_ROWS = STRIP_LANES - BLOCK
+MAX_PADDED_W = SCAN_BASE ** 4
+# the column sums down a padded column stay exact in float32 (and so in
+# any order) while (H + 2 * (BLOCK // 2)) * 255 < 2**24
+MAX_H = (2 ** 24 - 1) // 255 - 2 * (BLOCK // 2)
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream (without synchronising) or raises."""
-    _check(cost)
-    if cost.device.type == "cpu":
-        agg = sgbm_plain(cost)
-        return first_argmin(agg), (agg if want_agg else None)
-    if cost.device.type != "cuda":
-        raise ValueError(f"sgbm: unsupported device {cost.device}")
-    cost = cost.contiguous()
-    w = cost.shape[-2]
-    rows = cost.numel() // (w * NUM_DISP)
-    disp = torch.empty(cost.shape[:-1], dtype=torch.uint8, device=cost.device)
-    agg = torch.empty_like(cost) if want_agg else None
-    if rows == 0 or w == 0:
-        return disp, agg
-    lib, fn = _build.function("sgbm", "gst_sgbm", "pppiiffp")
-    with torch.cuda.device(cost.device):
+
+def _check_planes(gl: torch.Tensor, gr: torch.Tensor, method: str) -> None:
+    if method not in ("sgbm", "sbm"):
+        raise ValueError(f"disparity: method {method!r}, want sgbm or sbm")
+    if gl.dtype != torch.uint8 or gr.dtype != torch.uint8 \
+            or gl.shape != gr.shape or gl.dim() < 2 \
+            or gl.device != gr.device:
+        raise ValueError(f"disparity: needs two (..., H, W) uint8 gray "
+                         f"planes of one shape on one device, got "
+                         f"{tuple(gl.shape)} {gl.dtype}, {tuple(gr.shape)} "
+                         f"{gr.dtype}")
+    h, w = gl.shape[-2:]
+    if h > MAX_H or w + 2 * (BLOCK // 2) > MAX_PADDED_W:
+        raise ValueError(f"disparity: {h}x{w} is past the kernel's exact "
+                         f"range (H <= {MAX_H}, W + 8 <= {MAX_PADDED_W})")
+
+
+def disparity(gl: torch.Tensor, gr: torch.Tensor, method: str = "sgbm",
+              want_volumes: bool = False):
+    """(..., H, W) uint8 left and right gray planes -> (each pixel's first
+    minimal disparity, (..., H, W) uint8: after the semi-global pass for
+    "sgbm", of the cost volume for "sbm"; with `want_volumes` the cost
+    volume and, for "sgbm", the aggregated volume, (..., H, W, 32)
+    float32, else None and None).
+
+    A CPU tensor runs the plain versions (``cost_volume``, ``sgbm_plain``,
+    ``first_argmin``); a CUDA tensor launches the kernel on the current
+    stream (without synchronising) or raises.  The kernel forms the volume
+    as it walks the columns and never writes it, unless asked."""
+    _check_planes(gl, gr, method)
+    if gl.device.type == "cpu":
+        cost = cost_volume(gl.to(torch.float32), gr.to(torch.float32))
+        agg = sgbm_plain(cost) if method == "sgbm" else None
+        disp = first_argmin(agg if agg is not None else cost)
+        if not want_volumes:
+            return disp, None, None
+        return disp, cost, agg
+    if gl.device.type != "cuda":
+        raise ValueError(f"disparity: unsupported device {gl.device}")
+    gl, gr = gl.contiguous(), gr.contiguous()
+    h, w = gl.shape[-2:]
+    pairs = gl.numel() // (h * w) if h * w else 0
+    dev = gl.device
+    disp = torch.empty(gl.shape, dtype=torch.uint8, device=dev)
+    vol_shape = tuple(gl.shape) + (NUM_DISP,)
+    cost = (torch.empty(vol_shape, dtype=torch.float32, device=dev)
+            if want_volumes else None)
+    agg = (torch.empty(vol_shape, dtype=torch.float32, device=dev)
+           if want_volumes and method == "sgbm" else None)
+    if pairs == 0:
+        return disp, cost, agg
+    strips = -(-h // STRIP_ROWS)
+    prefix = torch.empty((pairs, strips, NUM_DISP, w + 2 * (BLOCK // 2)),
+                         dtype=torch.int32, device=dev)
+    lib, fn = _build.function("disparity", "gst_disparity", "ppppppiiiiffp")
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(cost.data_ptr(), disp.data_ptr(),
-                    agg.data_ptr() if want_agg else None, rows, w, P1, P2,
-                    stream)
-    _build.check(lib, status, "sgbm")
-    sgbm.launches += 1
-    return disp, agg
+        status = fn(gl.data_ptr(), gr.data_ptr(), prefix.data_ptr(),
+                    disp.data_ptr(),
+                    cost.data_ptr() if cost is not None else None,
+                    agg.data_ptr() if agg is not None else None, pairs, h,
+                    w, int(method == "sgbm"), P1, P2, stream)
+    _build.check(lib, status, "disparity")
+    disparity.launches += 1
+    return disp, cost, agg
 
 
-sgbm.launches = 0
+disparity.launches = 0

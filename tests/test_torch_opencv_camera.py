@@ -19,6 +19,7 @@ from gstreamer_tpu.elements import opencv_camera as jcam
 from gstreamer_tpu.ops import haar as jhaar
 
 import gstreamer_tpu_torch
+from gstreamer_tpu_torch._xp import fma32
 from gstreamer_tpu_torch.core.buffer import Buffer
 from gstreamer_tpu_torch.elements import opencv_camera as tcam
 from gstreamer_tpu_torch.ops import haar as thaar
@@ -60,26 +61,12 @@ def test_factory_matches_reference(factory):
         == getattr(j, "HOST_ELEMENT", False)
 
 
-def both(desc, pushes, batch=1, remap=False):
-    """run_both with the bus's element messages compared too.  remap: the
-    bilinear remap's float sum, whose rounding XLA's code generation picks
-    per shape (ROADMAP.md section 3): bytes within 1 of the reference's,
-    on at most one in 10 000, the count printed; else tolerance 0."""
+def both(desc, pushes, batch=1):
+    """run_both with the bus's element messages compared too."""
     jp, ref = tc._run(jparse_launch, JBuffer, desc, pushes, ("out",), batch)
     tp, out = tc._run(gstreamer_tpu_torch.parse_launch, Buffer, desc,
                       pushes, ("out",), batch, device="cpu")
-    if remap:
-        diff = total = 0
-        for o, r in zip(out["out"], ref["out"]):
-            for a, b in zip(o.buffer.data, r.buffer.data):
-                a, b = a.numpy().astype(int), np.asarray(b).astype(int)
-                assert a.shape == b.shape and np.abs(a - b).max() <= 1
-                diff += int((a != b).sum())
-                total += a.size
-        print(f"remap: {diff} of {total} bytes differ by 1 (tolerance 1)")
-        assert diff * 10000 <= total
-    else:
-        tc.assert_same_samples(out, ref, ("out",))
+    tc.assert_same_samples(out, ref, ("out",))
     assert tc.negotiated_caps(tp) == tc.negotiated_caps(jp)
 
     def msgs(p):
@@ -110,7 +97,7 @@ def _src(fmt, w, h):
 def test_dewarp(props):
     desc = (_src("RGBA", 96, 64) + "dewarp inner-radius=0.1 outer-radius=0.4 "
             + props + " ! appsink name=out")
-    both(desc, _random("RGBA", 96, 64, 2, 4), remap=True)
+    both(desc, _random("RGBA", 96, 64, 2, 4))
 
 
 def test_dewarp_passthrough():
@@ -127,7 +114,7 @@ def test_cameraundistort(props):
     pushes = _random("RGB", 320, 240, 1, 3)
     tp, out, _ = both(_src("RGB", 320, 240) + "cameraundistort name=u "
                       f"settings=\"{quoted}\" {props} ! appsink name=out",
-                      pushes, remap=True)
+                      pushes)
     assert tp.get_by_name("u").props["settings"] == s
     moved = (out["out"][0].buffer.data[0].numpy()
              != pushes["in"][0]["data"][0]).any()
@@ -156,6 +143,35 @@ def test_bilinear_rounds_as_xla(monkeypatch):
     diff = sum(int((a.numpy() != b.numpy()).sum()) for a, b in zip(
         other["out"][0].buffer.data, out["out"][0].buffer.data))
     print(f"rounded twice: {diff} bytes differ")
+    assert diff > 0
+
+
+def test_bilinear_one_frame_rounds_as_xla(monkeypatch):
+    """With one frame the jitted reference multiplies the two weights
+    first (f * (wy * wx)): three 640x480 undistorted frames, one a tick,
+    give the reference's bytes, and the batch's form (f * wy) * wx gives
+    other bytes."""
+    s = jcam.serialize_undistort_settings(K, DIST).replace('"', '\\"')
+    desc = (_src("RGB", 640, 480) + f"cameraundistort settings=\"{s}\" "
+            "alpha=1.0 ! appsink name=out")
+    d = np.random.default_rng(2).integers(0, 256, (3, 3, 480, 640),
+                                          dtype=np.uint8)
+    pushes = {"in": [dict(data=tuple(d[:, k:k + 1]), batch=1)
+                     for k in range(3)]}
+    _, out, _ = both(desc, pushes)
+
+    def batch_form(f00, f01, f10, f11, fx, fy):
+        gy, gx = 1 - fy, 1 - fx
+        v = fma32(f00 * gy, gx, (f01 * gy) * fx)
+        v = fma32(f10 * fy, gx, v)
+        return fma32(f11 * fy, fx, v)
+    monkeypatch.setattr(tcam, "_bilinear", batch_form)
+    _, other = tc._run(gstreamer_tpu_torch.parse_launch, Buffer, desc,
+                       pushes, ("out",), 1, device="cpu")
+    diff = sum(int((a.numpy() != b.numpy()).sum())
+               for o, r in zip(other["out"], out["out"])
+               for a, b in zip(o.buffer.data, r.buffer.data))
+    print(f"batch form on single frames: {diff} bytes differ")
     assert diff > 0
 
 

@@ -6,9 +6,10 @@ the card (no JAX here: the card's machine has none).
 segmentation's mixture (``csrc/gmm.cu``) at odd heights and widths that
 are no multiple of 32, the carry continued over ticks, both methods, a
 scene whose spawned modes tie, one that fills all five modes and one whose
-sorted weights straddle backgroundRatio; disparity's pass
-(``csrc/sgbm.cu``) on random and image cost volumes, aggregated volume
-and disparities.  Bit for bit.  Every test skips without a card.
+sorted weights straddle backgroundRatio; disparity's cost volume and pass
+in one kernel (``csrc/disparity.cu``) from gray planes at awkward sizes,
+640x480 and 1280x720, both methods: cost and aggregated volumes and
+disparities.  Bit for bit.  Every test skips without a card.
 """
 
 import numpy as np
@@ -97,27 +98,52 @@ def test_gmm_kernel_at_the_background_ratio(cuda):
         assert _same(kc[key], pc[key]), key
 
 
-@pytest.mark.parametrize("shape", [(2, 13, 45), (1, 7, 1), (3, 5, 64),
-                                   (1, 33, 70)])
-def test_sgbm_kernel_matches_plain(cuda, shape):
-    rng = np.random.default_rng(sum(shape))
-    cost = torch.from_numpy(rng.integers(0, 2000, shape + (32,))
-                            .astype(np.float32)).to(cuda)
-    disp, agg = sk.sgbm(cost, want_agg=True)
-    plain = sk.sgbm_plain(cost)
-    assert _same(agg, plain)
+# (pairs, H, W): H < 9; W < 16; one pixel; 257 columns (two levels of the
+# W-scan); 4100 (three, a short H); heights that are no multiple of the
+# kernel's 23-row strips; 640x480 and 1280x720, where the order of the
+# integral image's adds decides the sums
+DISPARITY_SHAPES = [(2, 5, 20), (1, 1, 1), (2, 30, 7), (1, 12, 257),
+                    (1, 3, 4100), (2, 50, 33), (1, 47, 70), (1, 480, 640),
+                    (1, 720, 1280)]
+
+
+def _pair(n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    gl = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+    gr = np.roll(gl, -5, -1) ^ (rng.random((n, h, w)) < 0.1).astype(np.uint8)
+    return torch.from_numpy(gl), torch.from_numpy(gr)
+
+
+@pytest.mark.parametrize("shape", DISPARITY_SHAPES)
+@pytest.mark.parametrize("method", ["sgbm", "sbm"])
+def test_sgbm_kernel_matches_plain(cuda, shape, method):
+    """The fused kernel (csrc/disparity.cu) from two gray planes against the
+    plain versions on the card: the cost volume, the aggregated volume and
+    the disparities."""
+    gl, gr = (p.to(cuda) for p in _pair(*shape, sum(shape)))
+    disp, cost, agg = sk.disparity(gl, gr, method, want_volumes=True)
+    plain = sk.cost_volume(gl.float(), gr.float())
+    assert _same(cost, plain)
+    if method == "sgbm":
+        plain = sk.sgbm_plain(plain)
+        assert _same(agg, plain)
+    else:
+        assert agg is None
     assert _same(disp, sk.first_argmin(plain))
-    disp2, none = sk.sgbm(cost)
-    assert none is None and _same(disp2, disp)
+    only, none1, none2 = sk.disparity(gl, gr, method)
+    assert none1 is None and none2 is None and _same(only, disp)
 
 
 def test_sgbm_kernel_on_an_image_cost_volume(cuda):
+    """Stereo images on the card against the port's CPU path."""
     rng = np.random.default_rng(4)
-    gl = torch.from_numpy(rng.integers(0, 256, (2, 37, 70))
-                          .astype(np.float32))
+    gl = torch.from_numpy(rng.integers(0, 256, (2, 37, 70), dtype=np.uint8))
     gr = torch.roll(gl, 3, -1)
-    cv = sk.cost_volume(gl.to(cuda), gr.to(cuda))
-    assert _same(cv, sk.cost_volume(gl, gr))
-    disp, agg = sk.sgbm(cv, want_agg=True)
-    plain = sk.sgbm_plain(cv)
-    assert _same(agg, plain) and _same(disp, sk.first_argmin(plain))
+    for method in ("sgbm", "sbm"):
+        card = sk.disparity(gl.to(cuda), gr.to(cuda), method,
+                            want_volumes=True)
+        cpu = sk.disparity(gl, gr, method, want_volumes=True)
+        for a, b in zip(card, cpu):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _same(a, b)

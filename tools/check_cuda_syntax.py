@@ -73,6 +73,9 @@ template <class T> T __shfl_up_sync(unsigned, T, unsigned);
 template <class T> T __shfl_down_sync(unsigned, T, unsigned);
 float fmaf(float, float, float);
 int __reduce_min_sync(unsigned, int);
+unsigned __usad(unsigned, unsigned, unsigned);
+unsigned __vabsdiffu4(unsigned, unsigned);
+int __popc(unsigned);
 unsigned __ballot_sync(unsigned, int);
 int __ffs(int);
 int __float_as_int(float);

@@ -6,7 +6,8 @@
 Builds ``gstreamer_tpu_torch/csrc/<source>.cu`` as the port builds it
 (``ops/_build.py``), disassembles the library with ``cuobjdump -sass`` and
 finds each kernel's outermost loop (the backward branch that spans the
-most code).  Prints, for each kernel, its SASS instructions, the loop's
+most code; ``--loop N`` picks another of the top-level loops it lists).
+Prints, for each kernel, its SASS instructions, the loop's
 instructions by class (float32 arithmetic, float compares and selects,
 special functions, conversions, integer and predicate work, memory,
 control), and, given ``--threads`` (threads launched) and ``--trips`` (the
@@ -90,9 +91,10 @@ def parse(text: str) -> dict:
     return {"funcs": funcs, "labels": labels}
 
 
-def outer_loop(name: str, code: list, labels: dict):
-    """(start, end) addresses of the backward branch spanning the most."""
-    best = None
+def loops(name: str, code: list, labels: dict) -> list:
+    """(start, end) addresses of every backward branch's loop that no other
+    such loop contains, in address order."""
+    found = []
     for addr, op, body in code:
         if not op.startswith("BRA"):
             continue
@@ -101,10 +103,17 @@ def outer_loop(name: str, code: list, labels: dict):
             continue
         target = (int(m.group(1), 16) if m.group(1)
                   else labels.get((name, m.group(2))))
-        if target is not None and target < addr and (
-                best is None or addr - target > best[1] - best[0]):
-            best = (target, addr)
-    return best
+        if target is not None and target < addr:
+            found.append((target, addr))
+    return sorted(a for a in found
+                  if not any(b != a and b[0] <= a[0] and a[1] <= b[1]
+                             for b in found))
+
+
+def outer_loop(name: str, code: list, labels: dict):
+    """(start, end) addresses of the backward branch spanning the most."""
+    found = loops(name, code, labels)
+    return max(found, key=lambda a: a[1] - a[0]) if found else None
 
 
 def main() -> int:
@@ -112,6 +121,10 @@ def main() -> int:
     ap.add_argument("source", help="csrc/<source>.cu, e.g. gmm")
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--trips", type=int, default=0)
+    ap.add_argument("--loop", type=int, default=None,
+                    help="which top-level loop to read (default: the one "
+                         "spanning the most code), e.g. 0 for disparity's "
+                         "loop over the chunks inside the image")
     args = ap.parse_args()
     from gstreamer_tpu_torch.ops import _build
     lib = _build.build((args.source,))[args.source]
@@ -122,10 +135,18 @@ def main() -> int:
         if not code:
             continue
         print(f"{name}: {len(code)} SASS instructions")
-        loop = outer_loop(name, code, parsed["labels"])
-        if loop is None:
+        top = loops(name, code, parsed["labels"])
+        if not top:
             print("  no loop")
             continue
+        if len(top) > 1:
+            print("  top-level loops: " + ", ".join(
+                f"[{i}] {a:#x}..{b:#x} "
+                f"{sum(a <= c[0] <= b for c in code)} instructions"
+                for i, (a, b) in enumerate(top)))
+        loop = (top[args.loop] if args.loop is not None
+                and args.loop < len(top) else
+                max(top, key=lambda a: a[1] - a[0]))
         body = [c for c in code if loop[0] <= c[0] <= loop[1]]
         by_class = collections.Counter(klass(op) for _, op, _ in body)
         by_op = collections.Counter(op.split(".")[0] for _, op, _ in body)
