@@ -236,6 +236,26 @@ before it and read just after:
    face elements on a synthetic cascade written to a temporary file), the
    card equal to the CPU.
 
+14. the analytics path and the last elements that compute on the device
+   (analytics_phase; none of the ten kernels is on these paths):
+
+  ml_detect         seeded 1920x1080 I420, batch 16, 3 ticks, through
+                    videoconvertscale (the letterbox) ! RGB 640x640 !
+                    jaxinference (a seeded stand-in with the YOLOv8 head's
+                    output, float32 (16, 84, 8400) a tick) !
+                    yolov8tensordec ! ioutracker: every frame's detections
+                    equal a numpy decode of its host tensor, the first 2
+                    frames' metas and track ids the CPU run's; the host's
+                    share (decoder and tracker)
+  smooth            seeded 1080p I420, batch 16, 3 ticks: the luma byte for
+                    byte the CPU run's on 2 frames
+  audiomixmatrix_s16 / _f32 (8 -> 2 channels) and audiochannelmix_f32, 10 s
+                    pushes of 48 kHz: every push the CPU run's
+
+   each with frames/s, busy ms, idle share, top device items and peak
+   memory; then each of the slice's 53 factories alone or in a short chain
+   on small inputs, the card equal to the CPU.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -4444,6 +4464,773 @@ def cv_phase(seed, counters, dev):
     return total, err, timings
 
 
+ML_DETECT = (1920, 1080, 16, 3)     # input width, height, batch, ticks
+ML_SIDE = 640                       # the model's RGB input, letterboxed
+ML_STRIDES = (8, 16, 32)            # 80^2 + 40^2 + 20^2 = 8400 cells
+ML_CLASSES = 80                     # COCO's
+ML_OBJECTS = 8                      # bright squares moving over a dark scene
+ML_CHECK = 2                        # frames of the CPU check
+ML_DESC = ("appsrc name=in caps=video/x-raw,format=I420,width={w},"
+           "height={h},framerate=30/1 ! videoconvertscale ! video/x-raw,"
+           "format=RGB,width={s},height={s} ! jaxinference model={m} ! "
+           "yolov8tensordec name=dec ! ioutracker name=trk ! appsink name=out")
+SMOOTH_RUN = (1920, 1080, 16, 3)
+MIX_FRAMES = 480000                 # 10 s of 48 kHz a push
+MIX_TICKS = 3
+MIX_IN, MIX_OUT = 8, 2
+ALONE_VIDEO = (64, 48, 2)           # width, height, frames of a factory alone
+ALONE_AUDIO = 4800                  # frames a push of an audio factory alone
+SLICE_FACTORIES = (
+    "jaxinference", "yolov8tensordec", "ssdobjectdetector",
+    "classifiertensordecoder", "ioutracker", "tensordecodebin",
+    "objectdetectionoverlay", "yolo26tensordec", "yolosegv8tensordec",
+    "yoloobbv8tensordec", "ultralightfacedetectortensordec",
+    "segmentationoverlay", "insertbin", "testsrcbin", "rtponviftimestamp",
+    "rtponvifparse", "facedetectortensordecoder", "smooth", "speed",
+    "autovideosrc", "autoaudiosrc", "videoanalyse", "audiomixmatrix",
+    "audiobuffersplit", "videoframe_audiolevel", "spanplc", "srtenc",
+    "webvttenc", "audiochannelmix", "checksumsink", "videocodectestsink",
+    "chopmydata", "errorignore", "debugspy", "fpsdisplaysink", "clockselect",
+    "roundrobin", "videoparse", "audioparse", "autovideoflip",
+    "videoframe-audiolevel", "simplevideomark", "simplevideomarkdetect",
+    "iqa", "fieldanalysis", "interlace", "zebrastripe", "scenechange",
+    "videodiff", "accurip", "imagefreeze", "webrtcechoprobe", "webrtcdsp")
+
+
+def yolo_stand_in(seed):
+    """A seeded stand-in for a YOLOv8 detector with COCO's 80 classes at
+    ML_SIDE^2: frames (three uint8 planes R, G, B of (B, side, side)) ->
+    float32 (B, 84, 8400), the published head's layout (xc, yc, w, h in
+    pixels, then 80 class scores in [0, 1]; the stride-8 cells first).
+    Each cell's mean colour (an exact integer sum, then one rounding)
+    through a seeded 3 -> 84 map of multiplies and adds in separate ops, so
+    the card and the CPU give the same bits.  The class scores are biased
+    so that only bright stride-32 cells pass 0.25: a few dozen a frame."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    wc = rng.normal(0, 0.6, (ML_CLASSES, 3)).astype(np.float32)
+    wb = rng.normal(0, 0.3, (4, 3)).astype(np.float32)
+    consts = {}
+
+    def level(x, s, dev):
+        b, n = x.shape[0], ML_SIDE // s
+        if (dev, s) not in consts:
+            iy, ix = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+            consts[(dev, s)] = (
+                torch.from_numpy(((ix.ravel() + 0.5) * s).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(((iy.ravel() + 0.5) * s).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(wc).to(dev)[None, :, :, None],
+                torch.from_numpy(wb).to(dev)[None, :, :, None])
+        cx, cy, wcd, wbd = consts[(dev, s)]
+        c = x.view(b, 3, n, s, n, s).sum((3, 5), dtype=torch.int32)
+        c = c.reshape(b, 3, 1, n * n).float() * (1.0 / (255 * s * s))
+        bright = (c[:, 0] + c[:, 1] + c[:, 2]) * (1.0 / 3)      # (b, 1, n²)
+        cls = wcd[:, :, 0] * c[:, 0] + wcd[:, :, 1] * c[:, 1]
+        cls = cls + wcd[:, :, 2] * c[:, 2]                       # (b, 80, n²)
+        z = cls * 2.0 + (bright - 0.3) * 10.0
+        score = torch.clamp(z * 0.25 + (0.5 if s == 32 else -3.0), 0.0, 1.0)
+        bx = wbd[:, :, 0] * c[:, 0] + wbd[:, :, 1] * c[:, 1]
+        bx = bx + wbd[:, :, 2] * c[:, 2]                          # (b, 4, n²)
+        box = torch.stack([cx + bx[:, 0] * (0.5 * s),
+                           cy + bx[:, 1] * (0.5 * s),
+                           (bx[:, 2] + 3.0) * s, (bx[:, 3] + 3.0) * s], 1)
+        return torch.cat([box, score], 1)
+
+    def model(frames):
+        x = torch.stack(tuple(frames), 1)           # (B, 3, side, side)
+        return torch.cat([level(x, s, x.device) for s in ML_STRIDES], 2)
+    return model
+
+
+def ml_frames(n, h, w, ticks, seed):
+    """Host I420 ticks of n frames: a dark noisy scene (Y 16, the colour of
+    the letterbox's borders after conversion) with ML_OBJECTS bright
+    coloured squares of h/9 to h/5.4 (120 to 200 px at 1080p) moving 6 px a
+    frame."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    side = rng.integers(h // 9, h * 5 // 27, ML_OBJECTS)
+    room = np.array([w, h]) - side.max()
+    pos = rng.uniform([0, 0], room, (ML_OBJECTS, 2))
+    vel = rng.choice([-6, 6], (ML_OBJECTS, 2))
+    col = rng.integers([120, 40, 40], [236, 216, 216], (ML_OBJECTS, 3))
+    out = []
+    for t in range(ticks):
+        y = (16 + rng.integers(0, 4, (n, h, w))).astype(np.uint8)
+        u = np.full((n, h // 2, w // 2), 128, np.uint8)
+        v = u.copy()
+        for k in range(n):
+            f = t * n + k
+            for o in range(ML_OBJECTS):
+                x0, y0 = (pos[o] + vel[o] * f).astype(int) % room
+                s, c0, c1 = side[o], x0 // 2, y0 // 2
+                y[k, y0:y0 + s, x0:x0 + s] = col[o, 0]
+                u[k, c1:c1 + s // 2, c0:c0 + s // 2] = col[o, 1]
+                v[k, c1:c1 + s // 2, c0:c0 + s // 2] = col[o, 2]
+        out.append((y, u, v))
+    return out
+
+
+def yolo_gold(t, thr=0.25, iou_thr=0.45, max_det=100):
+    """A numpy decode of one frame's (84, N) tensor, written apart from the
+    port's decoder: candidates whose best class passes `thr` (box from
+    centre and size, in float32 as the tensor holds it), greedy IoU NMS in
+    order of falling confidence (a stable sort: equal scores keep the
+    cells' order).  Returns [(cls, x, y, w, h, conf)]."""
+    import numpy as np
+    scores = t[4:]
+    conf, cls = scores.max(0), scores.argmax(0)
+    idx = np.nonzero(conf >= thr)[0]
+    idx = idx[np.argsort(-conf[idx], kind="stable")]
+    x = t[0, idx] - t[2, idx] / 2
+    y = t[1, idx] - t[3, idx] / 2
+    w, h = t[2, idx], t[3, idx]
+    kept = []
+    for j in range(len(idx)):
+        if len(kept) >= max_det:
+            break
+        ok = True
+        for i in kept:
+            ix = max(0.0, min(float(x[j]) + float(w[j]),
+                              float(x[i]) + float(w[i]))
+                     - max(float(x[j]), float(x[i])))
+            iy = max(0.0, min(float(y[j]) + float(h[j]),
+                              float(y[i]) + float(h[i]))
+                     - max(float(y[j]), float(y[i])))
+            inter = ix * iy
+            union = (float(w[j]) * float(h[j]) + float(w[i]) * float(h[i])
+                     - inter)
+            if (inter / union if union > 0 else 0.0) >= iou_thr:
+                ok = False
+                break
+        if ok:
+            kept.append(j)
+    return [(str(int(cls[idx[j]])), float(x[j]), float(y[j]), float(w[j]),
+             float(h[j]), float(conf[idx[j]])) for j in kept]
+
+
+def meta_rows(buf):
+    """A buffer's analytics metas as plain data, by batch entry: each
+    Mtd's kind and fields (a tensor by id and bytes, a mask by bytes), and
+    the relation matrix."""
+    import numpy as np
+    from gstreamer_tpu_torch.analytics import relation_meta_of
+    out = {}
+    for k, rm in relation_meta_of(buf).items():
+        rows = []
+        for m in rm.iter_mtds():
+            d = dict(vars(m))
+            if d.get("tensor") is not None:
+                t = d.pop("tensor")
+                d["tensor"] = (t.id, t.numpy().tobytes())
+            if d.get("mask") is not None:
+                d["mask"] = np.asarray(d.pop("mask")).tobytes()
+            rows.append((type(m).__name__, sorted(d.items())))
+        out[k] = (rows, dict(rm._rel))
+    return out
+
+
+@contextlib.contextmanager
+def host_clock(pipe, names, spent):
+    """While the block runs, add the host seconds of each named element's
+    host_process to `spent` ({name: seconds})."""
+    saved = {}
+    for name in names:
+        e = pipe.get_by_name(name)
+        saved[name] = e.host_process
+
+        def timed(buf, fn=e.host_process, name=name):
+            t0 = time.perf_counter()
+            try:
+                return fn(buf)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        e.host_process = timed
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            pipe.get_by_name(name).host_process = fn
+
+
+def ml_detect(seed, dev, start, finish, peak):
+    """The detection path at full width (ML_DESC): seeded 1080p I420 at
+    batch 16 through the letterboxing converter to RGB 640x640, the
+    stand-in model, yolov8tensordec and ioutracker.  Checks every frame's
+    detections against yolo_gold on the model's host tensors, and the first
+    ML_CHECK frames' metas (detections, order, track ids, relations,
+    tensors) against the port's CPU run of the same string."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.analytics import (ObjectDetectionMtd, TensorMtd,
+                                               TrackingMtd, relation_meta_of)
+    from gstreamer_tpu_torch.core.pipeline import State
+    from gstreamer_tpu_torch.elements.analytics_elements import \
+        register_model
+    w, h, n, ticks = ML_DETECT
+    register_model("chip-yolo", yolo_stand_in(seed))
+    desc = ML_DESC.format(w=w, h=h, s=ML_SIDE, m="chip-yolo")
+    host = ml_frames(n, h, w, ticks, seed)
+    frames = [tuple(torch_to(p, dev) for p in t) for t in host]
+    base = start("ml_detect")
+    pipe = parse_launch(desc, batch=n, device=dev)
+    pipe.set_state(State.PLAYING)
+    outs, secs, spent = [], [], {}
+    with host_clock(pipe, ("dec", "trk"), spent):
+        for planes in frames:
+            sync(dev)
+            t0 = time.perf_counter()
+            outs.append(cv_step(pipe, {"in": planes}))
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+    counts = finish("ml_detect", {})
+    mem = peak(base)
+    pipe.set_state(State.NULL)
+    require([len(o) for o in outs] == [1] * ticks,
+            f"ml_detect: samples per tick {[len(o) for o in outs]}")
+    dets, ids = [], set()
+    for tick in outs:
+        buf = tick[0].buffer
+        require(all(p.device.type == dev.type for p in buf.data)
+                and [tuple(p.shape) for p in buf.data]
+                == [(n, ML_SIDE, ML_SIDE)] * 3,
+                "ml_detect: frames not on the card at 640x640")
+        metas = relation_meta_of(buf)
+        require(sorted(metas) == list(range(n)), "ml_detect: metas missing")
+        for k in range(n):
+            rm = metas[k]
+            t = rm.iter_mtds(TensorMtd)[0].tensor.numpy()
+            require(t.dtype == np.float32 and t.shape == (84, 8400)
+                    and np.isfinite(t).all(), f"ml_detect: tensor {t.shape}")
+            ods = rm.iter_mtds(ObjectDetectionMtd)
+            got = [(o.label, o.x, o.y, o.w, o.h, o.confidence) for o in ods]
+            require(got == yolo_gold(t),
+                    "ml_detect: detections differ from the numpy decode of "
+                    "the model's host tensor")
+            trks = rm.iter_mtds(TrackingMtd)
+            require(len(trks) == len(ods), "ml_detect: a detection untracked")
+            ids.update(tr.track_id for tr in trks)
+            dets.append(len(ods))
+    cands = [int((t.max(0) >= 0.25).sum()) for t in (
+        relation_meta_of(outs[0][0].buffer)[k].iter_mtds(TensorMtd)[0]
+        .tensor.numpy()[4:] for k in range(n))]
+    require(min(dets) >= 1 and 1 <= len(ids) <= sum(dets),
+            f"ml_detect: detections a frame {dets}, track ids {sorted(ids)}")
+    cpu = parse_launch(desc, batch=ML_CHECK, device="cpu")
+    cpu.set_state(State.PLAYING)
+    ref = cv_step(cpu, {"in": tuple(torch.from_numpy(p[:ML_CHECK])
+                                    for p in host[0])})
+    cpu.set_state(State.NULL)
+    card = meta_rows(outs[0][0].buffer)
+    require(meta_rows(ref[0].buffer) == {k: card[k] for k in range(ML_CHECK)},
+            "ml_detect: the first frames' metas differ from the CPU run")
+    for a, b in zip(outs[0][0].buffer.data, ref[0].buffer.data):
+        require(torch.equal(a[:ML_CHECK].cpu(), b),
+                "ml_detect: converted frames differ from the CPU run")
+    wall = sum(secs[1:]) / max(1, ticks - 1)
+    host_s = {k: v / ticks for k, v in spent.items()}
+    # device time: a fresh pipeline, the first tick's frames every tick
+    dpipe = parse_launch(desc, batch=n, device=dev)
+    dpipe.set_state(State.PLAYING)
+    if dev.type == "cuda":
+        dwall, busy, idle, tr = device_time(
+            lambda: cv_step(dpipe, {"in": frames[0]}), 2)
+        top = top_device_items(tr, 2)
+    else:
+        dwall, busy, idle, top = 0.0, 0.0, 1.0, []
+    dpipe.set_state(State.NULL)
+    print(f"e2e ml_detect: {n / wall:.1f} input frames/s over ticks 2.."
+          f"{ticks} ({w}x{h} I420, batch {n}; "
+          f"{[round(s * 1e3, 3) for s in secs]} ms per tick, host clock "
+          f"between synchronises); detections a frame {dets}; candidates "
+          f"over 0.25 in the first tick's frames {cands}; track ids "
+          f"{len(ids)}; first {ML_CHECK} frames' metas and converted planes "
+          f"== the CPU run, every frame's detections == the numpy decode of "
+          f"its host tensor; the host's share: decoder "
+          f"{host_s.get('dec', 0.0) * 1e3:.3f} ms + tracker "
+          f"{host_s.get('trk', 0.0) * 1e3:.3f} ms a tick, "
+          f"{(host_s.get('dec', 0.0) + host_s.get('trk', 0.0)) / wall:.3f} "
+          f"of the tick; traced tick {dwall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {idle:.3f}; top device items {top}; "
+          f"peak memory {mem:.1f} MiB; kernel launches {counts} (the "
+          f"letterbox's converter route has no kernel)")
+    return busy
+
+
+def mix_run(desc, data, ticks, dev, matrix=None):
+    """Push `ticks` copies of `data` ((frames, channels) at 48 kHz) through
+    `desc` (appsrc in ... appsink out), audiomixmatrix 'mm' given `matrix`;
+    returns (samples, seconds per tick)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    pipe = parse_launch(desc, device=dev)
+    if matrix is not None:
+        pipe.get_by_name("mm").set_property("matrix", matrix)
+    src, sink = pipe.get_by_name("in"), pipe.get_by_name("out")
+    m = data.shape[0]
+    for t in range(ticks):
+        src.push_buffer(Buffer(data=data, pts=t * m * 10**9 // 48000,
+                               duration=m * 10**9 // 48000))
+    src.end_of_stream()
+    pipe.set_state(State.PLAYING)
+    outs, secs = [], []
+    while True:
+        sync(torch.device(dev))
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        sync(torch.device(dev))
+        if not more:
+            break
+        secs.append(time.perf_counter() - t0)
+        outs.extend(drain(sink))
+    pipe.set_state(State.NULL)
+    return outs, secs
+
+
+def mix_paths(seed, dev, start, finish, peak):
+    """audiomixmatrix (8 -> 2 channels, S16LE and F32LE) and
+    audiochannelmix (F32LE stereo), MIX_TICKS pushes of 10 s of 48 kHz:
+    every push equal to the port's CPU run, no kernel; frames/s, busy ms,
+    idle share."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 17)
+    matrix = rng.uniform(-1, 1, (MIX_OUT, MIX_IN)).tolist()
+    src = ("appsrc name=in caps=audio/x-raw,format={fmt},rate=48000,"
+           "channels={ch},layout=interleaved ! {chain} ! appsink name=out")
+    rows = {
+        "audiomixmatrix_s16": ("S16LE", MIX_IN, "audiomixmatrix name=mm "
+                               f"in-channels={MIX_IN} "
+                               f"out-channels={MIX_OUT}", matrix),
+        "audiomixmatrix_f32": ("F32LE", MIX_IN, "audiomixmatrix name=mm "
+                               f"in-channels={MIX_IN} "
+                               f"out-channels={MIX_OUT}", matrix),
+        "audiochannelmix_f32": ("F32LE", 2, "audiochannelmix "
+                                "left-to-left=0.8 left-to-right=-0.35 "
+                                "right-to-left=0.45 right-to-right=0.7",
+                                None)}
+    busy_of = {}
+    for name, (fmt, ch, chain, mat) in rows.items():
+        if fmt == "S16LE":
+            x = rng.integers(-32768, 32768, (MIX_FRAMES, ch)).astype(np.int16)
+        else:
+            x = (rng.standard_normal((MIX_FRAMES, ch)) * 0.4).astype(
+                np.float32)
+        desc = src.format(fmt=fmt, ch=ch, chain=chain)
+        base = start(name)
+        outs, secs = mix_run(desc, torch_to(x, dev), MIX_TICKS, dev, mat)
+        counts = finish(name, {})
+        mem = peak(base)
+        ref, _ = mix_run(desc, torch.from_numpy(x), MIX_TICKS, "cpu", mat)
+        require(len(outs) == len(ref) == MIX_TICKS, f"{name}: samples")
+        for o, r in zip(outs, ref):
+            d = o.buffer.data
+            require(d.device.type == dev.type and d.dtype == r.buffer.data.dtype
+                    and tuple(d.shape) == (MIX_FRAMES, 2)
+                    and torch.equal(d.cpu(), r.buffer.data),
+                    f"{name}: the card's samples differ from the CPU run")
+        if dev.type == "cuda":
+            from gstreamer_tpu_torch import parse_launch
+            from gstreamer_tpu_torch.core.buffer import Buffer
+            from gstreamer_tpu_torch.core.pipeline import State
+            pipe = parse_launch(desc, device=dev)
+            if mat is not None:
+                pipe.get_by_name("mm").set_property("matrix", mat)
+            pipe.set_state(State.PLAYING)
+            xs = torch_to(x, dev)
+            pts = [0]
+
+            def tick():
+                pipe.get_by_name("in").push_buffer(Buffer(
+                    data=xs, pts=pts[0], duration=10**10))
+                pts[0] += 10**10
+                pipe.tick()
+                drain(pipe.get_by_name("out"))
+            dwall, busy, idle, tr = device_time(tick, 3)
+            top = top_device_items(tr, 3, 4)
+            pipe.set_state(State.NULL)
+        else:
+            dwall, busy, idle, top = 0.0, 0.0, 1.0, []
+        busy_of[name] = busy
+        rate = MIX_FRAMES * (len(secs) - 1) / sum(secs[1:])
+        print(f"e2e {name}: {rate:.1f} frames/s over pushes 2..{MIX_TICKS} "
+              f"({ch} -> 2 channels, {fmt}, pushes of {MIX_FRAMES} frames, "
+              f"{[round(s * 1e3, 3) for s in secs]} ms per push, host clock "
+              f"between synchronises); == the CPU run on every push "
+              f"(tolerance 0); "
+              f"traced push {dwall:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"share {idle:.3f}; top device items {top}; peak memory "
+              f"{mem:.1f} MiB; kernel launches {counts}")
+    return busy_of
+
+
+def smooth_path(seed, dev, start, finish, peak):
+    """smooth (tolerance 8, filter-size 3: 63 offsets) on seeded 1080p I420
+    at batch 16, 3 ticks: the luma byte for byte against the CPU run on
+    ML_CHECK frames, the chroma unchanged; busy ms a tick and its top
+    device items."""
+    import numpy as np
+    import torch
+    w, h, n, ticks = SMOOTH_RUN
+    rng = np.random.default_rng(seed + 16)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 128 + 60 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+    y = np.clip(base[None] + rng.normal(0, 4, (n, h, w)), 0, 255).astype(
+        np.uint8)
+    host = (y, rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8),
+            rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8))
+    planes = tuple(torch_to(p, dev) for p in host)
+    desc = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+            f"height={h},framerate=30/1 ! smooth ! appsink name=out")
+    base_mem = start("smooth")
+    _, outs, secs = drive_multi(desc, n, ticks, {"in": planes}, dev)
+    counts = finish("smooth", {})
+    mem = peak(base_mem)
+    _, ref, _ = drive_multi(desc, ML_CHECK, 1, {"in": tuple(
+        torch.from_numpy(p[:ML_CHECK]) for p in host)}, "cpu")
+    changed = 0
+    for tick in outs:
+        d = tick[0].buffer.data
+        require(all(torch.equal(a[:ML_CHECK].cpu(), b) for a, b in
+                    zip(d, ref[0][0].buffer.data)),
+                "smooth: the card's planes differ from the CPU run")
+        require(torch.equal(d[1], planes[1]) and torch.equal(d[2], planes[2]),
+                "smooth: chroma changed")
+        changed = int((d[0] != planes[0]).sum())
+    if dev.type == "cuda":
+        wall, busy, idle, top, _, _ = cv_profile(desc, {"in": planes}, n, dev)
+    else:
+        wall, busy, idle, top = 0.0, 0.0, 1.0, []
+    print(f"e2e smooth: {n / (sum(secs[1:]) / max(1, ticks - 1)):.1f} input "
+          f"frames/s over ticks 2..{ticks} ({w}x{h} I420, batch {n}; "
+          f"{[round(s * 1e3, 3) for s in secs]} ms per tick); luma == the "
+          f"CPU run on {ML_CHECK} frames (byte for byte), chroma unchanged, "
+          f"{changed} luma bytes changed a tick; traced tick {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share {idle:.3f}; top device "
+          f"items {top}; peak memory {mem:.1f} MiB; kernel launches {counts}")
+    return busy
+
+
+def alone_models(seed):
+    """Seeded fixed tensors for the decoders alone, as models that put them
+    beside the frames: {model name: fn(frames) -> tensor or dict}."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    w, h, n = ALONE_VIDEO
+
+    def boxes_xywh(k, ncls, extra=0):
+        t = np.concatenate([rng.uniform([0, 0, 4, 4], [w, h, 20, 20],
+                                        (k, 4)).T,
+                            rng.uniform(0, 0.8, (ncls + extra, k))])
+        return t.astype(np.float32)
+    fixed = {
+        "alone-yolo": boxes_xywh(40, 3),
+        "alone-cls": rng.normal(0, 2, 10).astype(np.float32),
+        "alone-ssd": {"boxes": rng.uniform(0, 1, (20, 4)).astype(np.float32),
+                      "scores": rng.uniform(0, 1, (20, 3)).astype(
+                          np.float32)},
+        "alone-y26": np.concatenate([
+            rng.uniform(0, 40, (30, 2)), rng.uniform(40, 60, (30, 2)),
+            rng.uniform(0, 1, (30, 1)), rng.integers(0, 4, (30, 1))],
+            1).astype(np.float32),
+        "alone-seg": {"output": boxes_xywh(20, 2, 3),
+                      "protos": rng.normal(0, 1, (3, 12, 16)).astype(
+                          np.float32)},
+        "alone-obb": np.concatenate([boxes_xywh(20, 2), rng.uniform(
+            -3, 3, (1, 20))]).astype(np.float32),
+        "alone-face": {"boxes": rng.uniform(0, 1, (20, 4)).astype(
+            np.float32), "scores": rng.uniform(0, 1, (20, 2)).astype(
+                np.float32)},
+        "alone-face2": {"boxes": rng.uniform(0, 1, (12, 4)).astype(
+            np.float32), "scores": rng.uniform(0, 1, 12).astype(np.float32)}}
+
+    def on(v, dev):
+        if isinstance(v, dict):
+            return {k: torch.from_numpy(a).to(dev) for k, a in v.items()}
+        return torch.from_numpy(v).to(dev)
+    return {k: (lambda frames, v=v: on(v, frames[0].device))
+            for k, v in fixed.items()}
+
+
+def alone_rows(tmp):
+    """The launch strings that drive each factory of the slice alone or in
+    a short chain, with their appsrcs' inputs: [(launch, {appsrc: kind})];
+    `tmp` takes the files the subtitle encoders write."""
+    w, h, _ = ALONE_VIDEO
+    caps = {"I420": f"video/x-raw,format=I420,width={w},height={h},"
+                    "framerate=30/1",
+            "GRAY8": f"video/x-raw,format=GRAY8,width={w},height={h},"
+                     "framerate=30/1",
+            "S16LE": "audio/x-raw,format=S16LE,rate=48000,channels=2,"
+                     "layout=interleaved",
+            "F32LE": "audio/x-raw,format=F32LE,rate=48000,channels=2,"
+                     "layout=interleaved",
+            "S16LE44100": "audio/x-raw,format=S16LE,rate=44100,channels=2,"
+                          "layout=interleaved",
+            "S16LE16000": "audio/x-raw,format=S16LE,rate=16000,channels=1,"
+                          "layout=interleaved",
+            "bytes": "application/octet-stream", "rtp": "application/x-rtp",
+            "text": "text/x-raw"}
+
+    def src(kind, name="in"):
+        return f"appsrc name={name} caps={caps[kind]}"
+
+    def one(kind, chain):
+        return (f"{src(kind)} ! {chain}", {"in": kind})
+    return [
+        one("I420", "jaxinference model=alone-yolo ! yolov8tensordec ! "
+            "ioutracker ! objectdetectionoverlay ! appsink name=out"),
+        one("I420", "jaxinference model=alone-cls ! classifiertensordecoder "
+            "top-k=3 ! appsink name=out"),
+        one("GRAY8", "jaxinference model=alone-yolo ! tensordecodebin ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-ssd ! ssdobjectdetector ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-y26 ! yolo26tensordec ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-seg ! yolosegv8tensordec "
+            "logits-tensor-id=protos ! segmentationoverlay ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-obb ! yoloobbv8tensordec ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-face ! "
+            "ultralightfacedetectortensordec score-threshold=0.5 ! "
+            "appsink name=out"),
+        one("I420", "jaxinference model=alone-face2 ! "
+            "facedetectortensordecoder ! appsink name=out"),
+        one("I420", "insertbin ! smooth ! appsink name=out"),
+        one("I420", "videoanalyse ! simplevideomark ! simplevideomarkdetect "
+            "! appsink name=out"),
+        one("I420", "fieldanalysis ! interlace ! appsink name=out"),
+        one("I420", "zebrastripe threshold=40 ! scenechange ! videodiff ! "
+            "appsink name=out"),
+        one("I420", "imagefreeze ! autovideoflip ! errorignore ! "
+            "clockselect ! debugspy ! appsink name=out"),
+        one("I420", "fpsdisplaysink name=s"),
+        one("I420", "videocodectestsink name=s"),
+        (f"iqa name=q ! appsink name=out {src('I420', 'i0')} ! q.sink_0 "
+         f"{src('I420', 'i1')} ! q.sink_1", {"i0": "I420", "i1": "I420"}),
+        (f"videoframe_audiolevel name=q ! appsink name=out "
+         f"{src('I420', 'i0')} ! q.video {src('S16LE', 'i1')} ! q.audio",
+         {"i0": "I420", "i1": "S16LE"}),
+        (f"autovideosrc num-buffers=2 ! video/x-raw,format=I420,width={w},"
+         f"height={h} ! appsink name=out", {}),
+        (f"testsrcbin stream=video num-buffers=2 ! video/x-raw,format=RGB,"
+         f"width={w},height={h} ! appsink name=out", {}),
+        ("autoaudiosrc num-buffers=2 samplesperbuffer=480 ! audio/x-raw,"
+         "format=S16LE,rate=48000,channels=2 ! appsink name=out", {}),
+        ("testsrcbin stream=audio num-buffers=2 ! audio/x-raw,format=F32LE,"
+         "rate=48000,channels=1 ! appsink name=out", {}),
+        one("S16LE", "speed speed=1.5 ! audiobuffersplit ! "
+            "videoframe-audiolevel ! chopmydata ! checksumsink name=s"),
+        one("S16LE", "audiomixmatrix mode=first-channels ! "
+            "audio/x-raw,channels=1 ! spanplc ! appsink name=out"),
+        one("F32LE", "audiochannelmix left-to-right=0.5 ! roundrobin name=r "
+            "r.src_0 ! appsink name=out r.src_1 ! appsink name=out1"),
+        one("S16LE44100", "accurip first-track=true last-track=true ! "
+            "appsink name=out"),
+        one("S16LE16000", "webrtcechoprobe ! webrtcdsp echo-cancel=false "
+            "voice-detection=true ! appsink name=out"),
+        one("bytes", "videoparse width=8 height=8 format=GRAY8 ! "
+            "appsink name=out"),
+        one("bytes", "audioparse num-channels=1 ! appsink name=out"),
+        one("rtp", "rtponviftimestamp ntp-offset=1000 ! rtponvifparse ! "
+            "appsink name=out"),
+        one("text", f"srtenc location={tmp}/s.srt"),
+        one("text", f"webvttenc location={tmp}/s.vtt"),
+    ]
+
+
+def analytics_inputs(kind, rng):
+    """One source's pushes for a factory of the analytics slice alone: a list of Buffer kwargs
+    (host data; the card run moves arrays to the card)."""
+    import struct
+
+    import numpy as np
+    w, h, n = ALONE_VIDEO
+    if kind in ("I420", "GRAY8"):
+        shapes = [(n, h, w)] + ([(n, h // 2, w // 2)] * 2
+                                if kind == "I420" else [])
+        return [dict(data=tuple(rng.integers(0, 256, s, dtype=np.uint8)
+                                for s in shapes), pts=t * n * DUR,
+                     duration=DUR, batch=n) for t in range(2)]
+    if kind.startswith(("S16LE", "F32LE")):
+        rate = int(kind[5:] or 48000)
+        ch = 1 if rate == 16000 else 2
+        m = ALONE_AUDIO * rate // 48000
+        out = []
+        for t in range(2):
+            x = (rng.standard_normal((m, ch)) * 0.3)
+            x = (x * 32767).astype(np.int16) if kind.startswith("S16") \
+                else x.astype(np.float32)
+            out.append(dict(data=x, pts=t * m * 10**9 // rate,
+                            duration=m * 10**9 // rate))
+        return out
+    if kind == "bytes":
+        return [dict(data=rng.integers(0, 256, 4 * 64 + 12, dtype=np.uint8),
+                     pts=0)]
+    if kind == "rtp":
+        return [dict(data=[struct.pack(">BBHII", 0x80, 0, k, 160 * k, 1)
+                           + rng.bytes(32) for k in range(3)],
+                     pts=t * 10**9) for t in range(2)]
+    return [dict(data=f"cue {t}", pts=t * 10**9, duration=5 * 10**8)
+            for t in range(2)]
+
+
+def alone_run(desc, ins, dev, tmp):
+    """Run a launch string on `dev`, each appsrc of `ins` ({name: Buffer
+    kwargs}) fed its buffers (arrays on `dev`), to EOS.  Returns what can be
+    compared between two runs: every appsink's samples (pts, batch, caps,
+    data on the host, metas), the bus's element and tag messages, a sink's
+    checksums and frame count, the files the sink wrote."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer, map_leaves
+    from gstreamer_tpu_torch.core.pipeline import State
+    w, h, n = ALONE_VIDEO
+    pipe = parse_launch(desc, batch=n, device=dev)
+    for name, bufs in ins.items():
+        src = pipe.get_by_name(name)
+        for b in bufs:
+            src.push_buffer(Buffer(**dict(b, data=map_leaves(
+                lambda x: torch_to(x, dev) if isinstance(x, np.ndarray)
+                else x, b["data"]))))
+        src.end_of_stream()
+    pipe.set_state(State.PLAYING)
+    got = {}
+    while pipe.tick():
+        for s in ("out", "out1"):
+            sink = pipe.get_by_name(s)
+            for x in drain(sink) if sink is not None else ():
+                leaves = []
+                map_leaves(leaves.append, x.buffer.data)
+                require(all(not isinstance(v, torch.Tensor)
+                            or v.device.type == torch.device(dev).type
+                            for v in leaves), f"{desc}: data left {dev}")
+                got.setdefault(s, []).append((
+                    x.buffer.pts, x.buffer.batch, str(x.caps),
+                    [v.cpu().numpy().tobytes() if isinstance(v, torch.Tensor)
+                     else v for v in leaves], meta_rows(x.buffer)))
+    pipe.set_state(State.NULL)
+    sink = pipe.get_by_name("s")
+    state = (getattr(sink, "checksums", None),
+             getattr(sink, "frames_rendered", None)) if sink else None
+    files = {}
+    for f in sorted(os.listdir(tmp)):
+        with open(os.path.join(tmp, f), "rb") as fh:
+            files[f] = fh.read()
+        os.remove(os.path.join(tmp, f))
+    msgs = [(m.type, m.data) for m in iter(pipe.bus.pop, None)
+            if m.type in ("element", "tag")]
+    return got, msgs, state, files
+
+
+def analytics_alone(seed, counters, dev):
+    """Each of the 53 factories of the slice, alone or in a short chain, on
+    small inputs (alone_rows) on the card and on the CPU: the samples,
+    metas, bus messages, sink state and written files equal; no kernel
+    launched on the card."""
+    import re
+    import tempfile
+
+    import numpy as np
+    from gstreamer_tpu_torch.core.element import list_factories
+    from gstreamer_tpu_torch.elements.analytics_elements import \
+        register_model
+    for name, fn in alone_models(seed).items():
+        register_model(name, fn)
+    seen = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = alone_rows(tmp)
+        for k, (desc, kinds) in enumerate(rows):
+            rng = np.random.default_rng(seed + k)
+            ins = {name: analytics_inputs(kind, rng)
+                   for name, kind in kinds.items()}
+            for c in counters.values():
+                c.launches = 0
+            card = alone_run(desc, ins, dev, tmp)
+            counts = {k2: c.launches for k2, c in counters.items()
+                      if c.launches}
+            require(counts == {} or dev.type != "cuda",
+                    f"{desc}: launches {counts}")
+            cpu = alone_run(desc, ins, "cpu", tmp)
+            require(card == cpu, f"{desc}: the card's run differs from the "
+                    "CPU's")
+            require(any(card[0].values()) or card[2] or card[3],
+                    f"{desc}: nothing came out")
+            seen.update(re.findall(r"(?:^|! )([a-z0-9_-]+)", desc))
+            seen.update(re.findall(r"^(\w+) name=", desc))
+    mine = set(SLICE_FACTORIES)
+    require(len(mine) == 53 and mine <= set(list_factories()),
+            "the slice's factory list")
+    require(mine <= seen, f"factories not driven alone: {mine - seen}")
+    w, h, n = ALONE_VIDEO
+    print(f"analytics each factory alone: CUDA == port CPU path (samples, "
+          f"metas, bus messages, sink state, written files) for the "
+          f"{len(mine)} factories in {len(rows)} launch strings on {n} "
+          f"frames of {w}x{h} or pushes of {ALONE_AUDIO} frames; no kernel "
+          f"launched")
+
+
+def analytics_phase(seed, counters, dev):
+    """The analytics path and the last device elements on the card, each
+    with the launch counts zeroed just before it and read just after (none
+    of the ten kernels is on these paths):
+
+    ml_detect        seeded 1920x1080 I420 at batch 16, 3 ticks, through
+                     videoconvertscale (letterbox) ! RGB 640x640 !
+                     jaxinference (yolo_stand_in: float32 (16, 84, 8400) a
+                     tick on the card) ! yolov8tensordec ! ioutracker: every
+                     frame's detections equal a numpy decode of its host
+                     tensor, the first 2 frames' metas the CPU run's
+    smooth           seeded 1080p I420 at batch 16, 3 ticks: the luma byte
+                     for byte the CPU run's on 2 frames
+    audiomixmatrix_s16 / _f32, audiochannelmix_f32  10 s pushes of 48 kHz:
+                     every push the CPU run's, tolerance 0
+
+    each with frames/s, device busy ms, idle share, top device items and
+    peak memory; then each factory alone (analytics_alone).  Returns
+    {kernel: launches}."""
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    ml_detect(seed, dev, start, finish, peak)
+    smooth_path(seed, dev, start, finish, peak)
+    mix_paths(seed, dev, start, finish, peak)
+    analytics_alone(seed, counters, dev)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4751,6 +5538,10 @@ def main() -> int:
         launches[k] += n
     err.update(cv_err)
     timings.update(cv_timings)
+
+    # -- the analytics path and the last device elements (no kernel) --------
+    for k, n in analytics_phase(args.seed, counters, dev).items():
+        launches[k] += n
     print(f"main path launches, all paths: {launches}")
 
     smi = smi_line()

@@ -100,6 +100,18 @@ def host_array(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def device_array(a, like) -> torch.Tensor:
+    """A host result `a` as a tensor on the device of `like` (a buffer's
+    data tree: its first tensor leaf decides; the CPU when it holds
+    none)."""
+    leaves = []
+    map_leaves(leaves.append, like)
+    dev = next((x.device for x in leaves if isinstance(x, torch.Tensor)),
+               torch.device("cpu"))
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
+
+
 @dataclass
 class Sample:
     """Buffer + its caps (GstSample, used at the appsink boundary)."""

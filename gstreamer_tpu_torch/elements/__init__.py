@@ -43,3 +43,16 @@ from . import opencv_filters    # noqa: F401  (cvdilate, cverode, cvequalizehist
 from . import opencv_analysis   # noqa: F401  (segmentation, motioncells, templatematch, cvtracker, grabcut, disparity)
 from . import opencv_camera     # noqa: F401  (dewarp, cameraundistort, cameracalibrate, facedetect, faceblur, handdetect)
 from . import faceoverlay       # noqa: F401
+from . import analytics_elements  # noqa: F401  (jaxinference, yolov8tensordec, ssdobjectdetector, classifiertensordecoder, ioutracker, tensordecodebin, objectdetectionoverlay)
+from . import tensor_decoders2  # noqa: F401  (yolo26tensordec, yolosegv8tensordec, yoloobbv8tensordec, ultralightfacedetectortensordec, segmentationoverlay)
+from . import bad_bins          # noqa: F401  (insertbin, testsrcbin, rtponviftimestamp, rtponvifparse, facedetectortensordecoder)
+from . import smooth_speed      # noqa: F401  (smooth, speed)
+from . import misc_elements     # noqa: F401  (autovideosrc, autoaudiosrc, videoanalyse, audiomixmatrix, audiobuffersplit, videoframe_audiolevel, spanplc)
+from . import bad_extras        # noqa: F401  (srtenc, webvttenc, audiochannelmix, checksumsink, videocodectestsink, chopmydata, errorignore, debugspy, fpsdisplaysink, clockselect, roundrobin, videoparse, audioparse, autovideoflip, videoframe-audiolevel)
+from . import videosignal       # noqa: F401  (simplevideomark, simplevideomarkdetect)
+from . import iqa               # noqa: F401
+from . import fieldanalysis     # noqa: F401
+from . import interlace         # noqa: F401
+from . import videofilters_bad  # noqa: F401  (zebrastripe, scenechange, videodiff, accurip)
+from . import imagefreeze       # noqa: F401
+from . import webrtcdsp         # noqa: F401  (webrtcechoprobe, webrtcdsp)

@@ -35,7 +35,7 @@ import torch
 
 from ..audio.fft import FFT
 from ..audio.info import AudioInfo
-from ..core.buffer import Buffer, host_array
+from ..core.buffer import Buffer, device_array, host_array
 from ..core.caps import Caps
 from ..core.element import (PadDirection, PadTemplate, TransformElement,
                             register_element)
@@ -43,14 +43,6 @@ from .audio_elements import AUDIO_CAPS
 
 FLOAT_CAPS = ("audio/x-raw, format={ F32LE, F64LE }, rate=[1,2147483647], "
               "channels=[1,64], layout=interleaved")
-
-
-def device_samples(buf: Buffer, arr: np.ndarray) -> torch.Tensor:
-    """A host result as a tensor on the device of `buf`'s samples."""
-    out = torch.from_numpy(np.ascontiguousarray(arr))
-    if isinstance(buf.data, torch.Tensor):
-        out = out.to(buf.data.device)
-    return out
 
 
 def _saturate(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -236,7 +228,7 @@ class AudioEcho(_AudioFxBase):
         lim = self._limits()
         if lim is not None:
             out = np.clip(out, lim[0], lim[1])
-        return buf.with_(data=device_samples(buf, out.astype(xs.dtype)))
+        return buf.with_(data=device_array(out.astype(xs.dtype), buf.data))
 
 
 @register_element
@@ -581,7 +573,7 @@ class _EqualizerBase(_AudioFxBase):
             # the reference's int path computes in float and casts back
             # (one_step gint16/gfloat) with CLAMP
             out = np.clip(y, lim[0], lim[1]).astype(x.dtype)
-        return buf.with_(data=device_samples(buf, out))
+        return buf.with_(data=device_array(out, buf.data))
 
 
 @register_element
@@ -782,7 +774,7 @@ class _FirBase(_AudioFxBase):
             out = y.astype(x.dtype)
         else:
             out = np.clip(y, lim[0], lim[1]).astype(x.dtype)
-        return buf.with_(data=device_samples(buf, out))
+        return buf.with_(data=device_array(out, buf.data))
 
 
 @register_element
@@ -894,7 +886,7 @@ class AudioIirFilter(_AudioFxBase):
         lim = self._limits()
         out = (y.astype(x.dtype) if lim is None
                else np.clip(y, lim[0], lim[1]).astype(x.dtype))
-        return buf.with_(data=device_samples(buf, out))
+        return buf.with_(data=device_array(out, buf.data))
 
 
 class _ChebBase(_AudioFxBase):
@@ -925,12 +917,12 @@ class _ChebBase(_AudioFxBase):
         xf = x.astype(np.float64)
         n = max(len(a), len(b))
         if n == 1:
-            return buf.with_(data=device_samples(
-                buf, (xf * b[0] / a[0]).astype(x.dtype)))
+            return buf.with_(data=device_array(
+                (xf * b[0] / a[0]).astype(x.dtype), buf.data))
         if self._zi is None or self._zi.shape != (n - 1, xf.shape[-1]):
             self._zi = np.zeros((n - 1, xf.shape[-1]))
         y, self._zi = lfilter(b, a, xf, axis=0, zi=self._zi)
-        return buf.with_(data=device_samples(buf, y.astype(x.dtype)))
+        return buf.with_(data=device_array(y.astype(x.dtype), buf.data))
 
 
 @register_element
@@ -1022,4 +1014,4 @@ class Stereo(_AudioFxBase):
             np.trunc(np.clip(lo, -32768, 32767)).astype(x.dtype)
         out[..., :half, 1] = \
             np.trunc(np.clip(ro, -32768, 32767)).astype(x.dtype)
-        return buf.with_(data=device_samples(buf, out))
+        return buf.with_(data=device_array(out, buf.data))

@@ -17,11 +17,10 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.buffer import Buffer, host_array
+from ..core.buffer import Buffer, device_array, host_array
 from ..core.caps import Caps
 from ..core.element import (PadDirection, PadTemplate, TransformElement,
                             register_element)
-from .audiofx import device_samples
 
 # presets: (cut frequency Hz, feed level dB) — libbs2b's
 # BS2B_DEFAULT/CMOY/JMEIER_CLEVEL
@@ -105,4 +104,4 @@ class Bs2b(TransformElement):
         out = np.empty_like(x)
         out[:, 0] = (hi[:, 0] + lo[:, 1]) * gain
         out[:, 1] = (hi[:, 1] + lo[:, 0]) * gain
-        return buf.with_(data=device_samples(buf, out.astype(np.float32)))
+        return buf.with_(data=device_array(out.astype(np.float32), buf.data))

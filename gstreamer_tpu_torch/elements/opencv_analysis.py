@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .._xp import fma32
-from ..core.buffer import Buffer
+from ..core.buffer import Buffer, device_array, host_array
 from ..core.caps import Caps
 from ..core.element import (AggregatorElement, PadDirection, PadTemplate,
                             TransformElement, register_element)
@@ -87,16 +87,7 @@ def _draw_rect(planes: List[np.ndarray], x0, y0, x1, y1, color,
 
 def host_planes(buf: Buffer) -> List[np.ndarray]:
     """A buffer's planes as host numpy arrays."""
-    return [p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
-            for p in buf.data]
-
-
-def device_planes(planes, like: Buffer) -> tuple:
-    """Host planes back on the device of `like`'s planes."""
-    dev = like.data[0].device if isinstance(like.data[0], torch.Tensor) \
-        else torch.device("cpu")
-    return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                 for p in planes)
+    return [host_array(p) for p in buf.data]
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +383,8 @@ class MotionCells(TransformElement):
                     self._last_nomotion_ts = ts
                     _post(self, "motion",
                           {"no_motion": self._last_motion_ts})
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
     def _draw_cells(self, out, k, cells, gx, gy, w, h, color, thick):
         use_alpha = bool(self.props["usealpha"])
@@ -488,7 +480,8 @@ class TemplateMatch(TransformElement):
                     color = (255, 32, 32)
                 _draw_rect([p[k] for p in out[:3]], x, y, x + tw, y + th,
                            color, 3)
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +571,8 @@ class CvTracker(TransformElement):
             if bool(self.props["draw-rect"]):
                 _draw_rect([p[k] for p in out[:3]], x, y, x + bw, y + bh,
                            (255, 0, 0), 1)
-        res = buf.with_(data=device_planes(out, buf),
+        res = buf.with_(data=tuple(device_array(p, buf.data)
+                                   for p in out),
                         meta=dict(buf.meta or {}))
         from ..analytics.meta import get_relation_meta
 
@@ -634,7 +628,8 @@ class GrabCut(TransformElement):
                     _draw_rect([p[k] for p in out[:3]], box[0], box[1],
                                box[0] + box[2], box[1] + box[3],
                                (255, 0, 255), 1)
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
     def _meta_box(self, buf):
         """The reference reads a GstVideoRegionOfInterestMeta box and grows

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .._xp import fma32
-from ..core.buffer import Buffer
+from ..core.buffer import Buffer, device_array
 from ..core.element import (PadDirection, PadTemplate, TransformElement,
                             register_element)
 from ..core.events import Event, EventType
@@ -43,7 +43,7 @@ from ..ops import cv_kernels as cvk
 from ..ops.haar import HaarCascade
 from ..utils.log import get_logger
 from ..video.info import VideoInfo
-from .opencv_analysis import _draw_rect, _post, device_planes, host_planes
+from .opencv_analysis import _draw_rect, _post, host_planes
 
 _log = get_logger("opencvcamera")
 
@@ -700,7 +700,8 @@ class CameraCalibrate(TransformElement):
             if len(self._img_pts) >= int(self.props["frame-count"]):
                 self._finish()
                 break
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
     def _finish(self):
         sq = float(self.props["square-size"])
@@ -859,7 +860,8 @@ class FaceDetect(_CascadeBase):
             if post:
                 _post(self, "facedetect",
                       {"timestamp": buf.pts, "faces": structures})
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
 
 @register_element
@@ -904,7 +906,8 @@ class FaceBlur(_CascadeBase):
                     roi = cvk.box_blur_u8(np, roi, 11, 11)
                     roi = cvk.gaussian_blur_u8(np, roi, 11, 0.0)
                     out[c][k, y:y + fh, x:x + fw] = roi
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))
 
 
 @register_element
@@ -965,4 +968,5 @@ class HandDetect(_CascadeBase):
             if bool(self.props["display"]):
                 _draw_rect([p[k] for p in out[:3]], x, y, x + hw,
                            y + hh, (0, 0, 255), 2)
-        return buf.with_(data=device_planes(out, buf))
+        return buf.with_(data=tuple(device_array(p, buf.data)
+                                    for p in out))

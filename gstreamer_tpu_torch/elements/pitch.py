@@ -24,11 +24,10 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.buffer import Buffer, host_array
+from ..core.buffer import Buffer, device_array, host_array
 from ..core.caps import Caps
 from ..core.element import (PadDirection, PadTemplate, TransformElement,
                             register_element)
-from .audiofx import device_samples
 from .scaletempo import Scaletempo
 
 _F32 = ("audio/x-raw, format=F32LE, rate=[8000,192000], "
@@ -146,6 +145,6 @@ class Pitch(TransformElement):
         if x.ndim == 1:
             out = out[:, 0]
         rate = self._incaps[0]["rate"]
-        return buf.with_(data=device_samples(buf, out),
+        return buf.with_(data=device_array(out, buf.data),
                          duration=out.shape[0] * 1_000_000_000
                          // rate)

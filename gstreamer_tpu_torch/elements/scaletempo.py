@@ -36,10 +36,9 @@ from typing import Optional
 import numpy as np
 
 from ..audio.info import AudioInfo
-from ..core.buffer import Buffer, host_array
+from ..core.buffer import Buffer, device_array, host_array
 from ..core.element import (PadDirection, PadTemplate, TransformElement,
                             register_element)
-from .audiofx import device_samples
 
 _CAPS = ("audio/x-raw, format={ S16LE, F32LE, F64LE }, "
          "rate=[1,2147483647], channels=[1,64], layout=interleaved")
@@ -243,5 +242,5 @@ class Scaletempo(TransformElement):
         if buf.pts is not None:
             pts = int(buf.pts / scale)
         return buf.with_(
-            data=device_samples(buf, out), pts=pts,
+            data=device_array(out, buf.data), pts=pts,
             duration=len(out) * 1_000_000_000 // rate)

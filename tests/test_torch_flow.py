@@ -35,6 +35,23 @@ NEW_FACTORIES = (
     "valve", "fakesrc", "autovideosink", "autoaudiosink", "watchdog",
     "concat", "funnel", "input-selector", "output-selector", "streamiddemux",
     "clocksync", "multiqueue", "switchbin", "autoconvert", "autovideoconvert")
+# the analytics path and the last device modules, with the video-analysis
+# host elements (analytics_elements to webrtcdsp in elements/__init__.py)
+LATER_FACTORIES = (
+    "jaxinference", "yolov8tensordec", "ssdobjectdetector",
+    "classifiertensordecoder", "ioutracker", "tensordecodebin",
+    "objectdetectionoverlay", "yolo26tensordec", "yolosegv8tensordec",
+    "yoloobbv8tensordec", "ultralightfacedetectortensordec",
+    "segmentationoverlay", "insertbin", "testsrcbin", "rtponviftimestamp",
+    "rtponvifparse", "facedetectortensordecoder", "smooth", "speed",
+    "autovideosrc", "autoaudiosrc", "videoanalyse", "audiomixmatrix",
+    "audiobuffersplit", "videoframe_audiolevel", "spanplc", "srtenc",
+    "webvttenc", "audiochannelmix", "checksumsink", "videocodectestsink",
+    "chopmydata", "errorignore", "debugspy", "fpsdisplaysink", "clockselect",
+    "roundrobin", "videoparse", "audioparse", "autovideoflip",
+    "videoframe-audiolevel", "simplevideomark", "simplevideomarkdetect",
+    "iqa", "fieldanalysis", "interlace", "zebrastripe", "scenechange",
+    "videodiff", "accurip", "imagefreeze", "webrtcechoprobe", "webrtcdsp")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -72,8 +89,9 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 182
-    assert set(NEW_FACTORIES) <= set(telement._REGISTRY)
+    assert len(telement._REGISTRY) == 235
+    assert len(set(LATER_FACTORIES)) == 53
+    assert set(NEW_FACTORIES) | set(LATER_FACTORIES) <= set(telement._REGISTRY)
 
 
 @pytest.mark.parametrize("desc", [

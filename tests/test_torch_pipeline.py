@@ -247,16 +247,31 @@ def test_registry_is_the_ports_own():
         "skindetect", "retinex", "opencvtextoverlay", "segmentation",
         "motioncells", "templatematch", "cvtracker", "grabcut", "disparity",
         "dewarp", "cameraundistort", "cameracalibrate", "facedetect",
-        "faceblur", "handdetect", "faceoverlay"}
+        "faceblur", "handdetect", "faceoverlay", "jaxinference",
+        "yolov8tensordec", "ssdobjectdetector", "classifiertensordecoder",
+        "ioutracker", "tensordecodebin", "objectdetectionoverlay",
+        "yolo26tensordec", "yolosegv8tensordec", "yoloobbv8tensordec",
+        "ultralightfacedetectortensordec", "segmentationoverlay",
+        "insertbin", "testsrcbin", "rtponviftimestamp", "rtponvifparse",
+        "facedetectortensordecoder", "smooth", "speed", "autovideosrc",
+        "autoaudiosrc", "videoanalyse", "audiomixmatrix", "audiobuffersplit",
+        "videoframe_audiolevel", "spanplc", "srtenc", "webvttenc",
+        "audiochannelmix", "checksumsink", "videocodectestsink",
+        "chopmydata", "errorignore", "debugspy", "fpsdisplaysink",
+        "clockselect", "roundrobin", "videoparse", "audioparse",
+        "autovideoflip", "videoframe-audiolevel", "simplevideomark",
+        "simplevideomarkdetect", "iqa", "fieldanalysis", "interlace",
+        "zebrastripe", "scenechange", "videodiff", "accurip", "imagefreeze",
+        "webrtcechoprobe", "webrtcdsp"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("scenechange")
+        telement.element_factory_make("aspectratiocrop")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("scenechange ! appsink",
+        gstreamer_tpu_torch.parse_launch("aspectratiocrop ! appsink",
                                          device="cpu")
 
 
