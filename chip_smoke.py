@@ -256,6 +256,36 @@ before it and read just after:
    memory; then each of the slice's 53 factories alone or in a short chain
    on small inputs, the card equal to the CPU.
 
+15. captions, subtitles, scopes and audio files (broadcast_phase; host
+   modules, none of the ten kernels on these paths):
+
+  captions_sd       NTSC SD line 21: seeded 720x486 I420 at 30000/1001,
+                    batch 30, 3 ticks, through timecodestamper ! cccombiner
+                    (a seeded CEA-608 pair a frame from appsrc, host bytes)
+                    ! line21encoder ! line21decoder ! ccextractor, the
+                    caption branch through ccconverter to CDP and back:
+                    every frame's pair decoded, timecodes and every frame
+                    the CPU run's
+  subtitles_hd      seeded 1920x1080 I420, batch 16, 3 ticks, under
+                    assrender (two ASS events a tick, one moving) and under
+                    dvbsubenc ! dvbsuboverlay (a seeded AYUV subpicture):
+                    the first 2 frames of each tick the CPU run's; a tick's
+                    copy to the host and back timed
+  scopes_hd         48 kHz stereo S16, 3 pushes of 1 s, through wavescope,
+                    spectrascope, spacescope and synaescope at 1920x1080
+                    30/1, then videoconvertscale to I420, and monoscope and
+                    goom2k1 at their defaults: the first push's frames the
+                    CPU run's
+  wav_asr           BASELINE config 2 from a file: wavenc writes 10 s of
+                    48 kHz stereo S16LE, wavparse ! the ASR chain gives
+                    appsrc's samples and the CPU run's; the same round trip
+                    through AU, AIFF and IMA ADPCM
+
+   each with frames/s, device busy ms and idle share a tick, the host
+   elements' share, the bytes copied D2H and H2D a tick and peak memory;
+   then each of the slice's 68 factories alone or in a short chain, the
+   card equal to the CPU (samples, metas, messages, files).
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -5231,6 +5261,1015 @@ def analytics_phase(seed, counters, dev):
     return total
 
 
+# -- the broadcast, subtitle, scope and file host modules -----------------
+
+CAPTIONS_SD = (720, 486, 30, 3)     # NTSC SD: width, height, batch, ticks
+CAPTIONS_DESC = (
+    "cccombiner name=c appsrc name=in caps=video/x-raw,format=I420,"
+    "width={w},height={h},framerate=30000/1001 ! timecodestamper ! c.sink "
+    "appsrc name=cap caps=closedcaption/x-cea-608,format=raw,"
+    "framerate=30000/1001 ! c.caption c. ! line21encoder ! line21decoder ! "
+    "ccextractor name=x x.src ! appsink name=out x.caption_0 ! ccconverter "
+    "! closedcaption/x-cea-708,format=cdp ! ccconverter ! "
+    "closedcaption/x-cea-608,format=raw ! appsink name=cc")
+SUBTITLES_HD = (1920, 1080, 16, 3)
+SUB_CHECK = 2                       # frames a tick held to the CPU run
+DVB_REGION = (320, 64, 800, 960)    # the AYUV subpicture: w, h, x, y
+SUB_DESC = {
+    "assrender": ("assrender name=ov ! appsink name=out appsrc name=v "
+                  "caps=video/x-raw,format=I420,width={w},height={h},"
+                  "framerate=30/1 ! ov.video appsrc name=t "
+                  "caps=application/x-ass ! ov.text"),
+    "dvbsub": ("dvbsuboverlay name=ov ! appsink name=out appsrc name=v "
+               "caps=video/x-raw,format=I420,width={w},height={h},"
+               "framerate=30/1 ! ov.video appsrc name=t caps=video/x-raw,"
+               "format=AYUV,width={sw},height={sh},framerate=30/1 ! "
+               "dvbsubenc x={sx} y={sy} ! ov.text")}
+ASS_HEADER = """[Script Info]
+PlayResX: 1920
+PlayResY: 1080
+
+[V4+ Styles]
+Format: Name, Fontname, Fontsize, PrimaryColour, Bold, Italic, Underline, Alignment, MarginL, MarginR, MarginV
+Style: Default,DejaVu Sans,48,&H00FFFFFF,0,0,0,2,10,10,40
+Style: Sign,DejaVu Sans,40,&H0000FFFF,1,1,0,8,10,10,30
+
+[Events]
+Format: Layer, Start, End, Style, Name, MarginL, MarginR, MarginV, Effect, Text
+"""
+SCOPES_HD = (1920, 1080, 30)        # the scopes' frames: w, h, framerate
+SCOPE_RATE, SCOPE_PUSHES = 48000, 3  # pushes of 1 s of 48 kHz stereo S16
+SCOPES = ("wavescope", "spectrascope", "spacescope", "synaescope")
+SCOPE_DESC = ("appsrc name=in caps=audio/x-raw,format=S16LE,rate={rate},"
+              "channels=2,layout=interleaved ! {scope} ! {caps}tee name=t "
+              "t. ! videoconvertscale ! video/x-raw,format=I420 ! appsink "
+              "name=out t. ! appsink name=raw")
+WAV_SECONDS = 10                    # the ASR file: 48 kHz stereo S16LE
+ASR_CHAIN = ("audioconvert ! audio/x-raw,channels=1 ! audioresample ! "
+             "audio/x-raw,rate=16000 ! audioconvert ! "
+             "audio/x-raw,format=F32LE ! appsink name=out")
+BC_ALONE = (64, 48, 2)              # width, height, frames of a factory alone
+BROADCAST_FACTORIES = (
+    "ccconverter", "cccombiner", "ccextractor", "cea608mux", "line21encoder",
+    "line21decoder", "h264ccinserter", "h264ccextractor", "h265ccinserter",
+    "h265ccextractor", "alpha_combine", "alphacombine", "h264seiinserter",
+    "h265seiinserter", "timecodestamper", "avwait", "h264timestamper",
+    "h265timestamper", "combdetect", "ivtc", "compare", "audiolatency",
+    "assrender", "dvbsubenc", "dvbsuboverlay", "dvdlpcmdec", "dvdsubdec",
+    "dvdspu", "dvdsubparse", "wavescope", "spectrascope", "spacescope",
+    "synaescope", "monoscope", "goom2k1", "intervideosink", "intervideosrc",
+    "interaudiosink", "interaudiosrc", "intersubsink", "intersubsrc", "netsim",
+    "videosegmentclip", "audiosegmentclip", "wavparse", "wavenc", "pnmenc",
+    "pnmdec", "auparse", "auenc", "aiffmux", "aiffparse", "adpcmenc",
+    "adpcmdec", "gdppay", "gdpdepay", "ipcpipelinesink", "ipcpipelinesrc",
+    "ipcslavepipeline", "aspectratiocrop", "imagesequencesrc", "pushfilesrc",
+    "splitfilesrc", "rndbuffersize", "capsdebug", "testsink", "navseek",
+    "navigationtest")
+
+
+@contextlib.contextmanager
+def copy_meter(counts):
+    """While the block runs, add to counts["d2h"] the bytes of every card
+    tensor copied to the host (Tensor.cpu) and to counts["h2d"] those of
+    every host tensor copied to the card (Tensor.to: the staging of source
+    arrays and the host elements' uploads)."""
+    import torch
+    cpu, to = torch.Tensor.cpu, torch.Tensor.to
+
+    def metered_cpu(self, *a, **k):
+        if self.is_cuda:
+            counts["d2h"] += self.numel() * self.element_size()
+        return cpu(self, *a, **k)
+
+    def metered_to(self, *a, **k):
+        out = to(self, *a, **k)
+        if not self.is_cuda and out.is_cuda:
+            counts["h2d"] += out.numel() * out.element_size()
+        return out
+    torch.Tensor.cpu, torch.Tensor.to = metered_cpu, metered_to
+    try:
+        yield counts
+    finally:
+        torch.Tensor.cpu, torch.Tensor.to = cpu, to
+
+
+@contextlib.contextmanager
+def host_spent(pipe, spent):
+    """While the block runs, add to spent[name] the host seconds of each
+    host element's host_process / host_aggregate and each sink's render."""
+    from gstreamer_tpu_torch.core.element import SinkElement
+    saved = []
+    for e in pipe.iterate_elements():
+        for attr in ("host_process", "host_aggregate", "render"):
+            if attr == "render" and not isinstance(e, SinkElement):
+                continue
+            if attr != "render" and e not in pipe._host_elems:
+                continue
+            fn = getattr(e, attr, None)
+            if fn is None:
+                continue
+
+            def timed(*a, fn=fn, name=(e.FACTORY if e.name.startswith(
+                      e.FACTORY) else e.name)):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    spent[name] = spent.get(name, 0.0) \
+                        + time.perf_counter() - t0
+            saved.append((e, attr, fn))
+            setattr(e, attr, timed)
+    try:
+        yield spent
+    finally:
+        for e, attr, fn in saved:
+            setattr(e, attr, fn)
+
+
+def union_busy(prof):
+    """The union of a profiler's device intervals, in ms."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy_us / 1e3
+
+
+def bc_path(name, pipe, ticks, dev, start, finish, peak, frames_of,
+            sinks=("out",)):
+    """Drive a started pipeline tick by tick (`ticks`: a callable per tick
+    that pushes its inputs), the launch counts zeroed just before and read
+    just after, under torch.profiler on a card.  Returns the sinks' samples
+    and the path's numbers: frames/s over ticks 2.. (all when one), device
+    busy ms and idle share a tick, the host elements' share of the tick,
+    bytes copied D2H and H2D a tick, peak memory."""
+    import contextlib as cl
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = dev.type == "cuda"
+    base = start(name)
+    samples = {s: [] for s in sinks}
+    secs, spent, counts = [], {}, {"d2h": 0, "h2d": 0}
+    prof_cm = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if cuda else cl.nullcontext())
+    with prof_cm as prof, host_spent(pipe, spent), copy_meter(counts):
+        for push in ticks:
+            sync(dev)
+            t0 = time.perf_counter()
+            push()
+            pipe.tick()
+            for s in sinks:
+                samples[s] += drain(pipe.get_by_name(s))
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+    launches = finish(name, {})
+    mem = peak(base)
+    n = len(secs)
+    timed = secs[1:] if n > 1 else secs
+    frames = frames_of(samples)
+    fps = (frames * (len(timed) / n)) / sum(timed) if sum(timed) else 0.0
+    busy = union_busy(prof) / n if cuda else 0.0
+    wall = sum(secs) / n * 1e3
+    host = sum(spent.values()) / n * 1e3
+    numbers = dict(fps=fps, wall=wall, busy=busy,
+                   idle=max(0.0, 1.0 - busy / wall) if wall else 1.0,
+                   host=host, host_share=host / wall if wall else 0.0,
+                   d2h=counts["d2h"] / n, h2d=counts["h2d"] / n, mem=mem,
+                   secs=[round(s * 1e3, 3) for s in secs],
+                   spent={k: round(v / n * 1e3, 3) for k, v in spent.items()},
+                   launches=launches)
+    return samples, numbers
+
+
+def bc_report(name, what, r):
+    print(f"e2e {name}: {r['fps']:.1f} {what} over ticks 2..{len(r['secs'])}"
+          f" ({r['secs']} ms per tick, host clock between synchronises); "
+          f"device busy {r['busy']:.3f} ms and idle share {r['idle']:.3f} of "
+          f"a {r['wall']:.3f} ms tick (traced); the host elements "
+          f"{r['host']:.3f} ms a tick ({r['host_share']:.3f} of it: "
+          f"{r['spent']}); copied {r['d2h'] / 2**20:.3f} MiB D2H and "
+          f"{r['h2d'] / 2**20:.3f} MiB H2D a tick; peak memory "
+          f"{r['mem']:.1f} MiB; kernel launches {r['launches']}")
+
+
+def bc_frames(n, h, w, seed, dev=None):
+    """Seeded I420 planes of n frames (on `dev` when given)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    host = tuple(rng.integers(0, 256, (n,) + s, dtype=np.uint8)
+                 for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    return host if dev is None else tuple(torch.from_numpy(p).to(dev)
+                                          for p in host)
+
+
+def captions_sd(seed, dev, start, finish, peak):
+    """captions_sd: NTSC SD line 21 with timecodes (CAPTIONS_DESC): seeded
+    720x486 I420 at 30000/1001, batch 30, 3 ticks, one seeded CEA-608 pair
+    a frame from its appsrc (host bytes, unstaged).  Every frame's decoded
+    pair equals the pushed one, the caption branch through CDP and back
+    too; the timecodes, the caption samples and every frame's bytes equal
+    the CPU run's; the rows under line 21 are the input's."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    w, h, n, ticks = CAPTIONS_SD
+    desc = CAPTIONS_DESC.format(w=w, h=h)
+    rng = np.random.default_rng(seed)
+    dur = 1_000_000_000 * 1001 // 30000
+    host = [bc_frames(n, h, w, seed + t) for t in range(ticks)]
+    pairs = [[bytes(rng.integers(0, 128, 2, dtype=np.uint8) | 0x80)
+              for _ in range(n)] for _ in range(ticks)]
+
+    def run(d, cut=None):
+        pipe = parse_launch(desc, batch=n, device=d)
+        pipe.set_state(State.PLAYING)
+        require(pipe.get_by_name("cap") in pipe._host_fed
+                and pipe.get_by_name("in") not in pipe._host_fed,
+                "captions_sd: the caption bytes were staged or the video "
+                "was not")
+        # the frames on the device before the timed ticks, as a camera's
+        # decoder would leave them
+        on = [tuple(torch.from_numpy(p[:cut]).to(d) for p in host[t])
+              for t in range(ticks)]
+        sync(d)
+
+        def tick(t):
+            def push():
+                planes = on[t]
+                m = planes[0].shape[0]
+                pipe.get_by_name("in").push_buffer(Buffer(
+                    data=planes, pts=t * n * dur, duration=dur, batch=m))
+                pipe.get_by_name("cap").push_buffer(Buffer(
+                    data=[np.frombuffer(b, np.uint8) for b in pairs[t][:m]],
+                    pts=t * n * dur, duration=dur, batch=m))
+            return push
+        return pipe, [tick(t) for t in range(ticks)]
+    pipe, pushes = run(dev)
+    out, r = bc_path("captions_sd", pipe, pushes, dev, start, finish, peak,
+                     lambda s: sum(x.buffer.batch for x in s["out"]),
+                     sinks=("out", "cc"))
+    pipe.set_state(State.NULL)
+    cpu, cpushes = run(torch.device("cpu"))
+    ref = {"out": [], "cc": []}
+    for push in cpushes:
+        push()
+        cpu.tick()
+        for s in ref:
+            ref[s] += drain(cpu.get_by_name(s))
+    cpu.set_state(State.NULL)
+    require(len(out["out"]) == len(ref["out"]) == ticks
+            and len(out["cc"]) == ticks, "captions_sd: samples per tick")
+    for t in range(ticks):
+        o, c = out["out"][t].buffer, ref["out"][t].buffer
+        require(o.meta["closedcaption"] == ("raw", pairs[t]),
+                f"captions_sd: tick {t}'s decoded pairs differ from the "
+                f"pushed ones")
+        require(o.meta["timecode"] == c.meta["timecode"] and len(
+            o.meta["timecode"]) == n, "captions_sd: timecodes differ")
+        for a, b, src in zip(o.data, c.data, host[t]):
+            require(a.is_cuda == (dev.type == "cuda")
+                    and torch.equal(a.cpu(), b),
+                    "captions_sd: frames differ from the CPU run")
+        require(np.array_equal(o.data[0][:, 1:].cpu().numpy(),
+                               host[t][0][:, 1:])
+                and all(np.array_equal(a.cpu().numpy(), s)
+                        for a, s in zip(o.data[1:], host[t][1:])),
+                "captions_sd: line21encoder touched more than row 0")
+        cc = [bytes(np.asarray(x)) for x in out["cc"][t].buffer.data]
+        cr = [bytes(np.asarray(x)) for x in ref["cc"][t].buffer.data]
+        require(cc == cr == pairs[t], "captions_sd: the CDP round trip "
+                "differs from the pushed pairs")
+    first = out["out"][0].buffer.meta["timecode"]
+    bc_report("captions_sd", "frames/s", r)
+    print(f"  captions_sd: {ticks} ticks of {n} frames of {w}x{h}, every "
+          f"frame's decoded pair == the pushed pair (and through CDP and "
+          f"back); timecodes {first[0]}.."
+          f"{out['out'][-1].buffer.meta['timecode'][-1]} "
+          f"== the CPU run's; every frame == the CPU run's, rows 1.. and "
+          f"chroma == the input")
+
+
+def ass_doc(t, w, h):
+    """A tick's ASS text: two events, the second moving across the frame."""
+    x = 200 + 500 * t
+    return (ASS_HEADER
+            + f"Dialogue: 0,0:00:00.00,0:00:05.00,Default,,0,0,0,,"
+              f"Subtitle line {t}: {{\\i1}}the quick brown fox{{\\i0}}\n"
+            + f"Dialogue: 0,0:00:00.00,0:00:05.00,Sign,,0,0,0,,"
+              f"{{\\pos({x},{h // 4})}}{{\\c&H00FF00&}}SIGN {t}\n")
+
+
+def dvb_sub(t, sw, sh, seed):
+    """A tick's seeded AYUV subpicture planes, one frame: a transparent
+    field with opaque text-like bars of three colours."""
+    import numpy as np
+    rng = np.random.default_rng(seed + t)
+    img = np.zeros((4, sh, sw), np.uint8)
+    img[1], img[2:] = 16, 128
+    for k in range(12):
+        y0, x0 = int(rng.integers(0, sh - 10)), int(rng.integers(0, sw - 30))
+        img[:, y0:y0 + 10, x0:x0 + 30] = np.array(
+            [255, (235, 16, 180)[k % 3], 128, (128, 128, 200)[k % 3]],
+            np.uint8)[:, None, None]
+    return tuple(p[None] for p in img)
+
+
+def subtitles_hd(seed, dev, start, finish, peak):
+    """subtitles_hd: seeded 1920x1080 I420, batch 16, 3 ticks, under
+    assrender (a seeded ASS document a tick: two events, one moving) and
+    under dvbsubenc ! dvbsuboverlay (a seeded AYUV subpicture a tick,
+    DVB_REGION).  The first SUB_CHECK frames of each tick equal the CPU
+    run's; the copy of a tick's planes to the host and back is timed."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import (Buffer, device_planes,
+                                                 host_array)
+    from gstreamer_tpu_torch.core.pipeline import State
+    w, h, n, ticks = SUBTITLES_HD
+    sw, sh, sx, sy = DVB_REGION
+    host = [bc_frames(n, h, w, seed + 20 + t) for t in range(ticks)]
+    for kind, fmt in SUB_DESC.items():
+        desc = fmt.format(w=w, h=h, sw=sw, sh=sh, sx=sx, sy=sy)
+
+        def run(d, cut=None):
+            pipe = parse_launch(desc, batch=n, device=d)
+            pipe.set_state(State.PLAYING)
+            on = [tuple(torch.from_numpy(p[:cut]).to(d) for p in host[t])
+                  for t in range(ticks)]
+            subs = [tuple(torch.from_numpy(p).to(d)
+                          for p in dvb_sub(t, sw, sh, seed))
+                    for t in range(ticks)]
+            sync(d)
+
+            def tick(t):
+                def push():
+                    planes = on[t]
+                    m = planes[0].shape[0]
+                    pipe.get_by_name("v").push_buffer(Buffer(
+                        data=planes, pts=t * n * DUR, duration=DUR, batch=m))
+                    if kind == "assrender":
+                        txt = np.frombuffer(ass_doc(t, w, h).encode(),
+                                            np.uint8)
+                        pipe.get_by_name("t").push_buffer(Buffer(
+                            data=txt, pts=t * n * DUR))
+                    else:
+                        pipe.get_by_name("t").push_buffer(Buffer(
+                            data=subs[t], pts=t * n * DUR, duration=DUR,
+                            batch=1))
+                return push
+            return pipe, [tick(t) for t in range(ticks)]
+        name = f"subtitles_hd_{kind}"
+        pipe, pushes = run(dev)
+        if kind == "assrender":
+            require(pipe.get_by_name("t") in pipe._host_fed,
+                    f"{name}: the subtitle text was staged")
+        out, r = bc_path(name, pipe, pushes, dev, start, finish, peak,
+                         lambda s: sum(x.buffer.batch for x in s["out"]))
+        pipe.set_state(State.NULL)
+        cpu, cpushes = run(torch.device("cpu"), SUB_CHECK)
+        ref = []
+        for push in cpushes:
+            push()
+            cpu.tick()
+            ref += drain(cpu.get_by_name("out"))
+        cpu.set_state(State.NULL)
+        require(len(out["out"]) == len(ref) == ticks,
+                f"{name}: samples per tick")
+        drawn = 0
+        for t in range(ticks):
+            for a, b, src in zip(out["out"][t].buffer.data, ref[t].buffer.data,
+                                 host[t]):
+                require(a.is_cuda == (dev.type == "cuda")
+                        and tuple(a.shape) == src.shape
+                        and torch.equal(a[:SUB_CHECK].cpu(), b),
+                        f"{name}: the first frames differ from the CPU run")
+            drawn += int((out["out"][t].buffer.data[0].cpu().numpy()
+                          != host[t][0]).sum())
+        require(drawn > 0, f"{name}: nothing was drawn")
+        bc_report(name, "frames/s", r)
+        print(f"  {name}: {ticks} ticks of {n} frames of {w}x{h}; the first "
+              f"{SUB_CHECK} frames of every tick == the CPU run's; "
+              f"{drawn} luma bytes drawn")
+    # what a device blend would save: a tick's planes to the host and back
+    planes = bc_frames(n, h, w, seed, dev)
+    if dev.type == "cuda":
+        d2h = cuda_ms(lambda: [host_array(p) for p in planes], 5, 1)
+        back = [host_array(p) for p in planes]
+        h2d = cuda_ms(lambda: device_planes(back, planes), 5, 1)
+        print(f"  subtitles_hd copies: a {w}x{h} I420 tick of {n} frames "
+              f"({sum(p.numel() for p in planes) / 2**20:.1f} MiB) to the "
+              f"host {d2h:.3f} ms (host_array: pageable memory), back to the "
+              f"card {h2d:.3f} ms (device_planes: one copy through "
+              f"page-locked memory); CUDA events")
+
+
+def scope_audio(seed, pushes, rate):
+    """Seeded 48 kHz stereo S16 pushes of 1 s: a chord with a moving
+    stereo image under noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(pushes):
+        i = np.arange(t * rate, (t + 1) * rate) / rate
+        left = 0.4 * np.sin(2 * np.pi * 220 * i) + 0.2 * np.sin(
+            2 * np.pi * 1760 * i)
+        right = 0.4 * np.sin(2 * np.pi * 330 * i + i) + 0.1 * np.sin(
+            2 * np.pi * 5000 * i)
+        x = np.stack([left, right], -1) + rng.normal(0, 0.05, (rate, 2))
+        out.append((np.clip(x, -1, 1) * 32767).astype(np.int16))
+    return out
+
+
+def scopes_hd(seed, dev, start, finish, peak):
+    """scopes_hd: 48 kHz stereo S16, SCOPE_PUSHES pushes of 1 s, through
+    each of wavescope, spectrascope, spacescope and synaescope at
+    1920x1080 30/1, then videoconvertscale to I420 (SCOPE_DESC: a tee keeps
+    the scope's own frames too), and monoscope (256x128) and goom2k1 at
+    their defaults.  The card's frames, the scope's and the converted
+    ones, equal the CPU run's over the first push."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.pipeline import State
+    w, h, fps = SCOPES_HD
+    rate = SCOPE_RATE
+    audio = scope_audio(seed, SCOPE_PUSHES, rate)
+    caps = f"video/x-raw,width={w},height={h},framerate={fps}/1 ! "
+    for scope in SCOPES + ("monoscope", "goom2k1"):
+        desc = SCOPE_DESC.format(
+            rate=rate, scope=scope,
+            caps=caps if scope in SCOPES else "")
+
+        def run(d, pushes):
+            pipe = parse_launch(desc, device=d)
+            pipe.set_state(State.PLAYING)
+            on = [torch.from_numpy(a).to(d) for a in audio[:pushes]]
+            sync(d)
+
+            def tick(t):
+                def push():
+                    pipe.get_by_name("in").push_buffer(Buffer(
+                        data=on[t], pts=t * 1_000_000_000,
+                        duration=1_000_000_000))
+                return push
+            return pipe, [tick(t) for t in range(pushes)]
+        pipe, pushes = run(dev, SCOPE_PUSHES)
+        out, r = bc_path(scope, pipe, pushes, dev, start, finish, peak,
+                         lambda s: sum(x.buffer.batch for x in s["out"]),
+                         sinks=("out", "raw"))
+        pipe.set_state(State.NULL)
+        cpu, cpushes = run(torch.device("cpu"), 1)
+        ref = {"out": [], "raw": []}
+        for push in cpushes:
+            push()
+            cpu.tick()
+            for s in ref:
+                ref[s] += drain(cpu.get_by_name(s))
+        cpu.set_state(State.NULL)
+        frames = [x.buffer.batch for x in out["out"]]
+        require(len(frames) == SCOPE_PUSHES and min(frames) >= 1,
+                f"{scope}: frames a push {frames}")
+        for s in ("out", "raw"):
+            require(len(ref[s]) == 1 and str(ref[s][0].caps)
+                    == str(out[s][0].caps), f"{scope}: caps of {s}")
+            for a, b in zip(out[s][0].buffer.data, ref[s][0].buffer.data):
+                require(a.is_cuda == (dev.type == "cuda")
+                        and torch.equal(a.cpu(), b),
+                        f"{scope}: the {s} frames differ from the CPU run")
+        lit = sum(int(p.count_nonzero()) for x in out["raw"]
+                  for p in x.buffer.data)
+        require(lit > 0, f"{scope}: every frame is black")
+        caps0 = out["raw"][0].caps[0]
+        bc_report(f"scopes_hd_{scope}", "frames/s", r)
+        print(f"  scopes_hd_{scope}: {SCOPE_PUSHES} pushes of 1 s of {rate} "
+              f"Hz stereo S16 -> {sum(frames)} frames of "
+              f"{caps0['width']}x{caps0['height']} BGRx, then I420; the "
+              f"first push's frames (scope and I420) == the CPU run's; "
+              f"{lit} lit samples")
+
+
+def asr_run(desc, d, pushes=None):
+    """A launch string ending in appsink "out" to EOS on `d`, `pushes`
+    (host arrays) into appsrc "in"; returns the samples joined, and the
+    pipeline."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    pipe = parse_launch(desc, batch=1, device=d)
+    if pushes is not None:
+        src = pipe.get_by_name("in")
+        pos = 0
+        for x in pushes:
+            src.push_buffer(Buffer(data=torch.from_numpy(x).to(d),
+                                   pts=pos * 10**9 // 48000,
+                                   duration=len(x) * 10**9 // 48000))
+            pos += len(x)
+        src.end_of_stream()
+    pipe.run()
+    sink = pipe.get_by_name("out")
+    got = [s.buffer.data for s in drain(sink)] if sink is not None else []
+    return (torch.cat([g.cpu() for g in got]) if got else None), pipe
+
+
+def wav_asr(seed, dev, start, finish, peak):
+    """wav_asr: BASELINE config 2 from a file.  wavenc writes WAV_SECONDS
+    of seeded 48 kHz stereo S16LE (from the card; the file equals the CPU
+    run's); wavparse location=... ! audioconvert ! mono ! audioresample !
+    16 kHz ! audioconvert ! F32LE ! appsink runs on the card (timed) and
+    gives the samples that appsrc carrying the file's samples in the same
+    blocks gives, and the CPU run's.  The same round trip through auenc /
+    auparse (S16BE), aiffmux / aiffparse (S16BE) and adpcmenc ! wavenc /
+    wavparse ! adpcmdec: files and samples equal the CPU run's, the
+    lossless ones the samples written."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.pipeline import State
+    rng = np.random.default_rng(seed)
+    rate = 48000
+    i = np.arange(WAV_SECONDS * rate)[:, None] / rate
+    x = 0.5 * np.sin(2 * np.pi * np.array([300, 450]) * i) \
+        + rng.normal(0, 0.05, (len(i), 2))
+    samples = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    pushes = list(samples.reshape(WAV_SECONDS, rate, 2))
+    src = ("appsrc name=in caps=audio/x-raw,format=S16LE,rate=48000,"
+           "channels=2,layout=interleaved")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        writers = {
+            "wav": f"{src} ! wavenc location={{p}}",
+            "au": f"{src} ! audioconvert ! audio/x-raw,format=S16BE ! "
+                  f"auenc location={{p}}",
+            "aiff": f"{src} ! audioconvert ! audio/x-raw,format=S16BE ! "
+                    f"aiffmux location={{p}}",
+            "adpcm.wav": f"{src} ! adpcmenc ! wavenc location={{p}}"}
+        for ext, fmt in writers.items():
+            for d in (dev, torch.device("cpu")):
+                path = os.path.join(tmp, f"{d.type}.{ext}")
+                asr_run(fmt.format(p=path), d, pushes)
+                with open(path, "rb") as f:
+                    files[(ext, d.type)] = f.read()
+            require(files[(ext, dev.type)] == files[(ext, "cpu")],
+                    f"wav_asr: the {ext} file differs from the CPU run's")
+        big, _ = asr_run(f"{src} ! audioconvert ! audio/x-raw,format=S16BE "
+                         f"! appsink name=out", dev, pushes)
+        big = big.numpy()
+        readers = {"wav": "wavparse location={p} blocksize=48000",
+                   "au": "auparse location={p}",
+                   "aiff": "aiffparse location={p} blocksize=48000",
+                   "adpcm.wav": "wavparse location={p} ! adpcmdec"}
+        for ext, fmt in readers.items():
+            path = os.path.join(tmp, f"{dev.type}.{ext}")
+            parsed, _ = asr_run(fmt.format(p=path) + " ! appsink name=out",
+                                dev)
+            if ext != "adpcm.wav":
+                # audioconvert's S16LE -> S16BE moves samples by an LSB (the
+                # 16-bit unpack fills the low half, the quantizer rounds;
+                # ROADMAP.md section 3): AU and AIFF hold what it gave
+                want = samples if ext == "wav" else big
+                require(np.array_equal(parsed.numpy().astype(np.int16),
+                                       want),
+                        f"wav_asr: {ext}'s samples differ from those written")
+            desc = f"{fmt.format(p=path)} ! {ASR_CHAIN}"
+            if ext == "wav":
+                pipe = parse_launch(desc, batch=1, device=dev)
+                pipe.set_state(State.PLAYING)
+                ticks = [lambda: None] * WAV_SECONDS
+                out, r = bc_path("wav_asr", pipe, ticks, dev, start, finish,
+                                 peak, lambda s: sum(
+                                     x.buffer.data.shape[0] for x in s["out"]))
+                while pipe.tick():         # to EOS: the resampler's tail
+                    out["out"] += drain(pipe.get_by_name("out"))
+                out["out"] += drain(pipe.get_by_name("out"))
+                pipe.set_state(State.NULL)
+                card = torch.cat([s.buffer.data.cpu() for s in out["out"]])
+                fed, _ = asr_run(f"{src} ! {ASR_CHAIN}", dev, pushes)
+                require(torch.equal(card, fed),
+                        "wav_asr: wavparse's samples through the chain differ "
+                        "from appsrc's")
+            else:
+                card, _ = asr_run(desc, dev)
+            cpu, _ = asr_run(desc, torch.device("cpu"))
+            require(card.dtype == torch.float32 and card.numel() > 0
+                    and bool(torch.isfinite(card).all()),
+                    f"wav_asr: {ext} gave {tuple(card.shape)}")
+            require(torch.equal(card, cpu),
+                    f"wav_asr: {ext}'s chain differs from the CPU run")
+        sizes = {k[0]: len(v) for k, v in files.items() if k[1] == "cpu"}
+    bc_report("wav_asr", "16 kHz output samples/s", r)
+    print(f"  wav_asr: {WAV_SECONDS} s of 48 kHz stereo S16 written and read "
+          f"back as {sizes} bytes; the WAV chain == appsrc with the same "
+          f"samples == the CPU run; AU, AIFF and IMA ADPCM WAV round trips "
+          f"== the CPU run, the lossless ones == the pushed samples")
+
+
+def bc_plain(x):
+    """A value of a sample, meta, message or element as plain comparable
+    data: tensors and arrays by dtype, shape and bytes (wherever they
+    lie), caps by their string, containers walked."""
+    import numpy as np
+    import torch
+    if isinstance(x, dict):
+        return {k: bc_plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, [bc_plain(v) for v in x])
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return ("array", x.dtype.str, x.shape, x.tobytes())
+    if type(x).__name__ == "Caps":
+        return ("caps", str(x))
+    return x
+
+
+def annexb_aus(h265, n, rng):
+    """n access units of stand-in NALs (a parameter set, a slice)."""
+    import numpy as np
+    aus = []
+    for k in range(n):
+        if h265:
+            ps, vcl = bytes([32 << 1, 1]), bytes([(19 if k == 0 else 1) << 1,
+                                                  1])
+        else:
+            ps, vcl = b"\x67", bytes([0x65 if k == 0 else 0x41])
+        aus.append(b"\x00\x00\x00\x01" + ps + b"\x42\x11\x22"
+                   + b"\x00\x00\x00\x01" + vcl
+                   + rng.integers(1, 256, 24, dtype=np.uint8).tobytes())
+    return aus
+
+
+def spu_packet(w, h, sx, sy):
+    """A DVD subpicture unit: a solid rectangle of colour 1, displayed."""
+    import struct
+    line = bytes([0x00, 0x01])
+    top = line * ((h + 1) // 2)
+    bot = line * (h // 2)
+    ctrl_off = 4 + len(top) + len(bot)
+    ex, ey = sx + w - 1, sy + h - 1
+    ctrl = struct.pack(">HH", 0, ctrl_off) + bytes([
+        0x01, 0x03, 0x32, 0x10, 0x04, 0xFF, 0xFF, 0x05, sx >> 4,
+        ((sx & 0xF) << 4) | (ex >> 8), ex & 0xFF, sy >> 4,
+        ((sy & 0xF) << 4) | (ey >> 8), ey & 0xFF, 0x06]) + struct.pack(
+        ">HH", 4, 4 + len(top)) + b"\xff"
+    body = top + bot + ctrl
+    return struct.pack(">HH", 4 + len(body), ctrl_off) + body
+
+
+def bc_inputs(kind, rng):
+    """One source's pushes for a factory of the slice alone: Buffer kwargs
+    with host data (the card run moves arrays to the card)."""
+    import struct
+
+    import numpy as np
+    w, h, n = BC_ALONE
+    if kind in ("I420", "GRAY8", "S16LE", "F32LE", "text", "bytes"):
+        return analytics_inputs(kind, rng)
+    if kind == "RGB":
+        return [dict(data=tuple(rng.integers(0, 256, (n, h, w),
+                                             dtype=np.uint8)
+                                for _ in range(3)), pts=t * n * DUR,
+                     duration=DUR, batch=n) for t in range(2)]
+    if kind == "AYUV":
+        img = np.zeros((4, 1, 16, 32), np.uint8)
+        img[1], img[2:] = 16, 128
+        img[:, :, 4:12, 6:26] = np.array([255, 200, 90, 160],
+                                         np.uint8)[:, None, None, None]
+        return [dict(data=tuple(img), pts=t * n * DUR, duration=DUR,
+                     batch=1) for t in range(2)]
+    if kind == "S16BE":
+        return [dict(data=(rng.standard_normal((4800, 2)) * 5000).astype(
+            np.int16), pts=t * 10**8, duration=10**8) for t in range(2)]
+    if kind == "cc":
+        return [dict(data=[np.frombuffer(bytes(rng.integers(
+            0, 128, 2, dtype=np.uint8) | 0x80), np.uint8) for _ in range(n)],
+            pts=t * n * DUR, duration=DUR, batch=n) for t in range(2)]
+    if kind in ("h264", "h265"):
+        return [dict(data=[np.frombuffer(a, np.uint8)
+                           for a in annexb_aus(kind == "h265", n, rng)],
+                     pts=t * n * DUR, batch=n,
+                     meta={"closedcaption": ("cc_data", [
+                         b"\xfc" + rng.bytes(2) for _ in range(n)]),
+                         "sei-user-data": (b"0123456789abcdef", b"hi")})
+                for t in range(2)]
+    if kind == "ass":
+        return [dict(data=np.frombuffer((
+            ASS_HEADER + f"Dialogue: 0,0:00:00.00,0:00:01.00,Default,,0,0,"
+            f"0,,{{\\pos(30,20)}}x{t}\n").encode(), np.uint8),
+            pts=t * n * DUR) for t in range(2)]
+    if kind == "lpcm":
+        return [dict(data=np.frombuffer(bytes([1, 0, 4, 0x01, 0x80])
+                                        + rng.integers(-9000, 9000, (240, 2))
+                                        .astype(">i2").tobytes(), np.uint8),
+                     pts=t * 5 * 10**6) for t in range(2)]
+    if kind == "spu":
+        pkt = spu_packet(20, 8, 10, 30)
+        return [dict(data=np.frombuffer(pkt[:9], np.uint8), pts=0),
+                dict(data=np.frombuffer(pkt[9:] + pkt, np.uint8),
+                     pts=n * DUR)]
+    raise ValueError(kind)
+
+
+def bc_rows():
+    """The launch strings that drive each factory of the slice alone or in
+    a short chain: [(launch, {appsrc: kind}, before)], where `before` is a
+    launch string run first on the same device (the writer or the sink
+    pipeline its reader needs) or a dict of files to write first.  {t} is
+    the temporary directory, {r} / {w} the ends of a pipe."""
+    import numpy as np
+    w, h, n = BC_ALONE
+    caps = {"I420": f"video/x-raw,format=I420,width={w},height={h},"
+                    "framerate=30/1",
+            "RGB": f"video/x-raw,format=RGB,width={w},height={h},"
+                   "framerate=30/1",
+            "GRAY8": f"video/x-raw,format=GRAY8,width={w},height={h},"
+                     "framerate=30/1",
+            "AYUV": "video/x-raw,format=AYUV,width=32,height=16,"
+                    "framerate=30/1",
+            "S16LE": "audio/x-raw,format=S16LE,rate=48000,channels=2,"
+                     "layout=interleaved",
+            "S16BE": "audio/x-raw,format=S16BE,rate=48000,channels=2,"
+                     "layout=interleaved",
+            "F32LE": "audio/x-raw,format=F32LE,rate=48000,channels=2,"
+                     "layout=interleaved",
+            "cc": "closedcaption/x-cea-608,format=raw,framerate=30/1",
+            "h264": "video/x-h264,stream-format=byte-stream,alignment=au",
+            "h265": "video/x-h265,stream-format=byte-stream,alignment=au",
+            "ass": "application/x-ass", "lpcm": "audio/x-private1-lpcm",
+            "spu": "subpicture/x-dvd", "text": "text/x-raw",
+            "bytes": "application/octet-stream"}
+
+    def src(kind, name="in"):
+        return f"appsrc name={name} caps={caps[kind]}"
+
+    def one(kind, chain, before=None):
+        return (f"{src(kind)} ! {chain}", {"in": kind}, before)
+    from gstreamer_tpu_torch.elements.simple_formats import pnm_encode
+    rng = np.random.default_rng(1)
+    pnms = {f"img_{k}.pnm": pnm_encode([rng.integers(0, 256, (h, w),
+                                                     dtype=np.uint8)
+                                        for _ in range(3)], "RGB")
+            for k in range(1, 4)}
+    parts = {f"part{k}.bin": rng.bytes(700 * (k + 1)) for k in range(3)}
+    return [
+        (f"cccombiner name=c ! line21encoder ! line21decoder ! ccextractor "
+         f"name=x x.src ! appsink name=out x.caption_0 ! ccconverter ! "
+         f"closedcaption/x-cea-708,format=cdp ! appsink name=out1 "
+         f"{src('I420')} ! timecodestamper post-messages=true ! avwait "
+         f"target-running-time=30000000 ! c.sink {src('cc', 'cap')} ! "
+         f"c.caption", {"in": "I420", "cap": "cc"}, None),
+        (f"cea608mux name=m ! appsink name=out {src('cc', 'f1')} ! m.sink_0 "
+         f"{src('cc', 'f2')} ! m.sink_1", {"f1": "cc", "f2": "cc"}, None),
+        one("h264", "h264ccinserter ! h264ccextractor ! h264seiinserter ! "
+            "h264timestamper ! appsink name=out"),
+        one("h265", "h265ccinserter ! h265ccextractor ! h265seiinserter "
+            "remove-caption-meta=true ! h265timestamper ! appsink name=out"),
+        one("I420", "alpha_combine ! appsink name=out"),
+        one("I420", "alphacombine ! appsink name=out"),
+        one("I420", "combdetect ! ivtc ! videosegmentclip start=30000000 ! "
+            "appsink name=out"),
+        (f"compare name=c method=mse ! appsink name=out {src('I420', 'i0')} "
+         f"! c.sink {src('I420', 'i1')} ! c.check", {"i0": "I420",
+                                                    "i1": "I420"}, None),
+        one("F32LE", "audiolatency ! audiosegmentclip start=50000000 ! "
+            "netsim duplicate-probability=0.5 seed=3 ! appsink name=out"),
+        (f"assrender name=ov ! appsink name=out {src('I420', 'v')} ! "
+         f"ov.video {src('ass', 't')} ! ov.text", {"v": "I420", "t": "ass"},
+         None),
+        (f"dvbsuboverlay name=ov ! appsink name=out {src('I420', 'v')} ! "
+         f"ov.video {src('AYUV', 't')} ! dvbsubenc x=8 y=4 ! ov.text",
+         {"v": "I420", "t": "AYUV"}, None),
+        one("lpcm", "dvdlpcmdec ! appsink name=out"),
+        (f"dvdspu name=ov ! appsink name=out {src('I420', 'v')} ! ov.video "
+         f"{src('spu', 's')} ! dvdsubparse ! dvdsubdec ! ov.subpicture",
+         {"v": "I420", "s": "spu"}, None),
+        one("S16LE", "wavescope ! video/x-raw,width=64,height=48 ! "
+            "appsink name=out"),
+        one("S16LE", "spectrascope ! video/x-raw,width=64,height=48 ! "
+            "appsink name=out"),
+        one("S16LE", "spacescope style=lines ! video/x-raw,width=64,"
+            "height=48 ! appsink name=out"),
+        one("S16LE", "synaescope ! video/x-raw,width=64,height=48 ! "
+            "appsink name=out"),
+        one("S16LE", "monoscope ! appsink name=out"),
+        one("S16LE", "goom2k1 ! video/x-raw,width=64,height=48 ! "
+            "appsink name=out"),
+        ("intervideosrc channel=bcv ! appsink name=out", {},
+         (f"{src('I420')} ! intervideosink channel=bcv", {"in": "I420"})),
+        ("interaudiosrc channel=bca ! appsink name=out", {},
+         (f"{src('S16LE')} ! interaudiosink channel=bca", {"in": "S16LE"})),
+        ("intersubsrc channel=bcs ! appsink name=out", {},
+         (f"{src('text')} ! intersubsink channel=bcs", {"in": "text"})),
+        ("wavparse location={t}/a.wav blocksize=1000 ! appsink name=out", {},
+         (f"{src('S16LE')} ! wavenc location={{t}}/a.wav",
+          {"in": "S16LE"})),
+        ("auparse location={t}/a.au ! appsink name=out", {},
+         (f"{src('S16BE')} ! auenc location={{t}}/a.au", {"in": "S16BE"})),
+        ("aiffparse location={t}/a.aiff ! appsink name=out", {},
+         (f"{src('S16BE')} ! aiffmux location={{t}}/a.aiff",
+          {"in": "S16BE"})),
+        one("RGB", "pnmenc ! pnmdec ! appsink name=out"),
+        one("S16LE", "adpcmenc blockalign=256 ! adpcmdec ! appsink "
+            "name=out"),
+        ("gdpdepay location={t}/v.gdp ! appsink name=out", {},
+         (f"{src('I420')} ! gdppay ! filesink location={{t}}/v.gdp",
+          {"in": "I420"})),
+        ("ipcpipelinesrc fdin={r} ! appsink name=out", {},
+         (f"{src('I420')} ! ipcpipelinesink fdout={{w}}", {"in": "I420"})),
+        ("ipcslavepipeline fdin={r} ! appsink name=out", {},
+         (f"{src('S16LE')} ! ipcpipelinesink fdout={{w}}",
+          {"in": "S16LE"})),
+        one("I420", "aspectratiocrop aspect-ratio=1/1 ! capsdebug name=cd ! "
+            "navigationtest ! navseek ! testsink name=s"),
+        ("imagesequencesrc location={t}/img_%d.pnm start-index=1 "
+         "framerate=5/1 ! pnmdec ! appsink name=out", {}, pnms),
+        ("splitfilesrc location={t}/part*.bin blocksize=500 ! "
+         "application/octet-stream ! rndbuffersize seed=3 min=100 max=300 ! "
+         "appsink name=out", {}, parts),
+        ("pushfilesrc location={t}/part1.bin initial-timestamp=5 ! "
+         "application/octet-stream ! appsink name=out", {}, parts),
+    ]
+
+
+def bc_alone_run(desc, ins, before, d, tmp):
+    """A row of bc_rows on `d` to EOS (its `before` first): every appsink's
+    samples, the bus's element and tag messages, the named debug elements'
+    state and the files written, as plain data."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer, map_leaves
+    from gstreamer_tpu_torch.elements import inter_netsim
+    w, h, n = BC_ALONE
+    inter_netsim._SURFACES.clear()
+    r, wfd = os.pipe()
+
+    def fill(s):
+        return s.replace("{t}", tmp).replace("{r}", str(r)).replace(
+            "{w}", str(wfd))
+
+    def start_run(text, feeds):
+        pipe = parse_launch(fill(text), batch=n, device=d)
+        for name, bufs in feeds.items():
+            src = pipe.get_by_name(name)
+            for b in bufs:
+                src.push_buffer(Buffer(**dict(b, data=map_leaves(
+                    lambda x: torch_to(x, d) if isinstance(x, np.ndarray)
+                    and (x.dtype != np.uint8 or x.ndim > 1) else x,
+                    b["data"]))))
+            src.end_of_stream()
+        pipe.run()
+        return pipe
+    try:
+        if isinstance(before, dict):
+            for f, blob in before.items():
+                with open(os.path.join(tmp, f), "wb") as fh:
+                    fh.write(blob)
+        elif before is not None:
+            bdesc, bkinds = before
+            start_run(bdesc, {k: bc_inputs(v, np.random.default_rng(7))
+                              for k, v in bkinds.items()})
+            os.close(wfd)
+            wfd = -1
+        pipe = start_run(desc, ins)
+    finally:
+        for fd in (r, wfd):
+            if fd >= 0:
+                os.close(fd)
+        inter_netsim._SURFACES.clear()
+    got = {}
+    for s in ("out", "out1"):
+        sink = pipe.get_by_name(s)
+        for x in drain(sink) if sink is not None else ():
+            leaves = []
+            map_leaves(leaves.append, x.buffer.data)
+            media = str(x.caps).startswith(("video/x-raw", "audio/x-raw"))
+            require(all(isinstance(v, torch.Tensor)
+                        and v.device.type == torch.device(d).type
+                        for v in leaves) or not media
+                    or "rndbuffersize" in desc,
+                    f"{desc}: media left {d}")
+            got.setdefault(s, []).append((
+                x.buffer.pts, x.buffer.dts, x.buffer.duration, x.buffer.batch,
+                str(x.caps), bc_plain(x.buffer.data),
+                bc_plain(x.buffer.meta)))
+    state = {}
+    for name in ("s", "cd"):
+        e = pipe.get_by_name(name)
+        if e is not None:
+            state[name] = {a: bc_plain(getattr(e, a)) for a in (
+                "md5", "byte_count", "buffer_count", "seen_caps")
+                if hasattr(e, a)}
+    files = {}
+    for f in sorted(os.listdir(tmp)):
+        with open(os.path.join(tmp, f), "rb") as fh:
+            files[f] = fh.read()
+        os.remove(os.path.join(tmp, f))
+    msgs = [(m.type, bc_plain(m.data))
+            for m in iter(pipe.bus.pop, None) if m.type in ("element", "tag")]
+    return got, msgs, state, files
+
+
+def broadcast_alone(seed, counters, dev):
+    """Each of the slice's 68 factories alone or in a short chain on small
+    inputs (bc_rows), on the card and on the CPU: the samples, metas, bus
+    messages, the debug sinks' state and the written files equal; no
+    kernel launched on the card."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.element import list_factories
+    seen = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = bc_rows()
+        for k, (desc, kinds, before) in enumerate(rows):
+            rng = np.random.default_rng(seed + k)
+            ins = {name: bc_inputs(kind, rng) for name, kind in kinds.items()}
+            for c in counters.values():
+                c.launches = 0
+            card = bc_alone_run(desc, ins, before, dev, tmp)
+            counts = {k2: c.launches for k2, c in counters.items()
+                      if c.launches}
+            require(counts == {} or dev.type != "cuda",
+                    f"{desc}: launches {counts}")
+            cpu = bc_alone_run(desc, ins, before, torch.device("cpu"), tmp)
+            require(card == cpu, f"{desc}: the card's run differs from the "
+                    "CPU's")
+            require(any(card[0].values()) or card[2],
+                    f"{desc}: nothing came out")
+            texts = [desc] + ([before[0]] if isinstance(before, tuple)
+                              else [])
+            for text in texts:
+                seen.update(re.findall(r"(?:^|! )([a-z0-9_-]+)", text))
+                seen.update(re.findall(r"^(\w+) name=", text))
+    mine = set(BROADCAST_FACTORIES)
+    require(len(mine) == 68 and mine <= set(list_factories()),
+            "the slice's factory list")
+    require(mine <= seen, f"factories not driven alone: {mine - seen}")
+    w, h, n = BC_ALONE
+    print(f"broadcast each factory alone: CUDA == port CPU path (samples, "
+          f"metas, bus messages, debug sinks' state, written files) for the "
+          f"{len(mine)} factories in {len(rows)} launch strings on {n} "
+          f"frames of {w}x{h} or short pushes; no kernel launched")
+
+
+def broadcast_phase(seed, counters, dev):
+    """The broadcast, subtitle, scope and file host modules on the card,
+    each path with the launch counts zeroed just before it and read just
+    after (none of the ten kernels is on these paths): captions_sd,
+    subtitles_hd (assrender, dvbsub), scopes_hd (the four scopes, monoscope,
+    goom2k1), wav_asr, each with frames/s, device busy ms and idle share a
+    tick, the host's share, bytes copied D2H and H2D a tick and peak
+    memory; then each factory alone (broadcast_alone).  Returns {kernel:
+    launches}."""
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    captions_sd(seed, dev, start, finish, peak)
+    subtitles_hd(seed, dev, start, finish, peak)
+    scopes_hd(seed, dev, start, finish, peak)
+    wav_asr(seed, dev, start, finish, peak)
+    broadcast_alone(seed, counters, dev)
+    print(f"broadcast phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5541,6 +6580,10 @@ def main() -> int:
 
     # -- the analytics path and the last device elements (no kernel) --------
     for k, n in analytics_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- captions, subtitles, scopes and audio files (host modules) ---------
+    for k, n in broadcast_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

@@ -100,16 +100,46 @@ def host_array(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def device_array(a, like) -> torch.Tensor:
-    """A host result `a` as a tensor on the device of `like` (a buffer's
-    data tree: its first tensor leaf decides; the CPU when it holds
-    none)."""
+def _device_of(like) -> torch.device:
+    """`like` if it is a device, else the device of a buffer's data tree
+    (its first tensor leaf decides; the CPU when it holds none)."""
+    if isinstance(like, torch.device):
+        return like
     leaves = []
     map_leaves(leaves.append, like)
-    dev = next((x.device for x in leaves if isinstance(x, torch.Tensor)),
-               torch.device("cpu"))
+    return next((x.device for x in leaves if isinstance(x, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def device_array(a, like) -> torch.Tensor:
+    """A host result `a` as a tensor on the device of `like`: a device, or
+    a buffer's data tree (see ``_device_of``)."""
     a = np.ascontiguousarray(a)
-    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(
+        _device_of(like))
+
+
+def device_planes(arrays, like) -> tuple:
+    """Host arrays of one dtype as tensors on the device of `like` (as
+    ``device_array``) in one copy: laid end to end in one host array (a
+    page-locked one for a card, copied without blocking the host), moved
+    together, and cut into contiguous views of their shapes."""
+    arrays = [np.asarray(a) for a in arrays]
+    dev = _device_of(like)
+    parts = [a.reshape(-1) for a in arrays]
+    if dev.type == "cuda":
+        dtype = torch.from_numpy(np.empty(0, arrays[0].dtype)).dtype
+        pinned = torch.empty(sum(a.size for a in arrays), dtype=dtype,
+                             pin_memory=True)
+        np.concatenate(parts, out=pinned.numpy())
+        flat = pinned.to(dev, non_blocking=True)
+    else:
+        flat = torch.from_numpy(np.concatenate(parts))
+    out, pos = [], 0
+    for a in arrays:
+        out.append(flat[pos:pos + a.size].view(a.shape))
+        pos += a.size
+    return tuple(out)
 
 
 @dataclass

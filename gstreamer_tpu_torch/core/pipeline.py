@@ -115,6 +115,20 @@ def _carry_to(carry, dev):
     return map_leaves(to, carry)
 
 
+def _takes_host_bytes(pad) -> bool:
+    """Whether the sink `pad` takes a source's host bytes as they are: its
+    element has HOST_INPUT set (a parser or decoder), or names the pad in
+    HOST_INPUT_PADS (name prefixes: the caption or subtitle pad of an
+    element whose other pads take media); a capsfilter passes the question
+    on to the pads it feeds."""
+    e = pad.element
+    if e.FACTORY == "capsfilter":
+        peers = [sp.peer for sp in e.src_pads() if sp.peer is not None]
+        return bool(peers) and all(_takes_host_bytes(p) for p in peers)
+    return (getattr(e, "HOST_INPUT", False)
+            or pad.name.startswith(getattr(e, "HOST_INPUT_PADS", ())))
+
+
 def _first_leaf(tree):
     """The first leaf of a tree whose dicts are walked in sorted key
     order (jax.tree_util.tree_leaves' order)."""
@@ -631,7 +645,7 @@ class Pipeline(Bin):
         self._host_fed = {
             e for e in order if isinstance(e, SourceElement)
             and any(sp.peer is not None for sp in e.src_pads())
-            and all(getattr(sp.peer.element, "HOST_INPUT", False)
+            and all(_takes_host_bytes(sp.peer)
                     for sp in e.src_pads() if sp.peer is not None)}
         self._device_step = (self._compose(order, fns, scan_fns)
                              if self._fused else None)

@@ -56,3 +56,19 @@ from . import interlace         # noqa: F401
 from . import videofilters_bad  # noqa: F401  (zebrastripe, scenechange, videodiff, accurip)
 from . import imagefreeze       # noqa: F401
 from . import webrtcdsp         # noqa: F401  (webrtcechoprobe, webrtcdsp)
+from . import closedcaption     # noqa: F401  (ccconverter, cccombiner, ccextractor, cea608mux, line21encoder, line21decoder)
+from . import cc_sei            # noqa: F401  (h264ccinserter, h264ccextractor, h265ccinserter, h265ccextractor, alpha_combine, alphacombine, h264seiinserter, h265seiinserter)
+from . import timecode_misc     # noqa: F401  (timecodestamper, avwait, h264timestamper, h265timestamper, combdetect, ivtc, compare, audiolatency)
+from . import assrender         # noqa: F401
+from . import dvbsub            # noqa: F401  (dvbsubenc, dvbsuboverlay)
+from . import dvd               # noqa: F401  (dvdlpcmdec, dvdsubdec, dvdspu, dvdsubparse)
+from . import visualizers       # noqa: F401  (wavescope, spectrascope, spacescope, synaescope)
+from . import monoscope         # noqa: F401
+from . import goom2k1           # noqa: F401
+from . import inter_netsim      # noqa: F401  (intervideosink/src, interaudiosink/src, intersubsink/src, netsim, videosegmentclip, audiosegmentclip)
+from . import wav_elements      # noqa: F401  (wavparse, wavenc)
+from . import simple_formats    # noqa: F401  (pnmenc, pnmdec, auparse, auenc, aiffmux, aiffparse)
+from . import adpcm_elements    # noqa: F401  (adpcmenc, adpcmdec)
+from . import gdp               # noqa: F401  (gdppay, gdpdepay)
+from . import ipcpipeline       # noqa: F401  (ipcpipelinesink, ipcpipelinesrc, ipcslavepipeline)
+from . import good_extras       # noqa: F401  (aspectratiocrop, imagesequencesrc, pushfilesrc, splitfilesrc, rndbuffersize, capsdebug, testsink, navseek, navigationtest)

@@ -52,6 +52,22 @@ LATER_FACTORIES = (
     "videoframe-audiolevel", "simplevideomark", "simplevideomarkdetect",
     "iqa", "fieldanalysis", "interlace", "zebrastripe", "scenechange",
     "videodiff", "accurip", "imagefreeze", "webrtcechoprobe", "webrtcdsp")
+BROADCAST_FACTORIES = (
+    "ccconverter", "cccombiner", "ccextractor", "cea608mux", "line21encoder",
+    "line21decoder", "h264ccinserter", "h264ccextractor", "h265ccinserter",
+    "h265ccextractor", "alpha_combine", "alphacombine", "h264seiinserter",
+    "h265seiinserter", "timecodestamper", "avwait", "h264timestamper",
+    "h265timestamper", "combdetect", "ivtc", "compare", "audiolatency",
+    "assrender", "dvbsubenc", "dvbsuboverlay", "dvdlpcmdec", "dvdsubdec",
+    "dvdspu", "dvdsubparse", "wavescope", "spectrascope", "spacescope",
+    "synaescope", "monoscope", "goom2k1", "intervideosink", "intervideosrc",
+    "interaudiosink", "interaudiosrc", "intersubsink", "intersubsrc", "netsim",
+    "videosegmentclip", "audiosegmentclip", "wavparse", "wavenc", "pnmenc",
+    "pnmdec", "auparse", "auenc", "aiffmux", "aiffparse", "adpcmenc",
+    "adpcmdec", "gdppay", "gdpdepay", "ipcpipelinesink", "ipcpipelinesrc",
+    "ipcslavepipeline", "aspectratiocrop", "imagesequencesrc", "pushfilesrc",
+    "splitfilesrc", "rndbuffersize", "capsdebug", "testsink", "navseek",
+    "navigationtest")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -89,9 +105,11 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 235
+    assert len(telement._REGISTRY) == 303
     assert len(set(LATER_FACTORIES)) == 53
-    assert set(NEW_FACTORIES) | set(LATER_FACTORIES) <= set(telement._REGISTRY)
+    assert len(set(BROADCAST_FACTORIES)) == 68
+    assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
+        | set(BROADCAST_FACTORIES) <= set(telement._REGISTRY)
 
 
 @pytest.mark.parametrize("desc", [
