@@ -286,6 +286,36 @@ before it and read just after:
    then each of the slice's 68 factories alone or in a short chain, the
    card equal to the CPU (samples, metas, messages, files).
 
+16. containers and multi-stream sources (container_phase; the files are
+   written under a temporary directory and removed):
+
+  mkv_ingest        matroskamux writes 48 seeded 1920x1080 I420 frames at
+                    25/1 and 48 kHz stereo S16LE pushed as card tensors
+                    (the file equals the CPU run's); matroskademux d.video_0
+                    ! videoconvertscale add-borders=false ! RGB 224x224 and
+                    d.audio_0 ! audioconvert ! audioresample ! F32LE 16 kHz
+                    mono, batch 16, 3 ticks: one parse, yscale_hv once a
+                    tick, the audio deselected at tick 2 (staged as zeros),
+                    every output the CPU run's
+  mkv_uridecodebin  the same file through uridecodebin's video_0 / audio_0
+                    (its internal pipeline runs at batch 1: yscale_hv once a
+                    frame): mkv_ingest's RGB bytes and the CPU run's audio;
+                    then playbin's A/V build: the frames and samples written
+  mov_ingest        qtmux writes 32 1080p UYVY frames with 'sowt' audio;
+                    qtdemux's two streams to RGB 224x224 and F32LE 16 kHz
+                    (UYVY takes the converter's generic route: no kernel)
+  mxf_proxy         mxfmux writes 32 1080p UYVY frames at 25/1 with S16LE
+                    (seeded instance ids); mxfdemux to an I420 640x360 proxy
+                    and the audio chain (no kernel)
+
+   each with frames/s, the muxer's write frames/s, device busy ms and idle
+   share a tick, the host's share (the demuxer's create with from_bytes,
+   the staging, the host elements), the set-up with the parse, bytes copied
+   D2H and H2D a tick, peak memory and the launch counts; then each of the
+   19 container factories alone or as a writer and its reader (rmdemux,
+   rademux and pnmsrc on a hand-packed RealMedia file), the card equal to
+   the CPU (files, samples, messages).
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -6270,6 +6300,742 @@ def broadcast_phase(seed, counters, dev):
     return total
 
 
+# -- 16. containers and multi-stream sources ---------------------------------
+
+CONT_MKV = (1920, 1080, 48, 16)     # mkv_ingest: width, height, frames, batch
+CONT_MOV = (1920, 1080, 32, 16)     # mov_ingest
+CONT_MXF = (1920, 1080, 32, 16, 640, 360)   # mxf_proxy, then the proxy size
+CONT_RATE = 48000                   # the tracks' audio: 48 kHz stereo S16LE
+CONT_FPS = 25
+CONT_DESELECT = 1                   # mkv_ingest's tick (from 0) without audio
+CONT_ALONE = (64, 48, 4, 2)         # width, height, frames, batch
+CONT_RGB = ("videoconvertscale add-borders=false ! video/x-raw,format=RGB,"
+            "width=224,height=224 ! appsink name=v")
+CONT_ASR = ("audioconvert ! audioresample ! audio/x-raw,format=F32LE,"
+            "rate=16000,channels=1 ! appsink name=a")
+CONTAINER_FACTORIES = (
+    "avimux", "avidemux", "matroskamux", "webmmux", "matroskademux",
+    "mxfmux", "mxfdemux", "qtmux", "qtdemux", "cmafmux", "fmp4mux",
+    "qtmoovrecover", "rmdemux", "rademux", "pnmsrc", "typefind",
+    "uridecodebin", "decodebin", "playbin")
+
+
+def cont_video(fmt, n, w, h, seed):
+    """n seeded frames of `fmt` as host component planes (seeded bytes of
+    the format's layout through the port's from_bytes)."""
+    import numpy as np
+    from gstreamer_tpu_torch.video import format as vf
+    fi = vf.format_info(fmt)
+    raw = np.random.default_rng(seed).integers(
+        0, 256, (n, vf.frame_size(fi, w, h)), np.uint8)
+    return tuple(np.ascontiguousarray(p) for p in vf.from_bytes(fi, raw, w, h))
+
+
+def cont_audio(frames, seed):
+    """Seeded 48 kHz stereo S16LE: two tones and noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    i = np.arange(frames)[:, None] / CONT_RATE
+    x = 0.5 * np.sin(2 * np.pi * np.array([300, 450]) * i) \
+        + rng.normal(0, 0.05, (frames, 2))
+    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def cont_write(mux, path, fmt, planes, samples, batch, d):
+    """`mux` writes the planes (video_0) and the samples (audio_0) pushed
+    into appsrcs as tensors on `d`, `batch` frames and their audio a tick;
+    returns the seconds the run took (host clock, synchronised)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    n, h, w = planes[0].shape[:3]
+    per = CONT_RATE // CONT_FPS * batch
+    dur = 10**9 // CONT_FPS
+    pipe = parse_launch(
+        f"{mux} name=m location={path} ! fakesink appsrc name=v caps=video/"
+        f"x-raw,format={fmt},width={w},height={h},framerate={CONT_FPS}/1 ! "
+        f"m.video_0 appsrc name=a caps=audio/x-raw,format=S16LE,rate="
+        f"{CONT_RATE},channels=2,layout=interleaved ! m.audio_0",
+        batch=batch, device=d)
+    sync(d)
+    t0 = time.perf_counter()
+    for k in range(0, n, batch):
+        pipe.get_by_name("v").push_buffer(Buffer(
+            data=tuple(torch.from_numpy(p[k:k + batch]).to(d)
+                       for p in planes), batch=batch, pts=k * dur,
+            duration=dur))
+        a = samples[k // batch * per:(k // batch + 1) * per]
+        pipe.get_by_name("a").push_buffer(Buffer(
+            data=torch.from_numpy(a).to(d), pts=k * dur,
+            duration=len(a) * 10**9 // CONT_RATE))
+    for s in ("v", "a"):
+        pipe.get_by_name(s).end_of_stream()
+    pipe.run()
+    sync(d)
+    return time.perf_counter() - t0
+
+
+def cont_sinks(pipe, out):
+    for s in out:
+        sink = pipe.get_by_name(s)
+        if sink is not None:
+            out[s] += drain(sink)
+
+
+def cont_run(desc, d, batch, at=None):
+    """A launch string to EOS on `d` at `batch` (`at(pipe, k)` before tick
+    k); returns the samples of its sinks "v" and "a"."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(desc, batch=batch, device=d)
+    pipe.set_state("playing")
+    out, k = {"v": [], "a": []}, 0
+    while True:
+        if at is not None:
+            at(pipe, k)
+        more = pipe.tick()
+        cont_sinks(pipe, out)
+        if not more:
+            break
+        k += 1
+    pipe.set_state("null")
+    return out
+
+
+def cont_joined(samples):
+    """A sink's samples on the host, joined along frames (each plane of
+    video; the samples of audio)."""
+    import torch
+    if not samples:
+        return None
+    first = samples[0].buffer.data
+    if isinstance(first, (tuple, list)):
+        return tuple(torch.cat([s.buffer.data[i].cpu() for s in samples])
+                     for i in range(len(first)))
+    return torch.cat([s.buffer.data.cpu() for s in samples])
+
+
+def cont_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple)
+                and len(a) == len(b)
+                and all(torch.equal(x, y) for x, y in zip(a, b)))
+    return a is not None and b is not None and torch.equal(a, b)
+
+
+@contextlib.contextmanager
+def cont_counted(module, name, calls):
+    """While the block runs, append to `calls` once per call of
+    module.name (a container parse)."""
+    orig = getattr(module, name)
+
+    def counting(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+    setattr(module, name, counting)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def cont_timed(obj, attr, spent, key):
+    """While the block runs, add to spent[key] the host seconds of each
+    call of obj.attr."""
+    fn = getattr(obj, attr)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+    setattr(obj, attr, timed)
+    try:
+        yield spent
+    finally:
+        setattr(obj, attr, fn)
+
+
+def cont_path(name, desc, demux, batch, dev, start, finish, peak, want,
+              at=None):
+    """One read path on the card ticked to EOS, the launch counts zeroed
+    just before it and read just after (`want`), its container parsed
+    once; ticks 2.. under torch.profiler (the first, with the path's
+    first-call costs, only counted and checked).  Returns the sinks'
+    samples and, over ticks 2.. (the EOS tick not counted): frames/s,
+    device busy ms and idle share a tick, the host's share of the tick (the
+    demuxer's
+    create with from_bytes, the staging, the host elements),
+    bytes copied D2H and H2D a tick, peak memory, the set-up (compile:
+    negotiation and the parse; uridecodebin runs its internal pipeline
+    there); and which staged pads
+    held any non-zero byte, tick by tick."""
+    import contextlib as cl
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gstreamer_tpu_torch import parse_launch
+    module, fn = demux
+    cuda = dev.type == "cuda"
+    parses, spent, counts = [], {}, {"d2h": 0, "h2d": 0}
+    base = start(name)
+    with cont_counted(module, fn, parses):
+        pipe = parse_launch(desc, batch=batch, device=dev)
+        t0 = time.perf_counter()
+        pipe.set_state("playing")
+        setup_ms = (time.perf_counter() - t0) * 1e3
+    require(len(parses) == 1, f"{name}: {len(parses)} parses, want one")
+    d = pipe.get_by_name("d")
+    staged, pull = [], pipe._pull_sources
+
+    def pulled(sources):
+        got = pull(sources)
+        if got is not None:
+            staged.append({k: all(bool(x.any()) for x in (
+                v if isinstance(v, (tuple, list)) else (v,)))
+                for k, v in got[0].items() if k.startswith("d:")})
+        return got
+    pipe._pull_sources = pulled
+    out, secs = {"v": [], "a": []}, []
+
+    def tick(k):
+        if at is not None:
+            at(pipe, k)
+        sync(dev)
+        t0 = time.perf_counter()
+        more = pipe.tick()
+        cont_sinks(pipe, out)
+        sync(dev)
+        return more, time.perf_counter() - t0
+    with cont_counted(module, fn, parses):
+        more, _ = tick(0)
+    require(more, f"{name}: EOS at the first tick")
+    first = len(out["v"])
+    prof_cm = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if cuda else cl.nullcontext())
+    with prof_cm as prof, host_spent(pipe, spent), copy_meter(counts), \
+            cont_timed(d, "create_multi", spent, "demux create"), \
+            cont_timed(pipe._stager, "stage", spent, "staging"), \
+            cont_counted(module, fn, parses):
+        while True:
+            more, sec = tick(len(secs) + 1)
+            if not more:
+                break
+            secs.append(sec)
+    pipe.set_state("null")
+    launches = finish(name, want)
+    mem = peak(base)
+    require(len(parses) == 1, f"{name}: parsed again while ticking")
+    n = len(secs)
+    require(n > 0, f"{name}: one tick only")
+    fps = sum(s.buffer.batch for s in out["v"][first:]) / sum(secs)
+    busy = union_busy(prof) / n if cuda else 0.0
+    wall = sum(secs) / n * 1e3
+    host = sum(spent.values()) / n * 1e3
+    return out, dict(fps=fps, wall=wall, busy=busy,
+                     idle=max(0.0, 1.0 - busy / wall), host=host,
+                     host_share=host / wall, setup_ms=setup_ms,
+                     d2h=counts["d2h"] / n, h2d=counts["h2d"] / n, mem=mem,
+                     secs=[round(s * 1e3, 3) for s in secs],
+                     spent={k2: round(v / n * 1e3, 3)
+                            for k2, v in spent.items()},
+                     launches=launches, staged=staged)
+
+
+def cont_report(name, r, write_fps=None):
+    wrote = (f"; the muxer wrote {write_fps:.1f} frames/s"
+             if write_fps is not None else "")
+    print(f"e2e {name}: {r['fps']:.1f} frames/s over ticks 2.."
+          f"{len(r['secs']) + 1}"
+          f" ({r['secs']} ms per tick, host clock between synchronises)"
+          f"{wrote}; device busy {r['busy']:.3f} ms and idle share "
+          f"{r['idle']:.3f} of a {r['wall']:.3f} ms tick (traced); the host "
+          f"{r['host']:.3f} ms a tick ({r['host_share']:.3f} of it: "
+          f"{r['spent']}); set-up with the parse {r['setup_ms']:.3f} ms once; "
+          f"copied "
+          f"{r['d2h'] / 2**20:.3f} MiB D2H and {r['h2d'] / 2**20:.3f} MiB H2D "
+          f"a tick; peak memory {r['mem']:.1f} MiB; kernel launches "
+          f"{r['launches']}")
+
+
+def mkv_paths(seed, dev, tmp, start, finish, peak):
+    """mkv_ingest, mkv_uridecodebin and playbin's A/V build over one file
+    matroskamux writes on the card (CONT_MKV)."""
+    import torch
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.elements import container_elements as ce
+    cpu = torch.device("cpu")
+    w, h, n, batch = CONT_MKV
+    planes = cont_video("I420", n, w, h, seed)
+    samples = cont_audio(n * CONT_RATE // CONT_FPS, seed + 1)
+    path = os.path.join(tmp, "card.mkv")
+    start("mkv_write")
+    secs = cont_write("matroskamux", path, "I420", planes, samples, batch,
+                      dev)
+    finish("mkv_write", {})
+    cont_write("matroskamux", os.path.join(tmp, "cpu.mkv"), "I420", planes,
+               samples, batch, cpu)
+    with open(path, "rb") as f, open(os.path.join(tmp, "cpu.mkv"), "rb") as g:
+        require(f.read() == g.read(),
+                "mkv_ingest: matroskamux's file differs from the CPU run's")
+    os.remove(os.path.join(tmp, "cpu.mkv"))
+    write_fps = n / secs
+
+    def deselect(pipe, k):
+        d = pipe.get_by_name("d")
+        d.select_streams(["video_0"] if k == CONT_DESELECT else None)
+    desc = (f"matroskademux name=d location={path} d.video_0 ! {CONT_RGB} "
+            f"d.audio_0 ! {CONT_ASR}")
+    ticks = -(-n // batch)
+    out, r = cont_path("mkv_ingest", desc, (ce, "_parse_matroska"), batch,
+                       dev, start, finish, peak, {"yscale_hv": ticks},
+                       deselect)
+    ref = cont_run(desc, cpu, batch, deselect)
+    for s in ("v", "a"):
+        require(cont_equal(cont_joined(out[s]), cont_joined(ref[s])),
+                f"mkv_ingest: {s} differs from the CPU run")
+    require([x.buffer.batch for x in out["v"]] == [batch] * ticks,
+            f"mkv_ingest: {[x.buffer.batch for x in out['v']]} frames a tick")
+    want = [{"d:video_0": True, "d:audio_0": k != CONT_DESELECT}
+            for k in range(ticks)]
+    require(r["staged"] == want,
+            f"mkv_ingest: staged pads {r['staged']}, want {want}")
+    rgb = cont_joined(out["v"])
+    require(all(p.shape == (n, 224, 224) and p.dtype == torch.uint8
+                for p in rgb), "mkv_ingest: RGB planes' shape")
+    cont_report("mkv_ingest", r, write_fps)
+    print(f"  mkv_ingest: one parse; yscale_hv once a tick; every output == "
+          f"the CPU run; audio deselected at tick {CONT_DESELECT + 1} staged "
+          f"as zeros")
+
+    # the same file through uridecodebin (its internal pipeline runs at
+    # batch 1) and through playbin's A/V build
+    full = cont_run(f"matroskademux location={path} stream=audio ! "
+                    f"{CONT_ASR}", cpu, batch)
+    udesc = (f"uridecodebin name=d uri=file://{path} d.video_0 ! {CONT_RGB} "
+             f"d.audio_0 ! {CONT_ASR}")
+    out, r = cont_path("mkv_uridecodebin", udesc, (ce, "_parse_matroska"),
+                       batch, dev, start, finish, peak, {"yscale_hv": n})
+    require(cont_equal(cont_joined(out["v"]), rgb),
+            "mkv_uridecodebin: the RGB frames differ from mkv_ingest's")
+    require(cont_equal(cont_joined(out["a"]), cont_joined(full["a"])),
+            "mkv_uridecodebin: the audio differs from the CPU run's")
+    cont_report("mkv_uridecodebin", r)
+    base = start("mkv_playbin")
+    with cont_counted(ce, "_parse_matroska", []) as parses:
+        pb = element_factory_make("playbin", uri=f"file://{path}")
+        pb.device = dev
+        sync(dev)
+        t0 = time.perf_counter()
+        pipe, sinks = pb.build_pipeline_av()
+        got = {k: cont_joined(drain(s)) for k, s in sinks.items()}
+        sync(dev)
+        secs = time.perf_counter() - t0
+    finish("mkv_playbin", {})
+    mem = peak(base)
+    require(len(parses) == 2, f"mkv_playbin: {len(parses)} parses, want 2 "
+            "(the probe and the decode graph)")
+    require(cont_equal(got["video"], tuple(torch.from_numpy(p)
+                                           for p in planes)),
+            "mkv_playbin: the video differs from the frames written")
+    require(cont_equal(got["audio"], torch.from_numpy(samples)),
+            "mkv_playbin: the audio differs from the samples written")
+    print(f"e2e mkv_playbin: {n / secs:.1f} frames/s ({secs * 1e3:.3f} ms "
+          f"for {n} frames and {len(samples)} samples, build and run); peak "
+          f"memory {mem:.1f} MiB; the tracks == the frames and samples "
+          f"written; two parses (probe, decode graph)")
+
+
+def mov_mxf_paths(seed, dev, tmp, start, finish, peak):
+    """mov_ingest (qtmux, then qtdemux's two streams to RGB 224) and
+    mxf_proxy (mxfmux, then mxfdemux to an I420 640x360 proxy) on UYVY
+    1080p: both converters take the generic route, no kernel."""
+    import torch
+    from gstreamer_tpu_torch.elements import isomp4, mxf
+    cpu = torch.device("cpu")
+    for name, mux, demux, parse, ext, (w, h, n, batch), vdesc in (
+            ("mov_ingest", "qtmux", "qtdemux", (isomp4, "_parse_qt"), "mov",
+             CONT_MOV, CONT_RGB),
+            ("mxf_proxy", "mxfmux", "mxfdemux", (mxf, "_parse_mxf"), "mxf",
+             CONT_MXF[:4], f"videoconvertscale ! video/x-raw,format=I420,"
+             f"width={CONT_MXF[4]},height={CONT_MXF[5]} ! appsink name=v")):
+        planes = cont_video("UYVY", n, w, h, seed + 2)
+        samples = cont_audio(n * CONT_RATE // CONT_FPS, seed + 3)
+        files, saved = {}, mxf._uuid
+        for d in (dev, cpu):
+            files[d.type] = os.path.join(tmp, f"{d.type}.{ext}")
+            mxf._uuid = cont_uuids(seed)
+            start(name + "_write")
+            try:
+                secs = cont_write(mux, files[d.type], "UYVY", planes,
+                                  samples, batch, d)
+            finally:
+                mxf._uuid = saved
+            finish(name + "_write", {})
+            if d is dev:
+                write_fps = n / secs
+        with open(files[dev.type], "rb") as f, open(files["cpu"], "rb") as g:
+            require(f.read() == g.read(),
+                    f"{name}: {mux}'s file differs from the CPU run's")
+        desc = (f"{demux} name=d location={files[dev.type]} d.video_0 ! "
+                f"{vdesc} d.audio_0 ! {CONT_ASR}")
+        out, r = cont_path(name, desc, parse, batch, dev, start, finish,
+                           peak, {})
+        ref = cont_run(desc, cpu, batch)
+        for s in ("v", "a"):
+            require(cont_equal(cont_joined(out[s]), cont_joined(ref[s])),
+                    f"{name}: {s} differs from the CPU run")
+        require(sum(x.buffer.batch for x in out["v"]) == n,
+                f"{name}: frames out")
+        cont_report(name, r, write_fps)
+        for f in files.values():
+            os.remove(f)
+
+
+def cont_uuids(seed):
+    """A seeded stand-in for mxf._uuid, so two runs write the same ids."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 99)
+    return lambda: rng.integers(0, 256, 16, np.uint8).tobytes()
+
+
+def rm_file_bytes(seed):
+    """A hand-packed RealMedia file: .RMF, PROP, an MDPR each for RV20
+    video and RealAudio 14.4 (a v4 header), and DATA with whole-frame
+    video packets, one frame split over two packets and audio packets."""
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def chunk(fcc, body):
+        return fcc + struct.pack(">IH", 10 + len(body), 0) + body
+
+    def mdpr(snum, mime, ts):
+        body = (struct.pack(">H", snum) + b"\0" * 28 + bytes([4]) + b"name"
+                + bytes([len(mime)]) + mime)
+        return chunk(b"MDPR", body + struct.pack(">I", len(ts)) + ts)
+    vido = (struct.pack(">I", 34) + b"VIDO" + b"RV20"
+            + struct.pack(">HHHHHH", 32, 24, 12, 0, 0, 0) + b"\0" * 2
+            + bytes(range(1, 9)))
+    pkts = []
+
+    def pkt(snum, ts, payload, flags=2):
+        pkts.append(struct.pack(">HHHIBB", 0, 12 + len(payload), snum, ts, 0,
+                                flags) + payload)
+    for k in range(4):
+        pkt(0, k * 80, bytes([0x40, k])
+            + rng.integers(0, 256, 30 + k, np.uint8).tobytes())
+        pkt(1, k * 80, rng.integers(0, 256, 20, np.uint8).tobytes(), 0)
+    big = rng.integers(0, 256, 50, np.uint8).tobytes()
+    for typ, pos, part in ((0, 0, big[:30]), (2, 20, big[30:])):
+        pkt(0, 400, bytes([typ << 6, 9]) + struct.pack(
+            ">HH", 0x4000 + len(big), 0x4000 + pos) + bytes([7]) + part)
+    data = chunk(b"DATA", struct.pack(">II", len(pkts), 0) + b"".join(pkts))
+    return (chunk(b".RMF", struct.pack(">II", 0, 4))
+            + chunk(b"PROP", b"\0" * 40)
+            + mdpr(0, b"video/x-pn-realvideo", vido)
+            + mdpr(1, b"audio/x-pn-realaudio", ra4_header()) + data)
+
+
+def ra4_header(frame=20):
+    """A RealAudio v4 header (lpcJ, 8 kHz mono) as rademux and rmdemux
+    parse it."""
+    import struct
+    return (b".ra\xfd" + struct.pack(">H", 4) + b"\0\0" + b".ra4"
+            + struct.pack(">IHIH", 0, 4, 0, 0) + struct.pack(">I", frame)
+            + b"\0" * 12 + struct.pack(">HHHH", 1, frame, frame, 0)
+            + struct.pack(">HHHH", 8000, 0, 16, 1)
+            + bytes([4]) + b"Int0" + bytes([4]) + b"lpcJ" + b"\0\0\0")
+
+
+def cont_launch(desc, d, batch, pushes=None):
+    """A launch string to EOS on `d` with seeded pushes (host arrays of
+    media go to `d` as tensors, byte blobs stay host arrays): its sinks'
+    samples and its element messages as plain data."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer, map_leaves
+    pipe = parse_launch(desc, batch=batch, device=d)
+    for name, bufs in (pushes or {}).items():
+        src = pipe.get_by_name(name)
+        for b in bufs:
+            src.push_buffer(Buffer(**dict(b, data=map_leaves(
+                lambda x: torch.from_numpy(x).to(d)
+                if isinstance(x, np.ndarray) and (x.dtype != np.uint8
+                                                  or x.ndim > 1) else x,
+                b["data"]))))
+        src.end_of_stream()
+    pipe.run()
+    got = {}
+    for s in ("out", "out1", "out2"):
+        sink = pipe.get_by_name(s)
+        for x in drain(sink) if sink is not None else ():
+            got.setdefault(s, []).append((
+                x.buffer.pts, x.buffer.duration, x.buffer.batch, str(x.caps),
+                bc_plain(x.buffer.data), bc_plain(x.buffer.meta)))
+    msgs = [(m.type, bc_plain(m.data)) for m in iter(pipe.bus.pop, None)
+            if m.type == "element"]
+    return got, msgs
+
+
+def cont_alone_rows():
+    """The runs that drive each of the 19 factories alone or as a writer
+    and its reader: [(name, fn(d, tmp, seed) -> plain data)]."""
+    import numpy as np
+    import torch
+    w, h, n, batch = CONT_ALONE
+    vcaps = (f"video/x-raw,format={{f}},width={w},height={h},"
+             f"framerate={CONT_FPS}/1")
+    acaps = (f"audio/x-raw,format=S16LE,rate={CONT_RATE},channels=2,"
+             "layout=interleaved")
+    dur = 10**9 // CONT_FPS
+
+    def video(fmt, seed):
+        return [dict(data=tuple(p[k:k + batch] for p in cont_video(
+            fmt, n, w, h, seed)), batch=batch, pts=k * dur, duration=dur)
+            for k in range(0, n, batch)]
+
+    def audio(seed):
+        x = cont_audio(n * 1920, seed)
+        return [dict(data=x[k * 1920:(k + batch) * 1920], pts=k * dur,
+                     duration=batch * dur) for k in range(0, n, batch)]
+
+    def blobs(seed, kinds):
+        rng = np.random.default_rng(seed)
+        aus = []
+        for k in range(n):
+            au = b""
+            for head in (kinds if k == 0 else kinds[-1:]):
+                au += (b"\0\0\0\1" + head
+                       + rng.integers(1, 256, 24, np.uint8).tobytes())
+            aus.append(np.frombuffer(au, np.uint8).copy())
+        return [dict(data=aus[k:k + batch], batch=batch, pts=k * dur,
+                     duration=dur) for k in range(0, n, batch)]
+    h264 = (b"\x67\x42\x00\x1e", b"\x68", b"\x65")
+    aac = [dict(data=[np.random.default_rng(k).integers(0, 256, 30 + k,
+                                                        np.uint8)
+                      for k in range(j, j + batch)], batch=batch,
+                pts=j * dur, duration=dur) for j in range(0, n, batch)]
+
+    def files(tmp):
+        out = {}
+        for f in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, f), "rb") as fh:
+                out[f] = fh.read()
+        return out
+
+    def mux_demux(mux, ext, srcs, readers):
+        """A writer from appsrcs, then each reader of its file."""
+        def run(d, tmp, seed):
+            from gstreamer_tpu_torch.elements import mxf
+            path = os.path.join(tmp, f"f.{ext}")
+            desc = f"{mux} name=m location={path} ! fakesink"
+            pushes = {}
+            for k, (pad, caps, make) in enumerate(srcs):
+                desc += f" appsrc name=s{k} caps={caps} ! m.{pad}"
+                pushes[f"s{k}"] = make(seed + k)
+            saved = mxf._uuid
+            mxf._uuid = cont_uuids(seed)
+            try:
+                cont_launch(desc, d, batch, pushes)
+            finally:
+                mxf._uuid = saved
+            got = [cont_launch(r.format(p=path), d, batch) for r in readers]
+            return files(tmp), got
+        return run
+
+    v_i420 = ("video_0", vcaps.format(f="I420"), lambda s: video("I420", s))
+    v_uyvy = ("video_0", vcaps.format(f="UYVY"), lambda s: video("UYVY", s))
+    a_s16 = ("audio_0", acaps, audio)
+    v_h264 = ("video_0", "video/x-h264,stream-format=byte-stream,alignment="
+              f"au,width={w},height={h},framerate={CONT_FPS}/1",
+              lambda s: blobs(s, h264))
+    a_aac = ("audio_0", "audio/mpeg,mpegversion=4,stream-format=raw,"
+             f"rate={CONT_RATE},channels=2", lambda s: aac)
+    text = ("subtitle_0", "text/x-raw,format=utf8", lambda s: [
+        dict(data=[t], batch=1, pts=k * dur, duration=dur)
+        for k, t in enumerate(("one", "two"))])
+    av = "d.video_0 ! appsink name=out d.audio_0 ! appsink name=out1"
+
+    def recover(d, tmp, seed):
+        path = os.path.join(tmp, "r.mov")
+        desc = (f"qtmux name=m location={path} moov-recovery-file={path}.rec"
+                f" ! fakesink appsrc name=s0 caps={vcaps.format(f='UYVY')} "
+                f"! m.video_0 appsrc name=s1 caps={acaps} ! m.audio_0")
+        cont_launch(desc, d, batch, {"s0": video("UYVY", seed),
+                                     "s1": audio(seed + 1)})
+        with open(path, "rb") as f:
+            raw = f.read()
+        with open(os.path.join(tmp, "broken.mov"), "wb") as f:
+            f.write(raw[:raw.index(b"moov") - 4])
+        from gstreamer_tpu_torch import parse_launch
+        pipe = parse_launch(
+            f"qtmoovrecover broken-input={tmp}/broken.mov recovery-input="
+            f"{path}.rec fixed-output={tmp}/fixed.mov", device=d)
+        pipe.set_state("playing")
+        msgs = [(m.type, m.data["name"], m.data["samples"])
+                for m in iter(pipe.bus.pop, None) if m.type == "element"]
+        require(msgs and msgs[0][1] == "qtmoovrecover-done",
+                f"qtmoovrecover: {msgs}")
+        return files(tmp), msgs, cont_launch(
+            f"qtdemux location={tmp}/fixed.mov ! appsink name=out", d, batch)
+
+    def realmedia(d, tmp, seed):
+        rm, ra = os.path.join(tmp, "a.rm"), os.path.join(tmp, "a.ra")
+        with open(rm, "wb") as f:
+            f.write(rm_file_bytes(seed))
+        with open(ra, "wb") as f:
+            f.write(ra4_header() + np.random.default_rng(seed).integers(
+                0, 256, 205, np.uint8).tobytes())
+        return [cont_launch(desc, d, batch) for desc in (
+            f"rmdemux name=d location={rm} {av}",
+            f"rmdemux location={rm} stream=video ! appsink name=out",
+            f"rademux location={ra} ! appsink name=out",
+            "pnmsrc location=pnm://example.org/a.rm ! appsink name=out")]
+
+    def typefind(d, tmp, seed):
+        from gstreamer_tpu_torch import parse_launch
+        from gstreamer_tpu_torch.core.buffer import Buffer
+        head = np.frombuffer(b"\x1a\x45\xdf\xa3 matroska" + bytes(40),
+                             np.uint8)
+        found = []
+        pipe = parse_launch("appsrc name=in caps=application/x-raw ! "
+                            "typefind name=t ! appsink name=out", device=d)
+        pipe.get_by_name("t").have_type_cb = lambda c, p: found.append((c, p))
+        pipe.get_by_name("in").push_buffer(
+            Buffer(data=torch.from_numpy(head.copy()).to(d), batch=1))
+        pipe.get_by_name("in").end_of_stream()
+        pipe.run()
+        require(found == [("video/x-matroska", 100)], f"typefind: {found}")
+        return found
+
+    def playback(d, tmp, seed):
+        from gstreamer_tpu_torch.core.element import element_factory_make
+        mkv, avi = os.path.join(tmp, "p.mkv"), os.path.join(tmp, "p.avi")
+        for mux, path in (("matroskamux", mkv), ("avimux", avi)):
+            cont_launch(f"{mux} name=m location={path} ! fakesink appsrc "
+                        f"name=s0 caps={vcaps.format(f='I420')} ! m.video_0 "
+                        f"appsrc name=s1 caps={acaps} ! m.audio_0", d, batch,
+                        {"s0": video("I420", seed), "s1": audio(seed + 1)})
+        got = [cont_launch(desc, d, batch) for desc in (
+            f"uridecodebin uri=file://{avi} ! appsink name=out",
+            f"decodebin name=d uri=file://{mkv} {av}")]
+        pb = element_factory_make("playbin", uri=f"file://{avi}")
+        pb.device = d
+        pipe, sink = pb.build_pipeline()
+        pipe.run()
+        got.append([bc_plain(s.buffer.data) for s in drain(sink)])
+        return files(tmp), got
+    return [
+        ("avimux/avidemux", mux_demux("avimux", "avi", [v_i420, a_s16], [
+            "avidemux location={p} ! appsink name=out",
+            "avidemux location={p} stream=audio ! appsink name=out"])),
+        ("avimux h264", mux_demux("avimux", "avi", [v_h264], [
+            "avidemux location={p} ! appsink name=out"])),
+        ("matroskamux/matroskademux", mux_demux(
+            "matroskamux", "mkv", [v_i420, a_s16, text],
+            ["matroskademux name=d location={p} " + av,
+             "matroskademux name=d location={p} d.subtitle_0 ! "
+             "appsink name=out2 " + av])),
+        ("webmmux", mux_demux("webmmux", "webm", [v_i420, a_s16], [
+            "matroskademux location={p} stream=audio ! appsink name=out"])),
+        ("mxfmux/mxfdemux", mux_demux("mxfmux", "mxf", [v_uyvy, a_s16], [
+            "mxfdemux name=d location={p} " + av])),
+        ("qtmux/qtdemux", mux_demux("qtmux", "mov", [v_uyvy, a_s16], [
+            "qtdemux name=d location={p} " + av])),
+        ("cmafmux", mux_demux("cmafmux", "mp4", [v_h264, a_aac], [
+            "qtdemux location={p} ! appsink name=out"])),
+        ("fmp4mux", mux_demux("fmp4mux", "mp4", [v_h264, a_aac], [
+            "qtdemux location={p} ! appsink name=out"])),
+        ("qtmoovrecover", recover),
+        ("rmdemux/rademux/pnmsrc", realmedia),
+        ("typefind", typefind),
+        ("uridecodebin/decodebin/playbin", playback)]
+
+
+def container_alone(seed, counters, dev):
+    """Each of the 19 container factories alone or as a writer and its
+    reader on small inputs (cont_alone_rows), on the card and on the CPU:
+    files, samples and element messages equal; no kernel launched."""
+    import tempfile
+
+    import torch
+    from gstreamer_tpu_torch.core.element import list_factories
+    rows = cont_alone_rows()
+    for name, run in rows:
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            for c in counters.values():
+                c.launches = 0
+            with tempfile.TemporaryDirectory() as tmp:
+                res[d.type] = run(d, tmp, seed)
+            counts = {k: c.launches for k, c in counters.items()
+                      if c.launches}
+            require(not counts, f"{name}: launches {counts}")
+        require(res[dev.type] == res["cpu"],
+                f"{name}: the card's run differs from the CPU's")
+    names = " ".join(n for n, _ in rows)
+    mine = set(CONTAINER_FACTORIES)
+    require(len(mine) == 19 and mine <= set(list_factories()),
+            "the container factory list")
+    missing = {f for f in mine if f not in names}
+    require(not missing, f"factories not driven alone: {missing}")
+    w, h, n, batch = CONT_ALONE
+    print(f"containers each factory alone: CUDA == port CPU path (files, "
+          f"samples, element messages) for the {len(mine)} factories in "
+          f"{len(rows)} runs on {n} frames of {w}x{h} at batch {batch}; no "
+          f"kernel launched")
+
+
+def container_phase(seed, counters, dev):
+    """Containers and multi-stream sources on the card, each path with the
+    launch counts zeroed just before it and read just after: mkv_ingest
+    (yscale_hv once a tick), mkv_uridecodebin (once a frame: the internal
+    pipeline runs at batch 1), playbin's A/V build, mov_ingest and
+    mxf_proxy (UYVY: the generic route, no kernel), then each factory
+    alone (container_alone).  Files are written under a temporary
+    directory and removed.  Returns {kernel: launches}."""
+    import tempfile
+
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mkv_paths(seed, dev, tmp, start, finish, peak)
+        mov_mxf_paths(seed, dev, tmp, start, finish, peak)
+    container_alone(seed, counters, dev)
+    print(f"container phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6584,6 +7350,10 @@ def main() -> int:
 
     # -- captions, subtitles, scopes and audio files (host modules) ---------
     for k, n in broadcast_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- containers and multi-stream sources (host modules) ------------------
+    for k, n in container_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

@@ -478,8 +478,8 @@ class MultiStreamSourceElement(SourceElement):
     reference demuxer adds video_0/audio_0/... pads after discovering
     streams; here linking `demux.video_0` in the launch string exposes
     the stream, and all exposed pads are fed from a single parse).
-    Negotiation handles it; no ported element is one yet, and the
-    port's Pipeline raises NotImplementedError when it compiles one.
+    The Pipeline stages each exposed pad's buffer on its own, keyed
+    "name:pad" (``core/pipeline.py``).
 
     Subclasses implement:
       - `get_caps_for_pad(pad, filter)` — per-stream caps;
@@ -496,6 +496,21 @@ class MultiStreamSourceElement(SourceElement):
         """The exposed per-stream pads (linked sometimes-pads)."""
         return [p for p in self.src_pads()
                 if p.peer is not None and p.name != "src"]
+
+    # -- stream selection (decodebin3 SELECT_STREAMS analog) ---------------
+    def select_streams(self, names) -> None:
+        """Restrict which exposed streams carry data (the
+        GST_EVENT_SELECT_STREAMS analog, gstdecodebin3.c).  Deselected
+        pads keep ticking but deliver ZEROED buffers of the same shape
+        (muted/black) instead of vanishing, as in the JAX package, whose
+        compiled programs have static input signatures; selection may
+        change mid-stream.  Pass None to reselect all."""
+        self._selected_streams = (None if names is None
+                                  else {str(n) for n in names})
+
+    def stream_selected(self, pad_name: str) -> bool:
+        sel = getattr(self, "_selected_streams", None)
+        return sel is None or pad_name in sel
 
     def is_multi(self) -> bool:
         return bool(self.multi_pads())

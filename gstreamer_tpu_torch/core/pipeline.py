@@ -19,12 +19,20 @@ Execution model:
 * the tick loop pulls a BATCH of frames from each source, moves every
   array of it to the pipeline's device (``core/staging.py``: page-locked
   buffers reused across ticks and a copy stream on CUDA; in both paths,
-  except for a source that feeds only elements with ``HOST_INPUT`` set,
+  except for a source pad that feeds only elements with ``HOST_INPUT`` set,
   the parsers and decoders of host bytes), runs the graph and hands the
   results to the sinks.  With several sources the tick is EOS as soon as
   any of them has nothing more.  ``compile(prefetch=True)`` pulls and
   stages the next tick right after the current tick's step is queued
   (composed path), so the copy overlaps the step;
+* a multi-stream source (a demuxer whose per-track pads are linked:
+  ``MultiStreamSourceElement``) parses its container once and gives one
+  buffer per exposed pad a tick, keyed ``"name:pad"``; each pad is staged
+  on its own (a video pad may go to the card while a subtitle or coded
+  pad goes to a host element), tracks may give different lengths a tick
+  and end on different ticks (a sink whose pad has nothing this tick is
+  skipped; the source is EOS when every track has ended), and a stream
+  that ``select_streams`` deselected gives zeros of its shape;
 * a stateful element (``make_scan_fn``) runs its step over the frames of
   the tick (``run_scan``), its carry kept on the device across ticks
   (``_elem_states``, reset whenever ``compile`` builds the program); a
@@ -42,8 +50,7 @@ on the host) and the dot dump at negotiation (``utils/dot.py``,
 
 The device is explicit: a Pipeline runs on CUDA unless the caller names
 another device, and raises without a card (``device.resolve``).  Not
-ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``
-and multi-stream sources.
+ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``.
 """
 
 from __future__ import annotations
@@ -127,6 +134,21 @@ def _takes_host_bytes(pad) -> bool:
         return bool(peers) and all(_takes_host_bytes(p) for p in peers)
     return (getattr(e, "HOST_INPUT", False)
             or pad.name.startswith(getattr(e, "HOST_INPUT_PADS", ())))
+
+
+def _is_multi(e) -> bool:
+    """A multi-stream source with at least one per-track pad linked."""
+    return getattr(e, "MULTI_STREAM", False) and e.is_multi()
+
+
+def _zeros(x):
+    """A deselected stream's payload: zeros of the leaf's shape and dtype
+    (text and bytes leaves too, as the JAX package's ``np.zeros_like``)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_zeros(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return torch.zeros_like(x)
+    return np.zeros_like(np.asarray(x))
 
 
 def _first_leaf(tree):
@@ -591,9 +613,6 @@ class Pipeline(Bin):
         scan_fns: Dict[Element, tuple] = {}
         dyn_elems: Dict[Element, tuple] = {}   # controlled-prop inputs
         for e in order:
-            if getattr(e, "MULTI_STREAM", False):
-                raise NotImplementedError(
-                    f"{e.name}: multi-stream sources are {_ROADMAP}")
             if isinstance(e, SourceElement):
                 fns[e] = e.generator_fn()
             elif isinstance(e, AggregatorElement):
@@ -641,12 +660,17 @@ class Pipeline(Bin):
         self._fused = not host_elems
         # a source whose every linked peer parses or decodes host bytes
         # (HOST_INPUT: rawvideoparse, jpegdec, ...) hands them over as they
-        # are: nothing to stage
+        # are: nothing to stage.  A multi-stream source decides pad by pad
+        # (``_host_fed_pads``, keyed "name:pad" as the tick's inputs).
         self._host_fed = {
             e for e in order if isinstance(e, SourceElement)
+            and not _is_multi(e)
             and any(sp.peer is not None for sp in e.src_pads())
             and all(_takes_host_bytes(sp.peer)
                     for sp in e.src_pads() if sp.peer is not None)}
+        self._host_fed_pads = {
+            f"{e.name}:{sp.name}" for e in order if _is_multi(e)
+            for sp in e.multi_pads() if _takes_host_bytes(sp.peer)}
         self._device_step = (self._compose(order, fns, scan_fns)
                              if self._fused else None)
         self._order = order
@@ -667,6 +691,14 @@ class Pipeline(Bin):
             new_states: Dict[str, Any] = {}
             for e in order:
                 if isinstance(e, SourceElement):
+                    if _is_multi(e):
+                        # one input per exposed pad; a track that ended
+                        # gives nothing this tick
+                        for sp in e.src_pads():
+                            key = f"{e.name}:{sp.name}"
+                            if key in inputs:
+                                values[sp] = inputs[key]
+                        continue
                     v = inputs[e.name]
                     if fns[e] is not None:
                         v = fns[e](v)
@@ -750,18 +782,34 @@ class Pipeline(Bin):
 
     def _pull_sources(self, sources):
         """Pull one batch from every source, staged on the device (unless
-        the source feeds HOST_INPUT elements only).  Returns (inputs,
-        metas) or None at EOS."""
+        it feeds HOST_INPUT elements only).  A multi-stream source gives
+        one entry a pad whose track has not ended, keyed "name:pad" and
+        staged on its own; a deselected track gives zeros of its shape.
+        Returns (inputs, metas) or None at EOS."""
         inputs: Dict[str, Any] = {}
         metas: Dict[str, Buffer] = {}
+
+        def put(key, buf, host_fed):
+            if not host_fed:
+                buf = buf.with_(data=self._stager.stage(buf.data))
+            inputs[key] = buf.data
+            metas[key] = buf
+
         for s in sources:
+            if _is_multi(s):
+                bufs = s.create_multi(self._batch)
+                if bufs is None:
+                    return None
+                for pname, buf in bufs.items():
+                    if not s.stream_selected(pname):
+                        buf = buf.with_(data=_zeros(buf.data))
+                    key = f"{s.name}:{pname}"
+                    put(key, buf, key in self._host_fed_pads)
+                continue
             buf = s.create(self._batch)
             if buf is None:
                 return None
-            if s not in self._host_fed:
-                buf = buf.with_(data=self._stager.stage(buf.data))
-            inputs[s.name] = buf.data
-            metas[s.name] = buf
+            put(s.name, buf, s in self._host_fed)
         return inputs, metas
 
     def tick(self) -> bool:
@@ -861,6 +909,12 @@ class Pipeline(Bin):
         for e in self._order:
             if isinstance(e, SourceElement):
                 if drain:
+                    continue
+                if _is_multi(e):
+                    for sp in e.src_pads():
+                        m = metas.get(f"{e.name}:{sp.name}")
+                        if m is not None:
+                            buf_by_pad[sp] = m
                     continue
                 buf = metas[e.name]
                 if not self._fused and self._fns.get(e) is not None:
@@ -992,8 +1046,8 @@ class Pipeline(Bin):
         Mirrors gst_element_seek on the pipeline: the SEEK event travels
         to the sources; a flushing seek resets the streaming state of
         every element (here: the host-side histories).  A tick that
-        prefetch staged from the old position is dropped (the reference
-        keeps it: ROADMAP.md section 3)."""
+        prefetch staged from the old position, every pad of it, is
+        dropped (the reference keeps it: ROADMAP.md section 3)."""
         from .segment import Segment
 
         if self._plan is None:

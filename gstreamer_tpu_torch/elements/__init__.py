@@ -72,3 +72,8 @@ from . import adpcm_elements    # noqa: F401  (adpcmenc, adpcmdec)
 from . import gdp               # noqa: F401  (gdppay, gdpdepay)
 from . import ipcpipeline       # noqa: F401  (ipcpipelinesink, ipcpipelinesrc, ipcslavepipeline)
 from . import good_extras       # noqa: F401  (aspectratiocrop, imagesequencesrc, pushfilesrc, splitfilesrc, rndbuffersize, capsdebug, testsink, navseek, navigationtest)
+from . import container_elements  # noqa: F401  (avimux, avidemux, matroskamux, webmmux, matroskademux)
+from . import mxf               # noqa: F401  (mxfmux, mxfdemux)
+from . import isomp4            # noqa: F401  (qtmux, qtdemux, cmafmux, fmp4mux, qtmoovrecover)
+from . import realmedia         # noqa: F401  (rmdemux, rademux, pnmsrc)
+from . import playback          # noqa: F401  (typefind, uridecodebin, decodebin, playbin)

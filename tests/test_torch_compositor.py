@@ -425,8 +425,9 @@ def test_converters_are_built_on_the_pipeline_device():
 
 
 def test_compile_raises_for_multi_stream_sources():
-    """Aggregators compile; a multi-stream source (a demuxer) still raises
-    NotImplementedError naming ROADMAP.md."""
+    """Aggregators compile, and so does a multi-stream source (a demuxer)
+    since multi-stream execution is ported; compiling it over a mesh still
+    raises NotImplementedError naming ROADMAP.md."""
     from gstreamer_tpu_torch.core.element import (
         MultiStreamSourceElement, PadDirection, PadTemplate,
         element_factory_make)
@@ -442,8 +443,10 @@ def test_compile_raises_for_multi_stream_sources():
     src, sink = Demux(name="d"), element_factory_make("fakesink")
     pipe.add(src, sink)
     link(src, sink)
+    pipe.compile()
+    assert pipe._plan
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.compile()
+        pipe.compile(mesh=object())
     mixer = gstreamer_tpu_torch.parse_launch(
         "audiomixer name=m ! fakesink "
         "audiotestsrc num-buffers=1 ! m.sink_0 "

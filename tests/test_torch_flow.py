@@ -68,6 +68,12 @@ BROADCAST_FACTORIES = (
     "ipcslavepipeline", "aspectratiocrop", "imagesequencesrc", "pushfilesrc",
     "splitfilesrc", "rndbuffersize", "capsdebug", "testsink", "navseek",
     "navigationtest")
+# multi-stream sources, the containers and playback autoplugging
+CONTAINER_FACTORIES = (
+    "avimux", "avidemux", "matroskamux", "webmmux", "matroskademux",
+    "mxfmux", "mxfdemux", "qtmux", "qtdemux", "cmafmux", "fmp4mux",
+    "qtmoovrecover", "rmdemux", "rademux", "pnmsrc", "typefind",
+    "uridecodebin", "decodebin", "playbin")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -105,11 +111,13 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 303
+    assert len(telement._REGISTRY) == 322
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
+    assert len(set(CONTAINER_FACTORIES)) == 19
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
-        | set(BROADCAST_FACTORIES) <= set(telement._REGISTRY)
+        | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
+        <= set(telement._REGISTRY)
 
 
 @pytest.mark.parametrize("desc", [
