@@ -316,6 +316,37 @@ before it and read just after:
    rademux and pnmsrc on a hand-packed RealMedia file), the card equal to
    the CPU (files, samples, messages).
 
+17. coded files to the card (codec_phase; the FLAC files are written under a
+   temporary directory, the others are the committed vectors under
+   tests/data/torch_codecs/ with the JAX package's digests):
+
+  flac_asr          flacenc and oggmux write 10 s of seeded 48 kHz stereo
+                    S16 pushed as card tensors (the files the CPU run's);
+                    flacdec, oggdemux and uridecodebin read them back: the
+                    samples written, and through audioconvert !
+                    audioresample ! F32LE 16 kHz mono the port's CPU run
+  vorbis_asr        vorbis_10s.ogg through vorbisdec, oggdemux and
+                    uridecodebin to the same ASR chain: the PCM within 1e-6
+                    of the JAX digests, the ASR output the CPU run's
+  mp3_asr           mp3_10s.mp3 through filesrc ! mpegaudioparse !
+                    mpg123audiodec and uridecodebin: as vorbis_asr
+  theora_ingest     theora_1080p.ogv (8 frames of 1920x1080 I420) through
+                    theoradec ! videoconvertscale add-borders=false ! RGB
+                    224x224 at batch 8, and oggdemux stream=video: the
+                    planes equal libtheoradec's sha256 (and the JAX
+                    package's where its decoder keeps sync), the RGB the
+                    port's CPU converter over the same frames, yscale_hv
+                    once a tick
+  theora_mkv_ingest theora_vorbis_1080p.mkv through matroskademux d.video_0
+                    (as theora_ingest) and d.audio_0 (the Vorbis PCM within
+                    1e-6 of the JAX digests, the ASR chain the CPU run's)
+
+   each with frames/s or audio frames/s, the host's decode time, device
+   busy ms and idle share a tick, bytes copied H2D and D2H a tick, peak
+   memory and the launch counts; then each of the 16 codec factories alone
+   or in a short chain, the card equal to the CPU (files, samples,
+   messages).
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -7036,6 +7067,571 @@ def container_phase(seed, counters, dev):
     return total
 
 
+# -- 17. coded files: FLAC, Vorbis, MP3 and Theora -----------------------------
+
+CODEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "data", "torch_codecs")
+CODEC_FILES = ("theora_1080p.ogv", "theora_vorbis_1080p.mkv",
+               "vorbis_10s.ogg", "mp3_10s.mp3", "digests.json")
+CODEC_BATCH = 8                     # theora_ingest's batch: the clip a tick
+CODEC_FLAC_SECONDS = 10             # flac_asr: 48 kHz stereo S16
+CODEC_PCM_TOL = 1e-6                # decoded PCM against the JAX digests
+CODEC_ALONE = (64, 48, 4)           # width, height, frames of a factory alone
+CODEC_FACTORIES = (
+    "flacenc", "flacdec", "mpegaudioparse", "ac3parse", "flacparse",
+    "sbcparse", "wavpackparse", "oggmux", "oggdemux", "vorbisdec",
+    "vorbisenc", "theoradec", "theoraenc", "theoraparse", "opusparse",
+    "mpg123audiodec")
+
+
+def codec_vectors():
+    """The committed vectors' paths and their digests; a missing file
+    fails the run."""
+    missing = [f for f in CODEC_FILES
+               if not os.path.exists(os.path.join(CODEC_DIR, f))]
+    require(not missing, f"codec vectors missing under {CODEC_DIR}: "
+            f"{missing}")
+    with open(os.path.join(CODEC_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    return {f: os.path.join(CODEC_DIR, f) for f in CODEC_FILES}, digests
+
+
+def codec_pcm_check(name, pcm, dig):
+    """Decoded float32 PCM (n, ch) against the JAX package's digest: the
+    length exactly, the samples at the seeded positions and the RMS of each
+    second within CODEC_PCM_TOL.  Returns the largest difference."""
+    import numpy as np
+    pcm = np.asarray(pcm, np.float32)
+    require(pcm.shape == (dig["frames"], dig["channels"]),
+            f"{name}: PCM {pcm.shape}, the JAX package's "
+            f"({dig['frames']}, {dig['channels']})")
+    want = np.frombuffer(bytes.fromhex(dig["values"]), "<f4").reshape(
+        -1, dig["channels"])
+    err = float(np.abs(pcm[dig["positions"]] - want).max())
+    rate = dig["rate"]
+    rms = [float(np.sqrt(np.mean(pcm[s:s + rate].astype(np.float64) ** 2)))
+           for s in range(0, len(pcm), rate)]
+    err = max(err, float(np.abs(np.array(rms) - dig["rms"]).max()))
+    require(err <= CODEC_PCM_TOL, f"{name}: PCM differs from the JAX "
+            f"package's by {err} (> {CODEC_PCM_TOL})")
+    return err
+
+
+def codec_planes_check(name, frames, dig):
+    """Decoded Theora planes against libtheoradec's sha256 for every frame
+    and the JAX package's for the frames its decoder gives (it loses sync
+    at the first run of 30 in the coded-block flags; ROADMAP.md section
+    3): exactly."""
+    import hashlib
+
+    import numpy as np
+    got = [[hashlib.sha256(np.ascontiguousarray(p).tobytes()).hexdigest()
+            for p in f] for f in frames]
+    require(got == dig["libtheoradec"],
+            f"{name}: decoded planes differ from libtheoradec's")
+    require(got[:len(dig["jax"])] == dig["jax"],
+            f"{name}: decoded planes differ from the JAX package's")
+    return len(dig["jax"])
+
+
+@contextlib.contextmanager
+def codec_timed(targets, spent):
+    """While the block runs, add to spent["decode"] the host seconds of
+    every call of each (object, attribute) in `targets` (the decoders'
+    entry points, wherever the elements call them: at negotiation or a
+    tick)."""
+    with contextlib.ExitStack() as stack:
+        for obj, attr in targets:
+            stack.enter_context(cont_timed(obj, attr, spent, "decode"))
+        yield spent
+
+
+def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
+    """One read path on the card: parse and start it (the decode of a
+    collapsed decoder happens there, timed), then tick to EOS under
+    torch.profiler, the launch counts zeroed just before and read just
+    after (`want`).  Returns the sinks' samples ("v", "a") and its numbers:
+    ticks, host seconds of decoding, set-up, device busy ms and idle share
+    a tick, bytes copied H2D and D2H a tick, peak memory, launches."""
+    import contextlib as cl
+
+    from torch.profiler import ProfilerActivity, profile
+    from gstreamer_tpu_torch import parse_launch
+    cuda = dev.type == "cuda"
+    spent, counts = {}, {"d2h": 0, "h2d": 0}
+    base = start(name)
+    with codec_timed(decoders, spent):
+        sync(dev)
+        t0 = time.perf_counter()
+        pipe = parse_launch(desc, batch=batch, device=dev)
+        pipe.set_state("playing")
+        setup = time.perf_counter() - t0
+    out, secs = {"v": [], "a": []}, []
+    prof_cm = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if cuda else cl.nullcontext())
+    with prof_cm as prof, codec_timed(decoders, spent), \
+            copy_meter(counts):
+        while True:
+            sync(dev)
+            t0 = time.perf_counter()
+            more = pipe.tick()
+            cont_sinks(pipe, out)
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+            if not more:
+                break
+    pipe.set_state("null")
+    launches = finish(name, want)
+    n = len(secs)
+    wall = sum(secs) / n * 1e3
+    busy = union_busy(prof) / n if cuda else 0.0
+    return pipe, out, dict(
+        ticks=n, secs=sum(secs), setup=setup, decode=spent.get("decode", 0.0),
+        wall=wall, busy=busy, idle=max(0.0, 1.0 - busy / wall),
+        h2d=counts["h2d"] / n, d2h=counts["d2h"] / n, mem=peak(base),
+        launches=launches)
+
+
+def codec_report(name, r, units, what):
+    """One e2e line: `units` output units (frames, or input audio frames)
+    over the ticks and over set-up and ticks together."""
+    e2e = units / (r["setup"] + r["secs"])
+    print(f"e2e {name}: {units / r['secs']:.1f} {what}/s over {r['ticks']} "
+          f"ticks, {e2e:.1f} {what}/s with the set-up "
+          f"({r['setup'] * 1e3:.3f} ms, parse and negotiation); host decode "
+          f"{r['decode']:.3f} s; device busy {r['busy']:.3f} ms and idle "
+          f"share {r['idle']:.3f} of a {r['wall']:.3f} ms tick (traced); "
+          f"copied {r['h2d'] / 2**20:.3f} MiB H2D and {r['d2h'] / 2**20:.3f} "
+          f"MiB D2H a tick; peak memory {r['mem']:.1f} MiB; kernel launches "
+          f"{r['launches']}")
+
+
+def codec_asr_ref(pcm_blocks, rate, ch, fmt="F32LE"):
+    """The port's CPU run of the ASR chain (CONT_ASR) over host sample
+    blocks: the same blocks a decoder gives, pushed into appsrc."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    pipe = parse_launch(
+        f"appsrc name=in caps=audio/x-raw,format={fmt},rate={rate},"
+        f"channels={ch},layout=interleaved ! {CONT_ASR}", batch=1,
+        device="cpu")
+    src, pos = pipe.get_by_name("in"), 0
+    for x in pcm_blocks:
+        src.push_buffer(Buffer(data=torch.from_numpy(x),
+                               pts=pos * 10**9 // rate,
+                               duration=len(x) * 10**9 // rate))
+        pos += len(x)
+    src.end_of_stream()
+    pipe.run()
+    return cont_joined(drain(pipe.get_by_name("a")))
+
+
+def codec_audio_item(name, paths, dev, start, finish, peak, decoders, dig,
+                     fmt="F32LE"):
+    """An audio item: `paths` (launch strings before the ASR chain; the
+    first is timed and gives the PCM) each ! CONT_ASR on the card.  The
+    first path's PCM (read again by `paths[0] ! appsink`) is held to `dig`
+    (the JAX digests, or the written samples), its ASR output to the port's
+    CPU run over the same blocks, and every other path's ASR output to the
+    first's."""
+    import numpy as np
+    import torch
+    blocks = [s.buffer.data.cpu().numpy()
+              for s in codec_run(f"{paths[0]} ! appsink name=a", dev)]
+    pcm = np.concatenate(blocks)
+    if isinstance(dig, dict):
+        err = codec_pcm_check(name, pcm, dig)
+        held = f"within {CODEC_PCM_TOL} of the JAX digests (max {err})"
+    else:
+        require(np.array_equal(pcm, dig),
+                f"{name}: decoded samples differ from those written")
+        held = "== the samples written"
+    _, out, r = codec_path(name, f"{paths[0]} ! {CONT_ASR}", 1, dev, start,
+                           finish, peak, {}, decoders)
+    card = cont_joined(out["a"])
+    cpu = codec_asr_ref(blocks, 48000, pcm.shape[1], fmt)
+    require(card.dtype == torch.float32 and card.numel() > 0
+            and bool(torch.isfinite(card).all()),
+            f"{name}: ASR output {tuple(card.shape)}")
+    require(torch.equal(card, cpu),
+            f"{name}: the ASR output differs from the port's CPU run")
+    for desc in paths[1:]:
+        start(name)
+        got = cont_joined(codec_run(f"{desc} ! {CONT_ASR}", dev))
+        finish(name, {})
+        require(got is not None and torch.equal(got, card),
+                f"{name}: {desc.split()[0]}'s ASR output differs from "
+                f"{paths[0].split()[0]}'s")
+    codec_report(name, r, len(pcm), "audio frames")
+    print(f"  {name}: {len(pcm) / 48000:.2f} s of {pcm.shape[1]}-channel "
+          f"PCM {held}; host decode {r['decode'] * 1e3 / (len(pcm) / 48000):.3f} ms a "
+          f"second of audio; the ASR output == the port's CPU run over the "
+          f"same blocks; {', '.join(p.split()[0] for p in paths[1:])} == "
+          f"{paths[0].split()[0]}'s")
+    return pcm
+
+
+def codec_run(desc, dev, batch=1, sink="a"):
+    """A launch string ending in appsink `sink` run to EOS on `dev`: its
+    samples."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(desc, batch=batch, device=dev)
+    pipe.run()
+    return drain(pipe.get_by_name(sink))
+
+
+def flac_asr(seed, dev, tmp, start, finish, peak):
+    """flacenc and oggmux write CODEC_FLAC_SECONDS of seeded 48 kHz stereo
+    S16 pushed as card tensors (the files equal the CPU run's); flacdec,
+    oggdemux and uridecodebin read them back to the ASR chain."""
+    import torch
+    from gstreamer_tpu_torch.codecs import flac as pyflac
+    from gstreamer_tpu_torch.native import flac as nflac
+    samples = cont_audio(CODEC_FLAC_SECONDS * 48000, seed)
+    pushes = list(samples.reshape(CODEC_FLAC_SECONDS, 48000, 2))
+    src = ("appsrc name=in caps=audio/x-raw,format=S16LE,rate=48000,"
+           "channels=2,layout=interleaved")
+    files = {}
+    for mux, ext in (("flacenc", "flac"), ("oggmux", "ogg")):
+        for d in (dev, torch.device("cpu")):
+            path = os.path.join(tmp, f"{d.type}.{ext}")
+            start("flac_write")
+            asr_run(f"{src} ! {mux} location={path}", d, pushes)
+            finish("flac_write", {})
+            with open(path, "rb") as f:
+                files[(ext, d.type)] = f.read()
+        require(files[(ext, dev.type)] == files[(ext, "cpu")],
+                f"flac_asr: {mux}'s file differs from the CPU run's")
+    flac, ogg = (os.path.join(tmp, f"{dev.type}.{e}") for e in ("flac", "ogg"))
+    codec_audio_item("flac_asr", [f"flacdec location={flac}",
+                                  f"uridecodebin uri=file://{flac}"],
+                     dev, start, finish, peak,
+                     [(nflac, "decode"), (pyflac, "decode")], samples,
+                     fmt="S16LE")
+    codec_audio_item("flac_ogg_asr", [f"oggdemux location={ogg}",
+                                      f"uridecodebin uri=file://{ogg}"],
+                     dev, start, finish, peak,
+                     [(nflac, "decode"), (pyflac, "decode")], samples,
+                     fmt="S16LE")
+    print(f"  flac_asr: {CODEC_FLAC_SECONDS} s written by flacenc "
+          f"({len(files[('flac', 'cpu')])} bytes) and oggmux "
+          f"({len(files[('ogg', 'cpu')])} bytes) from card tensors == the "
+          f"CPU run's files")
+
+
+def theora_item(name, desc, frames_of, dig, dev, start, finish, peak,
+                decoders, also=()):
+    """A Theora item at CODEC_BATCH: `desc` (a source giving I420 1080p,
+    then CONT_RGB on "v"; CONT_ASR on "a" where the file has audio) on the
+    card; the decoded planes (`frames_of(pipe)`) against the digests, the
+    RGB against the port's CPU converter over the same decoded frames, and
+    each launch string of `also` (video only) to the same RGB."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    ticks = -(-len(dig["libtheoradec"]) // CODEC_BATCH)
+    pipe, out, r = codec_path(name, desc, CODEC_BATCH, dev, start, finish,
+                              peak, {"yscale_hv": ticks}, decoders)
+    frames = frames_of(pipe)
+    jax_frames = codec_planes_check(name, frames, dig)
+    w, h = dig["width"], dig["height"]
+    n, d = dig["fps"]
+    ref = parse_launch(
+        f"appsrc name=in caps=video/x-raw,format=I420,width={w},height={h},"
+        f"framerate={n}/{d} ! {CONT_RGB}", batch=CODEC_BATCH, device="cpu")
+    for k in range(0, len(frames), CODEC_BATCH):
+        take = frames[k:k + CODEC_BATCH]
+        ref.get_by_name("in").push_buffer(Buffer(
+            data=tuple(torch.from_numpy(np.stack([f[c] for f in take]))
+                       for c in range(3)),
+            batch=len(take), pts=k * 10**9 * d // n, duration=10**9 * d // n))
+    ref.get_by_name("in").end_of_stream()
+    ref.run()
+    rgb = cont_joined(out["v"])
+    require(cont_equal(rgb, cont_joined(drain(ref.get_by_name("v")))),
+            f"{name}: RGB differs from the port's CPU converter over the "
+            f"same decoded frames")
+    require(all(p.shape == (len(frames), 224, 224) and p.dtype == torch.uint8
+                for p in rgb), f"{name}: RGB planes' shape")
+    for desc2 in also:
+        start(name)
+        got = cont_joined(codec_run(desc2, dev, CODEC_BATCH, "v"))
+        finish(name, {"yscale_hv": ticks})
+        require(cont_equal(got, rgb), f"{name}: {desc2.split()[0]}'s RGB "
+                f"differs")
+    codec_report(name, r, len(frames), "frames")
+    print(f"  {name}: {len(frames)} {w}x{h} frames, planes == libtheoradec's "
+          f"sha256 (all) and the JAX package's (the {jax_frames} before its "
+          f"decoder loses sync); host decode {r['decode'] * 1e3 / len(frames):.1f} "
+          f"ms a frame; RGB 224x224 == the port's CPU converter over the same "
+          f"frames; yscale_hv {r['launches'].get('yscale_hv', 0)} launches in "
+          f"{ticks} video ticks"
+          + (f"; {', '.join(a.split()[0] for a in also)} == the same RGB"
+             if also else ""))
+    return pipe, out, r
+
+
+def codec_paths(seed, dev, tmp, start, finish, peak):
+    """flac_asr, vorbis_asr, mp3_asr, theora_ingest, theora_mkv_ingest."""
+    import numpy as np
+    from gstreamer_tpu_torch.codecs import mp3 as pmp3
+    from gstreamer_tpu_torch.codecs import theora as ptheora
+    from gstreamer_tpu_torch.codecs import vorbis as pvorbis
+    files, dig = codec_vectors()
+    flac_asr(seed, dev, tmp, start, finish, peak)
+    ogg, mp3 = files["vorbis_10s.ogg"], files["mp3_10s.mp3"]
+    codec_audio_item("vorbis_asr", [f"vorbisdec location={ogg}",
+                                    f"oggdemux location={ogg}",
+                                    f"uridecodebin uri=file://{ogg}"],
+                     dev, start, finish, peak,
+                     [(pvorbis, "decode_ogg")], dig["vorbis_ogg"])
+    codec_audio_item("mp3_asr", [f"filesrc location={mp3} ! mpegaudioparse "
+                                 f"! mpg123audiodec",
+                                 f"uridecodebin uri=file://{mp3}"],
+                     dev, start, finish, peak,
+                     [(pmp3.MP3Decoder, "decode_frame")], dig["mp3"])
+    ogv, mkv = files["theora_1080p.ogv"], files["theora_vorbis_1080p.mkv"]
+    theora_item("theora_ingest", f"theoradec name=dec location={ogv} ! "
+                f"{CONT_RGB}", lambda p: p.get_by_name("dec")._frames,
+                dig["theora_ogv"], dev, start, finish, peak,
+                [(ptheora.TheoraDecoder, "decode_packet")],
+                also=(f"oggdemux location={ogv} stream=video ! {CONT_RGB}",))
+    pipe, out, r = theora_item(
+        "theora_mkv_ingest", f"matroskademux name=d location={mkv} "
+        f"d.video_0 ! {CONT_RGB} d.audio_0 ! {CONT_ASR}",
+        lambda p: p.get_by_name("d")._children["video_0"]._frames,
+        dig["theora_mkv"], dev, start, finish, peak,
+        [(ptheora.TheoraDecoder, "decode_packet")])
+    import torch
+    pcm = pipe.get_by_name("d")._children["audio_0"]._adata
+    err = codec_pcm_check("theora_mkv_ingest", pcm, dig["vorbis_mkv"])
+    cpu = codec_asr_ref([pcm[k:k + 4096] for k in range(0, len(pcm), 4096)],
+                        48000, pcm.shape[1])
+    require(torch.equal(cont_joined(out["a"]), cpu),
+            "theora_mkv_ingest: the audio pad's ASR output differs from the "
+            "port's CPU run over the same PCM")
+    print(f"  theora_mkv_ingest: the audio pad's Vorbis PCM within "
+          f"{CODEC_PCM_TOL} of the JAX digests (max {err}), its ASR output =="
+          f" the port's CPU run over the same blocks; "
+          f"{np.asarray(pcm).shape[0]} frames (its decode is in the "
+          f"set-up)")
+
+
+def codec_alone_rows():
+    """The runs that drive each of the 16 codec factories alone or in a
+    short chain on small inputs: [(name, fn(d, tmp, seed) -> plain data)].
+    An encoder whose system library is absent raises the same
+    RuntimeError on both devices (its message is the run's result)."""
+    import struct
+
+    import numpy as np
+    from gstreamer_tpu_torch.elements import audioparsers as ap
+    from gstreamer_tpu_torch.elements.ogg import parse_ogg_pages
+    w, h, n = CODEC_ALONE
+    files, _ = codec_vectors()
+    acaps = ("appsrc name=in caps=audio/x-raw,format={f},rate=48000,"
+             "channels=2,layout=interleaved")
+    vcaps = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+             f"height={h},framerate=25/1")
+
+    def pcm(seed, fmt):
+        x = cont_audio(9600, seed)
+        if fmt == "F32LE":
+            x = (x / 32768.0).astype(np.float32)
+        return [dict(data=x[:4800], pts=0, duration=10**8),
+                dict(data=x[4800:], pts=10**8, duration=10**8)]
+
+    def frames(seed):
+        planes = cont_video("I420", n, w, h, seed)
+        return [dict(data=tuple(p[k:k + 2] for p in planes), batch=2,
+                     pts=k * 40_000_000, duration=40_000_000)
+                for k in range(0, n, 2)]
+
+    def blobs(data, caps):
+        return (f"appsrc name=in caps={caps}",
+                [dict(data=np.frombuffer(data, np.uint8).copy(), pts=0)])
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def writer(enc, src, make, readers):
+        def run(d, tmp, seed):
+            path = os.path.join(tmp, "f.bin")
+            try:
+                cont_launch(f"{src} ! {enc} location={path}", d, 2,
+                            {"in": make(seed)})
+            except RuntimeError as e:       # the encoder's library absent
+                return str(e)
+            return read(path), [cont_launch(r.format(p=path), d, 2)
+                                for r in readers]
+        return run
+
+    def parser(desc, data_of):
+        def run(d, tmp, seed):
+            src, bufs = data_of(seed)
+            return cont_launch(f"{src} ! {desc} ! appsink name=out", d, 1,
+                               {"in": bufs})
+        return run
+
+    def ac3(seed):
+        size, _ = ap.ac3_frame_info(bytes([0x0B, 0x77, 0, 0, 16]))
+        frame = bytes([0x0B, 0x77, 0, 0, 16]) + bytes([seed % 256]) * (
+            size - 5)
+        return blobs(b"\x00\x01" + frame * 4, "application/octet-stream")
+
+    def sbc(seed):
+        out = b"garbage"
+        for k in range(6):
+            f = bytearray(ap.sbc_calc_framelen(8, 0, 8, 32))
+            f[0], f[1], f[2] = 0x9C, (2 << 6) | (1 << 4) | 1, 32
+            for i in range(4, len(f)):
+                f[i] = (seed + k) % 256
+            crc = bytearray(11)
+            crc[0], crc[1] = f[1], f[2]
+            for i in range(16, 48, 8):
+                crc[i // 8] = f[1 + i // 8 + 1]
+            f[3] = ap.sbc_crc8(bytes(crc), 48)
+            out += bytes(f)
+        return blobs(out, "audio/x-sbc")
+
+    def wavpack(seed):
+        out = b"xx"
+        for k in range(4):
+            out += b"wvpk" + struct.pack(
+                "<IHBBIIIII", 24 + 64, 0x410, 0, 0, 12000, k * 3000, 3000,
+                (9 << 23) | 0x1000, seed) + bytes(64)
+        return blobs(out, "audio/x-wavpack")
+
+    def theora_packets(seed):
+        with open(files["theora_1080p.ogv"], "rb") as f:
+            pkts = [p for _, _, ps in parse_ogg_pages(f.read()) for p in ps]
+        return ("appsrc name=in caps=video/x-theora",
+                [dict(data=[np.frombuffer(p, np.uint8).copy()], batch=1,
+                      pts=k) for k, p in enumerate(pkts[:5])])
+
+    def opus_packets(seed):
+        tocs = [bytes([c << 3 | code, 3]) for c in (0, 3, 13, 17, 31)
+                for code in range(4)]
+        return ("appsrc name=in caps=audio/x-opus",
+                [dict(data=[np.frombuffer(p, np.uint8).copy()], batch=1,
+                      pts=k, duration=1) for k, p in enumerate(tocs)])
+
+    def flac_bytes(seed):
+        from gstreamer_tpu_torch.codecs import flac as pyflac
+        x = cont_audio(5000, seed).astype(np.int64)
+        return blobs(pyflac.encode(x, 48000, blocksize=1152),
+                     "application/octet-stream")
+
+    mp3 = files["mp3_10s.mp3"]
+    return [
+        ("flacenc/flacdec", writer("flacenc", acaps.format(f="S16LE"),
+                                   lambda s: pcm(s, "S16LE"),
+                                   ["flacdec location={p} ! appsink name=out"])),
+        ("oggmux/oggdemux", writer("oggmux", acaps.format(f="S16LE"),
+                                   lambda s: pcm(s, "S16LE"),
+                                   ["oggdemux location={p} ! appsink name=out"])),
+        ("vorbisenc/vorbisdec", writer(
+            "vorbisenc", acaps.format(f="F32LE"), lambda s: pcm(s, "F32LE"),
+            ["vorbisdec location={p} ! appsink name=out"])),
+        ("theoraenc/theoradec", writer(
+            "theoraenc", vcaps, frames,
+            ["theoradec location={p} ! appsink name=out"])),
+        ("flacparse", parser("flacparse", flac_bytes)),
+        ("ac3parse", parser("ac3parse", ac3)),
+        ("sbcparse", parser("sbcparse", sbc)),
+        ("wavpackparse", parser("wavpackparse", wavpack)),
+        ("theoraparse", parser("theoraparse", theora_packets)),
+        ("opusparse", parser("opusparse", opus_packets)),
+        ("mpegaudioparse/mpg123audiodec", lambda d, tmp, seed: [
+            cont_launch(f"filesrc location={mp3} blocksize=20000 ! "
+                        f"mpegaudioparse ! appsink name=out", d, 1),
+            cont_launch(f"filesrc location={mp3} ! mpegaudioparse ! "
+                        f"mpg123audiodec ! appsink name=out", d, 1)])]
+
+
+def codec_alone(seed, counters, dev):
+    """Each of the 16 codec factories alone or in a short chain on small
+    inputs, on the card and on the CPU: files, samples and element messages
+    equal; no kernel launched."""
+    import tempfile
+
+    import torch
+    from gstreamer_tpu_torch.codecs import theora_enc, vorbis_enc
+    from gstreamer_tpu_torch.core.element import list_factories
+    rows = codec_alone_rows()
+    for name, run in rows:
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            for c in counters.values():
+                c.launches = 0
+            with tempfile.TemporaryDirectory() as tmp:
+                res[d.type] = run(d, tmp, seed)
+            counts = {k: c.launches for k, c in counters.items()
+                      if c.launches}
+            require(not counts, f"{name}: launches {counts}")
+        require(res[dev.type] == res["cpu"],
+                f"{name}: the card's run differs from the CPU's")
+    names = " ".join(n for n, _ in rows)
+    mine = set(CODEC_FACTORIES)
+    require(len(mine) == 16 and mine <= set(list_factories()),
+            "the codec factory list")
+    missing = {f for f in mine if f not in names}
+    require(not missing, f"factories not driven alone: {missing}")
+    libs = {"libvorbisenc": vorbis_enc.available(),
+            "libtheoraenc": theora_enc.available()}
+    print(f"codecs each factory alone: CUDA == port CPU path (files, "
+          f"samples, element messages) for the {len(mine)} factories in "
+          f"{len(rows)} runs; no kernel launched; system encoders present "
+          f"(an absent one raises alike on both devices): {libs}")
+
+
+def codec_phase(seed, counters, dev):
+    """Coded files to the card, each path with the launch counts zeroed
+    just before it and read just after: flac_asr (and FLAC in Ogg),
+    vorbis_asr, mp3_asr (no kernel), theora_ingest and theora_mkv_ingest
+    (yscale_hv once a video tick), then each factory alone (codec_alone).
+    The FLAC files are written under a temporary directory and removed; the
+    other vectors are the committed files under tests/data/torch_codecs/.
+    Returns {kernel: launches}."""
+    import tempfile
+
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        codec_paths(seed, dev, tmp, start, finish, peak)
+    codec_alone(seed, counters, dev)
+    print(f"codec phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7354,6 +7950,10 @@ def main() -> int:
 
     # -- containers and multi-stream sources (host modules) ------------------
     for k, n in container_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- coded files: FLAC, Vorbis, MP3, Theora (host decoders) --------------
+    for k, n in codec_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

@@ -5,6 +5,12 @@ baseline JPEG whose DCT / IDCT run as float64 products on torch, on the
 caller's device, with the entropy coding on the host (``codecs/jpeg.py``).
 Reference capability: gst-plugins-good/ext/libpng (gstpngenc.c/gstpngdec.c)
 and ext/jpeg (gstjpegenc.c/gstjpegdec.c) wrap libpng/libjpeg.
+
+The audio and video codecs are host copies of the JAX package's, numpy as
+there: ``flac`` (with ``native/flac.py``), ``vorbis`` and ``theora`` (the
+clean-room decoders), ``vorbis_enc`` and ``theora_enc`` (ctypes to the
+system libvorbisenc / libtheoraenc), ``mp3`` with ``_mp3_tables`` (Layers
+I-III).  Import them as modules; nothing here loads a system library.
 """
 
 from .png import png_decode, png_encode

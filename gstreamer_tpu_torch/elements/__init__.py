@@ -77,3 +77,8 @@ from . import mxf               # noqa: F401  (mxfmux, mxfdemux)
 from . import isomp4            # noqa: F401  (qtmux, qtdemux, cmafmux, fmp4mux, qtmoovrecover)
 from . import realmedia         # noqa: F401  (rmdemux, rademux, pnmsrc)
 from . import playback          # noqa: F401  (typefind, uridecodebin, decodebin, playbin)
+from . import flac_elements     # noqa: F401  (flacenc, flacdec)
+from . import ogg               # noqa: F401  (oggmux, oggdemux)
+from . import xiph              # noqa: F401  (vorbisdec, vorbisenc, theoradec, theoraenc, theoraparse, opusparse)
+from . import mpegaudio         # noqa: F401  (mpg123audiodec)
+from . import audioparsers      # noqa: F401  (mpegaudioparse, ac3parse, flacparse, sbcparse, wavpackparse)

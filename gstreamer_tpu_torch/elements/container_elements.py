@@ -31,11 +31,13 @@ the pipeline stages on its device, one pad at a time; the muxers are host
 elements that copy each tick's planes and samples to the host
 (``host_array``) to write them.  The raw tracks (V_UNCOMPRESSED, the AVI
 fourccs, A_PCM/INT/LIT, WAVE PCM) and the coded passthrough that needs no
-codec (H.264 / H.265 / AV1 / MJPEG blobs, AAC access units) are ported.
-Every branch that decodes or encodes through a codec module the port does
-not have yet (Vorbis, Opus, AAC and MP3 decoding, VP8 / VP9, Theora, the
-Vorbis / Theora / VPx encode-at-EOS modes, the Opus head) raises
-``NotImplementedError`` naming ROADMAP.md.
+codec (H.264 / H.265 / AV1 / MJPEG blobs, AAC access units) are ported,
+and so are the coded tracks of the port's codecs: Vorbis, Theora and MPEG
+audio decoded on the host by ``codecs/`` (matroskademux, avidemux's MP3)
+and matroskamux's Vorbis and Theora encode-at-EOS modes.  Every branch
+that decodes or encodes through a codec module the port does not have yet
+(Opus and AAC decoding, VP8 / VP9, the VPx encode-at-EOS modes, the Opus
+head) raises ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -237,6 +239,43 @@ def _av1_seq_obu(blob: bytes) -> bytes:
             return blob[pos:end]
         pos = end
     return b""
+
+
+def _xiph_lace(packets: List[bytes]) -> bytes:
+    """Xiph-style lacing for CodecPrivate (matroska codec-specs:
+    A_VORBIS / V_THEORA carry their three header packets this way —
+    count-1, then 255-run sizes for all but the last packet)."""
+    out = bytearray([len(packets) - 1])
+    for pkt in packets[:-1]:
+        n = len(pkt)
+        out += b"\xff" * (n // 255) + bytes([n % 255])
+    for pkt in packets:
+        out += pkt
+    return bytes(out)
+
+
+def _parse_xiph_private(priv: bytes) -> List[bytes]:
+    """Inverse of `_xiph_lace` (matroska-demux.c xiph header split)."""
+    if not priv:
+        raise ValueError("matroska: missing xiph CodecPrivate")
+    count = priv[0] + 1
+    pos = 1
+    sizes = []
+    for _ in range(count - 1):
+        n = 0
+        while True:
+            b = priv[pos]
+            pos += 1
+            n += b
+            if b != 255:
+                break
+        sizes.append(n)
+    pkts = []
+    for n in sizes:
+        pkts.append(priv[pos:pos + n])
+        pos += n
+    pkts.append(priv[pos:])
+    return pkts
 
 
 def _blob_bytes(b) -> bytes:
@@ -534,6 +573,7 @@ class AviDemux(SourceElement):
         super().__init__(name=name, **props)
         self._loaded = False
         self._pos = 0
+        self._adata = None              # decoded audio (n, ch) f32
 
     def _load(self):
         if self._loaded:
@@ -580,8 +620,15 @@ class AviDemux(SourceElement):
             tag = st.get("tag", 1)
             if tag == 0x55:
                 # WAVE_FORMAT_MPEGLAYER3 (gstavidemux.c audio tag
-                # table): the JAX package decodes it with codecs/mp3.py
-                _unported("avidemux MP3 audio (codecs/mp3.py)")
+                # table): whole mp3 frames in ##wb chunks, decoded by
+                # the clean-room codecs/mp3.py
+                from ..codecs import mp3 as pmp3
+                blob = b"".join(self._data[off:off + size]
+                                for off, size in self._chunks)
+                pcm, rate, ch = pmp3.decode(blob)
+                self._adata = np.asarray(pcm, np.float32)
+                self._info = AudioInfo(format="F32LE", rate=rate,
+                                       channels=ch)
             elif tag == 1:
                 self._info = AudioInfo(format="S16LE", rate=st["arate"],
                                        channels=st["channels"])
@@ -643,6 +690,15 @@ class AviDemux(SourceElement):
             return Buffer(data=[txt], batch=1, pts=s_ns,
                           duration=e_ns - s_ns,
                           meta={"cues": [(s_ns, e_ns, txt)]})
+        if self._adata is not None:
+            if self._pos >= len(self._adata):
+                return None
+            chunk = self._adata[self._pos:self._pos + 4096]
+            rate = info.rate
+            pts = self._pos * 1_000_000_000 // rate
+            self._pos += len(chunk)
+            return Buffer(data=chunk, batch=1, pts=pts,
+                          duration=len(chunk) * 1_000_000_000 // rate)
         if self._pos >= len(self._chunks):
             return None
         if getattr(self, "_coded", None):
@@ -796,7 +852,13 @@ class MatroskaMux(AggregatorElement):
         self._vdims = (0, 0, Fraction(25, 1))
         self._avc_cfg = {}
         self._file = None
-        self._acodec = None                  # None=pcm, aac passthrough
+        self._acodec = None                  # None=pcm, vorbis, aac
+        self._venc = None                    # None=raw, theora
+        self._defer = False                  # encode-at-EOS mode
+        self._araw: List[np.ndarray] = []
+        self._vraw: list = []
+        self._ahdrs: List[bytes] = []
+        self._thdrs: List[bytes] = []
 
     def negotiate_output(self, in_caps, allowed):
         for pad_name, caps in in_caps.items():
@@ -837,16 +899,23 @@ class MatroskaMux(AggregatorElement):
                     _unported("matroskamux audio/x-opus (codecs/opus.py)")
                 else:
                     self._ainfo = AudioInfo.from_caps_structure(s)
-        # the encode-at-EOS modes run the JAX package's vorbis, theora
-        # and vpx encoders
         if self.props.get("audio-codec") == "vorbis" \
                 and self._ainfo is not None and self._acodec is None:
-            _unported("matroskamux audio-codec=vorbis (codecs/vorbis_enc.py)")
+            self._acodec = "vorbis"
         vc = self.props.get("video-codec")
-        if vc in ("theora", "vp8", "vp9") \
+        if vc in ("vp8", "vp9") \
                 and self._vinfo is not None and not self._vcodec:
+            # the JAX package encodes them with codecs/vpx.py
             _unported(f"matroskamux video-codec={vc} (its encoder in "
                       f"codecs/)")
+        if vc == "theora" and self._vinfo is not None and not self._vcodec:
+            if self._vinfo.finfo.name != "I420":
+                raise ValueError("matroskamux: theora needs I420 input")
+            self._venc = vc
+        if self._acodec == "vorbis" and self._vcodec:
+            raise ValueError("matroskamux: audio-codec=vorbis cannot "
+                             "combine with coded (h264/mjpeg) video")
+        self._defer = bool(self._acodec == "vorbis" or self._venc)
         return Caps.from_string("video/x-matroska")
 
     def _tracks(self) -> bytes:
@@ -888,6 +957,20 @@ class MatroskaMux(AggregatorElement):
                                     // fps.num)
                           + ebml_elem(VIDEO, video))
                 entries += ebml_elem(TRACK_ENTRY, entry)
+            elif self._venc:
+                vi = self._vinfo
+                fps = vi.fps
+                video = (ebml_uint(PIXEL_WIDTH, vi.width)
+                         + ebml_uint(PIXEL_HEIGHT, vi.height))
+                codec = (ebml_str(CODEC_ID, "V_THEORA")
+                         + ebml_elem(CODEC_PRIVATE, _xiph_lace(self._thdrs)))
+                entries += ebml_elem(
+                    TRACK_ENTRY,
+                    ebml_uint(TRACK_NUMBER, 1) + ebml_uint(TRACK_UID, 1)
+                    + ebml_uint(TRACK_TYPE, 1) + codec
+                    + ebml_uint(DEFAULT_DURATION,
+                                1_000_000_000 * fps.denom // fps.num)
+                    + ebml_elem(VIDEO, video))
             else:
                 vi = self._vinfo
                 fps = vi.fps
@@ -907,7 +990,11 @@ class MatroskaMux(AggregatorElement):
             ai = self._ainfo
             audio = (ebml_float(SAMPLING_FREQ, float(ai.rate))
                      + ebml_uint(CHANNELS, ai.channels))
-            if self._acodec == "aac":
+            if self._acodec == "vorbis":
+                codec = (ebml_str(CODEC_ID, "A_VORBIS")
+                         + ebml_elem(CODEC_PRIVATE,
+                                     _xiph_lace(self._ahdrs)))
+            elif self._acodec == "aac":
                 from .isomp4 import _make_asc
                 codec = (ebml_str(CODEC_ID, "A_AAC")
                          + ebml_elem(CODEC_PRIVATE,
@@ -953,6 +1040,25 @@ class MatroskaMux(AggregatorElement):
         self._file.write(self._tracks())
 
     def host_aggregate(self, ins: Dict[str, Buffer]) -> Optional[Buffer]:
+        if self._defer:
+            # encode-at-EOS mode (vorbis/theora tracks): accumulate
+            # raw media; all EBML writing happens in stop()
+            for pad_name in sorted(ins):
+                buf = ins[pad_name]
+                if pad_name.startswith("video"):
+                    if self._venc:
+                        planes = [host_array(p) for p in buf.data]
+                        for k in range(buf.batch):
+                            self._vraw.append(tuple(p[k] for p in planes))
+                    else:
+                        raw = _video_bytes(
+                            self._vinfo, buf.data).reshape(buf.batch, -1)
+                        for k in range(buf.batch):
+                            self._vraw.append(raw[k].tobytes())
+                else:
+                    self._araw.append(host_array(buf.data))
+            first = next(iter(ins.values()))
+            return first.with_(data=np.zeros(1, np.uint8))
         if not self._headers_done:
             if self._vcodec in ("h264", "h265", "av1"):
                 # harvest parameter sets for the avcC/hvcC/av1C
@@ -1070,10 +1176,69 @@ class MatroskaMux(AggregatorElement):
         first = next(iter(ins.values()))
         return first.with_(data=np.zeros(1, np.uint8))
 
+    def _finalize_deferred(self):
+        """Encode accumulated media and write the whole file: headers
+        (the encoder header packets feed the CodecPrivate), then
+        1-second clusters of timestamp-sorted SimpleBlocks."""
+        blocks = []                     # (ts_ms, track_no, flags, data)
+        if self._venc == "theora" and self._vraw:
+            from ..codecs import theora_enc
+            vi = self._vinfo
+            fps = vi.fps
+            self._thdrs, pkts = theora_enc.encode_packets(
+                self._vraw, vi.width, vi.height,
+                (fps.num, fps.denom),
+                quality=int(self.props["video-quality"]))
+            for i, pkt in enumerate(pkts):
+                ts = i * 1000 * fps.denom // fps.num
+                key = bool(pkt) and not (pkt[0] & 0x40)
+                blocks.append((ts, 1, 0x80 if key else 0x00, pkt))
+        elif self._vinfo is not None and self._vraw:
+            fps = self._vinfo.fps
+            for i, raw in enumerate(self._vraw):
+                ts = i * 1000 * fps.denom // fps.num
+                blocks.append((ts, 1, 0x80, raw))
+        if self._acodec == "vorbis" and self._araw:
+            from ..codecs import vorbis_enc
+            ai = self._ainfo
+            pcm = np.concatenate(self._araw, axis=0)
+            if pcm.dtype != np.float32:
+                pcm = pcm.astype(np.float32) / 32768.0
+            self._ahdrs, apkts = vorbis_enc.encode_packets(
+                pcm, ai.rate,
+                quality=float(self.props["audio-quality"]))
+            prev = 0
+            for pkt, gran in apkts:
+                blocks.append((prev * 1000 // ai.rate, 2, 0x80, pkt))
+                if gran >= 0:
+                    prev = gran
+        elif self._ainfo is not None and self._araw:
+            ai = self._ainfo
+            n = 0
+            for samples in self._araw:
+                raw = afmt.to_bytes(ai.finfo, samples).tobytes()
+                blocks.append((n * 1000 // ai.rate, 2, 0x80, raw))
+                n += samples.shape[0]
+        self._write_headers()
+        blocks.sort(key=lambda b: b[0])
+        pos = 0
+        while pos < len(blocks):
+            cts = blocks[pos][0]
+            body = ebml_uint(CLUSTER_TS, cts)
+            while pos < len(blocks) and blocks[pos][0] - cts < 1000:
+                ts, tno, flags, payload = blocks[pos]
+                body += ebml_elem(
+                    SIMPLE_BLOCK, ebml_size(tno) + struct.pack(">h", ts - cts)
+                    + bytes([flags]) + payload)
+                pos += 1
+            self._file.write(ebml_elem(CLUSTER, body))
+
     def stop(self):
         if self._file is None:
             return
-        if not getattr(self, "_headers_done", False):
+        if self._defer:
+            self._finalize_deferred()
+        elif not getattr(self, "_headers_done", False):
             self._write_headers()
         self._file.close()
         self._file = None
@@ -1264,6 +1429,8 @@ class MatroskaDemux(MultiStreamSourceElement):
         super().__init__(name=name, **props)
         self._loaded = False
         self._pos = 0
+        self._adata = None              # decoded audio (n, ch) f32
+        self._frames = None             # decoded video plane tuples
         self._children = None           # multi-stream per-pad readers
 
     # -- one-parse multi-stream mode --------------------------------------
@@ -1398,9 +1565,12 @@ class MatroskaDemux(MultiStreamSourceElement):
                 self._info = None
                 self._loaded = True
                 return
-            if codec in ("V_THEORA", "V_VP8", "V_VP9"):
-                # decoded by codecs/theora.py, codecs/vpx.py in the JAX
-                # package
+            if codec == "V_THEORA":
+                self._load_theora(track, fd)
+                self._loaded = True
+                return
+            if codec in ("V_VP8", "V_VP9"):
+                # decoded by codecs/vpx.py in the JAX package
                 _unported(f"matroskademux {codec} (its decoder in codecs/)")
             if codec != "V_UNCOMPRESSED":
                 raise ValueError("matroskademux: unsupported codec "
@@ -1411,12 +1581,14 @@ class MatroskaDemux(MultiStreamSourceElement):
                 fps=Fraction(1_000_000_000, fd))
         else:
             codec = track.get("codec")
-            if codec in ("A_VORBIS", "A_OPUS", "A_MPEG/L3", "A_MPEG/L2",
-                         "A_MPEG/L1") or (codec or "").startswith("A_AAC"):
-                # decoded by codecs/vorbis.py, opus.py, aac.py, mp3.py in
-                # the JAX package
+            if codec == "A_OPUS" or (codec or "").startswith("A_AAC"):
+                # decoded by codecs/opus.py, aac.py in the JAX package
                 _unported(f"matroskademux {codec} (its decoder in codecs/)")
-            if codec == "A_PCM/INT/LIT":
+            if codec == "A_VORBIS":
+                self._load_vorbis(track)
+            elif codec in ("A_MPEG/L3", "A_MPEG/L2", "A_MPEG/L1"):
+                self._load_mpeg_audio()
+            elif codec == "A_PCM/INT/LIT":
                 self._info = AudioInfo(format="S16LE",
                                        rate=track["rate"],
                                        channels=track.get("channels", 2))
@@ -1424,6 +1596,56 @@ class MatroskaDemux(MultiStreamSourceElement):
                 raise ValueError("matroskademux: unsupported codec "
                                  f"{codec!r}")
         self._loaded = True
+
+    def _payloads(self) -> List[bytes]:
+        return [self._data[off:off + size]
+                for _, off, size in self._blocks]
+
+    def _load_vorbis(self, track: dict) -> None:
+        """A_VORBIS: three xiph-laced headers in CodecPrivate, one
+        vorbis packet per block (matroska-ids.h GST_MATROSKA_CODEC_ID_
+        AUDIO_VORBIS; decoded by the clean-room codecs/vorbis.py)."""
+        from ..codecs.vorbis import VorbisDecoder
+        hdrs = _parse_xiph_private(track.get("codec_private", b""))
+        if len(hdrs) != 3:
+            raise ValueError("matroskademux: bad vorbis CodecPrivate")
+        dec = VorbisDecoder(hdrs[0], hdrs[2], hdrs[1])
+        pcm = dec.decode_packets(self._payloads())
+        self._adata = np.asarray(pcm, np.float32)
+        self._info = AudioInfo(format="F32LE", rate=dec.rate,
+                               channels=dec.channels)
+
+    def _load_mpeg_audio(self) -> None:
+        """A_MPEG/L3 (also L2/L1): whole frames per block; decoded by
+        the clean-room codecs/mp3.py full-stream decoder."""
+        from ..codecs import mp3 as pmp3
+        pcm, rate, ch = pmp3.decode(b"".join(self._payloads()))
+        self._adata = np.asarray(pcm, np.float32)
+        self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)
+
+    def _load_theora(self, track: dict, frame_dur: int) -> None:
+        """V_THEORA: xiph-laced headers in CodecPrivate, one theora
+        packet per block; zero-length blocks repeat the previous frame
+        (matroska codec-specs)."""
+        from ..codecs.theora import TheoraDecoder
+        hdrs = _parse_xiph_private(track.get("codec_private", b""))
+        if len(hdrs) != 3:
+            raise ValueError("matroskademux: bad theora CodecPrivate")
+        dec = TheoraDecoder(hdrs[0], hdrs[1], hdrs[2])
+        frames = []
+        for pkt in self._payloads():
+            out = dec.decode_packet(pkt)
+            if out is not None:
+                frames.append(dec.crop(out))
+            elif frames:
+                frames.append(frames[-1])
+        self._frames = frames
+        fmt = ("I420" if dec.pixel_fmt == 0
+               else "Y42B" if dec.pixel_fmt == 2 else "Y444")
+        fps = (Fraction(1_000_000_000, frame_dur) if frame_dur
+               else Fraction(dec.fps_n, dec.fps_d))
+        self._info = VideoInfo(format=fmt, width=dec.pic_width,
+                               height=dec.pic_height, fps=fps)
 
     def _coded_caps(self) -> Caps:
         from ..core.structure import Structure
@@ -1482,6 +1704,27 @@ class MatroskaDemux(MultiStreamSourceElement):
             return Buffer(data=[txt], batch=1, pts=s_ns,
                           duration=e_ns - s_ns,
                           meta={"cues": [(s_ns, e_ns, txt)]})
+        if self._adata is not None:
+            if self._pos >= len(self._adata):
+                return None
+            chunk = self._adata[self._pos:self._pos + 4096]
+            rate = info.rate
+            pts = self._pos * 1_000_000_000 // rate
+            self._pos += len(chunk)
+            return Buffer(data=chunk, batch=1, pts=pts,
+                          duration=len(chunk) * 1_000_000_000 // rate)
+        if self._frames is not None:
+            if self._pos >= len(self._frames):
+                return None
+            take = self._frames[self._pos:self._pos + max(1, n_frames)]
+            planes = tuple(np.stack([f[i] for f in take])
+                           for i in range(len(take[0])))
+            fps = info.fps
+            dur = 1_000_000_000 * fps.denom // fps.num
+            pts = self._pos * dur
+            self._pos += len(take)
+            return Buffer(data=planes, pts=pts, duration=dur,
+                          batch=len(take))
         if self._pos >= len(self._blocks):
             return None
         if getattr(self, "_coded", None):

@@ -26,9 +26,10 @@ A port of the JAX package's ``elements/isomp4.py``: the box writing and
 walking are copies; the muxers copy each tick's planes, samples and blobs
 to the host (``host_array``), qtdemux gives host arrays that the pipeline
 stages on its device pad by pad.  AAC's sample-rate table for the
-AudioSpecificConfig is the port's own copy.  Decoding an 'mp4a' track
-(AAC or MP3 through codecs/ in the JAX package) raises
-``NotImplementedError`` naming ROADMAP.md.
+AudioSpecificConfig is the port's own copy.  An 'mp4a' track of MP3
+(object type 0x6B) is decoded on the host by ``codecs/mp3.py``; one of AAC
+(codecs/aac.py in the JAX package) raises ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -1110,16 +1111,20 @@ class QtDemux(MultiStreamSourceElement):
         (qtdemux.c esds handling).  objectType 0x40/0x66-0x68 = AAC
         (decoded by the clean-room codecs/aac.py), 0x6B = MP3."""
         otype, dsi = _parse_esds(entry[28:])
+        payloads = [self._data[o:o + s] for o, s in t["samples"]]
         if otype in (0x40, 0x66, 0x67, 0x68):
             raise NotImplementedError(
                 "qtdemux AAC audio (codecs/aac.py): not ported to "
                 "gstreamer_tpu_torch yet (see ROADMAP.md)")
-        if otype == 0x6B:
-            raise NotImplementedError(
-                "qtdemux MP3 audio (codecs/mp3.py): not ported to "
-                "gstreamer_tpu_torch yet (see ROADMAP.md)")
-        raise ValueError(
-            f"qtdemux: mp4a object type {otype:#x} unsupported")
+        if otype != 0x6B:
+            raise ValueError(
+                f"qtdemux: mp4a object type {otype:#x} unsupported")
+        from ..codecs import mp3 as pmp3
+        pcm, rate, ch = pmp3.decode(b"".join(payloads))
+        self._mode = "decoded"
+        self._adata = np.asarray(pcm, np.float32)
+        self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)
+        self._caps = Caps([self._info.to_caps_structure()])
 
     def preview_blob(self) -> Optional[bytes]:
         """First sample bytes (jpegdec caps-peek hook)."""
@@ -1194,6 +1199,12 @@ class QtDemux(MultiStreamSourceElement):
                 blobs.append(np.frombuffer(bytes(au), np.uint8))
             self._pos += len(take)
             return Buffer(data=blobs, batch=len(take))
+        if self._mode == "decoded":
+            arr = self._adata
+            self._pos = len(samples)
+            return Buffer(data=arr, batch=1,
+                          duration=arr.shape[0] * 1_000_000_000
+                          // self._info.rate)
         # audio: one buffer with everything (contiguous chunk run)
         blob = b"".join(self._data[o:o + s] for o, s in samples)
         self._pos = len(samples)

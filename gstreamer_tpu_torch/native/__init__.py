@@ -1,3 +1,3 @@
 """Host native code of the port: ctypes loaders of the repo's C++ sources
-(``native/gtpu_io.cpp``, ``native/gtpu_jpeg.cpp``), built with g++ at first
-use by ``_build.py``."""
+(``native/gtpu_io.cpp``, ``native/gtpu_jpeg.cpp``, ``native/gtpu_flac.cpp``),
+built with g++ at first use by ``_build.py``."""

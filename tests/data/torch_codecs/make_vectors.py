@@ -1,0 +1,223 @@
+"""Write the coded test vectors of ``chip_smoke.py``'s codec phase and their
+digests.
+
+Run from the repository root on a machine with the system libtheoraenc,
+libvorbisenc and libmp3lame (and the JAX package, which writes the
+digests):
+
+    JAX_PLATFORMS=cpu python tests/data/torch_codecs/make_vectors.py
+
+It writes, beside itself, with fixed seeds:
+
+* ``theora_1080p.ogv``: 8 frames of 1920x1080 I420 at 25/1 through the
+  port's ``theoraenc`` at quality 32 (every packet fits one Ogg page);
+* ``theora_vorbis_1080p.mkv``: the same 8 frames at quality 48 and 10 s of
+  48 kHz stereo through the port's ``matroskamux video-codec=theora
+  audio-codec=vorbis``;
+* ``vorbis_10s.ogg``: the same 10 s through the port's ``vorbisenc``;
+* ``mp3_10s.mp3``: the same 10 s at 128 kbit/s through libmp3lame
+  (``tests/audio_oracle.py::lame_encode``);
+* ``digests.json``, from the JAX package's decoders: the Vorbis and MP3
+  PCM its elements give at 1024 seeded positions (float32 hex) with the
+  RMS of each second, and the sha256 of every Theora plane its decoder
+  gives; its decoder loses sync at the first inter frame whose coded-block
+  flags hold a run of 30 (ROADMAP.md section 3), so each Theora entry also
+  holds the sha256 of every plane libtheoradec decodes (through
+  ``tests/theora_oracle.py``, cropped to the picture) and the error the
+  JAX package's decoder raised, at which frame.
+"""
+
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+W, H, FRAMES, FPS = 1920, 1080, 8, 25
+RATE, SECONDS = 48000, 10
+OGV_QUALITY, MKV_QUALITY = 32, 48
+SEED = 2020
+POSITIONS = 1024
+
+
+def frames(w=W, h=H, n=FRAMES):
+    """n I420 frames of w x h panning over a seeded scene: a gradient, a
+    sine pattern, a coarse texture, five flat boxes and light noise."""
+    rng = np.random.default_rng(SEED)
+    ph, pw = h + 64, w + 64
+    yy, xx = np.mgrid[0:ph, 0:pw].astype(np.float32)
+    y = (60 + 100 * xx / pw + 40 * yy / ph
+         + 30 * np.sin(xx / 37.0) * np.cos(yy / 53.0))
+    tex = rng.normal(0, 1, (ph // 16 + 1, pw // 16 + 1)).astype(np.float32)
+    y += np.kron(tex, np.ones((16, 16), np.float32))[:ph, :pw] * 5
+    for j in range(5):
+        cx, cy = 200 + 300 * j, 200 + 120 * j
+        y[cy:cy + 160, cx:cx + 220] = 40 + 35 * j
+    y = np.clip(y + rng.normal(0, 1.0, y.shape), 0, 255).astype(np.uint8)
+    u = np.clip(128 + 40 * np.sin(xx[::2, ::2] / 90.0), 0, 255
+                ).astype(np.uint8)
+    v = np.clip(128 + 40 * np.cos(yy[::2, ::2] / 70.0), 0, 255
+                ).astype(np.uint8)
+    out = []
+    for k in range(n):
+        dx, dy = 4 * k, 2 * k
+        out.append(tuple(np.ascontiguousarray(p) for p in (
+            y[dy:dy + h, dx:dx + w],
+            u[dy // 2:dy // 2 + h // 2, dx // 2:dx // 2 + w // 2],
+            v[dy // 2:dy // 2 + h // 2, dx // 2:dx // 2 + w // 2])))
+    return out
+
+
+def pcm16():
+    """SECONDS of 48 kHz stereo S16: two tones under a slow swell, a
+    falling chirp and noise."""
+    rng = np.random.default_rng(SEED + 1)
+    t = np.arange(RATE * SECONDS)[:, None] / RATE
+    swell = 0.6 + 0.4 * np.sin(2 * np.pi * 0.3 * t)
+    x = swell * 0.35 * np.sin(2 * np.pi * np.array([220.0, 330.0]) * t)
+    x += 0.15 * np.sin(2 * np.pi * (2000 - 150 * t) * t)
+    x += rng.normal(0, 0.02, x.shape)
+    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def write_vectors():
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from audio_oracle import lame_encode
+    fr, pcm = frames(), pcm16()
+    dur = 10**9 // FPS
+    vcaps = (f"appsrc name=v caps=video/x-raw,format=I420,width={W},"
+             f"height={H},framerate={FPS}/1")
+    acaps = (f"appsrc name=a caps=audio/x-raw,format=S16LE,rate={RATE},"
+             f"channels=2,layout=interleaved")
+    per = len(pcm) // FRAMES                # audio frames a video frame
+
+    def run(desc, video, audio):
+        pipe = parse_launch(desc, device="cpu")
+        for k in range(FRAMES):
+            if video:
+                pipe.get_by_name("v").push_buffer(Buffer(
+                    data=tuple(torch.from_numpy(p[None]) for p in fr[k]),
+                    pts=k * dur, duration=dur))
+            if audio:
+                pipe.get_by_name("a").push_buffer(Buffer(
+                    data=torch.from_numpy(pcm[k * per:(k + 1) * per]),
+                    pts=k * per * 10**9 // RATE,
+                    duration=per * 10**9 // RATE))
+        for name in ("v", "a") if video and audio else \
+                ("v",) if video else ("a",):
+            pipe.get_by_name(name).end_of_stream()
+        pipe.run()
+
+    path = os.path.join(HERE, "theora_1080p.ogv")
+    run(f"{vcaps} ! theoraenc quality={OGV_QUALITY} location={path}",
+        True, False)
+    path = os.path.join(HERE, "theora_vorbis_1080p.mkv")
+    run(f"matroskamux name=m location={path} video-codec=theora "
+        f"video-quality={MKV_QUALITY} audio-codec=vorbis ! fakesink "
+        f"{vcaps} ! m.video_0 {acaps} ! m.audio_0", True, True)
+    path = os.path.join(HERE, "vorbis_10s.ogg")
+    run(f"{acaps} ! vorbisenc location={path}", False, True)
+    with open(os.path.join(HERE, "mp3_10s.mp3"), "wb") as f:
+        f.write(lame_encode(pcm, RATE, 128))
+
+
+def pcm_digest(x, rate):
+    """PCM (n, ch) float32: its length, rate, the samples at POSITIONS
+    seeded positions (float32 little-endian hex) and the RMS of each
+    second."""
+    x = np.ascontiguousarray(x, np.float32)
+    pos = np.sort(np.random.default_rng(SEED + 2).choice(
+        len(x), POSITIONS, replace=False))
+    rms = [float(np.sqrt(np.mean(x[s:s + rate].astype(np.float64) ** 2)))
+           for s in range(0, len(x), rate)]
+    return {"frames": len(x), "channels": x.shape[1], "rate": rate,
+            "positions": pos.tolist(),
+            "values": x[pos].astype("<f4").tobytes().hex(), "rms": rms}
+
+
+def plane_digests(frames_):
+    return [[hashlib.sha256(np.ascontiguousarray(p).tobytes()).hexdigest()
+             for p in f] for f in frames_]
+
+
+def element_pcm(desc):
+    """The F32 samples a JAX launch string ending in appsink gives."""
+    from gstreamer_tpu.core.parse import parse_launch
+    pipe = parse_launch(desc + " ! appsink name=out")
+    pipe.run()
+    sink = pipe.get_by_name("out")
+    out = []
+    while (s := sink.pull_sample()) is not None:
+        out.append(np.asarray(s.buffer.data))
+    return np.concatenate(out)
+
+
+def theora_digests(hdrs, packets):
+    """The cropped planes' sha256 by libtheoradec for every packet, and by
+    the JAX package's decoder up to the packet where it raises."""
+    import theora_oracle
+    from gstreamer_tpu.codecs.theora import TheoraDecoder
+    dec = TheoraDecoder(hdrs[0], hdrs[1], hdrs[2])
+    gold = theora_oracle.decode_packets(hdrs, packets)[0]
+    jax, error = [], None
+    for k, pkt in enumerate(packets):
+        try:
+            jax.append(dec.crop(dec.decode_packet(pkt)))
+        except Exception as e:          # the fault: record where and what
+            error = {"frame": k, "error": f"{type(e).__name__}: {e}"}
+            break
+    return {"width": dec.pic_width, "height": dec.pic_height,
+            "fps": [dec.fps_n, dec.fps_d],
+            "libtheoradec": plane_digests(dec.crop(tuple(g)) for g in gold),
+            "jax": plane_digests(jax), "jax_error": error}
+
+
+def write_digests():
+    from gstreamer_tpu.elements.container_elements import (
+        MatroskaDemux, _parse_matroska, _parse_xiph_private)
+    from gstreamer_tpu.elements.ogg import parse_ogg_pages
+    ogv = os.path.join(HERE, "theora_1080p.ogv")
+    mkv = os.path.join(HERE, "theora_vorbis_1080p.mkv")
+    ogg = os.path.join(HERE, "vorbis_10s.ogg")
+    mp3 = os.path.join(HERE, "mp3_10s.mp3")
+    with open(ogv, "rb") as f:
+        packets = [p for _, _, pkts in parse_ogg_pages(f.read())
+                   for p in pkts]
+    tracks, blocks, data = _parse_matroska(mkv)
+    video = next(t for t in tracks if t["codec"] == "V_THEORA")
+    vpkts = [data[off:off + size] for tno, _, off, size, _ in blocks
+             if tno == video["number"]]
+    ma = MatroskaDemux(location=mkv, stream="audio")
+    ma._load()
+    digests = {
+        "theora_ogv": theora_digests(packets[:3], packets[3:]),
+        "theora_mkv": theora_digests(
+            _parse_xiph_private(video["codec_private"]), vpkts),
+        "vorbis_ogg": pcm_digest(element_pcm(f"vorbisdec location={ogg}"),
+                                 RATE),
+        "vorbis_mkv": pcm_digest(ma._adata, ma._info.rate),
+        "mp3": pcm_digest(element_pcm(f"filesrc location={mp3} ! "
+                                      f"mpegaudioparse ! mpg123audiodec"),
+                          RATE),
+        "sizes": {n: os.path.getsize(os.path.join(HERE, n)) for n in (
+            "theora_1080p.ogv", "theora_vorbis_1080p.mkv", "vorbis_10s.ogg",
+            "mp3_10s.mp3")},
+    }
+    with open(os.path.join(HERE, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    write_vectors()
+    write_digests()
+    for name in sorted(os.listdir(HERE)):
+        print(name, os.path.getsize(os.path.join(HERE, name)))

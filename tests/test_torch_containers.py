@@ -9,17 +9,21 @@ the CPU) and writes the same file (``write_both``; MXF with both packages'
 package's file in both packages and gives the same samples, caps and bus
 messages (``test_torch_captions.pair``), and reads the port's own file.  The
 coded branches that need a codec module the port does not have yet raise
-``NotImplementedError`` naming ROADMAP.md, each with a test.  RealMedia
+``NotImplementedError`` naming ROADMAP.md, each with a test; those of the
+codec slice's decoders are held to the JAX package here on malformed input
+and in ``test_torch_coded_containers.py`` on real coded files.  RealMedia
 runs on a hand-packed file (``rm_file``), since the JAX package's own
 RealMedia tests need libavformat.
 """
 
+import re
 import struct
 
 import numpy as np
 import pytest
 
 from gstreamer_tpu.core.buffer import Buffer as JBuffer
+from gstreamer_tpu.core.parse import parse_launch as jparse_launch
 from gstreamer_tpu.elements import isomp4 as jiso
 from gstreamer_tpu.elements import mxf as jmxf
 from gstreamer_tpu.video import format as jvf
@@ -181,18 +185,19 @@ def test_avi_mjpeg(tmp_path):
 
 
 def test_avidemux_mp3_raises(tmp_path):
-    """An AVI whose audio is WAVE_FORMAT_MPEGLAYER3 (tag 0x55): the JAX
-    package decodes it with codecs/mp3.py, the port raises."""
+    """An AVI whose audio is tagged WAVE_FORMAT_MPEGLAYER3 (0x55) but holds
+    PCM: both packages decode it with codecs/mp3.py (the port since the
+    codec slice, before which it raised), resyncing on what looks like
+    frames, with the same samples (a real MP3 track:
+    test_torch_coded_containers.py)."""
     write_both(f"avimux name=m location={{loc}} ! fakesink {asrc()} ! "
                f"m.audio_0", {"a": apushes(480)}, tmp_path, "avi")
     data = bytearray((tmp_path / "port.avi").read_bytes())
     strf = data.index(b"strf", data.index(b"auds"))
     data[strf + 8:strf + 10] = struct.pack("<H", 0x55)
     (tmp_path / "mp3.avi").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gstreamer_tpu_torch.parse_launch(
-            f"avidemux location={tmp_path / 'mp3.avi'} stream=audio ! "
-            f"appsink name=out", device="cpu").run()
+    pair(f"avidemux location={tmp_path / 'mp3.avi'} stream=audio ! "
+         f"appsink name=out")
 
 
 # -- Matroska -----------------------------------------------------------------------
@@ -311,8 +316,16 @@ def test_matroska_aac_passthrough(tmp_path):
     ("", "appsrc name=a caps=audio/x-opus,rate=48000,channels=2 ! "
          "m.audio_0")])
 def test_matroskamux_codec_modes_raise(extra, src, tmp_path):
-    """The encode-at-EOS modes and Opus passthrough need the JAX package's
-    vorbis, theora, vpx and opus modules."""
+    """The VPx encode-at-EOS modes and Opus passthrough need the JAX
+    package's vpx and opus modules: the port raises.  The Vorbis and Theora
+    modes are ported since the codec slice (before which they raised): the
+    same file as the JAX package's."""
+    if extra in ("audio-codec=vorbis ", "video-codec=theora "):
+        pushes = ({"a": apushes(1920)} if "vorbis" in extra
+                  else {"v": vpushes("I420")})
+        write_both(f"matroskamux name=m location={{loc}} {extra}! fakesink "
+                   f"{src}", pushes, tmp_path, "mkv", batch=2)
+        return
     p = gstreamer_tpu_torch.parse_launch(
         f"matroskamux name=m location={tmp_path / 'x.mkv'} {extra}! "
         f"fakesink {src}", device="cpu")
@@ -345,6 +358,11 @@ def _mkv_with_track(path, codec, kind):
     ("A_MPEG/L3", "audio"), ("V_THEORA", "video"), ("V_VP8", "video"),
     ("V_VP9", "video")])
 def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
+    """A one-block track of each coded kind.  Opus, AAC and VPx need the
+    JAX package's codec modules: the port raises naming ROADMAP.md.
+    Vorbis, MPEG audio and Theora are ported since the codec slice (before
+    which they raised): this track (no CodecPrivate, one byte) fails as in
+    the JAX package."""
     path = tmp_path / "x.mkv"
     _mkv_with_track(path, codec, kind)
     tracks, blocks, _ = tce._parse_matroska(str(path))
@@ -352,6 +370,12 @@ def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
     for desc in (f"matroskademux location={path} stream={kind} ! fakesink",
                  f"matroskademux name=d location={path} d.{kind}_0 ! "
                  f"fakesink"):
+        if codec in ("A_VORBIS", "A_MPEG/L3", "V_THEORA"):
+            with pytest.raises(ValueError) as ref:
+                jparse_launch(desc).compile()
+            with pytest.raises(ValueError, match=re.escape(str(ref.value))):
+                gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
 

@@ -282,16 +282,20 @@ def test_registry_is_the_ports_own():
         "avimux", "avidemux", "matroskamux", "webmmux", "matroskademux",
         "mxfmux", "mxfdemux", "qtmux", "qtdemux", "cmafmux", "fmp4mux",
         "qtmoovrecover", "rmdemux", "rademux", "pnmsrc", "typefind",
-        "uridecodebin", "decodebin", "playbin"}
+        "uridecodebin", "decodebin", "playbin",
+        "flacenc", "flacdec", "mpegaudioparse", "ac3parse", "flacparse",
+        "sbcparse", "wavpackparse", "oggmux", "oggdemux", "vorbisdec",
+        "vorbisenc", "theoradec", "theoraenc", "theoraparse", "opusparse",
+        "mpg123audiodec"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("oggdemux")
+        telement.element_factory_make("tsdemux")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("oggdemux ! appsink",
+        gstreamer_tpu_torch.parse_launch("tsdemux ! appsink",
                                          device="cpu")
 
 

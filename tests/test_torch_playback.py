@@ -5,7 +5,7 @@ uridecodebin and decodebin (single-stream routes, a seek), playbin's
 The same seeded files go through both packages (the port on the CPU);
 samples, caps and bus messages equal, tolerance 0.  Where the JAX package
 autoplugs a demuxer, parser or decoder that the port does not have yet
-(the libav decoders, mpg123audiodec, faad, oggdemux, flacdec, ...), the
+(the libav decoders, faad, flvdemux, ...), the
 port raises ``NotImplementedError`` naming ROADMAP.md instead of passing a
 coded stream on undecoded: each case has a test.
 """
@@ -24,6 +24,7 @@ import gstreamer_tpu_torch
 from gstreamer_tpu_torch.core.buffer import Buffer
 from gstreamer_tpu_torch.core.caps import Caps
 from gstreamer_tpu_torch.core.element import element_factory_make as tmake
+from gstreamer_tpu_torch.core.element import factory_exists
 from gstreamer_tpu_torch.elements import playback as tpb
 
 from test_torch_captions import _run, drain, pair, sample_rows
@@ -141,9 +142,13 @@ CODED = [
 
 @pytest.mark.parametrize("caps,decoder", CODED, ids=[d for _, d in CODED])
 def test_decoder_for_caps_raises_where_the_port_lacks_it(caps, decoder):
-    """The JAX package appends its decoder; the port, which has none yet,
-    raises instead of passing the coded stream on."""
+    """The JAX package appends its decoder; the port, where it has none
+    yet, raises instead of passing the coded stream on, and appends the
+    same decoder where it has it (mpg123audiodec since the codec slice)."""
     assert jpb._decoder_for_caps(JCaps.from_string(caps)) == decoder
+    if factory_exists(decoder):
+        assert tpb._decoder_for_caps(Caps.from_string(caps)) == decoder
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpb._decoder_for_caps(Caps.from_string(caps))
 
@@ -180,9 +185,31 @@ def test_uridecodebin_h264_track_raises(tmp_path):
     (b"FLV\x01\x05" + bytes(100), "flvdemux")])
 def test_unported_routes_raise(head, factory, tmp_path):
     """Routes of DECODABLE whose factories are not ported: uridecodebin
-    and playbin raise naming the factory and ROADMAP.md."""
+    and playbin raise naming the factory and ROADMAP.md.  A route the port
+    has since ported (oggdemux, flacdec, mpegaudioparse: the codec slice)
+    fails on these truncated files as the JAX package's does."""
     path = tmp_path / "x.bin"
     path.write_bytes(head)
+    if factory_exists(factory):
+        def outcomes(parse, make, **kw):
+            """uridecodebin's compile and playbin's build: "ok" or the
+            error's first words (element names differ between runs)."""
+            pb = make("playbin", uri=f"file://{path}")
+            if kw:
+                pb.device = torch.device(kw["device"])
+            got = []
+            for fn in (lambda: parse(f"uridecodebin uri=file://{path} ! "
+                                     f"fakesink", **kw).compile(),
+                       pb.build_pipeline):
+                try:
+                    fn()
+                    got.append("ok")
+                except ValueError as e:
+                    got.append(str(e).split(":")[0].split()[:2])
+            return got
+        got = outcomes(tparse, tmake, device="cpu")
+        assert got == outcomes(jparse, jmake) and got[0] != "ok"
+        return
     with pytest.raises(NotImplementedError, match=factory):
         tparse(f"uridecodebin uri=file://{path} ! fakesink",
                device="cpu").compile()
