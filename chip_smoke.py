@@ -347,6 +347,37 @@ before it and read just after:
    or in a short chain, the card equal to the CPU (files, samples,
    messages).
 
+18. Opus and AAC to the card, and the device monitor (opus_aac_phase; the
+   committed vectors under tests/data/torch_codecs/ with the JAX package's
+   digests; the A/V files are written under a temporary directory):
+
+  opus_asr          opus_10s.opus (CELT) through opusdec, oggdemux and
+                    uridecodebin ! audioconvert ! audioresample ! F32LE
+                    16 kHz mono: the PCM within 1e-6 of the JAX digests and
+                    equal between the paths, each ASR output the port's CPU
+                    run over the same blocks, the packets by decoder route
+                    (celt / silk / hybrid / libopus) the digests'
+  opus_voice_asr    opus_voice_10s.opus (SILK, then hybrid): as opus_asr
+  aac_asr           aac_10s.aac (ADTS AAC-LC) through filesrc ! aacparse !
+                    faad (a tick's frames decoded on the host, uploaded once)
+  heaac_asr         heaac_10s.aac (HE-AAC v1): as aac_asr, at twice the
+                    core rate
+  aac_m4a_asr       aac_10s.m4a through qtdemux stream=audio
+  webm_av_ingest    matroskamux writes 48 seeded 1920x1080 I420 frames from
+                    card tensors and opus_10s.opus's packets (the file the
+                    CPU run's); matroskademux d.video_0 ! RGB 224x224
+                    (yscale_hv once a video tick) and d.audio_0 ! the ASR
+                    chain: the PCM the Ogg decode's after its pre-skip
+  mp4_av_ingest     qtmux writes 32 1080p UYVY frames and aac_10s.aac's
+                    access units; qtdemux's two pads (UYVY takes the
+                    converter's generic route: no kernel)
+  device_monitor    DeviceMonitor lists gpu:0 with its memory statistics;
+                    each test device's element runs a tick on the card
+
+   each with its e2e line (as phase 17); then opusdec, opusenc, faad and
+   aacparse alone, the card equal to the CPU (opusenc raises alike on both
+   where the system libopus is absent).
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -7084,16 +7115,16 @@ CODEC_FACTORIES = (
     "mpg123audiodec")
 
 
-def codec_vectors():
+def codec_vectors(names=CODEC_FILES):
     """The committed vectors' paths and their digests; a missing file
     fails the run."""
-    missing = [f for f in CODEC_FILES
+    missing = [f for f in names
                if not os.path.exists(os.path.join(CODEC_DIR, f))]
     require(not missing, f"codec vectors missing under {CODEC_DIR}: "
             f"{missing}")
     with open(os.path.join(CODEC_DIR, "digests.json")) as f:
         digests = json.load(f)
-    return {f: os.path.join(CODEC_DIR, f) for f in CODEC_FILES}, digests
+    return {f: os.path.join(CODEC_DIR, f) for f in names}, digests
 
 
 def codec_pcm_check(name, pcm, dig):
@@ -7632,6 +7663,496 @@ def codec_phase(seed, counters, dev):
     return total
 
 
+# -- 18. Opus and AAC, and the device monitor ----------------------------------
+
+OA_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
+            "heaac_10s.aac", "aac_10s.m4a", "digests.json")
+OA_WEBM = (1920, 1080, 48, 16)      # webm_av_ingest: width, height, frames, batch
+OA_MP4 = (1920, 1080, 32, 16)       # mp4_av_ingest: UYVY frames
+OA_ALONE = (25, 20)                 # Opus packets, ADTS frames of a factory alone
+OA_FACTORIES = ("opusdec", "opusenc", "faad", "aacparse")
+
+
+def oa_routes(name, want):
+    """The Opus packets by HybridOpusDecoder route since the last zeroing
+    against `want` ({route: packets}); zeroes them again."""
+    from gstreamer_tpu_torch.codecs import opus as popus
+    got = {k: v for k, v in popus.ROUTES.items() if v}
+    require(got == want, f"{name}: Opus packets by route {got}, want {want}")
+    for k in popus.ROUTES:
+        popus.ROUTES[k] = 0
+    return got
+
+
+@contextlib.contextmanager
+def oa_uploads(blocks):
+    """While the block runs, append to `blocks` every host array faad
+    uploads (its decoded PCM, a tick at a time)."""
+    from gstreamer_tpu_torch.elements import aacdec
+    upload = aacdec.device_array
+
+    def recorded(a, like):
+        blocks.append(a)
+        return upload(a, like)
+    aacdec.device_array = recorded
+    try:
+        yield blocks
+    finally:
+        aacdec.device_array = upload
+
+
+def oa_chunks(pcm, size=4096):
+    return [pcm[k:k + size] for k in range(0, len(pcm), size)]
+
+
+def oa_audio_item(name, paths, dig, dev, start, finish, peak, decoders):
+    """An audio item: each of `paths` (a launch string before the ASR
+    chain, with `blocks(pipe, uploads)` giving the PCM blocks its decoder
+    handed on, None where the decoder runs inside uridecodebin) !
+    CONT_ASR on the card, the launch counts zeroed just before each and
+    read just after.  The first path's PCM is held to the JAX digests
+    `dig` (within CODEC_PCM_TOL), every other path's PCM to the first's
+    (tolerance 0: the same host decode run again); each path's ASR output
+    to the port's CPU run of the chain over the same blocks, or, with no
+    blocks, to the first path's.  Opus paths' packets are counted by route
+    (dig["routes"] a decode).  Returns the first path's PCM."""
+    import numpy as np
+    import torch
+    first, card0 = None, None
+    for k, (desc, blocks_of) in enumerate(paths):
+        uploads = []
+        with oa_uploads(uploads):
+            pipe, out, r = codec_path(name, f"{desc} ! {CONT_ASR}", 1, dev,
+                                      start, finish, peak, {}, decoders)
+        card = cont_joined(out["a"])
+        require(card is not None and card.dtype == torch.float32
+                and card.numel() > 0 and bool(torch.isfinite(card).all()),
+                f"{name}: {desc.split()[0]}'s ASR output")
+        routes = (oa_routes(f"{name} ({desc.split()[0]})", dig["routes"])
+                  if "routes" in dig else None)
+        blocks = blocks_of(pipe, uploads)
+        if blocks is None:
+            require(torch.equal(card, card0), f"{name}: "
+                    f"{desc.split()[0]}'s ASR output differs from "
+                    f"{paths[0][0].split()[0]}'s")
+            held = f"ASR output == {paths[0][0].split()[0]}'s"
+        else:
+            pcm = np.concatenate(blocks)
+            if first is None:
+                first = pcm
+                err = codec_pcm_check(name, pcm, dig)
+                held = (f"PCM within {CODEC_PCM_TOL} of the JAX digests "
+                        f"(max {err})")
+            else:
+                require(np.array_equal(pcm, first), f"{name}: "
+                        f"{desc.split()[0]}'s PCM differs from "
+                        f"{paths[0][0].split()[0]}'s")
+                held = f"PCM == {paths[0][0].split()[0]}'s"
+            cpu = codec_asr_ref(blocks, dig["rate"], pcm.shape[1])
+            require(torch.equal(card, cpu), f"{name}: {desc.split()[0]}'s "
+                    f"ASR output differs from the port's CPU run over the "
+                    f"same blocks")
+            held += "; ASR output == the port's CPU run over the same blocks"
+        if k == 0:
+            card0 = card
+        label = name if k == 0 else f"{name}[{desc.split()[0]}]"
+        codec_report(label, r, len(first), "audio frames")
+        print(f"  {label}: {len(first) / dig['rate']:.2f} s of "
+              f"{first.shape[1]}-channel PCM; {held}; host decode "
+              f"{r['decode'] / (len(first) / dig['rate']):.4f} s a second "
+              f"of audio"
+              + (f"; Opus packets by route {routes}" if routes else ""))
+    return first
+
+
+def oa_collapsed(pipe, uploads):
+    """A collapsed decoder's (opusdec, oggdemux: element d) blocks."""
+    d = pipe.get_by_name("d")
+    return oa_chunks(d._samples, d.props["blocksize"])
+
+
+def oa_asr(dev, start, finish, peak, files, dig):
+    """opus_asr, opus_voice_asr, aac_asr, heaac_asr; returns the PCM of
+    opus_asr and of aac_asr's MP4 path."""
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.codecs import opus as popus
+    for k in popus.ROUTES:
+        popus.ROUTES[k] = 0
+    opus_dec = [(popus.HybridOpusDecoder, "decode")]
+    aac_dec = [(paac.AACDecoder, "decode_frame")]
+    pcm = {}
+    for name, f, key in (("opus_asr", "opus_10s.opus", "opus_ogg"),
+                         ("opus_voice_asr", "opus_voice_10s.opus",
+                          "opus_voice")):
+        path = files[f]
+        pcm[name] = oa_audio_item(name, [
+            (f"opusdec name=d location={path}", oa_collapsed),
+            (f"oggdemux name=d location={path}", oa_collapsed),
+            (f"uridecodebin uri=file://{path}", lambda p, u: None)],
+            dig[key], dev, start, finish, peak, opus_dec)
+    for name, f, key in (("aac_asr", "aac_10s.aac", "aac_adts"),
+                         ("heaac_asr", "heaac_10s.aac", "heaac_adts")):
+        pcm[name] = oa_audio_item(name, [
+            (f"filesrc location={files[f]} ! aacparse ! faad",
+             lambda p, u: u)], dig[key], dev, start, finish, peak, aac_dec)
+    pcm["aac_m4a"] = oa_audio_item("aac_m4a_asr", [
+        (f"qtdemux name=d location={files['aac_10s.m4a']} stream=audio",
+         lambda p, u: [p.get_by_name("d")._adata])], dig["aac_m4a"], dev,
+        start, finish, peak, aac_dec)
+    return pcm
+
+
+def oa_write(mux, path, fmt, planes, acaps, blobs, batch, d):
+    """`mux` writes the planes (video_0, tensors on `d`, `batch` frames a
+    tick) and the coded audio blobs (audio_0, host bytes, spread evenly
+    over the ticks); returns the seconds it took."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    n, h, w = planes[0].shape[:3]
+    ticks = -(-n // batch)
+    per = -(-len(blobs) // ticks)
+    dur = 10**9 // CONT_FPS
+    pipe = parse_launch(
+        f"{mux} name=m location={path} ! fakesink appsrc name=v caps=video/"
+        f"x-raw,format={fmt},width={w},height={h},framerate={CONT_FPS}/1 ! "
+        f"m.video_0 appsrc name=a caps={acaps} ! m.audio_0", batch=batch,
+        device=d)
+    sync(d)
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        k = t * batch
+        pipe.get_by_name("v").push_buffer(Buffer(
+            data=tuple(torch.from_numpy(p[k:k + batch]).to(d)
+                       for p in planes), batch=batch, pts=k * dur,
+            duration=dur))
+        part = blobs[t * per:(t + 1) * per]
+        if part:
+            pipe.get_by_name("a").push_buffer(Buffer(
+                data=[np.frombuffer(b, np.uint8).copy() for b in part],
+                batch=len(part), pts=k * dur, duration=batch * dur))
+    for s in ("v", "a"):
+        pipe.get_by_name(s).end_of_stream()
+    pipe.run()
+    sync(d)
+    return time.perf_counter() - t0
+
+
+def oa_av_item(name, mux, demux, fmt, size, acaps, blobs, dig, pcm_of,
+               want_pcm, decoders, want, dev, tmp, seed, start, finish,
+               peak):
+    """`mux` writes seeded 1080p `fmt` frames from card tensors and the
+    coded audio blobs (the file equals the CPU run's); `demux` reads both
+    pads: video to RGB 224x224 (the port's CPU converter over the same
+    frames), audio into the ASR chain (its PCM, `pcm_of(pcm)`, within
+    CODEC_PCM_TOL of the JAX digests and equal to `want_pcm`, the same
+    decode from the audio item; the chain the port's CPU run over the same
+    blocks).  `want`: the launches of the read."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    w, h, n, batch = size
+    planes = cont_video(fmt, n, w, h, seed)
+    paths = {}
+    for d in (dev, torch.device("cpu")):
+        paths[d.type] = os.path.join(tmp, f"{name}.{d.type}")
+        start(name + "_write")
+        secs = oa_write(mux, paths[d.type], fmt, planes, acaps, blobs,
+                        batch, d)
+        finish(name + "_write", {})
+        if d is dev:
+            write_fps = n / secs
+    with open(paths[dev.type], "rb") as f, open(paths["cpu"], "rb") as g:
+        require(f.read() == g.read(),
+                f"{name}: {mux}'s file differs from the CPU run's")
+    pipe, out, r = codec_path(
+        name, f"{demux} name=d location={paths[dev.type]} d.video_0 ! "
+        f"{CONT_RGB} d.audio_0 ! {CONT_ASR}", batch, dev, start, finish,
+        peak, want, decoders)
+    adata = np.asarray(pipe.get_by_name("d")._children["audio_0"]._adata)
+    pcm = pcm_of(adata)
+    err = codec_pcm_check(name, pcm, dig)
+    require(np.array_equal(pcm, want_pcm),
+            f"{name}: the demuxed PCM differs from the file's decode")
+    blocks = ([adata] if demux == "qtdemux" else oa_chunks(adata))
+    require(torch.equal(cont_joined(out["a"]),
+                        codec_asr_ref(blocks, dig["rate"], adata.shape[1])),
+            f"{name}: the audio pad's ASR output differs from the port's "
+            f"CPU run over the same blocks")
+    ref = parse_launch(
+        f"appsrc name=in caps=video/x-raw,format={fmt},width={w},height={h},"
+        f"framerate={CONT_FPS}/1 ! {CONT_RGB}", batch=batch, device="cpu")
+    for k in range(0, n, batch):
+        ref.get_by_name("in").push_buffer(Buffer(
+            data=tuple(torch.from_numpy(p[k:k + batch]) for p in planes),
+            batch=batch, pts=k * 10**9 // CONT_FPS,
+            duration=10**9 // CONT_FPS))
+    ref.get_by_name("in").end_of_stream()
+    ref.run()
+    rgb = cont_joined(out["v"])
+    require(cont_equal(rgb, cont_joined(drain(ref.get_by_name("v")))),
+            f"{name}: RGB differs from the port's CPU converter over the "
+            f"same frames")
+    require(all(p.shape == (n, 224, 224) and p.dtype == torch.uint8
+                for p in rgb), f"{name}: RGB planes' shape")
+    codec_report(name, r, n, "frames")
+    print(f"  {name}: {mux} wrote {n} {w}x{h} {fmt} frames from card tensors "
+          f"and {len(blobs)} coded audio packets at {write_fps:.1f} frames/s "
+          f"(the file == the CPU run's); the audio pad's PCM "
+          f"({len(adata)} frames) within {CODEC_PCM_TOL} of the JAX digests "
+          f"(max {err}) and == the file's own decode, its ASR output == the "
+          f"port's CPU run; RGB 224x224 == the port's CPU converter; "
+          f"launches {r['launches']} in {-(-n // batch)} video ticks")
+
+
+def oa_av(seed, dev, tmp, start, finish, peak, files, dig, pcm):
+    """webm_av_ingest (I420 + Opus in Matroska: yscale_hv once a video
+    tick) and mp4_av_ingest (UYVY + AAC in MP4: the generic route, no
+    kernel)."""
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.codecs import opus as popus
+    from gstreamer_tpu_torch.elements.ogg import parse_ogg_pages
+    with open(files["opus_10s.opus"], "rb") as f:
+        pkts = [p for _, _, ps in parse_ogg_pages(f.read()) for p in ps]
+    _ch, pre_skip, _rate, _gain = popus.parse_opus_head(pkts[0])
+    opus = pkts[2:]
+    n_pcm = dig["opus_ogg"]["frames"]
+    oa_av_item("webm_av_ingest", "matroskamux", "matroskademux", "I420",
+               OA_WEBM, "audio/x-opus,rate=48000,channels=2", opus,
+               dig["opus_ogg"], lambda a: a[pre_skip:pre_skip + n_pcm],
+               pcm["opus_asr"], [(popus.HybridOpusDecoder, "decode")],
+               {"yscale_hv": -(-OA_WEBM[2] // OA_WEBM[3])}, dev, tmp, seed,
+               start, finish, peak)
+    oa_routes("webm_av_ingest", {"celt": len(opus)})
+    with open(files["aac_10s.aac"], "rb") as f:
+        adts = f.read()
+    units, pos = [], 0
+    while pos + 7 <= len(adts):
+        flen, _s, _c, _p, hlen = paac.parse_adts_header(adts, pos)
+        units.append(adts[pos + hlen:pos + flen])
+        pos += flen
+    oa_av_item("mp4_av_ingest", "qtmux", "qtdemux", "UYVY", OA_MP4,
+               "audio/mpeg,mpegversion=4,stream-format=raw,rate=48000,"
+               "channels=2", units, dig["aac_m4a"], lambda a: a,
+               pcm["aac_m4a"], [(paac.AACDecoder, "decode_frame")], {}, dev,
+               tmp, seed + 1, start, finish, peak)
+
+
+def device_monitor(dev, start, finish):
+    """The port's DeviceMonitor on the card: gpu:0 with its memory
+    statistics (cpu:0 without a card), and each test device's element run
+    for a tick on the card (the same sample as on the CPU)."""
+    import torch
+    from gstreamer_tpu_torch.core.device import DeviceMonitor
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.core.pipeline import Pipeline, link
+    start("device_monitor")
+    mon = DeviceMonitor()
+    mon.start()
+    devs = mon.get_devices()
+    mon.stop()
+    rows = [(d.name, d.device_class) for d in devs]
+    accel = [d for d in devs if d.device_class.startswith("Compute/")]
+    want = ([(f"gpu:{i}", "Compute/GPU", torch.device("cuda", i))
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else
+            [("cpu:0", "Compute/CPU", torch.device("cpu"))])
+    require([(d.name, d.device_class, d.properties["device"])
+             for d in accel] == want, f"device_monitor: {rows}")
+    stats = accel[0].properties["memory_stats"]()
+    require(dev.type != "cuda" or "allocated_bytes.all.current" in stats,
+            f"device_monitor: {accel[0].name}'s memory statistics")
+    mon = DeviceMonitor()
+    mon.add_filter(classes="Source")
+    ran = []
+    for device in mon.get_devices():
+        got = {}
+        for d in (dev, torch.device("cpu")):
+            el = device.create_element(name="src")
+            el.set_property("num-buffers", 1)
+            pipe = Pipeline(device=d)
+            sink = element_factory_make("appsink", name="out")
+            pipe.add(el, sink)
+            link(el, sink)
+            pipe.run()
+            sample = sink.pull_sample()
+            require(sample is not None, f"device_monitor: {device.name} "
+                    f"gave no sample on {d.type}")
+            got[d.type] = (str(sample.caps), bc_plain(sample.buffer.data))
+            leaves = (sample.buffer.data if isinstance(
+                sample.buffer.data, (tuple, list)) else [sample.buffer.data])
+            require(all(x.device.type == d.type for x in leaves),
+                    f"device_monitor: {device.name}'s sample is not on "
+                    f"{d.type}")
+        require(got[dev.type] == got["cpu"], f"device_monitor: "
+                f"{device.name}'s tick on the card differs from the CPU's")
+        ran.append(el.FACTORY)
+    finish("device_monitor", {})
+    require(sorted(ran) == ["audiotestsrc", "videotestsrc"],
+            f"device_monitor: the test devices made {ran}")
+    print(f"device_monitor: {rows}; {accel[0].name} memory statistics "
+          f"({len(stats)} keys, "
+          f"{stats.get('allocated_bytes.all.current', 0) / 2**20:.1f} MiB "
+          f"allocated); {', '.join(ran)} from the test devices each ran a "
+          f"tick on the card == the CPU's")
+
+
+def oa_alone_rows(files):
+    """The runs that drive opusdec, opusenc, faad and aacparse alone on
+    short inputs cut from the committed vectors: [(name, fn(d, tmp, seed)
+    -> plain data)].  opusenc raises the same RuntimeError on both devices
+    where the system libopus is absent."""
+    import numpy as np
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.elements.ogg import ogg_page, parse_ogg_pages
+    n_opus, n_aac = OA_ALONE
+
+    def short_opus(tmp):
+        with open(files["opus_10s.opus"], "rb") as f:
+            pkts = [p for _, _, ps in parse_ogg_pages(f.read()) for p in ps]
+        pages = [ogg_page([pkts[0]], 7, 0, 0, bos=True),
+                 ogg_page([pkts[1]], 7, 1, 0)]
+        for k, p in enumerate(pkts[2:2 + n_opus]):
+            pages.append(ogg_page([p], 7, k + 2, (k + 1) * 960,
+                                  eos=k == n_opus - 1))
+        path = os.path.join(tmp, "short.opus")
+        with open(path, "wb") as f:
+            f.write(b"".join(pages))
+        return path
+
+    def short_aac(tmp):
+        with open(files["aac_10s.aac"], "rb") as f:
+            data = f.read()
+        pos = 0
+        for _ in range(n_aac):
+            pos += paac.parse_adts_header(data, pos)[0]
+        path = os.path.join(tmp, "short.aac")
+        with open(path, "wb") as f:
+            f.write(data[:pos])
+        return path
+
+    def opusenc(d, tmp, seed):
+        x = cont_audio(4800, seed)
+        try:
+            return cont_launch(
+                "appsrc name=in caps=audio/x-raw,format=S16LE,rate=48000,"
+                "channels=2,layout=interleaved ! opusenc ! appsink name=out",
+                d, 1, {"in": [dict(data=x[:2400], pts=0, duration=5 * 10**7),
+                              dict(data=x[2400:], pts=5 * 10**7,
+                                   duration=5 * 10**7)]})
+        except RuntimeError as e:           # the system libopus absent
+            return str(e)
+
+    return [
+        ("opusdec", lambda d, tmp, seed: cont_launch(
+            f"opusdec location={short_opus(tmp)} ! appsink name=out", d, 1)),
+        ("opusenc", opusenc),
+        ("aacparse/faad", lambda d, tmp, seed: [
+            cont_launch(f"filesrc location={short_aac(tmp)} blocksize=1500 "
+                        f"! aacparse ! appsink name=out", d, 1),
+            cont_launch(f"filesrc location={short_aac(tmp)} ! aacparse ! "
+                        f"faad ! appsink name=out", d, 1)])]
+
+
+def oa_alone(seed, counters, dev, files):
+    """Each of the slice's four factories alone on short inputs, on the
+    card and on the CPU: samples, packets and messages equal; no kernel
+    launched."""
+    import tempfile
+
+    import torch
+    from gstreamer_tpu_torch.codecs import opus as popus
+    from gstreamer_tpu_torch.core.element import list_factories
+    rows = oa_alone_rows(files)
+    for name, run in rows:
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            for c in counters.values():
+                c.launches = 0
+            with tempfile.TemporaryDirectory() as tmp:
+                res[d.type] = run(d, tmp, seed)
+            counts = {k: c.launches for k, c in counters.items()
+                      if c.launches}
+            require(not counts, f"{name}: launches {counts}")
+        require(res[dev.type] == res["cpu"],
+                f"{name}: the card's run differs from the CPU's")
+    for k in popus.ROUTES:
+        popus.ROUTES[k] = 0
+    mine = set(OA_FACTORIES)
+    require(mine <= set(list_factories()), "the Opus/AAC factory list")
+    names = " ".join(n for n, _ in rows)
+    require(all(f in names for f in mine),
+            f"factories not driven alone: {mine}")
+    print(f"opus/aac each factory alone: CUDA == port CPU path (samples, "
+          f"packets, element messages) for {sorted(mine)} in {len(rows)} "
+          f"runs; no kernel launched; system libopus present: "
+          f"{popus.available()} (opusenc without it raises alike on both "
+          f"devices)")
+
+
+def opus_aac_phase(seed, counters, dev):
+    """Opus and AAC to the card, each path with the launch counts zeroed
+    just before it and read just after: opus_asr and opus_voice_asr
+    (opusdec, oggdemux, uridecodebin), aac_asr and heaac_asr (filesrc !
+    aacparse ! faad), aac_m4a_asr (qtdemux), webm_av_ingest and
+    mp4_av_ingest (written in the phase under a temporary directory), the
+    device monitor, then each factory alone.  Returns {kernel: launches}."""
+    import ctypes.util
+    import tempfile
+
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    files, dig = codec_vectors(OA_FILES)
+    from gstreamer_tpu_torch.native import celt as ncelt
+    from gstreamer_tpu_torch.native import silk as nsilk
+    t1 = time.perf_counter()
+    shims = {"gtpu_celt": ncelt.get_lib() is not None,
+             "gtpu_silk": nsilk.get_lib() is not None}
+    print(f"opus/aac phase: the CELT and SILK shims built by g++ (outside "
+          f"the decode times): {shims} in {time.perf_counter() - t1:.1f} s")
+    print(f"opus/aac phase: ctypes.util.find_library('opus') = "
+          f"{ctypes.util.find_library('opus')!r}; streams: opus_10s.opus "
+          f"(Opus packets by route {dig['opus_ogg']['routes']}), "
+          f"opus_voice_10s.opus ({dig['opus_voice']['routes']}) through "
+          f"opusdec, oggdemux, uridecodebin and matroskamux/matroskademux; "
+          f"aac_10s.aac and heaac_10s.aac through aacparse ! faad; "
+          f"aac_10s.m4a through qtdemux; AAC-LC units through "
+          f"qtmux/qtdemux")
+    pcm = oa_asr(dev, start, finish, peak, files, dig)
+    with tempfile.TemporaryDirectory() as tmp:
+        oa_av(seed, dev, tmp, start, finish, peak, files, dig, pcm)
+    device_monitor(dev, start, finish)
+    oa_alone(seed, counters, dev, files)
+    print(f"opus/aac phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7954,6 +8475,10 @@ def main() -> int:
 
     # -- coded files: FLAC, Vorbis, MP3, Theora (host decoders) --------------
     for k, n in codec_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- Opus and AAC (host decoders) and the device monitor -----------------
+    for k, n in opus_aac_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

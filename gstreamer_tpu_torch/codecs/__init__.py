@@ -10,7 +10,11 @@ The audio and video codecs are host copies of the JAX package's, numpy as
 there: ``flac`` (with ``native/flac.py``), ``vorbis`` and ``theora`` (the
 clean-room decoders), ``vorbis_enc`` and ``theora_enc`` (ctypes to the
 system libvorbisenc / libtheoraenc), ``mp3`` with ``_mp3_tables`` (Layers
-I-III).  Import them as modules; nothing here loads a system library.
+I-III), ``celt`` and ``silk`` with their tables (with ``native/celt.py`` /
+``silk.py``) under ``opus`` (the stream decoder; libopus through ctypes
+for the encoder and a mode-transition packet), ``aac`` and ``sbr`` with
+their tables (AAC-LC, HE-AAC v1).  Import them as modules; nothing here
+loads a system library.
 """
 
 from .png import png_decode, png_encode

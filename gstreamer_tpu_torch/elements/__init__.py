@@ -79,6 +79,7 @@ from . import realmedia         # noqa: F401  (rmdemux, rademux, pnmsrc)
 from . import playback          # noqa: F401  (typefind, uridecodebin, decodebin, playbin)
 from . import flac_elements     # noqa: F401  (flacenc, flacdec)
 from . import ogg               # noqa: F401  (oggmux, oggdemux)
-from . import xiph              # noqa: F401  (vorbisdec, vorbisenc, theoradec, theoraenc, theoraparse, opusparse)
+from . import xiph              # noqa: F401  (vorbisdec, vorbisenc, opusdec, opusenc, theoradec, theoraenc, theoraparse, opusparse)
 from . import mpegaudio         # noqa: F401  (mpg123audiodec)
-from . import audioparsers      # noqa: F401  (mpegaudioparse, ac3parse, flacparse, sbcparse, wavpackparse)
+from . import aacdec            # noqa: F401  (faad)
+from . import audioparsers      # noqa: F401  (mpegaudioparse, ac3parse, flacparse, sbcparse, wavpackparse, aacparse)

@@ -14,7 +14,10 @@ of gst-plugins-good/gst/audioparsers/:
   header begins.
 
 A copy of the JAX package's ``elements/audioparsers.py`` on the port's
-``core/baseparse.py``.  The parsers take a source's host bytes
+``core/baseparse.py``, with the JAX package's aacparse (from its
+``elements/dtmf_icy.py``): ADTS 0xFFF sync, frame length from the header
+bits (gstaacparse.c:394-397), next-header confirmation; it frames an ADTS
+file for faad.  The parsers take a source's host bytes
 (``HOST_INPUT``): a file is not staged on the card to come back.
 """
 
@@ -513,3 +516,52 @@ class WavpackParse(_ParserBase):
             buf = buf.with_(meta=dict(buf.meta or {},
                                       caps=Caps([s])))
         return buf
+
+
+# ---------------------------------------------------------------------------
+# aacparse (the JAX package's elements/dtmf_icy.py)
+# ---------------------------------------------------------------------------
+
+_ADTS_RATES = [96000, 88200, 64000, 48000, 44100, 32000, 24000, 22050,
+               16000, 12000, 11025, 8000, 7350, 0, 0, 0]
+
+
+def adts_frame_len(b: bytes) -> Optional[int]:
+    if len(b) < 6 or b[0] != 0xFF or (b[1] & 0xF6) != 0xF0:
+        return None
+    return ((b[3] & 0x03) << 11) | (b[4] << 3) | ((b[5] & 0xE0) >> 5)
+
+
+@register_element
+class AacParse(_ParserBase):
+    FACTORY = "aacparse"
+    DESCRIPTION = "Advanced Audio Coding parser"
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK, Caps.any()),
+        PadTemplate("src", PadDirection.SRC,
+                    "audio/mpeg, mpegversion={ 2, 4 }, framed=true, "
+                    "stream-format=adts"),
+    ]
+    _SRC_CAPS = ("audio/mpeg, mpegversion={ 2, 4 }, framed=true, "
+                 "stream-format=adts")
+
+    def __init__(self, name=None, **props):
+        super().__init__(name=name, **props)
+        self.set_min_frame_size(7)
+
+    def handle_frame(self, view) -> Tuple[int, int]:
+        b = bytes(view[:8])
+        size = adts_frame_len(b)
+        if size is None or size < 7:
+            return 0, 1
+        sr_idx = (b[2] >> 2) & 0xF
+        rate = _ADTS_RATES[sr_idx]
+        if rate:
+            self.set_frame_rate(rate, 1024)
+        if len(view) < size + 6:
+            if len(view) < size:
+                return 0, 0
+            return size, 0
+        if adts_frame_len(bytes(view[size:size + 8])) is None:
+            return 0, 1
+        return size, 0

@@ -31,13 +31,13 @@ the pipeline stages on its device, one pad at a time; the muxers are host
 elements that copy each tick's planes and samples to the host
 (``host_array``) to write them.  The raw tracks (V_UNCOMPRESSED, the AVI
 fourccs, A_PCM/INT/LIT, WAVE PCM) and the coded passthrough that needs no
-codec (H.264 / H.265 / AV1 / MJPEG blobs, AAC access units) are ported,
-and so are the coded tracks of the port's codecs: Vorbis, Theora and MPEG
-audio decoded on the host by ``codecs/`` (matroskademux, avidemux's MP3)
-and matroskamux's Vorbis and Theora encode-at-EOS modes.  Every branch
-that decodes or encodes through a codec module the port does not have yet
-(Opus and AAC decoding, VP8 / VP9, the VPx encode-at-EOS modes, the Opus
-head) raises ``NotImplementedError`` naming ROADMAP.md.
+codec (H.264 / H.265 / AV1 / MJPEG blobs, AAC access units, Opus packets
+under an OpusHead) are ported, and so are the coded tracks of the port's
+codecs: Vorbis, Theora, MPEG audio, Opus and AAC decoded on the host by
+``codecs/`` (matroskademux, avidemux's MP3) and matroskamux's Vorbis and
+Theora encode-at-EOS modes.  Every branch that decodes or encodes through
+a codec module the port does not have yet (VP8 / VP9 and the VPx
+encode-at-EOS modes) raises ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -852,7 +852,7 @@ class MatroskaMux(AggregatorElement):
         self._vdims = (0, 0, Fraction(25, 1))
         self._avc_cfg = {}
         self._file = None
-        self._acodec = None                  # None=pcm, vorbis, aac
+        self._acodec = None                  # None=pcm, vorbis, aac, opus
         self._venc = None                    # None=raw, theora
         self._defer = False                  # encode-at-EOS mode
         self._araw: List[np.ndarray] = []
@@ -895,8 +895,11 @@ class MatroskaMux(AggregatorElement):
                                             rate=s["rate"],
                                             channels=s["channels"])
                 elif s.name == "audio/x-opus":
-                    # the OpusHead CodecPrivate comes from codecs/opus.py
-                    _unported("matroskamux audio/x-opus (codecs/opus.py)")
+                    self._acodec = "opus"
+                    self._ainfo = AudioInfo(
+                        format="S16LE",
+                        rate=s.get("rate") or 48000,
+                        channels=s.get("channels") or 2)
                 else:
                     self._ainfo = AudioInfo.from_caps_structure(s)
         if self.props.get("audio-codec") == "vorbis" \
@@ -999,6 +1002,12 @@ class MatroskaMux(AggregatorElement):
                 codec = (ebml_str(CODEC_ID, "A_AAC")
                          + ebml_elem(CODEC_PRIVATE,
                                      _make_asc(ai.rate, ai.channels)))
+            elif self._acodec == "opus":
+                from ..codecs.opus import opus_head
+                codec = (ebml_str(CODEC_ID, "A_OPUS")
+                         + ebml_elem(CODEC_PRIVATE,
+                                     opus_head(ai.channels, 0,
+                                               ai.rate)))
             else:
                 audio += ebml_uint(BIT_DEPTH, 16)
                 codec = ebml_str(CODEC_ID, "A_PCM/INT/LIT")
@@ -1149,6 +1158,17 @@ class MatroskaMux(AggregatorElement):
                 ai = self._ainfo
                 for blob in _video_blobs(buf):
                     ts_ms = self._apkts * 1024 * 1000 // ai.rate
+                    if cluster_ts is None:
+                        cluster_ts = ts_ms
+                    rel = ts_ms - cluster_ts
+                    blocks += ebml_elem(
+                        SIMPLE_BLOCK,
+                        ebml_size(2) + struct.pack(">h", rel)
+                        + b"\x80" + blob)
+                    self._apkts += 1
+            elif self._acodec == "opus":
+                for blob in _video_blobs(buf):
+                    ts_ms = self._apkts * 20       # 20 ms frames
                     if cluster_ts is None:
                         cluster_ts = ts_ms
                     rel = ts_ms - cluster_ts
@@ -1581,13 +1601,14 @@ class MatroskaDemux(MultiStreamSourceElement):
                 fps=Fraction(1_000_000_000, fd))
         else:
             codec = track.get("codec")
-            if codec == "A_OPUS" or (codec or "").startswith("A_AAC"):
-                # decoded by codecs/opus.py, aac.py in the JAX package
-                _unported(f"matroskademux {codec} (its decoder in codecs/)")
             if codec == "A_VORBIS":
                 self._load_vorbis(track)
             elif codec in ("A_MPEG/L3", "A_MPEG/L2", "A_MPEG/L1"):
                 self._load_mpeg_audio()
+            elif codec and codec.startswith("A_AAC"):
+                self._load_aac(track)
+            elif codec == "A_OPUS":
+                self._load_opus(track)
             elif codec == "A_PCM/INT/LIT":
                 self._info = AudioInfo(format="S16LE",
                                        rate=track["rate"],
@@ -1620,6 +1641,33 @@ class MatroskaDemux(MultiStreamSourceElement):
         the clean-room codecs/mp3.py full-stream decoder."""
         from ..codecs import mp3 as pmp3
         pcm, rate, ch = pmp3.decode(b"".join(self._payloads()))
+        self._adata = np.asarray(pcm, np.float32)
+        self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)
+
+    def _load_opus(self, track: dict) -> None:
+        """A_OPUS: CodecPrivate is the RFC 7845 OpusHead; blocks are
+        raw opus packets (matroska-demux.c opus handling)."""
+        from ..codecs import opus as popus
+        priv = track.get("codec_private", b"")
+        ch, pre_skip, _rate, gain = popus.parse_opus_head(priv)
+        dec = popus.HybridOpusDecoder(ch)
+        chunks = [dec.decode(p) for p in self._payloads()]
+        pcm = (np.concatenate(chunks, axis=0) if chunks
+               else np.zeros((0, ch), np.float32))
+        if gain != 1.0:
+            pcm = pcm * np.float32(gain)
+        self._adata = pcm[pre_skip:]
+        self._info = AudioInfo(format="F32LE", rate=48000, channels=ch)
+
+    def _load_aac(self, track: dict) -> None:
+        """A_AAC: CodecPrivate is the AudioSpecificConfig, blocks are
+        raw access units (matroska codec-specs; decoded by the
+        clean-room codecs/aac.py)."""
+        from ..codecs import aac as paac
+        priv = track.get("codec_private", b"")
+        if not priv:
+            raise ValueError("matroskademux: A_AAC without ASC")
+        pcm, rate, ch = paac.decode_raw(priv, self._payloads())
         self._adata = np.asarray(pcm, np.float32)
         self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)
 

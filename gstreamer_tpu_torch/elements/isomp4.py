@@ -25,11 +25,9 @@ offsets/sizes.
 A port of the JAX package's ``elements/isomp4.py``: the box writing and
 walking are copies; the muxers copy each tick's planes, samples and blobs
 to the host (``host_array``), qtdemux gives host arrays that the pipeline
-stages on its device pad by pad.  AAC's sample-rate table for the
-AudioSpecificConfig is the port's own copy.  An 'mp4a' track of MP3
-(object type 0x6B) is decoded on the host by ``codecs/mp3.py``; one of AAC
-(codecs/aac.py in the JAX package) raises ``NotImplementedError`` naming
-ROADMAP.md.
+stages on its device pad by pad.  An 'mp4a' track is decoded on the
+host: AAC by ``codecs/aac.py``, MP3 (object type 0x6B) by
+``codecs/mp3.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +39,7 @@ import numpy as np
 
 from ..audio import format as afmt
 from ..audio.info import AudioInfo
+from ..codecs.aac import SAMPLE_RATES
 from ..core.buffer import Buffer, host_array
 from ..core.caps import Caps
 from ..core.element import (AggregatorElement, MultiStreamSourceElement,
@@ -65,12 +64,6 @@ _MUX_VIDEO_CAPS = ("video/x-raw, format={ UYVY, v308, v210, v216, r210, "
 _MUX_AUDIO_CAPS = ("audio/x-raw, format={ S16LE, S16BE, U8 }, "
                    "layout=interleaved; audio/x-mulaw; audio/x-alaw; "
                    "audio/mpeg, mpegversion=4, stream-format=raw")
-
-
-# sampling_frequency_index table (ISO 14496-3 Table 1.18), as the JAX
-# package's codecs/aac.py SAMPLE_RATES
-SAMPLE_RATES = [96000, 88200, 64000, 48000, 44100, 32000, 24000, 22050,
-                16000, 12000, 11025, 8000, 7350]
 
 
 def _make_asc(rate: int, channels: int) -> bytes:
@@ -1113,14 +1106,16 @@ class QtDemux(MultiStreamSourceElement):
         otype, dsi = _parse_esds(entry[28:])
         payloads = [self._data[o:o + s] for o, s in t["samples"]]
         if otype in (0x40, 0x66, 0x67, 0x68):
-            raise NotImplementedError(
-                "qtdemux AAC audio (codecs/aac.py): not ported to "
-                "gstreamer_tpu_torch yet (see ROADMAP.md)")
-        if otype != 0x6B:
+            from ..codecs import aac as paac
+            if not dsi:
+                raise ValueError("qtdemux: mp4a AAC without ASC")
+            pcm, rate, ch = paac.decode_raw(dsi, payloads)
+        elif otype == 0x6B:
+            from ..codecs import mp3 as pmp3
+            pcm, rate, ch = pmp3.decode(b"".join(payloads))
+        else:
             raise ValueError(
                 f"qtdemux: mp4a object type {otype:#x} unsupported")
-        from ..codecs import mp3 as pmp3
-        pcm, rate, ch = pmp3.decode(b"".join(payloads))
         self._mode = "decoded"
         self._adata = np.asarray(pcm, np.float32)
         self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)

@@ -22,9 +22,9 @@ A port of the JAX package's ``elements/ogg.py``: the page layer is a
 copy (``ogg_page`` writes whole packets only, as the JAX package's does:
 ROADMAP.md section 3); oggdemux gives host arrays that the pipeline
 stages on its device, oggmux copies each tick's samples to the host
-(``host_array``).  The Ogg-Opus and Ogg-Speex mappings raise
-``NotImplementedError`` naming ROADMAP.md (Opus waits for its slice,
-Speex for the libav family).
+(``host_array``).  Ogg-Opus decodes through the port's ``codecs/opus.py``;
+the Ogg-Speex mapping raises ``NotImplementedError`` naming ROADMAP.md
+(Speex waits for the libav family).
 """
 
 from __future__ import annotations
@@ -260,8 +260,12 @@ class OggDemux(SourceElement):
             self._ainfo = AudioInfo(format="F32LE", rate=rate,
                                     channels=ch)
         elif bos.startswith(b"OpusHead"):
-            # RFC 7845 Ogg-Opus: codecs/opus.py in the JAX package
-            raise NotImplementedError(f"oggdemux Ogg-Opus: {_ROADMAP}")
+            # RFC 7845 Ogg-Opus (the port's codecs/opus.py)
+            from ..codecs import opus as popus
+            pcm, rate, ch = popus.decode_ogg(data)
+            self._samples = np.asarray(pcm, np.float32)
+            self._ainfo = AudioInfo(format="F32LE", rate=rate,
+                                    channels=ch)
         elif bos.startswith(b"Speex   "):
             # Ogg-Speex: native/av.py (libspeex) in the JAX package
             raise NotImplementedError(f"oggdemux Ogg-Speex: {_ROADMAP}")

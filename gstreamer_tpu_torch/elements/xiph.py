@@ -13,8 +13,10 @@ are location-based sources streaming decoded F32 audio.
 
 A port of the JAX package's ``elements/xiph.py``: the decoders give host
 arrays that the pipeline stages on its device; the encoders copy each
-tick to the host (``host_array``).  opusdec and opusenc are not
-registered until the Opus slice (ROADMAP.md).
+tick to the host (``host_array``).  opusdec decodes with the port's
+``codecs/opus.py`` (the clean-room CELT and SILK paths, libopus for a
+mode-transition packet); opusenc needs the system libopus and raises
+``RuntimeError`` without it.
 """
 
 from __future__ import annotations
@@ -100,6 +102,17 @@ class VorbisDec(_OggAudioDec):
         return pvorbis.decode_ogg(data)
 
 
+@register_element
+class OpusDec(_OggAudioDec):
+    FACTORY = "opusdec"
+    DESCRIPTION = "decode opus streams to float audio"
+    PAD_TEMPLATES = [PadTemplate("src", PadDirection.SRC, _F32_SRC)]
+
+    def _decode(self, data: bytes):
+        from ..codecs import opus as popus
+        return popus.decode_ogg(data)
+
+
 class _OggAudioEnc(SinkElement):
     """Shared accumulate-and-write encoder scaffold."""
 
@@ -153,6 +166,110 @@ class VorbisEnc(_OggAudioEnc):
         from ..codecs import vorbis_enc
         return vorbis_enc.encode_ogg(pcm, self._info.rate,
                                      self.props["quality"])
+
+
+@register_element
+class OpusEnc(TransformElement):
+    """opusenc (gst-plugins-base/ext/opus/gstopusenc.c): raw 48 kHz
+    audio -> audio/x-opus packet stream (20 ms frames).  `location`
+    optionally writes an Ogg-Opus file at EOS (the earlier sink-style
+    use); linked downstream it feeds rtpopuspay/avdec_opus etc."""
+    FACTORY = "opusenc"
+    DESCRIPTION = "Encodes audio in Opus format (libopus)"
+    HOST_ELEMENT = True
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK,
+                    "audio/x-raw, format={ F32LE, S16LE }, "
+                    "rate=48000, channels=[1,2], "
+                    "layout=interleaved"),
+        PadTemplate("src", PadDirection.SRC, "audio/x-opus"),
+    ]
+    PROPERTIES = {
+        "location": (str, "", "optional Ogg-Opus dump path"),
+        "bitrate": (int, 64000, "target bitrate (bps)"),
+        "frame-size": (int, 20, "frame duration (ms)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name=name, **props)
+        self._enc = None
+        self._acc = None
+        self._pcm_all = []
+        self._info = None
+        self._decouple = True
+        self._pending_buf = None
+
+    def transform_caps(self, direction, caps, filter=None):
+        if direction == PadDirection.SINK:
+            res = Caps.from_string("audio/x-opus, rate=48000")
+        else:
+            res = Caps.from_string(
+                "audio/x-raw, format={ F32LE, S16LE }, rate=48000, "
+                "layout=interleaved")
+        if filter is not None:
+            res = res.intersect(filter)
+        return res
+
+    def set_info(self, incaps, outcaps):
+        self._info = AudioInfo.from_caps_structure(incaps[0])
+
+    def start(self):
+        self._enc = None
+        self._acc = None
+        self._pcm_all = []
+        self._pending_buf = True
+
+    def _frame_len(self) -> int:
+        return 48 * self.props["frame-size"]
+
+    def _to_i16(self, x: np.ndarray) -> np.ndarray:
+        if x.ndim == 1:
+            x = x[:, None]
+        if x.dtype != np.int16:
+            x = np.clip(np.asarray(x, np.float64) * 32768.0,
+                        -32768, 32767).astype(np.int16)
+        return x
+
+    def host_process(self, buf):
+        from ..codecs import opus as popus
+        if buf is None:
+            self._pending_buf = None
+            pkts = []
+            if self._acc is not None and len(self._acc):
+                pad = self._frame_len() - len(self._acc)
+                tail = np.concatenate(
+                    [self._acc, np.zeros((pad, self._acc.shape[1]),
+                                         np.int16)])
+                pkts.append(self._enc.encode(tail))
+                self._acc = None
+            if self.props["location"] and self._pcm_all:
+                pcm = np.concatenate(self._pcm_all)
+                blob = popus.encode_ogg(pcm, 48000,
+                                        self.props["bitrate"])
+                with open(self.props["location"], "wb") as f:
+                    f.write(blob)
+            if not pkts:
+                return None
+            return Buffer(data=[np.frombuffer(p, np.uint8)
+                                for p in pkts], batch=len(pkts))
+        x = self._to_i16(host_array(buf.data))
+        if self.props["location"]:
+            self._pcm_all.append(x)
+        if self._enc is None:
+            self._enc = popus.OpusEncoder(
+                x.shape[1], self.props["bitrate"],
+                self._frame_len())
+        self._acc = (x if self._acc is None
+                     else np.concatenate([self._acc, x]))
+        n = self._frame_len()
+        pkts = []
+        while len(self._acc) >= n:
+            pkts.append(self._enc.encode(self._acc[:n]))
+            self._acc = self._acc[n:]
+        if not pkts:
+            return None
+        return buf.with_(data=[np.frombuffer(p, np.uint8)
+                               for p in pkts])
 
 
 @register_element

@@ -1,13 +1,16 @@
-"""Write the coded test vectors of ``chip_smoke.py``'s codec phase and their
-digests.
+"""Write the coded test vectors of ``chip_smoke.py``'s codec phases and
+their digests.
 
 Run from the repository root on a machine with the system libtheoraenc,
-libvorbisenc and libmp3lame (and the JAX package, which writes the
-digests):
+libvorbisenc, libmp3lame, libopus and libavcodec with its headers (and the
+JAX package, which writes the digests):
 
-    JAX_PLATFORMS=cpu python tests/data/torch_codecs/make_vectors.py
+    JAX_PLATFORMS=cpu python tests/data/torch_codecs/make_vectors.py [GROUP ...]
 
-It writes, beside itself, with fixed seeds:
+GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors) or
+``opus_aac`` (the Opus/AAC phase's); without one it writes both.  A group
+rewrites its files and its entries of ``digests.json`` and keeps the
+other's.  It writes, beside itself, with fixed seeds:
 
 * ``theora_1080p.ogv``: 8 frames of 1920x1080 I420 at 25/1 through the
   port's ``theoraenc`` at quality 32 (every packet fits one Ogg page);
@@ -24,7 +27,23 @@ It writes, beside itself, with fixed seeds:
   flags hold a run of 30 (ROADMAP.md section 3), so each Theora entry also
   holds the sha256 of every plane libtheoradec decodes (through
   ``tests/theora_oracle.py``, cropped to the picture) and the error the
-  JAX package's decoder raised, at which frame.
+  JAX package's decoder raised, at which frame;
+* ``opus_10s.opus``: the same 10 s through the port's
+  ``codecs/opus.py::encode_ogg`` at 64 kbit/s (libopus picks CELT);
+* ``opus_voice_10s.opus``: the same 10 s through libopus at
+  VOICE_BITRATE, VOIP application, its mode forced: SILK wideband for the
+  first half, hybrid fullband for the second (no CELT-only packet, so no
+  mode-transition packet, which the clean-room decoder hands to libopus);
+* ``aac_10s.aac``: the same 10 s as ADTS AAC-LC at 128 kbit/s from
+  libavcodec (``tests/aac_oracle.py``);
+* ``heaac_10s.aac``: HE-AAC v1, an LC core at 24 kHz (libavcodec, the
+  pairs of samples averaged) with SBR written into every frame by
+  ``tests/sbr_writer.py`` (channel-pair payload);
+* ``aac_10s.m4a``: the access units of ``aac_10s.aac`` in MP4 through the
+  port's ``qtmux``;
+* the digests of the PCM the JAX package's elements decode from each
+  (``opusdec``, ``aacparse ! faad``, ``qtdemux``), with the Opus
+  packets' count by route of ``HybridOpusDecoder``.
 """
 
 import hashlib
@@ -44,6 +63,10 @@ RATE, SECONDS = 48000, 10
 OGV_QUALITY, MKV_QUALITY = 32, 48
 SEED = 2020
 POSITIONS = 1024
+OPUS_BITRATE, VOICE_BITRATE, AAC_BITRATE, HEAAC_BITRATE = (
+    64000, 20000, 128000, 64000)
+OPUS_AAC_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
+                  "heaac_10s.aac", "aac_10s.m4a")
 
 
 def frames(w=W, h=H, n=FRAMES):
@@ -86,7 +109,7 @@ def pcm16():
     return (np.clip(x, -1, 1) * 32767).astype(np.int16)
 
 
-def write_vectors():
+def write_codec_vectors():
     import torch
     from gstreamer_tpu_torch import parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer
@@ -180,7 +203,7 @@ def theora_digests(hdrs, packets):
             "jax": plane_digests(jax), "jax_error": error}
 
 
-def write_digests():
+def write_codec_digests(digests):
     from gstreamer_tpu.elements.container_elements import (
         MatroskaDemux, _parse_matroska, _parse_xiph_private)
     from gstreamer_tpu.elements.ogg import parse_ogg_pages
@@ -197,7 +220,7 @@ def write_digests():
              if tno == video["number"]]
     ma = MatroskaDemux(location=mkv, stream="audio")
     ma._load()
-    digests = {
+    digests.update({
         "theora_ogv": theora_digests(packets[:3], packets[3:]),
         "theora_mkv": theora_digests(
             _parse_xiph_private(video["codec_private"]), vpkts),
@@ -207,17 +230,185 @@ def write_digests():
         "mp3": pcm_digest(element_pcm(f"filesrc location={mp3} ! "
                                       f"mpegaudioparse ! mpg123audiodec"),
                           RATE),
-        "sizes": {n: os.path.getsize(os.path.join(HERE, n)) for n in (
+    })
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(os.path.join(HERE, n)) for n in (
             "theora_1080p.ogv", "theora_vorbis_1080p.mkv", "vorbis_10s.ogg",
-            "mp3_10s.mp3")},
-    }
-    with open(os.path.join(HERE, "digests.json"), "w") as f:
-        json.dump(digests, f, indent=1)
-        f.write("\n")
+            "mp3_10s.mp3")})
+
+
+def opus_voice_packets(pcm):
+    """20 ms packets of `pcm` (48 kHz stereo S16) from libopus at
+    VOICE_BITRATE, VOIP application, SILK wideband forced for the first
+    half of the packets and hybrid fullband for the rest; and the
+    encoder's lookahead."""
+    import ctypes
+    lib = ctypes.CDLL("libopus.so.0")
+    lib.opus_encoder_create.restype = ctypes.c_void_p
+    err = ctypes.c_int()
+    enc = ctypes.c_void_p(lib.opus_encoder_create(48000, 2, 2048,
+                                                  ctypes.byref(err)))
+    if err.value:
+        raise RuntimeError(f"opus_encoder_create: {err.value}")
+    lib.opus_encoder_ctl(enc, 4002, ctypes.c_int(VOICE_BITRATE))
+    look = ctypes.c_int()
+    lib.opus_encoder_ctl(enc, 4027, ctypes.byref(look))
+    n = -(-(len(pcm) + look.value) // 960)
+    padded = np.zeros((n * 960, 2), np.int16)
+    padded[:len(pcm)] = pcm
+    buf, out = ctypes.create_string_buffer(4000), []
+    for k in range(n):
+        silk = k < n // 2
+        # OPUS_SET_FORCE_MODE: SILK only / hybrid; OPUS_SET_BANDWIDTH:
+        # wideband / fullband
+        lib.opus_encoder_ctl(enc, 11002, ctypes.c_int(1000 if silk else 1001))
+        lib.opus_encoder_ctl(enc, 4008, ctypes.c_int(1103 if silk else 1105))
+        frame = np.ascontiguousarray(padded[k * 960:(k + 1) * 960])
+        got = lib.opus_encode(enc, frame.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int16)), 960, buf, 4000)
+        if got < 0:
+            raise RuntimeError(f"opus_encode: {got}")
+        out.append(bytes(buf.raw[:got]))
+    lib.opus_encoder_destroy(enc)
+    return out, look.value
+
+
+def ogg_opus(packets, pre_skip, n_samples, serial=0x766F6963):
+    """Opus packets of 960 samples in Ogg (RFC 7845), as the port's
+    encode_ogg lays them out: one packet a page, the last page's
+    granule trimmed to pre-skip + n_samples."""
+    import struct
+    from gstreamer_tpu_torch.codecs.opus import opus_head
+    from gstreamer_tpu_torch.elements.ogg import ogg_page
+    vendor = b"gstreamer_tpu"
+    pages = [ogg_page([opus_head(2, pre_skip, RATE)], serial, 0, 0, bos=True),
+             ogg_page([b"OpusTags" + struct.pack("<I", len(vendor)) + vendor
+                       + struct.pack("<I", 0)], serial, 1, 0)]
+    for k, pkt in enumerate(packets):
+        last = k == len(packets) - 1
+        granule = (k + 1) * 960
+        pages.append(ogg_page([pkt], serial, k + 2,
+                              min(granule, pre_skip + n_samples) if last
+                              else granule, eos=last))
+    return b"".join(pages)
+
+
+def adts_frames(data):
+    """The raw access units of an ADTS stream (headers cut off)."""
+    from gstreamer_tpu_torch.codecs.aac import parse_adts_header
+    out, pos = [], 0
+    while pos + 7 <= len(data):
+        flen, _sfi, _cc, _p, hlen = parse_adts_header(data, pos)
+        out.append(data[pos + hlen:pos + flen])
+        pos += flen
+    return out
+
+
+def write_opus_aac_vectors():
+    import torch
+    import aac_oracle
+    import sbr_writer
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs import opus as popus
+    from gstreamer_tpu_torch.codecs.sbr import SbrHeader
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    pcm = pcm16()
+    with open(os.path.join(HERE, "opus_10s.opus"), "wb") as f:
+        f.write(popus.encode_ogg(pcm, RATE, OPUS_BITRATE))
+    packets, look = opus_voice_packets(pcm)
+    with open(os.path.join(HERE, "opus_voice_10s.opus"), "wb") as f:
+        f.write(ogg_opus(packets, look, len(pcm)))
+    adts = aac_oracle.aac_encode_adts(pcm, RATE, AAC_BITRATE)
+    if adts is None:
+        raise RuntimeError("libavcodec's AAC encoder is unavailable")
+    with open(os.path.join(HERE, "aac_10s.aac"), "wb") as f:
+        f.write(adts)
+    core = ((pcm[0::2].astype(np.int32) + pcm[1::2]) // 2).astype(np.int16)
+    lc = aac_oracle.aac_encode_adts(core, RATE // 2, HEAAC_BITRATE,
+                                    "aac_pns=0")
+    he = sbr_writer.splice_sbr_adts(
+        lc, SbrHeader(amp_res=1, start_freq=5, stop_freq=3), env_q=[70],
+        noise_q=[25], invf_mode=0, cpe={})
+    with open(os.path.join(HERE, "heaac_10s.aac"), "wb") as f:
+        f.write(he)
+    units = adts_frames(adts)
+    pipe = parse_launch(
+        f"qtmux name=m location={os.path.join(HERE, 'aac_10s.m4a')} ! "
+        f"fakesink appsrc name=a caps=audio/mpeg,mpegversion=4,"
+        f"stream-format=raw,rate={RATE},channels=2 ! m.audio_0",
+        device="cpu")
+    src = pipe.get_by_name("a")
+    for k, unit in enumerate(units):
+        src.push_buffer(Buffer(
+            data=[torch.from_numpy(np.frombuffer(unit, np.uint8).copy())],
+            batch=1, pts=k * 1024 * 10**9 // RATE,
+            duration=1024 * 10**9 // RATE))
+    src.end_of_stream()
+    pipe.run()
+
+
+def opus_routes(path):
+    """The packets of an Ogg-Opus file by the route the JAX package's
+    HybridOpusDecoder takes (celt, silk, hybrid, libopus)."""
+    from gstreamer_tpu.codecs import celt, opus, silk
+    from gstreamer_tpu.elements.ogg import parse_ogg_pages
+    with open(path, "rb") as f:
+        pkts = [p for _, _, ps in parse_ogg_pages(f.read()) for p in ps][2:]
+    dec, routes = opus.HybridOpusDecoder(2), {}
+    for p in pkts:
+        dec.decode(p)
+        # the decoder drops its native paths for good at the first packet
+        # it hands to libopus
+        config = p[0] >> 3
+        route = ("libopus" if not (dec._use_native and dec._use_native_silk)
+                 else "celt" if config in celt.CELT_CONFIGS
+                 else "silk" if config in silk.SILK_CONFIGS else "hybrid")
+        routes[route] = routes.get(route, 0) + 1
+    return routes
+
+
+def write_opus_aac_digests(digests):
+    def at(name):
+        return os.path.join(HERE, name)
+    digests.update({
+        "opus_ogg": dict(pcm_digest(element_pcm(
+            f"opusdec location={at('opus_10s.opus')}"), RATE),
+            routes=opus_routes(at("opus_10s.opus"))),
+        "opus_voice": dict(pcm_digest(element_pcm(
+            f"opusdec location={at('opus_voice_10s.opus')}"), RATE),
+            routes=opus_routes(at("opus_voice_10s.opus"))),
+        "aac_adts": pcm_digest(element_pcm(
+            f"filesrc location={at('aac_10s.aac')} ! aacparse ! faad"), RATE),
+        "heaac_adts": pcm_digest(element_pcm(
+            f"filesrc location={at('heaac_10s.aac')} ! aacparse ! faad"),
+            RATE),
+        "aac_m4a": pcm_digest(element_pcm(
+            f"qtdemux location={at('aac_10s.m4a')} stream=audio"), RATE),
+    })
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(at(n)) for n in OPUS_AAC_FILES})
+
+
+GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
+          "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests)}
 
 
 if __name__ == "__main__":
-    write_vectors()
-    write_digests()
+    groups = sys.argv[1:] or list(GROUPS)
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        sys.exit(f"unknown group(s) {unknown}; choose from {list(GROUPS)}")
+    path = os.path.join(HERE, "digests.json")
+    digests = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            digests = json.load(f)
+    for g in groups:
+        write, digest = GROUPS[g]
+        write()
+        digest(digests)
+    with open(path, "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
     for name in sorted(os.listdir(HERE)):
         print(name, os.path.getsize(os.path.join(HERE, name)))

@@ -115,6 +115,19 @@ def blob_pushes(units, per=2):
             for i in range(0, len(units), per)]
 
 
+def same_outcome(desc, batch=1):
+    """`desc` through both packages: the same samples and caps, or the
+    same error."""
+    try:
+        jparse_launch(desc, batch=batch).run()
+    except Exception as e:
+        with pytest.raises(type(e), match=re.escape(str(e))):
+            gstreamer_tpu_torch.parse_launch(desc, batch=batch,
+                                             device="cpu").run()
+        return
+    pair(desc, batch=batch)
+
+
 def coded_src(caps, name="v"):
     return f"appsrc name={name} caps={caps},width={W},height={H},framerate=25/1"
 
@@ -316,15 +329,22 @@ def test_matroska_aac_passthrough(tmp_path):
     ("", "appsrc name=a caps=audio/x-opus,rate=48000,channels=2 ! "
          "m.audio_0")])
 def test_matroskamux_codec_modes_raise(extra, src, tmp_path):
-    """The VPx encode-at-EOS modes and Opus passthrough need the JAX
-    package's vpx and opus modules: the port raises.  The Vorbis and Theora
-    modes are ported since the codec slice (before which they raised): the
-    same file as the JAX package's."""
+    """The VPx encode-at-EOS modes need the JAX package's vpx module: the
+    port raises.  The Vorbis and Theora modes are ported since the codec
+    slice, Opus passthrough (the OpusHead) since the Opus slice (before
+    which they raised): the same file as the JAX package's."""
     if extra in ("audio-codec=vorbis ", "video-codec=theora "):
         pushes = ({"a": apushes(1920)} if "vorbis" in extra
                   else {"v": vpushes("I420")})
         write_both(f"matroskamux name=m location={{loc}} {extra}! fakesink "
                    f"{src}", pushes, tmp_path, "mkv", batch=2)
+        return
+    if "x-opus" in src:
+        packets = [np.random.default_rng(k).integers(0, 256, 30 + k,
+                                                    np.uint8)
+                   for k in range(4)]
+        write_both(f"matroskamux name=m location={{loc}} ! fakesink {src}",
+                   {"a": blob_pushes(packets)}, tmp_path, "mkv")
         return
     p = gstreamer_tpu_torch.parse_launch(
         f"matroskamux name=m location={tmp_path / 'x.mkv'} {extra}! "
@@ -358,11 +378,11 @@ def _mkv_with_track(path, codec, kind):
     ("A_MPEG/L3", "audio"), ("V_THEORA", "video"), ("V_VP8", "video"),
     ("V_VP9", "video")])
 def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
-    """A one-block track of each coded kind.  Opus, AAC and VPx need the
-    JAX package's codec modules: the port raises naming ROADMAP.md.
-    Vorbis, MPEG audio and Theora are ported since the codec slice (before
-    which they raised): this track (no CodecPrivate, one byte) fails as in
-    the JAX package."""
+    """A one-block track of each coded kind.  VPx needs the JAX package's
+    codec module: the port raises naming ROADMAP.md.  Vorbis, MPEG audio
+    and Theora are ported since the codec slice, Opus and AAC since the
+    Opus slice (before which they raised): this track (no CodecPrivate, one
+    byte) fails as in the JAX package."""
     path = tmp_path / "x.mkv"
     _mkv_with_track(path, codec, kind)
     tracks, blocks, _ = tce._parse_matroska(str(path))
@@ -370,7 +390,8 @@ def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
     for desc in (f"matroskademux location={path} stream={kind} ! fakesink",
                  f"matroskademux name=d location={path} d.{kind}_0 ! "
                  f"fakesink"):
-        if codec in ("A_VORBIS", "A_MPEG/L3", "V_THEORA"):
+        if codec in ("A_VORBIS", "A_MPEG/L3", "V_THEORA", "A_OPUS",
+                     "A_AAC"):
             with pytest.raises(ValueError) as ref:
                 jparse_launch(desc).compile()
             with pytest.raises(ValueError, match=re.escape(str(ref.value))):
@@ -489,10 +510,9 @@ def test_qt_coded_passthrough(codec, tmp_path):
     if codec in ("jpeg", "av1"):
         _qt_bytes_blobs(tmp_path / "jax.mov")
     elif codec == "aac":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            gstreamer_tpu_torch.parse_launch(
-                f"qtdemux location={tmp_path / 'port.mov'} stream=audio ! "
-                f"fakesink", device="cpu").compile()
+        # decoded since the Opus and AAC slice (before which it raised)
+        same_outcome(f"qtdemux location={tmp_path / 'port.mov'} "
+                     f"stream=audio ! appsink name=out")
     else:
         pair(f"qtdemux location={tmp_path / 'jax.mov'} ! appsink name=out",
              batch=2)
@@ -564,10 +584,10 @@ def test_cmaf(mux, tmp_path):
                             "a": blob_pushes(aac)}, tmp_path, "mp4")
     for f in (tmp_path / "jax.mp4", own):
         pair(f"qtdemux location={f} ! appsink name=out", batch=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gstreamer_tpu_torch.parse_launch(
-            f"qtdemux location={own} stream=audio ! fakesink",
-            device="cpu").compile()
+    # the AAC track: decoded since the Opus and AAC slice (before which it
+    # raised)
+    same_outcome(f"qtdemux location={own} stream=audio ! appsink name=out",
+                 batch=3)
 
 
 # -- RealMedia --------------------------------------------------------------------------

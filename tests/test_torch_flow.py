@@ -79,6 +79,8 @@ CODEC_FACTORIES = (
     "sbcparse", "wavpackparse", "oggmux", "oggdemux", "vorbisdec",
     "vorbisenc", "theoradec", "theoraenc", "theoraparse", "opusparse",
     "mpg123audiodec")
+# the Opus and AAC slice (aacparse frames an ADTS file for faad)
+OPUS_AAC_FACTORIES = ("opusdec", "opusenc", "faad", "aacparse")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -116,25 +118,29 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 338
+    assert len(telement._REGISTRY) == 342
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
     assert len(set(CODEC_FACTORIES)) == 16
+    assert len(set(OPUS_AAC_FACTORIES)) == 4
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
         | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
-        | set(CODEC_FACTORIES) <= set(telement._REGISTRY)
+        | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
+        <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():
-    """The Opus and AAC decoders and the libav family wait for their
-    slices: the JAX package registers them, the port does not."""
+    """The libav family waits for its slice: the JAX package registers it,
+    the port does not.  The Opus and AAC decoders, which waited with it
+    until the Opus slice, are registered in both."""
     jelement._ensure_elements_loaded()
     telement._ensure_elements_loaded()
-    later = ["opusdec", "opusenc", "faad"] + sorted(
-        f for f in jelement._REGISTRY if f.startswith("avdec_"))
+    later = sorted(f for f in jelement._REGISTRY if f.startswith("avdec_"))
     assert len(later) > 3 and all(f in jelement._REGISTRY for f in later)
     assert not [f for f in later if f in telement._REGISTRY]
+    assert all(f in jelement._REGISTRY and f in telement._REGISTRY
+               for f in OPUS_AAC_FACTORIES)
 
 
 def _mkv_track(path, codec, kind, private=b""):
@@ -160,44 +166,20 @@ def _mkv_track(path, codec, kind, private=b""):
 
 
 @pytest.mark.parametrize("case", [
-    "matroskademux V_VP8", "matroskademux V_VP9", "matroskademux A_OPUS",
-    "matroskademux A_AAC", "matroskamux video-codec=vp8",
-    "matroskamux video-codec=vp9", "matroskamux audio/x-opus",
-    "qtdemux AAC", "oggdemux Ogg-Opus"])
+    "matroskademux V_VP8", "matroskademux V_VP9",
+    "matroskamux video-codec=vp8", "matroskamux video-codec=vp9"])
 def test_vpx_opus_aac_branches_still_raise(case, tmp_path):
-    """The coded branches of the next slices raise NotImplementedError
-    naming ROADMAP.md, as before this slice."""
+    """The VPx branches wait for their slice and raise NotImplementedError
+    naming ROADMAP.md.  The Opus and AAC branches decode since the Opus
+    slice (tests/test_torch_opus_aac_containers.py, test_torch_opus.py)."""
     factory, what = case.split(" ", 1)
     if factory == "matroskademux":
-        kind = "video" if what.startswith("V_") else "audio"
-        _mkv_track(tmp_path / "x.mkv", what, kind)
+        _mkv_track(tmp_path / "x.mkv", what, "video")
         desc = (f"matroskademux location={tmp_path / 'x.mkv'} "
-                f"stream={kind} ! fakesink")
-    elif factory == "matroskamux":
-        src = (VSRC.format(n="v") + " ! m.video_0" if what.startswith("video")
-               else "appsrc name=a caps=audio/x-opus,rate=48000,channels=2 ! "
-                    "m.audio_0")
-        mode = what if what.startswith("video") else ""
-        desc = (f"matroskamux name=m location={tmp_path / 'x.mkv'} {mode} ! "
-                f"fakesink {src}")
-    elif factory == "qtdemux":
-        from gstreamer_tpu_torch.core.buffer import Buffer as TBuffer
-        mov = tmp_path / "a.mov"
-        p = gstreamer_tpu_torch.parse_launch(
-            f"qtmux name=m location={mov} ! fakesink appsrc name=a caps="
-            "audio/mpeg,mpegversion=4,stream-format=raw,rate=48000,"
-            "channels=2 ! m.audio_0", device="cpu")
-        p.get_by_name("a").push_buffer(TBuffer(
-            data=[np.arange(30, dtype=np.uint8)], batch=1, pts=0,
-            duration=DUR))
-        p.get_by_name("a").end_of_stream()
-        p.run()
-        desc = f"qtdemux location={mov} stream=audio ! fakesink"
+                f"stream=video ! fakesink")
     else:
-        from gstreamer_tpu_torch.elements.ogg import ogg_page
-        (tmp_path / "x.ogg").write_bytes(
-            ogg_page([b"OpusHead\x01\x02" + bytes(9)], 3, 0, 0, bos=True))
-        desc = f"oggdemux location={tmp_path / 'x.ogg'} ! fakesink"
+        desc = (f"matroskamux name=m location={tmp_path / 'x.mkv'} {what} ! "
+                f"fakesink {VSRC.format(n='v')} ! m.video_0")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
 

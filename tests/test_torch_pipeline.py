@@ -286,7 +286,7 @@ def test_registry_is_the_ports_own():
         "flacenc", "flacdec", "mpegaudioparse", "ac3parse", "flacparse",
         "sbcparse", "wavpackparse", "oggmux", "oggdemux", "vorbisdec",
         "vorbisenc", "theoradec", "theoraenc", "theoraparse", "opusparse",
-        "mpg123audiodec"}
+        "mpg123audiodec", "opusdec", "opusenc", "faad", "aacparse"}
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith("gstreamer_tpu_torch.elements.")
 

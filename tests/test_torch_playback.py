@@ -144,7 +144,8 @@ CODED = [
 def test_decoder_for_caps_raises_where_the_port_lacks_it(caps, decoder):
     """The JAX package appends its decoder; the port, where it has none
     yet, raises instead of passing the coded stream on, and appends the
-    same decoder where it has it (mpg123audiodec since the codec slice)."""
+    same decoder where it has it (mpg123audiodec since the codec slice,
+    faad since the Opus and AAC slice)."""
     assert jpb._decoder_for_caps(JCaps.from_string(caps)) == decoder
     if factory_exists(decoder):
         assert tpb._decoder_for_caps(Caps.from_string(caps)) == decoder
