@@ -8153,6 +8153,902 @@ def opus_aac_phase(seed, counters, dev):
     return total
 
 
+# -- 19. VP8/VP9, the transport containers, FLV, ASF, playback_extra -------------
+
+VT_FILES = ("vp8_1080p.ivf", "vp9_1080p.webm", "aac_10s.aac", "mp3_10s.mp3",
+            "aac_10s.m4a", "digests.json")
+VT_ASF = (1920, 1080, 32, 16)       # asf_mjpeg_ingest: width, height, frames, batch
+VT_Y4M = (1920, 1080, 32, 16)       # alphacolor_y4mdec's y4m file
+VT_ALPHA = (1920, 1080, 16)         # alphacolor's RGBA batch
+VT_VPX_BATCH = 8                    # vpx_ingest: the 8-frame clip a tick
+VT_HLS_TARGET = 2                   # hls_segments: seconds a segment
+VT_ALONE = (64, 48, 4)              # width, height, frames of a factory alone
+VT_FACTORIES = (
+    "h264parse", "mpegvideoparse", "ivfparse", "h265parse", "mpeg4videoparse",
+    "av1parse", "vp9parse", "pngparse", "vp8dec", "vp9dec", "vp8enc",
+    "vp9enc", "codecalphademux", "vp8alphadecodebin", "vp9alphadecodebin",
+    "mpegtsmux", "tsdemux", "atscmux", "mpegpsmux", "mpegpsdemux", "mplex",
+    "hlssink2", "hlssink", "dashsink", "flvmux", "flvdemux", "jpegparse",
+    "jifmux", "asfmux", "asfparse", "asfdemux", "decodebin3", "parsebin",
+    "playbin3", "playsink", "y4mdec", "alphacolor", "dtmfdetect")
+VT_RGBA = ("RGBA", "BGRA", "ARGB", "ABGR")
+
+
+def vt_panning(n, w, h, seed):
+    """n seeded I420 frames of w x h panning over a scene (a gradient, a
+    sine pattern, a coarse texture, flat boxes and light noise, as the
+    committed codec vectors), as host planes (n, h, w), (n, h/2, w/2) x 2."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ph, pw = h + 2 * n + 2, w + 4 * n + 4
+    yy, xx = np.mgrid[0:ph, 0:pw].astype(np.float32)
+    y = (60 + 100 * xx / pw + 40 * yy / ph
+         + 30 * np.sin(xx / 37.0) * np.cos(yy / 53.0))
+    tex = rng.normal(0, 1, (ph // 16 + 1, pw // 16 + 1)).astype(np.float32)
+    y += np.kron(tex, np.ones((16, 16), np.float32))[:ph, :pw] * 5
+    for j in range(5):
+        cx, cy = w * (1 + 3 * j) // 20, h * (1 + 3 * j) // 18
+        y[cy:cy + h // 7, cx:cx + w // 9] = 40 + 35 * j
+    y = np.clip(y + rng.normal(0, 1.0, y.shape), 0, 255).astype(np.uint8)
+    u = np.clip(128 + 40 * np.sin(xx[::2, ::2] / 90.0), 0, 255
+                ).astype(np.uint8)
+    v = np.clip(128 + 40 * np.cos(yy[::2, ::2] / 70.0), 0, 255
+                ).astype(np.uint8)
+    out = ([], [], [])
+    for k in range(n):
+        dx, dy = 4 * k, 2 * k
+        out[0].append(y[dy:dy + h, dx:dx + w])
+        out[1].append(u[dy // 2:dy // 2 + h // 2, dx // 2:dx // 2 + w // 2])
+        out[2].append(v[dy // 2:dy // 2 + h // 2, dx // 2:dx // 2 + w // 2])
+    return tuple(np.ascontiguousarray(np.stack(p)) for p in out)
+
+
+def vt_pushes(planes, batch, fps=25):
+    dur = 10**9 // fps
+    return [dict(data=tuple(p[k:k + batch] for p in planes), batch=batch,
+                 pts=k * dur, duration=dur)
+            for k in range(0, len(planes[0]), batch)]
+
+
+def vt_timed(desc, d, batch, pushes=None):
+    """cont_launch on `d`, synchronised: (its result, host seconds)."""
+    sync(d)
+    t0 = time.perf_counter()
+    got = cont_launch(desc, d, batch, pushes)
+    sync(d)
+    return got, time.perf_counter() - t0
+
+
+def vt_files(directory):
+    """Every file a writer left in `directory`: {name: bytes}."""
+    out = {}
+    for n in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, n), "rb") as f:
+            out[n] = f.read()
+    return out
+
+
+def vt_write_both(name, desc, batch, pushes, dev, tmp, start, finish):
+    """`desc` with {dir} writes files on the card and on the CPU (each
+    into a directory of its own, `pushes` as tensors on each device, the
+    launch counts zeroed just before each and none wanted); the files must
+    be the same bytes (ASF's random file ID masked).  Returns (the card's
+    directory, its files, its host seconds)."""
+    import torch
+    got = []
+    for k, d in enumerate((dev, torch.device("cpu"))):
+        out = os.path.join(tmp, f"{name}.{k}")
+        os.makedirs(out)
+        start(f"{name}_write")
+        _, secs = vt_timed(desc.format(dir=out), d, batch, pushes)
+        finish(f"{name}_write", {})
+        got.append((out, vt_files(out), secs))
+    a, b = got[0][1], got[1][1]
+    require(sorted(a) == sorted(b) and a, f"{name}: the writers' files "
+            f"{sorted(a)} against the CPU run's {sorted(b)}")
+    for n in a:
+        require(vt_asf_masked(a[n]) == vt_asf_masked(b[n]),
+                f"{name}: {n} differs from the CPU run's")
+    return got[0]
+
+
+def vt_asf_masked(blob):
+    """An ASF file with its own 16-byte file ID (uuid4, at the File
+    Properties object) zeroed wherever it occurs; other bytes as they are."""
+    from gstreamer_tpu_torch.elements import asf
+    i = blob.find(asf.GUID_FILE_PROPS)
+    if not blob.startswith(asf.GUID_HEADER) or i < 0:
+        return blob
+    fid = blob[i + 24:i + 40]
+    return blob.replace(fid, bytes(16))
+
+
+@contextlib.contextmanager
+def vt_uploads(module, blocks):
+    """While the block runs, append to `blocks` every host array the
+    elements of `module` upload with device_array (a decoder's PCM)."""
+    upload = module.device_array
+
+    def recorded(a, like):
+        blocks.append(a)
+        return upload(a, like)
+    module.device_array = recorded
+    try:
+        yield blocks
+    finally:
+        module.device_array = upload
+
+
+def vt_pcm(desc, dev):
+    """The F32 PCM blocks a decode chain gives on `dev`, on the host."""
+    return [s.buffer.data.cpu().numpy()
+            for s in codec_run(f"{desc} ! appsink name=a", dev)]
+
+
+def vt_path(name, desc, batch, dev, start, finish, peak, want, decoders,
+            demux):
+    """codec_path with the demuxer's create (`demux`: (class, "create"))
+    timed apart: its numbers gain "create", host ms a tick."""
+    spent = {}
+    with cont_timed(*demux, spent, "create") if demux else \
+            contextlib.nullcontext():
+        pipe, out, r = codec_path(name, desc, batch, dev, start, finish,
+                                  peak, want, decoders)
+    r["create"] = spent.get("create", 0.0) * 1e3 / r["ticks"]
+    return pipe, out, r
+
+
+def vt_asr_item(name, desc, dev, start, finish, peak, decoders, want_pcm,
+                upload_module, fmt="F32LE", held="", demux=None):
+    """`desc` ! CONT_ASR on the card (no kernel wanted): the PCM the
+    decoder handed on (recorded at its upload, or `desc` ! appsink again)
+    equals `want_pcm` (the same decoder on the plain file; tolerance 0)
+    and the ASR output equals the port's CPU run of the chain over the
+    same blocks.  Returns (ASR output, numbers, pipeline)."""
+    import numpy as np
+    import torch
+    blocks = []
+    with vt_uploads(upload_module, blocks) if upload_module else \
+            contextlib.nullcontext():
+        pipe, out, r = vt_path(name, f"{desc} ! {CONT_ASR}", 1, dev, start,
+                               finish, peak, {}, decoders, demux)
+    if upload_module is None:
+        blocks = vt_pcm(desc, dev)
+    pcm = np.concatenate(blocks)
+    require(np.array_equal(pcm, want_pcm), f"{name}: the decoded PCM "
+            f"{pcm.shape} differs from the decoder's on the plain file "
+            f"{np.shape(want_pcm)}")
+    card = cont_joined(out["a"])
+    require(card is not None and card.dtype == torch.float32
+            and bool(torch.isfinite(card).all()), f"{name}: ASR output")
+    require(torch.equal(card, codec_asr_ref(blocks, 48000, pcm.shape[1],
+                                            fmt)),
+            f"{name}: the ASR output differs from the port's CPU run over "
+            f"the same blocks")
+    codec_report(name, r, len(pcm), "audio frames")
+    print(f"  {name}: {len(pcm) / 48000:.2f} s of {pcm.shape[1]}-channel "
+          f"{fmt} PCM == the decoder's on the plain file{held}; the ASR "
+          f"output == the port's CPU run over the same blocks; host decode "
+          f"{r['decode'] / (len(pcm) / 48000) * 1e3:.3f} ms a second of "
+          f"audio" + (f"; the demuxer's create {r['create']:.3f} ms a tick"
+                      if demux else ""))
+    return card, r, pipe
+
+
+def vt_video_item(name, desc, batch, dev, start, finish, peak, decoders,
+                  want, demux=None):
+    """`desc` ! CONT_RGB on the card (`want` launches) and on the CPU: the
+    RGB equals at tolerance 0.  Returns (RGB planes, numbers)."""
+    import torch
+    _, out, r = vt_path(name, f"{desc} ! {CONT_RGB}", batch, dev, start,
+                        finish, peak, want, decoders, demux)
+    rgb = cont_joined(out["v"])
+    cpu = cont_joined(codec_run(f"{desc} ! {CONT_RGB}", torch.device("cpu"),
+                                batch, "v"))
+    require(rgb is not None and cont_equal(rgb, cpu),
+            f"{name}: RGB differs from the port's CPU run")
+    n = rgb[0].shape[0]
+    require(all(p.shape == (n, 224, 224) and p.dtype == torch.uint8
+                for p in rgb), f"{name}: RGB planes' shape")
+    codec_report(name, r, n, "frames")
+    if demux:
+        print(f"  {name}: the demuxer's create {r['create']:.3f} ms a tick")
+    return rgb, r
+
+
+def asf_mjpeg_ingest(seed, dev, tmp, start, finish, peak):
+    """32 seeded 1080p frames from card tensors through jpegenc and 10 s of
+    48 kHz stereo S16LE into asfmux; asfdemux and asfparse read each stream
+    (video through jpegdec to RGB 224x224 at batch 16, audio into the ASR
+    chain); multifilesrc of the same JPEGs gives the same RGB; one JPEG
+    through jpegparse ! jifmux."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.elements import asf, image_codecs
+    w, h, n, batch = VT_ASF
+    planes = vt_panning(n, w, h, seed)
+    audio = cont_audio(CONT_RATE * 10, seed)
+    ticks = n // batch
+    per = len(audio) // ticks
+    vp = vt_pushes(planes, batch)
+    ap = [dict(data=audio[t * per:(t + 1) * per], pts=vp[t]["pts"],
+               duration=per * 10**9 // CONT_RATE) for t in range(ticks)]
+    out, files, secs = vt_write_both(
+        "asf_mjpeg_ingest",
+        f"asfmux name=m location={{dir}}/av.asf appsrc name=v caps=video/"
+        f"x-raw,format=I420,width={w},height={h},framerate={CONT_FPS}/1 ! "
+        f"jpegenc ! m.video_0 appsrc name=a caps=audio/x-raw,format=S16LE,"
+        f"rate={CONT_RATE},channels=2,layout=interleaved ! m.audio_0",
+        batch, {"v": vp, "a": ap}, dev, tmp, start, finish)
+    path = os.path.join(out, "av.asf")
+    print(f"  asf_mjpeg_ingest: jpegenc ! asfmux wrote {n} {w}x{h} frames "
+          f"and 10 s of audio from card tensors at {n / secs:.1f} frames/s "
+          f"({len(files['av.asf']) / 2**20:.1f} MiB; the file == the CPU "
+          f"run's but for its random file ID)")
+    jdec = [(image_codecs.JpegDec, "_decode_all")]
+    rgb = {}
+    for f in ("asfdemux", "asfparse"):
+        rgb[f], r = vt_video_item(
+            f"asf_mjpeg_ingest[{f}]", f"{f} name=d location={path} "
+            f"stream=video ! jpegdec", batch, dev, start, finish, peak, jdec,
+            {"yscale_hv": ticks}, demux=(asf.AsfParse, "create"))
+        print(f"  asf_mjpeg_ingest[{f}]: RGB 224x224 == the port's CPU run; "
+              f"yscale_hv {r['launches']} in {ticks} video ticks; host "
+              f"decode {r['decode'] / n * 1e3:.3f} ms a frame")
+    require(cont_equal(rgb["asfdemux"], rgb["asfparse"]),
+            "asf_mjpeg_ingest: asfparse's RGB differs from asfdemux's")
+    blobs = [s.buffer.data for s in codec_run(
+        f"asfdemux location={path} stream=video ! appsink name=a",
+        torch.device("cpu"), batch)]
+    blobs = [b for x in blobs for b in (x if isinstance(x, list) else [x])]
+    jdir = os.path.join(tmp, "asf_jpegs")
+    os.makedirs(jdir)
+    for k, b in enumerate(blobs):
+        with open(os.path.join(jdir, f"f_{k}.jpg"), "wb") as fh:
+            fh.write(np.asarray(b).tobytes())
+    start("asf_mjpeg_ingest[multifilesrc]")
+    ref = cont_joined(codec_run(
+        f"multifilesrc location={jdir}/f_%d.jpg caps=image/jpeg,framerate="
+        f"{CONT_FPS}/1 ! jpegdec ! {CONT_RGB}", dev, batch, "v"))
+    finish("asf_mjpeg_ingest[multifilesrc]", {"yscale_hv": ticks})
+    require(len(blobs) == n and cont_equal(ref, rgb["asfdemux"]),
+            "asf_mjpeg_ingest: multifilesrc of the same JPEGs gives other RGB")
+    for f in ("asfdemux", "asfparse"):
+        vt_asr_item(f"asf_mjpeg_ingest[{f} audio]", f"{f} name=d location="
+                    f"{path} stream=audio", dev, start, finish, peak, [],
+                    audio, None, fmt="S16LE", held=" (the samples written)",
+                    demux=(asf.AsfParse, "create"))
+    jpg = os.path.join(jdir, "f_0.jpg")
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        start("jpegparse ! jifmux")
+        res[d.type] = cont_launch(f"filesrc location={jpg} ! jpegparse ! "
+                                  f"jifmux ! appsink name=out", d, 1)
+        finish("jpegparse ! jifmux", {})
+    require(res[dev.type] == res["cpu"] and res["cpu"][0],
+            "asf_mjpeg_ingest: jpegparse ! jifmux differs from the CPU run")
+    print(f"  asf_mjpeg_ingest: multifilesrc of the {n} JPEGs gives the "
+          f"same RGB (yscale_hv {ticks}); jpegparse ! jifmux of one frame "
+          f"== the CPU run's")
+
+
+def vt_ts_stats(path, demux):
+    """The PCRs written in a transport stream, and tsdemux's section,
+    continuity and PCR-discontinuity results."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pcrs = sum(1 for i in range(0, len(data) - 187, 188)
+               if data[i + 3] & 0x20 and data[i + 4] > 0
+               and data[i + 5] & 0x10)
+    return dict(packets=len(data) // 188, pcrs=pcrs,
+                sections=[s.section_type for _, s in demux.sections],
+                cc_gaps=len(demux.cc_gaps),
+                pcr_discontinuities=demux.pcr_discontinuities)
+
+
+def ts_audio_ingest(seed, dev, tmp, start, finish, peak, files, dig):
+    """mpegtsmux muxes the committed AAC (aacparse) and MP3
+    (mpegaudioparse); tsdemux stream=0 ! aacparse ! faad, tsdemux stream=1
+    ! mpegaudioparse ! mpg123audiodec and uridecodebin of the .ts each
+    into the ASR chain.  Returns the plain files' PCM."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.codecs import mp3 as pmp3
+    from gstreamer_tpu_torch.elements import aacdec, mpegaudio, mpegts
+    aac, mp3 = files["aac_10s.aac"], files["mp3_10s.mp3"]
+    plain = {"aac": np.concatenate(vt_pcm(
+        f"filesrc location={aac} ! aacparse ! faad", dev)),
+        "mp3": np.concatenate(vt_pcm(
+            f"filesrc location={mp3} ! mpegaudioparse ! mpg123audiodec",
+            dev))}
+    err = max(codec_pcm_check("ts_audio_ingest", plain["aac"],
+                              dig["aac_adts"]),
+              codec_pcm_check("ts_audio_ingest", plain["mp3"], dig["mp3"]))
+    out, written, secs = vt_write_both(
+        "ts_audio_ingest",
+        f"mpegtsmux name=m location={{dir}}/a.ts ! fakesink filesrc "
+        f"location={aac} ! aacparse ! m.sink_0 filesrc location={mp3} ! "
+        f"mpegaudioparse ! m.sink_1", 8, None, dev, tmp, start, finish)
+    path = os.path.join(out, "a.ts")
+    print(f"  ts_audio_ingest: mpegtsmux wrote 10 s of AAC and 10 s of MP3 "
+          f"at {20 / secs:.1f} audio seconds/s ({len(written['a.ts'])} "
+          f"bytes; the file == the CPU run's); the plain files' PCM within "
+          f"{CODEC_PCM_TOL} of the JAX digests (max {err})")
+    aac_dec = [(paac.AACDecoder, "decode_frame")]
+    mp3_dec = [(pmp3.MP3Decoder, "decode_frame")]
+    card, _, pipe = vt_asr_item(
+        "ts_audio_ingest", f"tsdemux name=d location={path} stream=0 ! "
+        f"aacparse ! faad", dev, start, finish, peak, aac_dec, plain["aac"],
+        aacdec, demux=(mpegts.TsDemux, "create"))
+    stats = vt_ts_stats(path, pipe.get_by_name("d"))
+    require(stats["cc_gaps"] == 0 and stats["pcr_discontinuities"] == 0
+            and stats["sections"] == ["pat", "pmt"],
+            f"ts_audio_ingest: tsdemux's results {stats}")
+    print(f"  ts_audio_ingest: {stats}")
+    vt_asr_item("ts_audio_ingest[mp3]", f"tsdemux name=d location={path} "
+                f"stream=1 ! mpegaudioparse ! mpg123audiodec", dev, start,
+                finish, peak, mp3_dec, plain["mp3"], mpegaudio,
+                demux=(mpegts.TsDemux, "create"))
+    start("ts_audio_ingest[uridecodebin]")
+    got = cont_joined(codec_run(f"uridecodebin uri=file://{path} ! "
+                                f"{CONT_ASR}", dev))
+    finish("ts_audio_ingest[uridecodebin]", {})
+    require(got is not None and torch.equal(got, card),
+            "ts_audio_ingest: uridecodebin's ASR output differs from "
+            "tsdemux ! aacparse ! faad's")
+    print("  ts_audio_ingest[uridecodebin]: the ASR output == tsdemux ! "
+          "aacparse ! faad's")
+    return plain, card
+
+
+def ps_mp3_ingest(dev, tmp, start, finish, peak, files, plain):
+    """mpegpsmux of the committed MP3, then mpegpsdemux stream=audio !
+    mpegaudioparse ! mpg123audiodec into the ASR chain."""
+    from gstreamer_tpu_torch.codecs import mp3 as pmp3
+    from gstreamer_tpu_torch.elements import mpegaudio, mpegps
+    out, written, secs = vt_write_both(
+        "ps_mp3_ingest", f"filesrc location={files['mp3_10s.mp3']} ! "
+        f"mpegaudioparse ! mpegpsmux location={{dir}}/a.mpg", 8, None, dev,
+        tmp, start, finish)
+    print(f"  ps_mp3_ingest: mpegpsmux wrote 10 s of MP3 at "
+          f"{10 / secs:.1f} audio seconds/s ({len(written['a.mpg'])} bytes; "
+          f"the file == the CPU run's)")
+    vt_asr_item("ps_mp3_ingest", f"mpegpsdemux name=d location="
+                f"{os.path.join(out, 'a.mpg')} stream=audio ! mpegaudioparse "
+                f"! mpg123audiodec", dev, start, finish, peak,
+                [(pmp3.MP3Decoder, "decode_frame")], plain["mp3"], mpegaudio,
+                demux=(mpegps.MpegPsDemux, "create"))
+
+
+def hls_segments(dev, tmp, start, finish, peak, files, plain, card_asr):
+    """hlssink2 writes the committed AAC into VT_HLS_TARGET-second segments
+    and a playlist (the files equal the CPU run's); tsdemux of the
+    segments one after another gives the stream's bytes, whose decode is
+    the whole stream's PCM and ASR output."""
+    import torch
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.elements import aacdec
+    aac = files["aac_10s.aac"]
+    out, written, secs = vt_write_both(
+        "hls_segments", f"filesrc location={aac} ! aacparse ! hlssink2 "
+        f"location={{dir}}/seg%05d.ts playlist-location={{dir}}/p.m3u8 "
+        f"target-duration={VT_HLS_TARGET}", 8, None, dev, tmp, start,
+        finish)
+    segs = sorted(n for n in written if n.endswith(".ts"))
+    text = written["p.m3u8"].decode()
+    require(len(segs) >= 10 // VT_HLS_TARGET and text.count("#EXTINF")
+            == len(segs) and "#EXT-X-ENDLIST" in text,
+            f"hls_segments: {segs} and the playlist {text!r}")
+    start("hls_segments[read]")
+    t0 = time.perf_counter()
+    joined = b"".join(
+        bytes(s.buffer.data.cpu().numpy().tobytes())
+        for seg in segs for s in codec_run(
+            f"tsdemux location={os.path.join(out, seg)} ! appsink name=a",
+            dev))
+    demux_s = time.perf_counter() - t0
+    finish("hls_segments[read]", {})
+    with open(aac, "rb") as f:
+        require(joined == f.read(), "hls_segments: the segments' streams "
+                "joined differ from the AAC file")
+    path = os.path.join(tmp, "hls_joined.aac")
+    with open(path, "wb") as f:
+        f.write(joined)
+    card, _, _ = vt_asr_item(
+        "hls_segments", f"filesrc location={path} ! aacparse ! faad", dev,
+        start, finish, peak, [(paac.AACDecoder, "decode_frame")],
+        plain["aac"], aacdec, held=" (the segments demuxed in order)")
+    require(torch.equal(card, card_asr), "hls_segments: the ASR output "
+            "differs from ts_audio_ingest's")
+    print(f"  hls_segments: hlssink2 wrote {len(segs)} segments and the "
+          f"playlist at {10 / secs:.1f} audio seconds/s (== the CPU run's "
+          f"files); tsdemux of the {len(segs)} segments in "
+          f"{demux_s * 1e3:.1f} ms gives the file's {len(joined)} bytes")
+
+
+def flv_aac_ingest(dev, tmp, start, finish, peak, files, dig):
+    """The AAC access units (aac_10s.aac without its ADTS headers: the
+    units of aac_10s.m4a) through flvmux, then flvdemux into the ASR
+    chain; its PCM equals qtdemux's decode of aac_10s.m4a."""
+    import numpy as np
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.elements import flv
+    with open(files["aac_10s.aac"], "rb") as f:
+        adts = f.read()
+    units, pos = [], 0
+    while pos + 7 <= len(adts):
+        flen, _s, _c, _p, hlen = paac.parse_adts_header(adts, pos)
+        units.append(adts[pos + hlen:pos + flen])
+        pos += flen
+    per = 16
+    push = [dict(data=[np.frombuffer(u, np.uint8).copy()
+                       for u in units[k:k + per]],
+                 batch=len(units[k:k + per]), pts=k * 1024 * 10**9 // 48000,
+                 duration=1024 * 10**9 // 48000)
+            for k in range(0, len(units), per)]
+    out, _, secs = vt_write_both(
+        "flv_aac_ingest", "appsrc name=a caps=audio/mpeg,mpegversion=4,"
+        "stream-format=raw,rate=48000,channels=2 ! flvmux location="
+        "{dir}/a.flv", 1, {"a": push}, dev, tmp, start, finish)
+    print(f"  flv_aac_ingest: flvmux wrote {len(units)} AAC units at "
+          f"{len(units) * 1024 / 48000 / secs:.1f} audio seconds/s (the "
+          f"file == the CPU run's)")
+    qt = element_factory_make("qtdemux", location=files["aac_10s.m4a"],
+                              stream="audio")
+    qt._load()
+    want = np.asarray(qt._adata, np.float32)
+    err = codec_pcm_check("flv_aac_ingest", want, dig["aac_m4a"])
+    vt_asr_item("flv_aac_ingest", f"flvdemux name=d location="
+                f"{os.path.join(out, 'a.flv')}", dev, start, finish, peak,
+                [(paac.AACDecoder, "decode_frame")], want, None,
+                held=f" (qtdemux of aac_10s.m4a, within {CODEC_PCM_TOL} of "
+                f"the JAX digests: max {err})",
+                demux=(flv.FlvDemux, "create"))
+
+
+def vpx_ingest(dev, start, finish, peak, files, dig):
+    """vp8dec of vp8_1080p.ivf and matroskademux of vp9_1080p.webm, each to
+    RGB 224x224 (yscale_hv once a tick); the decoded planes against the
+    JAX package's sha256."""
+    import hashlib
+
+    import numpy as np
+    from gstreamer_tpu_torch.codecs import vpx
+    b = VT_VPX_BATCH
+    for name, desc, key in (
+            ("vpx_ingest[vp8]", f"vp8dec location={files['vp8_1080p.ivf']}",
+             "vpx_ivf"),
+            ("vpx_ingest[vp9]", f"matroskademux name=d location="
+             f"{files['vp9_1080p.webm']} stream=video", "vpx_webm")):
+        start(name + "[planes]")
+        samples = codec_run(f"{desc} ! appsink name=v", dev, b, "v")
+        finish(name + "[planes]", {})
+        frames = [tuple(p[k].cpu().numpy() for p in s.buffer.data)
+                  for s in samples for k in range(s.buffer.batch)]
+        got = [[hashlib.sha256(np.ascontiguousarray(p).tobytes()).hexdigest()
+                for p in f] for f in frames]
+        require(got == dig[key], f"{name}: decoded planes differ from the "
+                f"JAX package's sha256")
+        _, r = vt_video_item(name, desc, b, dev, start, finish, peak,
+                             [(vpx.VpxDecoder, "decode")],
+                             {"yscale_hv": -(-len(frames) // b)})
+        print(f"  {name}: {len(frames)} planes sets == the JAX package's "
+              f"sha256; RGB 224x224 == the port's CPU run; host decode "
+              f"(libvpx and the row memmoves) {r['decode'] / len(frames) * 1e3:.3f}"
+              f" ms a 1080p frame; yscale_hv {r['launches']}")
+
+
+def alphacolor_y4mdec(seed, dev, tmp, start, finish, peak):
+    """alphacolor on a batch of seeded 1080p RGBA frames to AYUV and back
+    to each RGB order, on the card and the CPU (the same bytes); a y4m
+    file through y4mdec to RGB 224x224 (yscale_hv once a tick)."""
+    import numpy as np
+    import torch
+    w, h, n = VT_ALPHA
+    rng = np.random.default_rng(seed)
+    rgba = tuple(rng.integers(0, 256, (n, h, w), np.uint8) for _ in range(4))
+    caps = (f"appsrc name=in caps=video/x-raw,format={{f}},width={w},"
+            f"height={h},framerate={CONT_FPS}/1")
+    res, ms = {}, {}
+    for d in (dev, torch.device("cpu")):
+        start("alphacolor")
+        (got, _), secs = vt_timed(
+            f"{caps.format(f='RGBA')} ! alphacolor ! appsink name=out", d, n,
+            {"in": [dict(data=rgba, batch=n, pts=0, duration=40_000_000)]})
+        finish("alphacolor", {})
+        ayuv = got["out"][0]
+        require("format=AYUV" in ayuv[3], f"alphacolor: caps {ayuv[3]}")
+        res[d.type] = [ayuv]
+        ms[d.type] = {"RGBA->AYUV": secs * 1e3}
+        planes = tuple(np.frombuffer(x[3], np.uint8).reshape(x[2]).copy()
+                       for x in ayuv[4][1])
+        for f in VT_RGBA:
+            (got, _), secs = vt_timed(
+                f"{caps.format(f='AYUV')} ! alphacolor ! video/x-raw,"
+                f"format={f} ! appsink name=out", d, n,
+                {"in": [dict(data=planes, batch=n, pts=0,
+                             duration=40_000_000)]})
+            res[d.type].append(got["out"][0])
+            ms[d.type][f"AYUV->{f}"] = secs * 1e3
+    require(res[dev.type] == res["cpu"],
+            "alphacolor: the card's bytes differ from the CPU's")
+    print(f"e2e alphacolor: {n} {w}x{h} frames RGBA -> AYUV -> each of "
+          f"{VT_RGBA} on the card == the CPU's bytes; frames/s with the "
+          f"set-up, a launch string each (card) "
+          f"{ {k: round(n / v * 1e3, 1) for k, v in ms[dev.type].items()} }"
+          f", (CPU) "
+          f"{ {k: round(n / v * 1e3, 1) for k, v in ms['cpu'].items()} }")
+    w, h, n, b = VT_Y4M
+    path = os.path.join(tmp, "a.y4m")
+    write_y4m(path, n, seed)
+    _, r = vt_video_item("alphacolor_y4mdec[y4mdec]", f"y4mdec location="
+                         f"{path}", b, dev, start, finish, peak, [],
+                         {"yscale_hv": n // b})
+    print(f"  alphacolor_y4mdec[y4mdec]: {n} {w}x{h} frames; RGB 224x224 == "
+          f"the port's CPU run; yscale_hv {r['launches']} in {n // b} ticks")
+
+
+def vt_alone_rows(files):
+    """The runs that drive each of the 38 factories alone or as a writer
+    and its reader on small inputs: [(name, fn(d, tmp, seed) -> plain
+    data)].  Without the system libvpx the VPx runs give the error both
+    devices raise (the phase's first line says whether it is there)."""
+    import struct
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.codecs import vpx
+    from gstreamer_tpu_torch.codecs.png import png_encode
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    w, h, n = VT_ALONE
+    vcaps = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+             f"height={h},framerate=25/1")
+
+    def frames(seed):
+        return vt_pushes(cont_video("I420", n, w, h, seed), 2)
+
+    def blob(data, pts=0):
+        return [dict(data=np.frombuffer(data, np.uint8).copy(), pts=pts)]
+
+    def head(path, k, size_of):
+        with open(path, "rb") as f:
+            data = f.read()
+        pos = 0
+        for _ in range(k):
+            pos += size_of(data, pos)
+        return data[:pos]
+
+    def mp3_head(k=12):
+        from gstreamer_tpu_torch.elements.audioparsers import mp3_frame_info
+        return head(files["mp3_10s.mp3"], k,
+                    lambda d, p: mp3_frame_info(d[p:p + 4])[0])
+
+    def aac_head(k=60):
+        from gstreamer_tpu_torch.codecs.aac import parse_adts_header
+        return head(files["aac_10s.aac"], k,
+                    lambda d, p: parse_adts_header(d, p)[0])
+
+    def write(tmp, name, data):
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    def read_all(directory):
+        return {k: vt_asf_masked(v) for k, v in vt_files(directory).items()}
+
+    def vpx_guard(fn):
+        """A VPx run; without libvpx, the error both devices raise."""
+        def run(d, tmp, seed):
+            try:
+                return fn(d, tmp, seed)
+            except (RuntimeError, ValueError) as e:
+                if vpx.available():
+                    raise
+                return f"{type(e).__name__}: {e}"
+        return run
+
+    sc = b"\x00\x00\x01"
+    h264 = b"".join(sc + bytes([0x67, 66, 0, 31, 0xF4, 0x05, 0x01, 0xEC, 0x80])
+                    + sc + bytes([0x65 if k == 0 else 0x41, 0x88, 0x84, k])
+                    for k in range(4))
+    h265 = b"".join(sc + bytes([0x40, 1, 0x0C, 1]) + sc
+                    + bytes([0x26 if k == 0 else 0x02, 1, 0xAF, k])
+                    for k in range(4))
+    mpeg2 = (sc + b"\xb3" + bytes([w >> 4, ((w & 15) << 4) | (h >> 8),
+                                   h & 255, 0x13]) + bytes(4)
+             + b"".join(sc + b"\x00" + bytes([k]) * 16 for k in range(3)))
+    mpeg4 = b"".join(sc + b"\xb6" + bytes([k << 6]) + bytes([k]) * 12
+                     for k in range(4))
+    av1 = b"".join(b"\x12\x00" + b"\x32\x05" + bytes([k]) * 5
+                   for k in range(4))
+    rng = np.random.default_rng(7)
+    png = b"".join(png_encode(rng.integers(0, 256, (12, 16, 3), np.uint8))
+                   for _ in range(3))
+    ivf = (vpx.ivf_header("vp8", 32, 24, (30, 1), 3) + b"".join(
+        struct.pack("<IQ", 23, k) + bytes([1, 2, 3]) + bytes(range(20))
+        for k in range(3)))
+    superframe = (b"\x11" * 10 + b"\x22" * 20 + bytes([0xC9]) + b"\x0a\x00"
+                  + b"\x14\x00" + bytes([0xC9]))
+
+    def parse(factory, data, caps="application/octet-stream", batch=1):
+        return lambda d, tmp, seed: cont_launch(
+            f"appsrc name=in ! {caps} ! {factory} ! appsink name=out", d,
+            batch, {"in": blob(data)})
+
+    def vpx_write(codec):
+        def run(d, tmp, seed):
+            path = os.path.join(tmp, "v.ivf")
+            pk = cont_launch(f"{vcaps} ! {codec}enc location={path} ! "
+                             f"appsink name=out", d, 2, {"in": frames(seed)})
+            return pk, read_all(tmp), cont_launch(
+                f"{codec}dec location={path} ! appsink name=out", d, 2)
+        return run
+
+    def alpha_bin(codec):
+        def run(d, tmp, seed):
+            y, u, v = (p[0] for p in cont_video("I420", 1, w, h, seed))
+            pk = vpx.encode_frames(codec, [(y, u, v)], w, h)[0][0]
+            apk = vpx.encode_frames(
+                codec, [(np.full_like(y, 200), u, v)], w, h)[0][0]
+            outs = []
+            for meta in ({"alpha_data": apk}, {}):
+                e = element_factory_make(f"{codec}alphadecodebin")
+                e.device = d
+                e.start()
+                out = e.host_process(Buffer(data=np.frombuffer(pk, np.uint8),
+                                            meta=dict(meta), batch=1))
+                outs.append(bc_plain(out.data))
+            e = element_factory_make("codecalphademux")
+            e.device = d
+            outs.append(bc_plain(e.host_process(Buffer(
+                data=np.zeros(4, np.uint8), meta={"alpha_data": apk})).meta))
+            return outs
+        return run
+
+    def ts(factory):
+        def run(d, tmp, seed):
+            cont_launch(f"appsrc name=in ! application/octet-stream ! "
+                        f"mpegaudioparse ! {factory} location={tmp}/a.ts "
+                        f"service-name=Svc", d, 4, {"in": blob(mp3_head())})
+            return read_all(tmp), [cont_launch(
+                f"tsdemux location={tmp}/a.ts stream={k} ! appsink name=out",
+                d, 1) for k in (0,)]
+        return run
+
+    def ps(factory):
+        def run(d, tmp, seed):
+            cont_launch(f"appsrc name=in ! application/octet-stream ! "
+                        f"mpegaudioparse ! {factory} location={tmp}/a.mpg",
+                        d, 4, {"in": blob(mp3_head())})
+            return read_all(tmp), cont_launch(
+                f"mpegpsdemux location={tmp}/a.mpg stream=audio ! "
+                f"appsink name=out", d, 1)
+        return run
+
+    def hls(factory, extra=""):
+        def run(d, tmp, seed):
+            src = write(tmp, "in.aac", aac_head())
+            out = os.path.join(tmp, "out")
+            os.makedirs(out)
+            cont_launch(f"filesrc location={src} ! aacparse ! {factory} "
+                        f"location={out}/s%03d.ts playlist-location="
+                        f"{out}/p.m3u8 target-duration=1 "
+                        f"{extra.format(out=out)}", d, 4)
+            return read_all(out)
+        return run
+
+    def flv(d, tmp, seed):
+        x = cont_audio(4410, seed)
+        cont_launch(f"appsrc name=in caps=audio/x-raw,format=S16LE,rate=44100,"
+                    f"channels=2,layout=interleaved ! flvmux location="
+                    f"{tmp}/a.flv", d, 1,
+                    {"in": [dict(data=x, pts=0, duration=10**8)]})
+        return read_all(tmp), cont_launch(
+            f"flvdemux location={tmp}/a.flv ! appsink name=out", d, 1)
+
+    def jpegs(d, tmp, seed):
+        cont_launch(f"{vcaps} ! jpegenc ! multifilesink location="
+                    f"{tmp}/f_%d.jpg", d, 2, {"in": frames(seed)})
+        one = os.path.join(tmp, "f_0.jpg")
+        return read_all(tmp), cont_launch(
+            f"filesrc location={one} ! jpegparse ! jifmux ! appsink "
+            f"name=out", d, 1)
+
+    def asf(d, tmp, seed):
+        out = os.path.join(tmp, "out")
+        os.makedirs(out)
+        x = cont_audio(4800, seed)
+        cont_launch(f"asfmux name=m location={out}/a.asf {vcaps} ! jpegenc ! "
+                    f"m.video_0 appsrc name=a caps=audio/x-raw,format=S16LE,"
+                    f"rate=48000,channels=2,layout=interleaved ! m.audio_0",
+                    d, 2, {"in": frames(seed), "a": [
+                        dict(data=x[:2400], pts=0, duration=5 * 10**7),
+                        dict(data=x[2400:], pts=8 * 10**7,
+                             duration=5 * 10**7)]})
+        return read_all(out), [cont_launch(
+            f"{f} location={out}/a.asf stream={s} ! appsink name=out", d, 2)
+            for f in ("asfparse", "asfdemux") for s in ("video", "audio")]
+
+    def y4m(d, tmp, seed):
+        path = f"{tmp}/a.y4m"
+        cont_launch(f"{vcaps} ! y4menc location={path}", d, 2,
+                    {"in": frames(seed)})
+        rows = [cont_launch(f"{f} location={path} ! appsink name=out", d, 2)
+                for f in ("y4mdec",)]
+        rows += [cont_launch(f"{f} uri=file://{path} ! appsink name=out", d,
+                             2) for f in ("decodebin3", "parsebin")]
+        pb = element_factory_make("playbin3", uri=f"file://{path}")
+        pb.device = d
+        pipe, sink = pb.build_pipeline()
+        pipe.run()
+        rows.append([bc_plain(s.buffer.data) for s in drain(sink)])
+        return rows
+
+    def playsink(d, tmp, seed):
+        from gstreamer_tpu_torch import parse_launch
+        pipe = parse_launch(f"{vcaps} ! playsink name=ps", batch=2, device=d)
+        for b in frames(seed):
+            pipe.get_by_name("in").push_buffer(Buffer(**dict(b, data=tuple(
+                torch.from_numpy(p).to(d) for p in b["data"]))))
+        pipe.get_by_name("in").end_of_stream()
+        pipe.run()
+        return pipe.get_by_name("ps").rendered
+
+    def alphacolor(d, tmp, seed):
+        r = np.random.default_rng(seed)
+        x = tuple(r.integers(0, 256, (2, h, w), np.uint8) for _ in range(4))
+        return [cont_launch(
+            f"appsrc name=in caps=video/x-raw,format={f},width={w},"
+            f"height={h},framerate=25/1 ! alphacolor ! appsink name=out", d,
+            2, {"in": [dict(data=x, batch=2, pts=0, duration=4 * 10**7)]})
+            for f in VT_RGBA + ("AYUV",)]
+
+    def dtmf(d, tmp, seed):
+        t = np.arange(800) / 8000
+        x = np.concatenate([0.3 * (np.sin(2 * np.pi * 697 * t)
+                                   + np.sin(2 * np.pi * 1209 * t)),
+                            np.zeros(400)])
+        x = np.round(x * 16000).astype(np.int16)[:, None]
+        return cont_launch(
+            "appsrc name=in caps=audio/x-raw,format=S16LE,rate=8000,"
+            "channels=1,layout=interleaved ! dtmfdetect ! appsink name=out",
+            d, 1, {"in": [dict(data=x, pts=0, duration=15 * 10**7)]})
+
+    return [
+        ("h264parse", parse("h264parse", h264)),
+        ("mpegvideoparse", parse("mpegvideoparse", mpeg2)),
+        ("h265parse", parse("h265parse", h265)),
+        ("mpeg4videoparse", parse("mpeg4videoparse", mpeg4)),
+        ("av1parse", parse("av1parse", av1)),
+        ("pngparse", parse("pngparse", png)),
+        ("ivfparse", parse("ivfparse", ivf, "video/x-ivf")),
+        ("vp9parse", lambda d, tmp, seed: cont_launch(
+            "appsrc name=in caps=video/x-vp9 ! vp9parse ! appsink name=out",
+            d, 1, {"in": [dict(data=[np.frombuffer(superframe,
+                                                   np.uint8).copy()],
+                               batch=1, pts=0)]})),
+        ("vp8enc/vp8dec", vpx_guard(vpx_write("vp8"))),
+        ("vp9enc/vp9dec", vpx_guard(vpx_write("vp9"))),
+        ("vp8alphadecodebin/codecalphademux", vpx_guard(alpha_bin("vp8"))),
+        ("vp9alphadecodebin", vpx_guard(alpha_bin("vp9"))),
+        ("mpegtsmux/tsdemux", ts("mpegtsmux")),
+        ("atscmux", ts("atscmux")),
+        ("mpegpsmux/mpegpsdemux", ps("mpegpsmux")),
+        ("mplex", ps("mplex")),
+        ("hlssink2", hls("hlssink2")),
+        ("hlssink", hls("hlssink")),
+        ("dashsink", hls("dashsink", "mpd-filename={out}/m.mpd")),
+        ("flvmux/flvdemux", flv),
+        ("jpegparse/jifmux", jpegs),
+        ("asfmux/asfparse/asfdemux", asf),
+        ("y4mdec/decodebin3/parsebin/playbin3", y4m),
+        ("playsink", playsink),
+        ("alphacolor", alphacolor),
+        ("dtmfdetect", dtmf)]
+
+
+def vt_alone(seed, counters, dev, files):
+    """Each of the slice's 38 factories alone on small inputs, on the card
+    and on the CPU: samples, files and messages equal; no kernel
+    launched."""
+    import tempfile
+
+    import torch
+    from gstreamer_tpu_torch.codecs import vpx
+    from gstreamer_tpu_torch.core.element import list_factories
+    rows = vt_alone_rows(files)
+    for name, run in rows:
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            for c in counters.values():
+                c.launches = 0
+            with tempfile.TemporaryDirectory() as tmp:
+                res[d.type] = run(d, tmp, seed)
+            counts = {k: c.launches for k, c in counters.items()
+                      if c.launches}
+            require(not counts, f"{name}: launches {counts}")
+        require(res[dev.type] == res["cpu"],
+                f"{name}: the card's run differs from the CPU's")
+    mine = set(VT_FACTORIES)
+    require(len(mine) == 38 and mine <= set(list_factories()),
+            "the slice's factory list")
+    names = " ".join(n for n, _ in rows)
+    missing = {f for f in mine if f not in names}
+    require(not missing, f"factories not driven alone: {missing}")
+    print(f"vpx/transport each factory alone: CUDA == port CPU path "
+          f"(samples, files, element messages) for the {len(mine)} "
+          f"factories in {len(rows)} runs; no kernel launched; libvpx "
+          f"present: {vpx.available()} (without it the VPx runs raise alike "
+          f"on both devices)")
+
+
+def vpx_transport_phase(seed, counters, dev):
+    """VP8/VP9, the transport containers, FLV, ASF and playback_extra on
+    the card, each path with the launch counts zeroed just before it and
+    read just after: asf_mjpeg_ingest (yscale_hv once a video tick),
+    ts_audio_ingest, ps_mp3_ingest, hls_segments, flv_aac_ingest (no
+    kernel), vpx_ingest where the system libvpx is there (yscale_hv once a
+    tick), alphacolor_y4mdec (yscale_hv once a y4m tick), then each of the
+    38 factories alone.  Files are written under a temporary directory and
+    removed; the vectors are the committed files under
+    tests/data/torch_codecs/.  Returns {kernel: launches}."""
+    import ctypes.util
+    import tempfile
+
+    import torch
+    from gstreamer_tpu_torch.codecs import vpx
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    have_vpx = vpx.available()
+    print(f"vpx/transport phase: ctypes.util.find_library('vpx') = "
+          f"{ctypes.util.find_library('vpx')!r}; vpx.available() = "
+          f"{have_vpx} (the loader tries libvpx.so.7, libvpx.so, "
+          f"libvpx.so.6)" + ("" if have_vpx else "; vpx_ingest is not run "
+                             "and the VPx factories alone raise alike on "
+                             "both devices"))
+    files, dig = codec_vectors(VT_FILES)
+    with tempfile.TemporaryDirectory() as tmp:
+        asf_mjpeg_ingest(seed, dev, tmp, start, finish, peak)
+        plain, card = ts_audio_ingest(seed, dev, tmp, start, finish, peak,
+                                      files, dig)
+        ps_mp3_ingest(dev, tmp, start, finish, peak, files, plain)
+        hls_segments(dev, tmp, start, finish, peak, files, plain, card)
+        flv_aac_ingest(dev, tmp, start, finish, peak, files, dig)
+        if have_vpx:
+            vpx_ingest(dev, start, finish, peak, files, dig)
+        alphacolor_y4mdec(seed, dev, tmp, start, finish, peak)
+    vt_alone(seed, counters, dev, files)
+    print(f"vpx/transport phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8479,6 +9375,10 @@ def main() -> int:
 
     # -- Opus and AAC (host decoders) and the device monitor -----------------
     for k, n in opus_aac_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- VPx, the transport containers, FLV, ASF, playback_extra (host) ------
+    for k, n in vpx_transport_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

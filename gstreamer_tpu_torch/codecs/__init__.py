@@ -13,8 +13,8 @@ system libvorbisenc / libtheoraenc), ``mp3`` with ``_mp3_tables`` (Layers
 I-III), ``celt`` and ``silk`` with their tables (with ``native/celt.py`` /
 ``silk.py``) under ``opus`` (the stream decoder; libopus through ctypes
 for the encoder and a mode-transition packet), ``aac`` and ``sbr`` with
-their tables (AAC-LC, HE-AAC v1).  Import them as modules; nothing here
-loads a system library.
+their tables (AAC-LC, HE-AAC v1), ``vpx`` (ctypes to the system libvpx, and
+IVF).  Import them as modules; nothing here loads a system library.
 """
 
 from .png import png_decode, png_encode

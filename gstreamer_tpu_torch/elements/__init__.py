@@ -83,3 +83,13 @@ from . import xiph              # noqa: F401  (vorbisdec, vorbisenc, opusdec, op
 from . import mpegaudio         # noqa: F401  (mpg123audiodec)
 from . import aacdec            # noqa: F401  (faad)
 from . import audioparsers      # noqa: F401  (mpegaudioparse, ac3parse, flacparse, sbcparse, wavpackparse, aacparse)
+from . import videoparsers      # noqa: F401  (h264parse, mpegvideoparse, ivfparse, h265parse, mpeg4videoparse, av1parse, vp9parse, pngparse)
+from . import vpx_elements      # noqa: F401  (vp8dec, vp9dec, vp8enc, vp9enc)
+from . import codecalpha        # noqa: F401  (codecalphademux, vp8alphadecodebin, vp9alphadecodebin)
+from . import mpegts            # noqa: F401  (mpegtsmux, tsdemux, atscmux)
+from . import mpegps            # noqa: F401  (mpegpsmux, mpegpsdemux, mplex)
+from . import hlssink           # noqa: F401  (hlssink2, hlssink, dashsink)
+from . import flv               # noqa: F401  (flvmux, flvdemux)
+from . import jpegformat        # noqa: F401  (jpegparse, jifmux)
+from . import asf               # noqa: F401  (asfmux, asfparse, asfdemux)
+from . import playback_extra    # noqa: F401  (decodebin3, parsebin, playbin3, playsink, y4mdec, alphacolor, dtmfdetect)

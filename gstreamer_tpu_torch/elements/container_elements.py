@@ -33,11 +33,10 @@ elements that copy each tick's planes and samples to the host
 fourccs, A_PCM/INT/LIT, WAVE PCM) and the coded passthrough that needs no
 codec (H.264 / H.265 / AV1 / MJPEG blobs, AAC access units, Opus packets
 under an OpusHead) are ported, and so are the coded tracks of the port's
-codecs: Vorbis, Theora, MPEG audio, Opus and AAC decoded on the host by
-``codecs/`` (matroskademux, avidemux's MP3) and matroskamux's Vorbis and
-Theora encode-at-EOS modes.  Every branch that decodes or encodes through
-a codec module the port does not have yet (VP8 / VP9 and the VPx
-encode-at-EOS modes) raises ``NotImplementedError`` naming ROADMAP.md.
+codecs: Vorbis, Theora, MPEG audio, Opus, AAC and VP8 / VP9 (with the
+WebM alpha BlockAdditions) decoded on the host by ``codecs/``
+(matroskademux, avidemux's MP3) and matroskamux's Vorbis, Theora and VPx
+encode-at-EOS modes.
 """
 
 from __future__ import annotations
@@ -60,14 +59,6 @@ from ..video.info import VideoInfo
 
 VIDEO_FOURCC = {"I420": b"I420", "YUY2": b"YUY2", "UYVY": b"UYVY"}
 FOURCC_VIDEO = {v: k for k, v in VIDEO_FOURCC.items()}
-
-_ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
-
-
-def _unported(what: str):
-    """A branch that needs a codec module the port does not have yet."""
-    raise NotImplementedError(f"{what}: {_ROADMAP}")
-
 
 _CODED_VIDEO_CAPS = ("; video/x-h264, stream-format=byte-stream, "
                      "alignment=au; image/jpeg")
@@ -906,14 +897,12 @@ class MatroskaMux(AggregatorElement):
                 and self._ainfo is not None and self._acodec is None:
             self._acodec = "vorbis"
         vc = self.props.get("video-codec")
-        if vc in ("vp8", "vp9") \
+        if vc in ("theora", "vp8", "vp9") \
                 and self._vinfo is not None and not self._vcodec:
-            # the JAX package encodes them with codecs/vpx.py
-            _unported(f"matroskamux video-codec={vc} (its encoder in "
-                      f"codecs/)")
-        if vc == "theora" and self._vinfo is not None and not self._vcodec:
-            if self._vinfo.finfo.name != "I420":
-                raise ValueError("matroskamux: theora needs I420 input")
+            ok = ("I420",) if vc == "theora" else ("I420", "A420")
+            if self._vinfo.finfo.name not in ok:
+                raise ValueError(
+                    f"matroskamux: {vc} needs {'/'.join(ok)} input")
             self._venc = vc
         if self._acodec == "vorbis" and self._vcodec:
             raise ValueError("matroskamux: audio-codec=vorbis cannot "
@@ -965,8 +954,14 @@ class MatroskaMux(AggregatorElement):
                 fps = vi.fps
                 video = (ebml_uint(PIXEL_WIDTH, vi.width)
                          + ebml_uint(PIXEL_HEIGHT, vi.height))
-                codec = (ebml_str(CODEC_ID, "V_THEORA")
-                         + ebml_elem(CODEC_PRIVATE, _xiph_lace(self._thdrs)))
+                cid = {"theora": "V_THEORA", "vp8": "V_VP8",
+                       "vp9": "V_VP9"}[self._venc]
+                codec = ebml_str(CODEC_ID, cid)
+                if self._venc == "theora":
+                    codec += ebml_elem(CODEC_PRIVATE,
+                                       _xiph_lace(self._thdrs))
+                elif vi.finfo.name == "A420":
+                    codec += ebml_uint(MAX_BLOCK_ADDITION_ID, 1)
                 entries += ebml_elem(
                     TRACK_ENTRY,
                     ebml_uint(TRACK_NUMBER, 1) + ebml_uint(TRACK_UID, 1)
@@ -1213,6 +1208,34 @@ class MatroskaMux(AggregatorElement):
                 ts = i * 1000 * fps.denom // fps.num
                 key = bool(pkt) and not (pkt[0] & 0x40)
                 blocks.append((ts, 1, 0x80 if key else 0x00, pkt))
+        elif self._venc in ("vp8", "vp9") and self._vraw:
+            from ..codecs import vpx as pvpx
+            vi = self._vinfo
+            fps = vi.fps
+            has_alpha = len(self._vraw[0]) == 4
+            color = [f[:3] for f in self._vraw]
+            pkts = pvpx.encode_frames(
+                self._venc, color, vi.width, vi.height,
+                (fps.num, fps.denom))
+            apkts = None
+            if has_alpha:
+                grey = [(f[3],
+                         np.full(((vi.height + 1) // 2,
+                                  (vi.width + 1) // 2), 128,
+                                 np.uint8),
+                         np.full(((vi.height + 1) // 2,
+                                  (vi.width + 1) // 2), 128,
+                                 np.uint8)) for f in self._vraw]
+                apkts = [p for p, _ in pvpx.encode_frames(
+                    self._venc, grey, vi.width, vi.height,
+                    (fps.num, fps.denom))]
+            for i, (pkt, key) in enumerate(pkts):
+                ts = i * 1000 * fps.denom // fps.num
+                extra = (apkts[i] if apkts and i < len(apkts)
+                         else None)
+                blocks.append((ts, 1, 0x80 if key else 0x00, pkt)
+                              + ((extra,) if extra is not None
+                                 else ()))
         elif self._vinfo is not None and self._vraw:
             fps = self._vinfo.fps
             for i, raw in enumerate(self._vraw):
@@ -1246,10 +1269,21 @@ class MatroskaMux(AggregatorElement):
             cts = blocks[pos][0]
             body = ebml_uint(CLUSTER_TS, cts)
             while pos < len(blocks) and blocks[pos][0] - cts < 1000:
-                ts, tno, flags, payload = blocks[pos]
-                body += ebml_elem(
-                    SIMPLE_BLOCK, ebml_size(tno) + struct.pack(">h", ts - cts)
-                    + bytes([flags]) + payload)
+                entry = blocks[pos]
+                ts, tno, flags, payload = entry[:4]
+                raw = (ebml_size(tno) + struct.pack(">h", ts - cts)
+                       + bytes([flags]) + payload)
+                if len(entry) > 4:           # alpha BlockAdditional
+                    more = ebml_elem(
+                        BLOCK_MORE,
+                        ebml_uint(BLOCK_ADD_ID, 1)
+                        + ebml_elem(BLOCK_ADDITIONAL, entry[4]))
+                    body += ebml_elem(
+                        BLOCK_GROUP,
+                        ebml_elem(BLOCK, raw)
+                        + ebml_elem(BLOCK_ADDITIONS, more))
+                else:
+                    body += ebml_elem(SIMPLE_BLOCK, raw)
                 pos += 1
             self._file.write(ebml_elem(CLUSTER, body))
 
@@ -1590,8 +1624,10 @@ class MatroskaDemux(MultiStreamSourceElement):
                 self._loaded = True
                 return
             if codec in ("V_VP8", "V_VP9"):
-                # decoded by codecs/vpx.py in the JAX package
-                _unported(f"matroskademux {codec} (its decoder in codecs/)")
+                self._load_vpx(track, fd,
+                               "vp8" if codec == "V_VP8" else "vp9")
+                self._loaded = True
+                return
             if codec != "V_UNCOMPRESSED":
                 raise ValueError("matroskademux: unsupported codec "
                                  f"{codec!r}")
@@ -1670,6 +1706,41 @@ class MatroskaDemux(MultiStreamSourceElement):
         pcm, rate, ch = paac.decode_raw(priv, self._payloads())
         self._adata = np.asarray(pcm, np.float32)
         self._info = AudioInfo(format="F32LE", rate=rate, channels=ch)
+
+    def _load_vpx(self, track: dict, frame_dur: int,
+                  codec: str) -> None:
+        """V_VP8 / V_VP9 (WebM tracks): one packet per block, no
+        CodecPrivate; decoded by the libvpx-backed codecs/vpx.py.
+        BlockAdditions carry an alpha VP8/VP9 stream (the WebM
+        transparency convention; codec-alpha in the reference) —
+        decoded as a second stream whose luma becomes the A plane
+        (matroska-demux.c vp8/vp9 + codecalpha handling)."""
+        from ..codecs import vpx as pvpx
+        self._frames = pvpx.decode_packets(codec, self._payloads())
+        if not self._frames:
+            raise ValueError("matroskademux: empty vpx track")
+        fmt = "I420"
+        if any(a is not None for a in self._block_adds):
+            adec = pvpx.VpxDecoder(codec)
+            alphas = []
+            for (off, size), frame in zip(
+                    (a or (0, 0) for a in self._block_adds),
+                    self._frames):
+                if size:
+                    outs = adec.decode(self._data[off:off + size])
+                    alphas.append(outs[0][0] if outs
+                                  else np.full_like(frame[0], 255))
+                else:
+                    alphas.append(np.full_like(frame[0], 255))
+            self._frames = [f + (a,) for f, a in
+                            zip(self._frames, alphas)]
+            fmt = "A420"
+        h, w = self._frames[0][0].shape
+        fps = (Fraction(1_000_000_000, frame_dur) if frame_dur
+               else Fraction(30, 1))
+        self._info = VideoInfo(format=fmt,
+                               width=track.get("width", w),
+                               height=track.get("height", h), fps=fps)
 
     def _load_theora(self, track: dict, frame_dur: int) -> None:
         """V_THEORA: xiph-laced headers in CodecPrivate, one theora

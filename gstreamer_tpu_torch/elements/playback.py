@@ -14,9 +14,9 @@ A port of the JAX package's ``elements/playback.py``.  The internal
 pipelines run on the element's device (the outer pipeline's, set at its
 compile; set ``device`` on a playbin before ``build_pipeline*``).  Where
 the JAX package would autoplug a demuxer, parser or decoder that the port
-does not have yet (the libav decoders, tsdemux, flvdemux, ...), the
-port raises ``NotImplementedError`` naming ROADMAP.md
-instead of passing the coded stream through.
+does not have yet (the libav decoders, ...), the port raises
+``NotImplementedError`` naming ROADMAP.md instead of passing the coded
+stream through.
 """
 
 from __future__ import annotations

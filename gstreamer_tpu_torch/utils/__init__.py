@@ -1,1 +1,2 @@
-"""Host utilities of the port: category logging and the dot dump."""
+"""Host utilities of the port: category logging, the dot dump, typefind
+and the MPEG-TS sections (``mpegts_sections``)."""

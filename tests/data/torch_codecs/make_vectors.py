@@ -7,10 +7,11 @@ JAX package, which writes the digests):
 
     JAX_PLATFORMS=cpu python tests/data/torch_codecs/make_vectors.py [GROUP ...]
 
-GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors) or
-``opus_aac`` (the Opus/AAC phase's); without one it writes both.  A group
+GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors),
+``opus_aac`` (the Opus/AAC phase's) or ``vpx`` (the VPx/transport phase's;
+it needs the system libvpx); without one it writes all three.  A group
 rewrites its files and its entries of ``digests.json`` and keeps the
-other's.  It writes, beside itself, with fixed seeds:
+others'.  It writes, beside itself, with fixed seeds:
 
 * ``theora_1080p.ogv``: 8 frames of 1920x1080 I420 at 25/1 through the
   port's ``theoraenc`` at quality 32 (every packet fits one Ogg page);
@@ -43,7 +44,13 @@ other's.  It writes, beside itself, with fixed seeds:
   port's ``qtmux``;
 * the digests of the PCM the JAX package's elements decode from each
   (``opusdec``, ``aacparse ! faad``, ``qtdemux``), with the Opus
-  packets' count by route of ``HybridOpusDecoder``.
+  packets' count by route of ``HybridOpusDecoder``;
+* ``vp8_1080p.ivf``: the 8 frames of ``theora_1080p.ogv`` through the
+  port's ``vp8enc location=`` (libvpx at its default target bitrate);
+* ``vp9_1080p.webm``: the same frames through the port's ``matroskamux
+  video-codec=vp9``;
+* the sha256 of every plane the JAX package's ``codecs/vpx.py`` decodes
+  from each (``vpx_ivf``, ``vpx_webm``).
 """
 
 import hashlib
@@ -67,6 +74,7 @@ OPUS_BITRATE, VOICE_BITRATE, AAC_BITRATE, HEAAC_BITRATE = (
     64000, 20000, 128000, 64000)
 OPUS_AAC_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
                   "heaac_10s.aac", "aac_10s.m4a")
+VPX_FILES = ("vp8_1080p.ivf", "vp9_1080p.webm")
 
 
 def frames(w=W, h=H, n=FRAMES):
@@ -389,8 +397,49 @@ def write_opus_aac_digests(digests):
         {n: os.path.getsize(at(n)) for n in OPUS_AAC_FILES})
 
 
+def write_vpx_vectors():
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs import vpx
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    if not vpx.available():
+        raise RuntimeError("the system libvpx is unavailable")
+    fr = frames()
+    dur = 10**9 // FPS
+    vcaps = (f"appsrc name=v caps=video/x-raw,format=I420,width={W},"
+             f"height={H},framerate={FPS}/1")
+    for desc in (f"{vcaps} ! vp8enc location={os.path.join(HERE, VPX_FILES[0])}"
+                 f" ! fakesink",
+                 f"matroskamux name=m location="
+                 f"{os.path.join(HERE, VPX_FILES[1])} video-codec=vp9 ! "
+                 f"fakesink {vcaps} ! m.video_0"):
+        pipe = parse_launch(desc, device="cpu")
+        for k in range(FRAMES):
+            pipe.get_by_name("v").push_buffer(Buffer(
+                data=tuple(torch.from_numpy(p[None]) for p in fr[k]),
+                pts=k * dur, duration=dur))
+        pipe.get_by_name("v").end_of_stream()
+        pipe.run()
+
+
+def write_vpx_digests(digests):
+    from gstreamer_tpu.codecs import vpx
+    from gstreamer_tpu.elements.container_elements import MatroskaDemux
+    with open(os.path.join(HERE, VPX_FILES[0]), "rb") as f:
+        codec, _w, _h, _fps, packets = vpx.parse_ivf(f.read())
+    mkv = MatroskaDemux(location=os.path.join(HERE, VPX_FILES[1]),
+                        stream="video")
+    mkv._load()
+    digests.update({
+        "vpx_ivf": plane_digests(vpx.decode_packets(codec, packets)),
+        "vpx_webm": plane_digests(mkv._frames)})
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(os.path.join(HERE, n)) for n in VPX_FILES})
+
+
 GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
-          "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests)}
+          "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests),
+          "vpx": (write_vpx_vectors, write_vpx_digests)}
 
 
 if __name__ == "__main__":

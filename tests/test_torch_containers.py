@@ -329,28 +329,20 @@ def test_matroska_aac_passthrough(tmp_path):
     ("", "appsrc name=a caps=audio/x-opus,rate=48000,channels=2 ! "
          "m.audio_0")])
 def test_matroskamux_codec_modes_raise(extra, src, tmp_path):
-    """The VPx encode-at-EOS modes need the JAX package's vpx module: the
-    port raises.  The Vorbis and Theora modes are ported since the codec
-    slice, Opus passthrough (the OpusHead) since the Opus slice (before
-    which they raised): the same file as the JAX package's."""
-    if extra in ("audio-codec=vorbis ", "video-codec=theora "):
+    """The Vorbis and Theora modes are ported since the codec slice, Opus
+    passthrough (the OpusHead) since the Opus slice and the VPx
+    encode-at-EOS modes since the VPx slice (before which they raised):
+    the same file as the JAX package's."""
+    if "x-opus" not in src:
         pushes = ({"a": apushes(1920)} if "vorbis" in extra
                   else {"v": vpushes("I420")})
         write_both(f"matroskamux name=m location={{loc}} {extra}! fakesink "
                    f"{src}", pushes, tmp_path, "mkv", batch=2)
         return
-    if "x-opus" in src:
-        packets = [np.random.default_rng(k).integers(0, 256, 30 + k,
-                                                    np.uint8)
-                   for k in range(4)]
-        write_both(f"matroskamux name=m location={{loc}} ! fakesink {src}",
-                   {"a": blob_pushes(packets)}, tmp_path, "mkv")
-        return
-    p = gstreamer_tpu_torch.parse_launch(
-        f"matroskamux name=m location={tmp_path / 'x.mkv'} {extra}! "
-        f"fakesink {src}", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        p.compile()
+    packets = [np.random.default_rng(k).integers(0, 256, 30 + k, np.uint8)
+               for k in range(4)]
+    write_both(f"matroskamux name=m location={{loc}} ! fakesink {src}",
+               {"a": blob_pushes(packets)}, tmp_path, "mkv")
 
 
 def _mkv_with_track(path, codec, kind):
@@ -378,11 +370,10 @@ def _mkv_with_track(path, codec, kind):
     ("A_MPEG/L3", "audio"), ("V_THEORA", "video"), ("V_VP8", "video"),
     ("V_VP9", "video")])
 def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
-    """A one-block track of each coded kind.  VPx needs the JAX package's
-    codec module: the port raises naming ROADMAP.md.  Vorbis, MPEG audio
-    and Theora are ported since the codec slice, Opus and AAC since the
-    Opus slice (before which they raised): this track (no CodecPrivate, one
-    byte) fails as in the JAX package."""
+    """A one-block track of each coded kind.  Vorbis, MPEG audio and Theora
+    are ported since the codec slice, Opus and AAC since the Opus slice,
+    VP8 and VP9 since the VPx slice (before which they raised): this track
+    (no CodecPrivate, one byte) fails as in the JAX package."""
     path = tmp_path / "x.mkv"
     _mkv_with_track(path, codec, kind)
     tracks, blocks, _ = tce._parse_matroska(str(path))
@@ -390,14 +381,9 @@ def test_matroskademux_codec_tracks_raise(codec, kind, tmp_path):
     for desc in (f"matroskademux location={path} stream={kind} ! fakesink",
                  f"matroskademux name=d location={path} d.{kind}_0 ! "
                  f"fakesink"):
-        if codec in ("A_VORBIS", "A_MPEG/L3", "V_THEORA", "A_OPUS",
-                     "A_AAC"):
-            with pytest.raises(ValueError) as ref:
-                jparse_launch(desc).compile()
-            with pytest.raises(ValueError, match=re.escape(str(ref.value))):
-                gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError) as ref:
+            jparse_launch(desc).compile()
+        with pytest.raises(ValueError, match=re.escape(str(ref.value))):
             gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
 
 

@@ -81,6 +81,15 @@ CODEC_FACTORIES = (
     "mpg123audiodec")
 # the Opus and AAC slice (aacparse frames an ADTS file for faad)
 OPUS_AAC_FACTORIES = ("opusdec", "opusenc", "faad", "aacparse")
+# VPx, the video parsers, the transport containers and playback_extra
+VPX_TRANSPORT_FACTORIES = (
+    "h264parse", "mpegvideoparse", "ivfparse", "h265parse", "mpeg4videoparse",
+    "av1parse", "vp9parse", "pngparse", "vp8dec", "vp9dec", "vp8enc",
+    "vp9enc", "codecalphademux", "vp8alphadecodebin", "vp9alphadecodebin",
+    "mpegtsmux", "tsdemux", "atscmux", "mpegpsmux", "mpegpsdemux", "mplex",
+    "hlssink2", "hlssink", "dashsink", "flvmux", "flvdemux", "jpegparse",
+    "jifmux", "asfmux", "asfparse", "asfdemux", "decodebin3", "parsebin",
+    "playbin3", "playsink", "y4mdec", "alphacolor", "dtmfdetect")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -118,16 +127,17 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 342
+    assert len(telement._REGISTRY) == 380
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
     assert len(set(CODEC_FACTORIES)) == 16
     assert len(set(OPUS_AAC_FACTORIES)) == 4
+    assert len(set(VPX_TRANSPORT_FACTORIES)) == 38
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
         | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
-        <= set(telement._REGISTRY)
+        | set(VPX_TRANSPORT_FACTORIES) <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():
@@ -163,25 +173,6 @@ def _mkv_track(path, codec, kind, private=b""):
         + e.ebml_id(e.SEGMENT) + b"\xff"
         + e.ebml_elem(e.TRACKS, e.ebml_elem(e.TRACK_ENTRY, entry))
         + e.ebml_elem(e.CLUSTER, e.ebml_uint(e.CLUSTER_TS, 0) + block))
-
-
-@pytest.mark.parametrize("case", [
-    "matroskademux V_VP8", "matroskademux V_VP9",
-    "matroskamux video-codec=vp8", "matroskamux video-codec=vp9"])
-def test_vpx_opus_aac_branches_still_raise(case, tmp_path):
-    """The VPx branches wait for their slice and raise NotImplementedError
-    naming ROADMAP.md.  The Opus and AAC branches decode since the Opus
-    slice (tests/test_torch_opus_aac_containers.py, test_torch_opus.py)."""
-    factory, what = case.split(" ", 1)
-    if factory == "matroskademux":
-        _mkv_track(tmp_path / "x.mkv", what, "video")
-        desc = (f"matroskademux location={tmp_path / 'x.mkv'} "
-                f"stream=video ! fakesink")
-    else:
-        desc = (f"matroskamux name=m location={tmp_path / 'x.mkv'} {what} ! "
-                f"fakesink {VSRC.format(n='v')} ! m.video_0")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gstreamer_tpu_torch.parse_launch(desc, device="cpu").compile()
 
 
 @pytest.mark.parametrize("desc", [
