@@ -378,6 +378,49 @@ before it and read just after:
    aacparse alone, the card equal to the CPU (opusenc raises alike on both
    where the system libopus is absent).
 
+19. VP8/VP9 and the transport containers (vpx_transport_phase): ASF with
+   MJPEG, MPEG-TS / PS audio, HLS segments, FLV, VPx where the system
+   libvpx is there, alphacolor with y4mdec, then the 38 factories alone.
+
+20. RTP, UDP/TCP, RTSP and pcapparse (rtp_rtsp_phase; host code, the card
+   decoding; the JPEG files and the capture are written under a temporary
+   directory).  Its first line is a loopback probe (one UDP datagram to
+   itself on 127.0.0.1, one TCP pair); the socket items run only where it
+   found both:
+
+  rtsp_mjpeg_ingest  32 1080p panning frames through jpegenc on the card
+                    into JPEG files; the port's RTSPServer mounts
+                    multifilesrc ! rtpjpegpay (host only) and rtspsrc
+                    protocols=tcp ! rtpjpegdepay ! jpegdec ! RGB 224x224 at
+                    batch 16 reads it: yscale_hv once a tick that gives
+                    frames, the RGB multifilesrc ! jpegdec's of the files
+                    (itself the port's CPU run's)
+  rtsp_mjpeg_udp    the same camera over UDP with the server's rate
+                    control at 25/1 (imagesequencesrc): packets received
+                    and lost and the frames whole printed, every whole frame
+                    equal to its frame of the TCP run
+  rtcp_session      the server's SRs at rtspsrc, rtspsrc's RRs at the server
+  pcap_mjpeg_replay the JPEGs through rtpjpegpay into Ethernet/IPv4/UDP
+                    records of a .pcap file, read back by filesrc !
+                    pcapparse dst-port=5004 caps=<RTP/JPEG> ! rtpjpegdepay !
+                    jpegdec: yscale_hv once a tick that gives frames, the
+                    same RGB
+  rtp_l16_asr       10 s of 48 kHz stereo through rtpL16pay ! udpsink and
+                    udpsrc ! rtpL16depay ! the ASR chain, sender and
+                    receiver alternated: the samples those sent, the ASR
+                    output the port's CPU run's; rtpL24pay ! rtpL24depay of
+                    the same in one process
+  rtp_vraw_uyvy     16 1080p frames to UYVY on the card, rtpvrawpay
+                    mtu=1400 ! rtpvrawdepay (the frames back whole), RGB
+                    224x224 by the generic route (no kernel)
+  rtp_coded_passthrough  vp8_1080p.ivf through ivfparse ! rtpvp8pay !
+                    rtpvp8depay (ivfparse's frames back); opus_10s.opus's
+                    packets through rtpopuspay ! udpsink and udpsrc !
+                    rtpopusdepay, decoded to opusdec's PCM of the file, the
+                    ASR chain over it the port's CPU run's
+
+   then each of the 60 factories alone, the card equal to the CPU.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -6502,17 +6545,27 @@ def cont_counted(module, name, calls):
 
 
 @contextlib.contextmanager
-def cont_timed(obj, attr, spent, key):
+def cont_timed(obj, attr, spent, key, count=None):
     """While the block runs, add to spent[key] the host seconds of each
-    call of obj.attr."""
+    call of obj.attr (in whichever thread calls it); with `count(args,
+    result)`, add its value to spent[key + " packets"] too."""
+    import threading
     fn = getattr(obj, attr)
+    lock = threading.Lock()
 
     def timed(*a, **k):
         t0 = time.perf_counter()
+        out = None
         try:
-            return fn(*a, **k)
+            out = fn(*a, **k)
+            return out
         finally:
-            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            with lock:
+                spent[key] = spent.get(key, 0.0) + dt
+                if count is not None:
+                    spent[key + " packets"] = spent.get(
+                        key + " packets", 0) + count(a, out)
     setattr(obj, attr, timed)
     try:
         yield spent
@@ -7181,9 +7234,11 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
     """One read path on the card: parse and start it (the decode of a
     collapsed decoder happens there, timed), then tick to EOS under
     torch.profiler, the launch counts zeroed just before and read just
-    after (`want`).  Returns the sinks' samples ("v", "a") and its numbers:
-    ticks, host seconds of decoding, set-up, device busy ms and idle share
-    a tick, bytes copied H2D and D2H a tick, peak memory, launches."""
+    after (`want`, or `want(fed)` of the frames each tick gave).  Returns
+    the sinks' samples ("v", "a") and its numbers: ticks, host seconds of
+    decoding, set-up, device busy ms and idle share a tick, bytes copied
+    H2D and D2H a tick, peak memory, launches, and each tick's host
+    seconds and frames given (`tick_secs`, `fed`)."""
     import contextlib as cl
 
     from torch.profiler import ProfilerActivity, profile
@@ -7197,7 +7252,7 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
         pipe = parse_launch(desc, batch=batch, device=dev)
         pipe.set_state("playing")
         setup = time.perf_counter() - t0
-    out, secs = {"v": [], "a": []}, []
+    out, secs, fed = {"v": [], "a": []}, [], []
     prof_cm = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if cuda else cl.nullcontext())
@@ -7207,13 +7262,16 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
             sync(dev)
             t0 = time.perf_counter()
             more = pipe.tick()
+            had = {k: len(v) for k, v in out.items()}
             cont_sinks(pipe, out)
             sync(dev)
             secs.append(time.perf_counter() - t0)
+            fed.append(sum(x.buffer.batch for k, v in out.items()
+                           for x in v[had[k]:]))
             if not more:
                 break
     pipe.set_state("null")
-    launches = finish(name, want)
+    launches = finish(name, want(fed) if callable(want) else want)
     n = len(secs)
     wall = sum(secs) / n * 1e3
     busy = union_busy(prof) / n if cuda else 0.0
@@ -7221,7 +7279,7 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
         ticks=n, secs=sum(secs), setup=setup, decode=spent.get("decode", 0.0),
         wall=wall, busy=busy, idle=max(0.0, 1.0 - busy / wall),
         h2d=counts["h2d"] / n, d2h=counts["d2h"] / n, mem=peak(base),
-        launches=launches)
+        launches=launches, tick_secs=secs, fed=fed)
 
 
 def codec_report(name, r, units, what):
@@ -8951,16 +9009,13 @@ def vt_alone_rows(files):
         ("dtmfdetect", dtmf)]
 
 
-def vt_alone(seed, counters, dev, files):
-    """Each of the slice's 38 factories alone on small inputs, on the card
-    and on the CPU: samples, files and messages equal; no kernel
-    launched."""
+def alone_runs(rows, counters, dev, seed):
+    """Each (name, run(d, tmp, seed)) of `rows` on `dev` and on the CPU,
+    each in a temporary directory of its own: the same result, and no
+    kernel launched."""
     import tempfile
 
     import torch
-    from gstreamer_tpu_torch.codecs import vpx
-    from gstreamer_tpu_torch.core.element import list_factories
-    rows = vt_alone_rows(files)
     for name, run in rows:
         res = {}
         for d in (dev, torch.device("cpu")):
@@ -8973,6 +9028,16 @@ def vt_alone(seed, counters, dev, files):
             require(not counts, f"{name}: launches {counts}")
         require(res[dev.type] == res["cpu"],
                 f"{name}: the card's run differs from the CPU's")
+
+
+def vt_alone(seed, counters, dev, files):
+    """Each of the slice's 38 factories alone on small inputs, on the card
+    and on the CPU: samples, files and messages equal; no kernel
+    launched."""
+    from gstreamer_tpu_torch.codecs import vpx
+    from gstreamer_tpu_torch.core.element import list_factories
+    rows = vt_alone_rows(files)
+    alone_runs(rows, counters, dev, seed)
     mine = set(VT_FACTORIES)
     require(len(mine) == 38 and mine <= set(list_factories()),
             "the slice's factory list")
@@ -9046,6 +9111,1245 @@ def vpx_transport_phase(seed, counters, dev):
         alphacolor_y4mdec(seed, dev, tmp, start, finish, peak)
     vt_alone(seed, counters, dev, files)
     print(f"vpx/transport phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+RR_CAM = (1920, 1080, 32, 16)       # the camera: width, height, frames, batch
+RR_UYVY = 16                        # rtp_vraw_uyvy's 1080p frames
+RR_SECONDS = 10                     # rtp_l16_asr's 48 kHz stereo
+RR_PUSH = 4800                      # frames a sender tick: 100 ms, 19.2 KB
+RR_MTU = 1400
+RR_WAIT = "timeout=1.0 eos-timeouts=3"
+RR_DPORT = 5004                     # the capture's destination port
+RR_RTP_JPEG = ("application/x-rtp,media=video,encoding-name=JPEG,"
+               "clock-rate=90000,payload=26")
+RR_ALONE = (64, 48, 4)              # width, height, frames of a factory alone
+RR_MODULES = tuple(f"gstreamer_tpu_torch.net.{m}" for m in (
+    "rtp", "rtcp", "rtp_hdrext", "transport", "rtp_raw_audio", "rtpmanager",
+    "rtp_payloaders", "sdp", "rtsp", "rtsp_auth", "rtsp_server")) + (
+    "gstreamer_tpu_torch.elements.dtmf_icy",
+    "gstreamer_tpu_torch.elements.pcapparse")
+
+
+def rr_probe():
+    """What loopback allows here: one UDP datagram to itself on
+    127.0.0.1, and one TCP pair; each OSError is reported, not raised."""
+    import socket
+    got = {}
+    try:
+        a = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        a.settimeout(2.0)
+        a.bind(("127.0.0.1", 0))
+        a.sendto(b"probe", a.getsockname())
+        got["udp"] = a.recvfrom(64)[0] == b"probe"
+        a.close()
+    except OSError as e:
+        got["udp"] = False
+        got["udp_error"] = repr(e)
+    try:
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.settimeout(2.0)
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        cli = socket.create_connection(srv.getsockname(), timeout=2.0)
+        conn, _ = srv.accept()
+        cli.sendall(b"probe")
+        got["tcp"] = conn.recv(64) == b"probe"
+        for s in (cli, conn, srv):
+            s.close()
+    except OSError as e:
+        got["tcp"] = False
+        got["tcp_error"] = repr(e)
+    return got
+
+
+def rr_packets_out(args, out):
+    d = None if out is None else out.data
+    return len(d) if isinstance(d, list) else 0
+
+
+def rr_packets_in(args, out):
+    """Packets a depayloader took (its buffer, the last argument): a
+    list's items, a stacked array's rows (pcapparse stacks packets of one
+    size), or one."""
+    d = None if not args or args[-1] is None else args[-1].data
+    if d is None:
+        return 0
+    if isinstance(d, list):
+        return len(d)
+    return d.shape[0] if getattr(d, "ndim", 1) > 1 else 1
+
+
+def rr_rates(spent):
+    """The packets and packets/s of each element cont_timed counted."""
+    return "; ".join(
+        f"{k} {spent[k + ' packets']} packets, "
+        f"{spent[k + ' packets'] / spent[k]:.0f} packets/s" if spent[k] else
+        f"{k} {spent[k + ' packets']} packets"
+        for k in sorted(spent) if k + " packets" in spent)
+
+
+def rr_pkt_bytes(x):
+    import numpy as np
+    import torch
+    if isinstance(x, (bytes, bytearray)):
+        return bytes(x)
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).tobytes()
+
+
+def rr_jpegs(seed, dev, tmp):
+    """RR_CAM's panning frames through the port's jpegenc on the card, as
+    files cam_%05d.jpg: 4:2:0 baseline (rtpjpegpay's type 1).  Returns
+    (their directory, the JPEGs)."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.elements.jpegformat import parse_sof, \
+        walk_markers
+    w, h, n, batch = RR_CAM
+    planes = vt_panning(n, w, h, seed)
+    pipe = parse_launch(f"appsrc name=in caps=video/x-raw,format=I420,width="
+                        f"{w},height={h},framerate={CONT_FPS}/1 ! jpegenc ! "
+                        "appsink name=out", batch=batch, device=dev)
+    for b in vt_pushes(planes, batch):
+        pipe.get_by_name("in").push_buffer(Buffer(**dict(b, data=tuple(
+            torch.from_numpy(p).to(dev) for p in b["data"]))))
+    pipe.get_by_name("in").end_of_stream()
+    t0 = time.perf_counter()
+    pipe.run()
+    secs = time.perf_counter() - t0
+    jpgs = [rr_pkt_bytes(x) for s in drain(pipe.get_by_name("out"))
+            for x in (s.buffer.data if isinstance(s.buffer.data, list)
+                      else [s.buffer.data])]
+    d = os.path.join(tmp, "cam")
+    os.makedirs(d)
+    for k, b in enumerate(jpgs):
+        markers, _scan, complete = walk_markers(b)
+        sof = [parse_sof(p) for m, _o, p in markers if m == 0xC0]
+        require(complete and sof and sof[0]["width"] == w
+                and [(c["h"], c["v"]) for c in sof[0]["components"]]
+                == [(2, 2), (1, 1), (1, 1)],
+                f"jpegenc's frame {k} is no 4:2:0 baseline JPEG of {w}x{h}")
+        with open(os.path.join(d, f"cam_{k:05d}.jpg"), "wb") as f:
+            f.write(b)
+    require(len(jpgs) == n, f"jpegenc gave {len(jpgs)} of {n} JPEGs")
+    print(f"  rtp/rtsp: jpegenc on the card wrote {n} {w}x{h} 4:2:0 "
+          f"baseline JPEGs ({sum(map(len, jpgs)) / n / 1024:.1f} KiB a frame "
+          f"on average) at {n / secs:.1f} frames/s")
+    return d, jpgs
+
+
+def rr_drive(name, desc, dev, start, finish, peak, timers=(),
+             batch=RR_CAM[3]):
+    """codec_path of `desc` with `timers` (context managers) entered around
+    it all, yscale_hv wanted once in each tick that gave frames.  Its
+    numbers gain those of the ticks that gave frames: their count, the
+    frames, their host seconds (`work`), device busy ms a tick and idle
+    share over them, H2D a tick; `idle_run` is the idle share of the whole
+    run, the end-of-stream wait in it.  Returns (the "v" samples,
+    numbers)."""
+    with contextlib.ExitStack() as stack:
+        for t in timers:
+            stack.enter_context(t)
+        pipe, out, r = codec_path(
+            name, desc, batch, dev, start, finish, peak,
+            lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, ())
+    n, fed = r["ticks"], r["fed"]
+    fed_ticks = sum(1 for f in fed if f)
+    work = sum(t for t, f in zip(r["tick_secs"], fed) if f)
+    busy = r["busy"] * n                  # ms over the run
+    r.update(pipe=pipe, fed_ticks=fed_ticks, frames=sum(fed), work=work,
+             busy=busy / max(fed_ticks, 1), idle_run=r["idle"],
+             idle=max(0.0, 1.0 - busy / max(work * 1e3, 1e-9)),
+             h2d=r["h2d"] * n / max(fed_ticks, 1))
+    return out["v"], r
+
+
+def rr_report(name, r, what="frames"):
+    print(f"e2e {name}: {r['frames'] / r['work']:.1f} {what}/s over the "
+          f"{r['fed_ticks']} ticks that gave {what} (of {r['ticks']}), "
+          f"{r['frames'] / (r['setup'] + r['secs']):.1f} {what}/s with the "
+          f"set-up ({r['setup'] * 1e3:.3f} ms) and the end-of-stream wait "
+          f"({(r['secs'] - r['work']) * 1e3:.1f} ms); device busy "
+          f"{r['busy']:.3f} ms a tick that gave {what}, idle share "
+          f"{r['idle']:.3f} over those ticks and {r['idle_run']:.3f} of the "
+          f"whole run (traced); {r['h2d'] / 2**20:.3f} MiB H2D a tick that "
+          f"gave {what}; peak memory {r['mem']:.1f} MiB; launches "
+          f"{r['launches']}")
+
+
+def rr_rgb_ref(jdir, dev):
+    """multifilesrc ! jpegdec of the camera's files to RGB 224x224 at
+    batch RR_CAM[3] on `dev`."""
+    w, h, _n, batch = RR_CAM
+    return cont_joined(codec_run(
+        f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+        f"framerate={CONT_FPS}/1 ! jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}",
+        dev, batch, "v"))
+
+
+def rr_caps(w, h):
+    """jpegdec learns no size from rtpjpegdepay's caps (in either package):
+    the camera's caps name it."""
+    return f"video/x-raw,format=I420,width={w},height={h},framerate={CONT_FPS}/1"
+
+
+def rr_server(dev, launch, rate_control):
+    from gstreamer_tpu_torch.net.rtsp_server import (RTSPMediaFactory,
+                                                     RTSPServer)
+    srv = RTSPServer(service=0)
+    srv.mount_points.add_factory("/cam", RTSPMediaFactory(
+        launch, rate_control=rate_control, device=dev))
+    return srv, srv.attach()
+
+
+def rr_cam_launch(jdir, src="multifilesrc"):
+    """The camera's media factory: the JPEG files through rtpjpegpay.
+    imagesequencesrc stamps each file with its duration at 25/1, which the
+    server's rate control sleeps; multifilesrc gives none."""
+    rate = (f"framerate={CONT_FPS}/1" if src == "imagesequencesrc" else
+            "")
+    return (f"( {src} location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+            f"framerate={CONT_FPS}/1 {rate} ! rtpjpegpay name=pay0 pt=26 )")
+
+
+def rtsp_mjpeg_ingest(dev, jdir, ref, start, finish, peak):
+    """The camera over RTSP, TCP interleaved: the server streams the JPEG
+    files through rtpjpegpay (host only, no rate control); rtspsrc !
+    rtpjpegdepay ! jpegdec ! videoconvertscale to RGB 224x224 at batch 16
+    on the card, yscale_hv once a tick that gives frames; the RGB equals
+    multifilesrc ! jpegdec of the same files.  Returns the RGB."""
+    from gstreamer_tpu_torch.elements import image_codecs
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    from gstreamer_tpu_torch.net import rtsp_server as rs
+    w, h, n, _batch = RR_CAM
+    srv, port = rr_server(dev, rr_cam_launch(jdir), False)
+    stats, spent = {}, {}
+    try:
+        out, r = rr_drive(
+            "rtsp_mjpeg_ingest",
+            f"rtspsrc name=src location=rtsp://127.0.0.1:{port}/cam "
+            f"protocols=tcp {RR_WAIT} ! rtpjpegdepay ! jpegdec ! "
+            f"{rr_caps(w, h)} ! {CONT_RGB}", dev, start, finish, peak,
+            (cont_timed(rp.RtpJpegPay, "host_process", stats,
+                        "rtpjpegpay", rr_packets_out),
+             cont_timed(rp.RtpJpegDepay, "host_process", stats,
+                        "rtpjpegdepay", rr_packets_in),
+             cont_timed(rs.RTSPSrc, "start", spent, "rtsp"),
+             cont_timed(image_codecs.JpegDec, "_decode_all", spent,
+                        "decode")))
+    finally:
+        srv.shutdown()
+    rgb = cont_joined(out)
+    require(rgb is not None and rgb[0].shape[0] == n and cont_equal(rgb, ref),
+            f"rtsp_mjpeg_ingest: {0 if rgb is None else rgb[0].shape[0]} "
+            f"frames, or RGB other than multifilesrc ! jpegdec's")
+    src = r["pipe"].get_by_name("src")
+    rr_report("rtsp_mjpeg_ingest", r)
+    print(f"  rtsp_mjpeg_ingest: {n} frames == multifilesrc ! jpegdec's RGB; "
+          f"RTSP set-up (OPTIONS to PLAY) {spent.get('rtsp', 0) * 1e3:.3f} "
+          f"ms; yscale_hv {r['launches'].get('yscale_hv', 0)} in the "
+          f"{r['fed_ticks']} ticks that gave frames; host decode "
+          f"{spent.get('decode', 0) / n * 1e3:.3f} ms a frame; "
+          f"{rr_rates(stats)}; SRs interleaved: last_sr "
+          f"{'none' if src.last_sr is None else src.last_sr.packet_count} "
+          f"packets")
+    return rgb
+
+
+def rr_frames(pkts):
+    """RTP/JPEG packets in sequence order cut into frames at the marker
+    bits: [packets of a frame]."""
+    out, cur = [], []
+    for p in pkts:
+        cur.append(p)
+        if p[1] & 0x80:
+            out.append(cur)
+            cur = []
+    return out + ([cur] if cur else [])
+
+
+def rr_key(frame):
+    return b"".join(p[12:] for p in frame)
+
+
+def rr_whole_frames(pkts, sent):
+    """The frames that arrived whole, as {frame index: packets}: received
+    packets in (extended) sequence order cut at the marker bits, a frame
+    whole when its payloads are a sent frame's, byte for byte (`sent`: the
+    payloader's frames, in order).  Also the packets missing by sequence
+    number between the first and the last received."""
+    import struct
+    ext, last, keyed = 0, None, []
+    for p in pkts:
+        seq = struct.unpack("!H", p[2:4])[0]
+        if last is not None and seq < last and last - seq > 0x8000:
+            ext += 1 << 16
+        last = seq
+        keyed.append((ext + seq, p))
+    keyed.sort()
+    seqs = [s for s, _p in keyed]
+    lost = (seqs[-1] - seqs[0] + 1 - len(set(seqs))) if seqs else 0
+    index = {rr_key(f): k for k, f in enumerate(sent)}
+    whole = {}
+    for f in rr_frames([p for _s, p in keyed]):
+        k = index.get(rr_key(f))
+        if k is not None:
+            whole[k] = f
+    return whole, lost
+
+
+def rr_depay_images(sent):
+    """{the image rtpjpegdepay gives for a sent frame alone: its index}."""
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    dep = element_factory_make("rtpjpegdepay")
+    dep.device = torch.device("cpu")
+    dep.start()
+    return {rr_pkt_bytes(dep.host_process(Buffer(data=list(f), pts=0))
+                         .data): k for k, f in enumerate(sent)}
+
+
+def rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak):
+    """The same camera with RTSP's default UDP transport and the server's
+    rate control at 25/1, twice.  The baseline: rtspsrc ! appsink, a
+    receiving loop that only gathers; prints the packets received and lost
+    and the frames whole, then rtcp_session's counts (the server's SRs at
+    rtspsrc, rtspsrc's RRs at the server).  Then the camera's path in one
+    pipeline on the card, rtspsrc ! rtpjpegdepay ! jpegdec ! videoconvertscale
+    to RGB 224x224 (rr_drive, yscale_hv once a tick that gives frames):
+    prints the packets the server sent and rtpjpegdepay took and the frames
+    whole; each whole frame's RGB equals its frame of the TCP run.  A
+    frame that lost its first packet makes jpegdec raise (a reference
+    fault, ROADMAP.md section 3): that run is then reported as such."""
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.elements import image_codecs
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    from gstreamer_tpu_torch.net import rtsp_server as rs
+    w, h, n, _batch = RR_CAM
+    launch = rr_cam_launch(jdir, "imagesequencesrc")
+    srv, port = rr_server(dev, launch, True)
+    try:
+        t0 = time.perf_counter()
+        pipe = parse_launch(f"rtspsrc name=src location=rtsp://127.0.0.1:"
+                            f"{port}/cam {RR_WAIT} ! appsink name=p",
+                            device=dev)
+        pipe.set_state("playing")
+        setup = time.perf_counter() - t0
+        sessions = list(srv._sessions.values())
+        pkts, t1 = [], time.perf_counter()
+        while pipe.tick():
+            for s in drain(pipe.get_by_name("p")):
+                pkts += [rr_pkt_bytes(x) for x in s.buffer.data]
+        recv_secs = time.perf_counter() - t1
+        src = pipe.get_by_name("src")
+        pipe.set_state("null")
+    finally:
+        srv.shutdown()
+    require(len(sessions) == 1, f"rtsp_mjpeg_udp: {len(sessions)} server "
+            "sessions")
+    sess = sessions[0]
+    whole, lost = rr_whole_frames(pkts, sent)
+    print(f"  rtsp_mjpeg_udp[gather]: received {len(pkts)} of the "
+          f"{sess.packet_count} packets the server sent "
+          f"({sess.packet_count - len(pkts)} lost; {lost} missing by "
+          f"sequence number between the first and the last received); "
+          f"{len(whole)} of {n} frames whole; set-up {setup * 1e3:.3f} ms; "
+          f"{recv_secs:.3f} s receiving (the 25/1 rate control and the "
+          f"end-of-stream wait)")
+    last_sr = src.last_sr
+    require(last_sr is not None and last_sr.packet_count > 0,
+            "rtcp_session: no sender report reached rtspsrc")
+    require(src.rr_sent >= 1 and sess.last_rr is not None,
+            "rtcp_session: no receiver report reached the server")
+    rb = sess.last_rr.reports[0] if sess.last_rr.reports else None
+    print(f"  rtcp_session: the server sent {sess.sr_sent} SRs; rtspsrc's "
+          f"last_sr: ssrc {last_sr.ssrc:#x}, ntp {last_sr.ntp:#x}, rtp_ts "
+          f"{last_sr.rtp_ts}, packet_count {last_sr.packet_count}, "
+          f"octet_count {last_sr.octet_count}; rtspsrc rr_sent "
+          f"{src.rr_sent}; the server's last RR from ssrc "
+          f"{sess.last_rr.ssrc:#x}"
+          + (f": fraction_lost {rb.fraction_lost}, cumulative_lost "
+             f"{rb.cumulative_lost}, extended_seq {rb.extended_seq}, jitter "
+             f"{rb.jitter}" if rb is not None else ""))
+
+    # the camera's path in one pipeline
+    index = rr_depay_images(sent)
+    took, images, spent = [], [], {}
+
+    def record(args, out):
+        if args[-1] is None:
+            return 0
+        took.extend(rr_pkt_bytes(x) for x in args[-1].data)
+        if out is not None:
+            images.extend(rr_pkt_bytes(x) for x in (
+                out.data if isinstance(out.data, list) else [out.data]))
+        return len(args[-1].data)
+    srv, port = rr_server(dev, launch, True)
+    try:
+        out, r = rr_drive(
+            "rtsp_mjpeg_udp",
+            f"rtspsrc location=rtsp://127.0.0.1:{port}/cam {RR_WAIT} ! "
+            f"rtpjpegdepay ! jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}", dev,
+            start, finish, peak,
+            (cont_timed(rp.RtpJpegDepay, "host_process", spent,
+                        "rtpjpegdepay", record),
+             cont_timed(rs.RTSPServer, "_send_rtp", spent, "server",
+                        lambda a, o: 1),
+             cont_timed(image_codecs.JpegDec, "_decode_all", spent,
+                        "decode")))
+        fault = None
+    except ValueError as e:
+        fault = e
+    finally:
+        srv.shutdown()
+    sent_n = spent.get("server packets", 0)
+    have = {p[12:] for p in took}
+    first_lost = [k for k, f in enumerate(sent)
+                  if f[0][12:] not in have and any(p[12:] in have
+                                                   for p in f[1:])]
+    print(f"  rtsp_mjpeg_udp: rtpjpegdepay took {len(took)} of the {sent_n} "
+          f"packets the server sent ({sent_n - len(took)} lost) with "
+          f"jpegdec in the receiving loop; {len(images)} images handed on, "
+          f"{sum(1 for x in images if x in index)} of {n} frames whole; "
+          f"frames that lost their first packet: {first_lost}")
+    if fault is not None:
+        require(first_lost and str(fault) == "not a JPEG",
+                f"rtsp_mjpeg_udp: {fault!r}")
+        print(f"  rtsp_mjpeg_udp: reference fault (ROADMAP.md section 3): "
+              f"rtpjpegdepay handed on frame {first_lost[0]} without its "
+              f"first packet and jpegdec raised {fault!r}; the run's RGB is "
+              f"not checked")
+        return
+    rgb = cont_joined(out)
+    pairs = [(k, index[x]) for k, x in enumerate(images) if x in index]
+    require(pairs, "rtsp_mjpeg_udp: no frame arrived whole")
+    mine, theirs = [k for k, _ in pairs], [j for _, j in pairs]
+    require(rgb is not None and rgb[0].shape[0] == len(images)
+            and cont_equal(tuple(p[mine] for p in rgb),
+                           tuple(p[theirs] for p in tcp_rgb)),
+            "rtsp_mjpeg_udp: a whole frame's RGB differs from the TCP run's")
+    rr_report("rtsp_mjpeg_udp", r)
+    print(f"  rtsp_mjpeg_udp: every whole frame ({len(pairs)}) == its frame "
+          f"of the TCP run; yscale_hv {r['launches'].get('yscale_hv', 0)} in "
+          f"the {r['fed_ticks']} ticks that gave frames; host decode "
+          f"{spent.get('decode', 0) / max(len(images), 1) * 1e3:.3f} ms a "
+          f"frame; {rr_rates(spent)}")
+
+
+def rr_pcap(pkts, dport):
+    """libpcap bytes: each packet in an Ethernet/IPv4/UDP record (the
+    capture's layout in tests/test_pcapparse.py), one foreign datagram
+    after the fourth."""
+    import struct
+
+    def record(payload, port, k):
+        udp = struct.pack(">HHHH", 5004, port, 8 + len(payload), 0) + payload
+        ip = struct.pack(">BBHHHBBHII", 0x45, 0, 20 + len(udp), 0, 0, 64, 17,
+                         0, 0x0A000001, 0x0A000002) + udp
+        frame = b"\xaa" * 6 + b"\xbb" * 6 + struct.pack(">H", 0x800) + ip
+        return struct.pack("<IIII", 100 + k // 1000, (k % 1000) * 1000,
+                           len(frame), len(frame)) + frame
+    out = [struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 0x40000, 1)]
+    for k, p in enumerate(pkts):
+        out.append(record(p, dport, k))
+        if k == 3:
+            out.append(record(b"not the camera", dport + 2, k))
+    return b"".join(out)
+
+
+def rr_pay(dev, jdir, stats):
+    """The camera's JPEG files through rtpjpegpay on the host (multifilesrc
+    ! rtpjpegpay ! appsink): the packets, in order."""
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    with cont_timed(rp.RtpJpegPay, "host_process", stats,
+                    "rtpjpegpay", rr_packets_out):
+        pay = codec_run(f"multifilesrc location={jdir}/cam_%05d.jpg caps="
+                        f"image/jpeg,framerate={CONT_FPS}/1 ! rtpjpegpay ! "
+                        "appsink name=p", dev, 1, "p")
+    return [rr_pkt_bytes(x) for s in pay for x in s.buffer.data]
+
+
+def pcap_mjpeg_replay(dev, jdir, ref, pkts, tmp, start, finish, peak):
+    """The camera's JPEGs through rtpjpegpay into a .pcap file (no socket),
+    replayed through filesrc ! pcapparse dst-port=5004 caps=<RTP/JPEG> !
+    rtpjpegdepay ! jpegdec to RGB 224x224 on the card: yscale_hv once a
+    tick that gives frames; the RGB equals multifilesrc ! jpegdec's (which
+    the TCP run's equals)."""
+    from gstreamer_tpu_torch.elements import image_codecs, pcapparse
+    w, h, n, batch = RR_CAM
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    stats, spent = {}, {}
+    path = os.path.join(tmp, "cam.pcap")
+    with open(path, "wb") as f:
+        f.write(rr_pcap(pkts, RR_DPORT))
+    out, r = rr_drive(
+        "pcap_mjpeg_replay",
+        f"filesrc location={path} ! pcapparse dst-port={RR_DPORT} "
+        f"caps={RR_RTP_JPEG} ! rtpjpegdepay ! jpegdec ! {rr_caps(w, h)} ! "
+        f"{CONT_RGB}", dev, start, finish, peak,
+        (cont_timed(rp.RtpJpegDepay, "host_process", stats,
+                    "rtpjpegdepay", rr_packets_in),
+         cont_timed(pcapparse.PcapParse, "handle_frame", spent, "pcapparse"),
+         cont_timed(image_codecs.JpegDec, "_decode_all", spent, "decode")),
+        batch=batch)
+    rgb = cont_joined(out)
+    require(rgb is not None and cont_equal(rgb, ref),
+            "pcap_mjpeg_replay: RGB other than multifilesrc ! jpegdec's")
+    rr_report("pcap_mjpeg_replay", r)
+    print(f"  pcap_mjpeg_replay: {len(pkts)} packets "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB of capture); the {n} "
+          f"frames == multifilesrc ! jpegdec's RGB (== the TCP run's); "
+          f"yscale_hv "
+          f"{r['launches'].get('yscale_hv', 0)} in the {r['fed_ticks']} "
+          f"ticks that gave frames; pcapparse {spent.get('pcapparse', 0):.3f}"
+          f" s, host decode {spent.get('decode', 0) / n * 1e3:.3f} ms a "
+          f"frame; {rr_rates(stats)}")
+
+
+def rtp_l16_asr(seed, dev, start, finish, peak):
+    """RR_SECONDS of 48 kHz stereo through rtpL16pay ! udpsink into udpsrc
+    ! rtpL16depay ! the ASR chain on the card, the sender's ticks (100 ms,
+    19.2 KB) alternated with the receiver's (a datagram each): the
+    depayloaded samples equal those sent and the ASR output equals the
+    port's CPU run over the same blocks.  Then the same audio through
+    rtpL24pay ! rtpL24depay in one process on the card and the CPU."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.net import rtp as rtp_mod
+    audio = cont_audio(CONT_RATE * RR_SECONDS, seed)
+    caps = (f"audio/x-raw,format=S16LE,rate={CONT_RATE},channels=2,"
+            "layout=interleaved")
+    per_pkt = (RR_MTU - 12) // 4
+    stats, blocks = {}, []
+    base = start("rtp_l16_asr")
+    t0 = time.perf_counter()
+    with cont_timed(rtp_mod.RtpL16Pay, "host_process", stats,
+                    "rtpL16pay", rr_packets_out), \
+            cont_timed(rtp_mod.RtpL16Depay, "host_process", stats,
+                       "rtpL16depay", rr_packets_in), \
+            vt_uploads(rtp_mod, blocks):
+        rx = parse_launch(f"udpsrc name=u port=0 timeout=1.0 ! rtpL16depay "
+                          f"caps=\"{caps}\" ! {CONT_ASR}", device=dev)
+        rx.set_state("playing")
+        tx = parse_launch(f"appsrc name=in caps={caps} ! rtpL16pay mtu="
+                          f"{RR_MTU} ! udpsink port="
+                          f"{rx.get_by_name('u').bound_port}", device=dev)
+        src = tx.get_by_name("in")
+        for k in range(0, len(audio), RR_PUSH):
+            src.push_buffer(Buffer(
+                data=torch.from_numpy(audio[k:k + RR_PUSH]).to(dev),
+                pts=k * 10**9 // CONT_RATE,
+                duration=RR_PUSH * 10**9 // CONT_RATE))
+        src.end_of_stream()
+        tx.set_state("playing")
+        setup = time.perf_counter() - t0
+        asr, t1 = [], time.perf_counter()
+        while tx.tick():
+            for _ in range(-(-RR_PUSH // per_pkt)):
+                require(rx.tick(), "rtp_l16_asr: the receiver ended early")
+                asr += drain(rx.get_by_name("a"))
+        secs = time.perf_counter() - t1
+        sync(dev)
+        tx.set_state("null")
+        rx.set_state("null")
+    finish("rtp_l16_asr", {})
+    pcm = np.concatenate(blocks)
+    require(np.array_equal(pcm, audio), f"rtp_l16_asr: depayloaded samples "
+            f"{pcm.shape} differ from those sent {audio.shape}")
+    card = cont_joined(asr)
+    require(card is not None and torch.equal(
+        card, codec_asr_ref(blocks, CONT_RATE, 2, "S16LE")),
+        "rtp_l16_asr: the ASR output differs from the port's CPU run over "
+        "the same blocks")
+    print(f"e2e rtp_l16_asr: {len(audio) / secs:.1f} audio frames/s over "
+          f"the alternated ticks, {len(audio) / (secs + setup):.1f} with the "
+          f"set-up ({setup * 1e3:.3f} ms); {rr_rates(stats)}; the samples "
+          f"== those sent; the ASR output == the port's CPU run over the "
+          f"{len(blocks)} depayloaded blocks; peak memory {peak(base):.1f} "
+          f"MiB; no launch")
+    s24 = (audio.astype(np.int32) << 8)
+    want = s24.astype(">i4").view(np.uint8).reshape(-1, 4)[:, 1:] \
+        .reshape(len(audio), 6)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        start("rtp_l24")
+        pipe = parse_launch(
+            f"appsrc name=in caps=audio/x-raw,format=S24BE,rate={CONT_RATE},"
+            f"channels=2 ! rtpL24pay mtu={RR_MTU} ! rtpL24depay caps=\"audio/"
+            f"x-raw,format=S24BE,rate={CONT_RATE},channels=2\" ! appsink "
+            "name=out", device=d)
+        for k in range(0, len(s24), RR_PUSH):
+            pipe.get_by_name("in").push_buffer(Buffer(
+                data=torch.from_numpy(s24[k:k + RR_PUSH]).to(d),
+                pts=k * 10**9 // CONT_RATE))
+        pipe.get_by_name("in").end_of_stream()
+        t1 = time.perf_counter()
+        pipe.run()
+        got[d.type] = (cont_joined(drain(pipe.get_by_name("out"))),
+                       time.perf_counter() - t1)
+        finish("rtp_l24", {})
+    card, cpu = got[dev.type][0], got["cpu"][0]
+    require(card is not None and torch.equal(card.cpu(), cpu)
+            and np.array_equal(cpu.numpy(), want),
+            "rtp_l24: the depayloaded bytes differ from the CPU run's or "
+            "from the 24-bit samples sent")
+    print(f"  rtp_l16_asr[L24]: rtpL24pay ! rtpL24depay of the same "
+          f"{RR_SECONDS} s == the 24-bit samples sent == the CPU run's, "
+          f"{len(audio) / got[dev.type][1]:.1f} audio frames/s")
+
+
+def rtp_vraw_uyvy(seed, dev, start, finish, peak):
+    """RR_UYVY 1080p panning frames converted to UYVY on the card, through
+    rtpvrawpay mtu=1400 ! rtpvrawdepay in one process (the same frames
+    back), and on to RGB 224x224 (the converter's generic route: no
+    kernel), equal to the port's CPU run."""
+    import torch
+    from gstreamer_tpu_torch.net import rtp as rtp_mod
+    w, h = RR_CAM[:2]
+    n = RR_UYVY
+    planes = vt_panning(n, w, h, seed)
+    uyvy = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},height="
+            f"{h},framerate={CONT_FPS}/1 ! videoconvert ! video/x-raw,"
+            "format=UYVY")
+    rtp = (f"rtpvrawpay mtu={RR_MTU} ! rtpvrawdepay caps=video/x-raw,"
+           f"format=UYVY,width={w},height={h},framerate={CONT_FPS}/1")
+    pushes = {"in": [dict(b) for b in vt_pushes(planes, n)]}
+
+    def run(desc, d, sink):
+        from gstreamer_tpu_torch import parse_launch
+        from gstreamer_tpu_torch.core.buffer import Buffer
+        pipe = parse_launch(desc, batch=n, device=d)
+        for b in pushes["in"]:
+            pipe.get_by_name("in").push_buffer(Buffer(**dict(b, data=tuple(
+                torch.from_numpy(p).to(d) for p in b["data"]))))
+        pipe.get_by_name("in").end_of_stream()
+        sync(d)
+        t0 = time.perf_counter()
+        pipe.run()
+        sync(d)
+        return cont_joined(drain(pipe.get_by_name(sink))), \
+            time.perf_counter() - t0
+
+    stats = {}
+    base = start("rtp_vraw_uyvy")
+    sent, _ = run(f"{uyvy} ! appsink name=v", dev, "v")
+    with cont_timed(rtp_mod.RtpVRawPay, "host_process", stats,
+                    "rtpvrawpay", rr_packets_out), \
+            cont_timed(rtp_mod.RtpVRawDepay, "host_process", stats,
+                       "rtpvrawdepay", rr_packets_in):
+        back, secs_back = run(f"{uyvy} ! {rtp} ! appsink name=v", dev, "v")
+    rgb, secs = run(f"{uyvy} ! {rtp} ! {CONT_RGB}", dev, "v")
+    finish("rtp_vraw_uyvy", {})
+    mem = peak(base)
+    require(cont_equal(back, sent), "rtp_vraw_uyvy: the UYVY frames differ "
+            "after rtpvrawpay ! rtpvrawdepay")
+    cpu, _ = run(f"{uyvy} ! {rtp} ! {CONT_RGB}", torch.device("cpu"), "v")
+    require(cont_equal(rgb, cpu), "rtp_vraw_uyvy: RGB differs from the "
+            "port's CPU run")
+    per_frame = stats["rtpvrawpay packets"] // n
+    print(f"e2e rtp_vraw_uyvy: {n / secs:.1f} frames/s to RGB 224x224 "
+          f"({n / secs_back:.1f} frames/s UYVY round trip alone); "
+          f"{per_frame} packets a frame; {rr_rates(stats)}; the UYVY frames "
+          f"== those sent; RGB == the port's CPU run; peak memory "
+          f"{mem:.1f} MiB; no launch")
+
+
+def rtp_coded_passthrough(dev, files, start, finish, peak):
+    """VP8 from the committed IVF through rtpvp8pay ! rtpvp8depay (no
+    libvpx needed): the frames equal ivfparse's.  The Opus packets of
+    opus_10s.opus through appsrc ! rtpopuspay ! udpsink and udpsrc !
+    rtpopusdepay (alternated, a packet a tick), decoded with opusdec's
+    decoder (opusdec is a file source in both packages and takes no
+    packets): the PCM equals opusdec's of the file, and the ASR chain on
+    the card over it equals the port's CPU run."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs import opus
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.elements.ogg import parse_ogg_pages
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    ivf = files["vp8_1080p.ivf"]
+    stats = {}
+    start("rtp_coded_passthrough[vp8]")
+    plain = codec_run(f"filesrc location={ivf} ! ivfparse ! appsink name=a",
+                      dev)
+    with cont_timed(rp.RtpVP8Pay, "host_process", stats,
+                    "rtpvp8pay", rr_packets_out), \
+            cont_timed(rp.RtpVP8Depay, "host_process", stats,
+                       "rtpvp8depay", rr_packets_in):
+        back = codec_run(f"filesrc location={ivf} ! ivfparse ! rtpvp8pay "
+                         f"mtu={RR_MTU} ! rtpvp8depay ! appsink name=a", dev)
+    finish("rtp_coded_passthrough[vp8]", {})
+
+    def frames(samples):
+        return [rr_pkt_bytes(x) for s in samples for x in
+                (s.buffer.data if isinstance(s.buffer.data, list)
+                 else [s.buffer.data])]
+    require(frames(back) == frames(plain) and frames(plain),
+            "rtp_coded_passthrough: VP8 frames differ after RTP")
+    print(f"  rtp_coded_passthrough[vp8]: {len(frames(plain))} 1080p VP8 "
+          f"frames == ivfparse's after rtpvp8pay ! rtpvp8depay; "
+          f"{rr_rates(stats)}")
+    with open(files["opus_10s.opus"], "rb") as f:
+        blob = f.read()
+    pk = [p for _s, _g, ps in parse_ogg_pages(blob) for p in ps]
+    ch, pre_skip, _rate, _gain = opus.parse_opus_head(pk[0])
+    pk = [p for p in pk[1:] if not p.startswith(b"OpusTags")]
+    stats, got = {}, []
+    base = start("rtp_coded_passthrough[opus]")
+    t0 = time.perf_counter()
+    with cont_timed(rp.RtpOpusPay, "host_process", stats,
+                    "rtpopuspay", rr_packets_out), \
+            cont_timed(rp.RtpOpusDepay, "host_process", stats,
+                       "rtpopusdepay", rr_packets_in):
+        rx = parse_launch("udpsrc name=u port=0 timeout=1.0 caps=application/"
+                          "x-rtp ! rtpopusdepay ! appsink name=a", device=dev)
+        rx.set_state("playing")
+        tx = parse_launch("appsrc name=in caps=audio/x-opus ! rtpopuspay ! "
+                          f"udpsink port={rx.get_by_name('u').bound_port}",
+                          device=dev)
+        for k, p in enumerate(pk):
+            tx.get_by_name("in").push_buffer(Buffer(
+                data=np.frombuffer(p, np.uint8), pts=k * 20_000_000,
+                duration=20_000_000))
+        tx.get_by_name("in").end_of_stream()
+        tx.set_state("playing")
+        while tx.tick():
+            require(rx.tick(), "rtp_coded_passthrough: the receiver ended "
+                    "early")
+            got += frames(drain(rx.get_by_name("a")))
+        tx.set_state("null")
+        rx.set_state("null")
+    secs = time.perf_counter() - t0
+    require(got == pk, f"rtp_coded_passthrough: {len(got)} Opus packets "
+            f"back of {len(pk)}, or other bytes")
+    dec = opus.HybridOpusDecoder(ch)
+    t1 = time.perf_counter()
+    pcm = np.concatenate([dec.decode(p) for p in got])
+    dsecs = time.perf_counter() - t1
+    whole, _r, _c = opus.decode_ogg(blob)
+    pcm = pcm[pre_skip:pre_skip + len(whole)]
+    require(np.array_equal(pcm, whole), "rtp_coded_passthrough: the PCM "
+            "of the depayloaded packets differs from opusdec's of the file")
+    blocks = [np.ascontiguousarray(pcm[k:k + 4800])
+              for k in range(0, len(pcm), 4800)]
+    asr_in = parse_launch(f"appsrc name=in caps=audio/x-raw,format=F32LE,"
+                          f"rate=48000,channels={ch},layout=interleaved ! "
+                          f"{CONT_ASR}", device=dev)
+    for k, b in enumerate(blocks):
+        asr_in.get_by_name("in").push_buffer(Buffer(
+            data=torch.from_numpy(b).to(dev), pts=k * 10**8,
+            duration=10**8))
+    asr_in.get_by_name("in").end_of_stream()
+    asr_in.run()
+    card = cont_joined(drain(asr_in.get_by_name("a")))
+    finish("rtp_coded_passthrough[opus]", {})
+    require(card is not None and torch.equal(
+        card, codec_asr_ref(blocks, 48000, ch)),
+        "rtp_coded_passthrough: the Opus ASR output differs from the "
+        "port's CPU run")
+    print(f"  rtp_coded_passthrough[opus]: {len(pk)} packets over UDP "
+          f"({len(pk) / secs:.1f} packets/s alternated); {rr_rates(stats)}; "
+          f"decoded {len(pcm) / 48000:.2f} s in {dsecs:.3f} s == opusdec's "
+          f"PCM of the file; the ASR output == the port's CPU run; peak "
+          f"memory {peak(base):.1f} MiB; no launch")
+
+
+def rr_free_port():
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rr_alone_rows(files, tmp):
+    """The runs that drive each of the 60 factories alone or with its
+    pair: [(factories, uses sockets, fn(d) -> plain data)]."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net.rtp import rtp_header
+    w, h, n = RR_ALONE
+    rng = np.random.default_rng(23)
+    rgb = cont_video("RGB", n, w, h, 23)
+    vraw = f"video/x-raw,format=RGB,width={w},height={h},framerate=25/1"
+    a16 = rng.integers(-3000, 3000, (960, 2), dtype=np.int16)
+    acaps = "audio/x-raw,format={},rate=48000,channels=2,layout=interleaved"
+    pkts = [rtp_header(96 + k % 3, (65530 + k) & 0xFFFF, 3000 * k,
+                       0x11 + k % 2, marker=k % 4 == 3) + bytes([k]) * 20
+            for k in range(12)]
+    shuffled = [pkts[k] for k in (0, 2, 1, 3, 3, 5, 4, 7, 6, 9, 8, 11)]
+    blobs = [rng.integers(0, 256, int(rng.integers(50, 3000)),
+                          dtype=np.uint8) for _ in range(5)]
+    aus = [np.frombuffer(a, np.uint8) for a in annexb_aus(False, 4, rng)]
+
+    def rtp_in(data):
+        return {"in": [dict(data=list(data), pts=0)]}
+
+    def frames_in(caps):
+        return {"in": [dict(data=b, pts=k * 40_000_000, duration=40_000_000)
+                       for k, b in enumerate(blobs)]}, caps
+
+    def launch(desc, pushes=None, batch=1):
+        return lambda d: cont_launch(desc, d, batch, pushes)
+
+    def coded(pay, depay, caps):
+        pushes, caps = frames_in(caps)
+        return launch(f"appsrc name=in caps={caps} ! {pay} mtu=300 ! tee "
+                      f"name=t t. ! queue ! appsink name=out t. ! queue ! "
+                      f"{depay} ! appsink name=out1", pushes)
+
+    def hdrext(d):
+        pipe = parse_launch("appsrc name=in caps=video/x-vp8 ! rtpvp8pay "
+                            "name=pay mtu=300 ! appsink name=out", device=d)
+        exts = [element_factory_make(f, **kw) for f, kw in (
+            ("rtphdrextclientaudiolevel", dict(id=1, level=30, voice=True)),
+            ("rtphdrextmid", dict(id=2, value="v0")),
+            ("rtphdrextstreamid", dict(id=3, value="hi")),
+            ("rtphdrextrepairedstreamid", dict(id=4, value="r0")),
+            ("rtphdrextntp64", dict(id=5, ntp=0x0102030405060708)),
+            ("rtphdrexttwcc", dict(id=6)),
+            ("rtphdrextcolorspace", dict(id=7, primaries=1, transfer=1,
+                                         matrix=1, full_range=False)))]
+        for e in exts:
+            e.device = d
+            pipe.get_by_name("pay").add_extension(e)
+        for k, b in enumerate(blobs):
+            pipe.get_by_name("in").push_buffer(Buffer(data=b, pts=k))
+        pipe.get_by_name("in").end_of_stream()
+        pipe.run()
+        return bc_plain([s.buffer.data for s in drain(pipe.get_by_name(
+            "out"))]), [e.read(e.write()) for e in exts]
+
+    def rtx(d):
+        got = []
+        send = element_factory_make("rtprtxsend", **{"rtx-payload-type": 97})
+        recv = element_factory_make("rtprtxreceive", **{
+            "rtx-payload-type": 97, "orig-payload-type": 96})
+        q = element_factory_make("rtprtxqueue")
+        for e in (send, recv, q):
+            e.device = d
+            e.start()
+        got.append(bc_plain(send.host_process(Buffer(data=list(pkts),
+                                                     pts=0)).data))
+        got.append([send.request_retransmit(s) for s in (65531, 2, 5)])
+        resent = send.host_process(Buffer(data=[], pts=0)).data
+        got.append(bc_plain(recv.host_process(Buffer(
+            data=list(pkts) + list(resent), pts=0)).data))
+        q.host_process(Buffer(data=list(pkts), pts=0))
+        got.append([q.request_retransmit(1)])
+        got.append(bc_plain(q.host_process(Buffer(data=[], pts=0)).data))
+        return got
+
+    def jpeg(d):
+        pipe = parse_launch(
+            f"appsrc name=in caps=video/x-raw,format=I420,width={w},height="
+            f"{h},framerate=25/1 ! jpegenc ! rtpjpegpay mtu=300 ! tee name=t "
+            f"t. ! queue ! appsink name=out t. ! queue ! rtpjpegdepay ! "
+            f"appsink name=out1", batch=n, device="cpu")
+        planes = cont_video("I420", n, w, h, 5)
+        pipe.get_by_name("in").push_buffer(Buffer(data=tuple(
+            torch.from_numpy(p) for p in planes), batch=n,
+            pts=0, duration=40_000_000))
+        pipe.get_by_name("in").end_of_stream()
+        pipe.run()
+        jp = [x for s in drain(pipe.get_by_name("out1"))
+              for x in (s.buffer.data if isinstance(s.buffer.data, list)
+                        else [s.buffer.data])]
+        return cont_launch(
+            "appsrc name=in caps=image/jpeg ! rtpjpegpay mtu=300 quality=90 "
+            "! tee name=t t. ! queue ! appsink name=out t. ! queue ! "
+            "rtpjpegdepay ! appsink name=out1", d, 1,
+            {"in": [dict(data=np.asarray(x), pts=k * 40_000_000)
+                    for k, x in enumerate(jp)]}), bc_plain(jp)
+
+    def socket_pair(send_desc, recv_desc, pushes, ticks=20):
+        def run(d):
+            rx = parse_launch(recv_desc, device=d)
+            rx.set_state("playing")
+            port = next(e for e in rx.iterate_elements()
+                        if hasattr(e, "bound_port")).bound_port
+            tx = parse_launch(send_desc.format(port=port), device=d)
+            for b in pushes:
+                tx.get_by_name("in").push_buffer(Buffer(**dict(
+                    b, data=torch.from_numpy(b["data"]).to(d))))
+            tx.get_by_name("in").end_of_stream()
+            tx.set_state("playing")
+            got = bytearray()
+            want = sum(b["data"].nbytes for b in pushes)
+            deadline = time.monotonic() + 10.0
+            for _ in range(ticks):
+                more = tx.tick()
+                while len(got) < want and time.monotonic() < deadline:
+                    if not rx.tick():
+                        break
+                    for s in drain(rx.get_by_name("s")):
+                        got += rr_pkt_bytes(s.buffer.data)
+                if not more:
+                    break
+            tx.set_state("null")
+            rx.set_state("null")
+            require(bytes(got) == b"".join(b["data"].tobytes()
+                                           for b in pushes),
+                    f"{send_desc.split()[4]} to {recv_desc.split()[0]}: "
+                    f"{len(got)} bytes back of {want}, or other bytes")
+            return bytes(got)
+        return run
+
+    def tcp_server_to_client(d, data):
+        srv = parse_launch("appsrc name=in caps=application/octet-stream ! "
+                           "tcpserversink name=snd port=0", device=d)
+        srv.get_by_name("in").push_buffer(Buffer(
+            data=torch.from_numpy(data).to(d), batch=1))
+        srv.set_state("playing")
+        snd = srv.get_by_name("snd")
+        cli = parse_launch(f"tcpclientsrc port={snd.bound_port} timeout=2.0 "
+                           "! appsink name=s", device=d)
+        cli.set_state("playing")
+        deadline = time.monotonic() + 10.0
+        while not snd._clients and time.monotonic() < deadline:
+            time.sleep(0.01)
+        srv.tick()
+        got = bytearray()
+        while len(got) < data.nbytes and cli.tick():
+            for s in drain(cli.get_by_name("s")):
+                got += rr_pkt_bytes(s.buffer.data)
+        srv.set_state("null")
+        cli.set_state("null")
+        require(bytes(got) == data.tobytes(), f"tcpserversink to "
+                f"tcpclientsrc: {len(got)} bytes back of {data.nbytes}, or "
+                f"other bytes")
+        return bytes(got)
+
+    def rtp_uri(d):
+        port = rr_free_port()
+        rx = parse_launch(f"rtpsrc uri=rtp://127.0.0.1:{port}?media=audio"
+                          "&clock-rate=8000 timeout=1.0 num-buffers=3 ! "
+                          "appsink name=out", device=d)
+        rx.set_state("playing")
+        tx = parse_launch("audiotestsrc num-buffers=3 samplesperbuffer=160 ! "
+                          "audio/x-raw,format=S16LE,rate=8000,channels=1 ! "
+                          f"mulawenc ! rtppcmupay ! rtpsink uri=rtp://"
+                          f"127.0.0.1:{port}", device=d)
+        tx.run()
+        rx.run()
+        got = drain(rx.get_by_name("out"))
+        require(sum(s.buffer.batch for s in got) == 3, f"rtpsink to "
+                f"rtpsrc: {sum(s.buffer.batch for s in got)} buffers of 3")
+        return bc_plain([s.buffer.data for s in got])
+
+    def sdp_elements(d):
+        out = []
+        for kind in ("sdpdemux", "sdpsrc"):
+            port = rr_free_port()
+            text = ("v=0\r\no=- 0 0 IN IP4 127.0.0.1\r\ns=x\r\nc=IN IP4 "
+                    f"127.0.0.1\r\nt=0 0\r\nm=audio {port} RTP/AVP 0\r\n"
+                    "a=rtpmap:0 PCMU/8000\r\n")
+            path = os.path.join(tmp, f"{kind}.{d.type}.sdp")
+            with open(path, "w") as f:
+                f.write(text)
+            loc = (f"location={path}" if kind == "sdpdemux" else
+                   f"location=sdp://{path}")
+            rx = parse_launch(f"{kind} {loc} media=audio timeout=1.0 "
+                              "num-buffers=2 ! appsink name=out", device=d)
+            rx.set_state("playing")
+            tx = parse_launch("audiotestsrc num-buffers=2 samplesperbuffer="
+                              "160 ! audio/x-raw,format=S16LE,rate=8000,"
+                              "channels=1 ! mulawenc ! rtppcmupay ! udpsink "
+                              f"port={port}", device=d)
+            tx.run()
+            rx.run()
+            got = drain(rx.get_by_name("out"))
+            require(sum(s.buffer.batch for s in got) == 2, f"udpsink to "
+                    f"{kind}: {sum(s.buffer.batch for s in got)} buffers "
+                    f"of 2")
+            out.append(bc_plain([(str(s.caps), s.buffer.data)
+                                 for s in got]))
+        return out
+
+    def rtsp_play_record(d):
+        from gstreamer_tpu_torch.net.rtsp_server import (RTSPMediaFactory,
+                                                         RTSPServer)
+        srv = RTSPServer(service=0)
+        srv.mount_points.add_factory("/test", RTSPMediaFactory(
+            f"( videotestsrc num-buffers=4 pattern=gradient ! {vraw} ! "
+            "rtpvrawpay name=pay0 pt=96 )", rate_control=False, device=d))
+        rec = os.path.join(tmp, f"rec.{d.type}.rgb")
+        srv.mount_points.add_factory("/publish", RTSPMediaFactory(
+            "( appsrc name=depay0 caps=application/x-rtp ! rtpvrawdepay "
+            f"caps=\"{vraw}\" ! filesink location={rec} )",
+            transport_mode="record", device=d))
+        port = srv.attach()
+        try:
+            p = parse_launch(f"rtspsrc location=rtsp://127.0.0.1:{port}/test"
+                             f" protocols=tcp {RR_WAIT} ! rtpvrawdepay ! "
+                             "appsink name=out", device=d)
+            p.run()
+            frames = cont_joined(drain(p.get_by_name("out")))
+            pub = parse_launch(
+                f"videotestsrc num-buffers=4 pattern=gradient ! {vraw} ! "
+                "rtpvrawpay pt=96 ! rtspclientsink name=snk location=rtsp://"
+                f"127.0.0.1:{port}/publish protocols=tcp", device=d)
+            pub.run()
+        finally:
+            srv.shutdown()
+        with open(rec, "rb") as f:
+            got = f.read()
+        played = 0 if frames is None else (
+            frames[0] if isinstance(frames, tuple) else frames).shape[0]
+        require(played == n and len(got) == n * w * h * 3,
+                f"rtspsrc / rtspclientsink: {played} frames of {n} played, "
+                f"{len(got)} bytes recorded of {n * w * h * 3}")
+        return bc_plain(frames), got
+
+    def icy(d):
+        payload = bytes(range(256)) * 2
+        meta = b"StreamTitle='Cam';"
+        meta += b"\0" * (-len(meta) % 16)
+        blob = bytearray()
+        for k in range(0, len(payload), 128):
+            blob += payload[k:k + 128]
+            blob += bytes([len(meta) // 16]) + meta if k == 0 else b"\0"
+        path = os.path.join(tmp, "icy.bin")
+        with open(path, "wb") as f:
+            f.write(bytes(blob))
+        return cont_launch(f"icydemux location={path} metaint=128 ! appsink "
+                           "name=out", d, 1)
+
+    def dca(size):
+        hdr = bytearray(16)
+        hdr[0:4] = b"\x7f\xfe\x80\x01"
+        v = size - 1
+        hdr[5], hdr[6], hdr[7] = (v >> 12) & 3, (v >> 4) & 0xFF, \
+            (v & 0xF) << 4
+        return bytes(hdr) + bytes(size - 16)
+
+    amr = b"#!AMR\n" + (bytes([2 << 3]) + b"\x55" * 15) * 4
+    pcap = rr_pcap([p for p in pkts], RR_DPORT)
+    rows = [
+        (("rtpvrawpay", "rtpvrawdepay"), False, launch(
+            f"appsrc name=in caps={vraw} ! rtpvrawpay mtu=400 ! "
+            f"rtpvrawdepay caps={vraw} ! appsink name=out",
+            {"in": [dict(data=rgb, pts=0, duration=40_000_000, batch=n)]},
+            n)),
+        (("rtpL16pay", "rtpL16depay"), False, launch(
+            f"appsrc name=in caps={acaps.format('S16LE')} ! rtpL16pay "
+            f"mtu=400 ! rtpL16depay caps=\"{acaps.format('S16LE')}\" ! "
+            "appsink name=out", {"in": [dict(data=a16, pts=0)]})),
+        (("rtpL8pay", "rtpL8depay"), False, launch(
+            f"appsrc name=in caps={acaps.format('U8')} ! rtpL8pay mtu=300 "
+            f"! rtpL8depay caps=\"{acaps.format('U8')}\" ! appsink name=out",
+            {"in": [dict(data=(a16 >> 8).astype(np.uint8), pts=0)]})),
+        (("rtpL24pay", "rtpL24depay"), False, launch(
+            f"appsrc name=in caps={acaps.format('S24BE')} ! rtpL24pay "
+            f"mtu=300 ! rtpL24depay caps=\"{acaps.format('S24BE')}\" ! "
+            "appsink name=out",
+            {"in": [dict(data=a16.astype(np.int32) << 8, pts=0)]})),
+        (("rtpjitterbuffer",), False, launch(
+            "appsrc name=in caps=application/x-rtp,clock-rate=90000 ! "
+            "rtpjitterbuffer latency=0 ! appsink name=out",
+            rtp_in(shuffled))),
+        (("asteriskh263",), False, launch(
+            "appsrc name=in caps=application/x-rtp ! asteriskh263 ! appsink "
+            "name=out", rtp_in(pkts))),
+        (("rtpsession",), False, launch(
+            "appsrc name=in caps=application/x-rtp ! rtpsession ! appsink "
+            "name=out", rtp_in(pkts))),
+        (("rtpbin",), False, launch(
+            "appsrc name=in caps=application/x-rtp ! rtpbin latency=0 ! "
+            "appsink name=out", rtp_in(shuffled))),
+        (("rtppcmupay", "rtppcmudepay", "rtppcmapay", "rtppcmadepay"),
+         False, launch(
+             "audiotestsrc num-buffers=2 samplesperbuffer=400 ! audio/x-raw,"
+             "format=S16LE,rate=8000,channels=1 ! tee name=t t. ! queue ! "
+             "mulawenc ! rtppcmupay mtu=200 ! rtppcmudepay ! mulawdec ! "
+             "appsink name=out t. ! queue ! alawenc ! rtppcmapay mtu=200 ! "
+             "rtppcmadepay ! alawdec ! appsink name=out1")),
+        (("rtph264pay", "rtph264depay"), False, launch(
+            "appsrc name=in caps=video/x-h264,stream-format=byte-stream,"
+            "alignment=au ! rtph264pay mtu=40 ! rtph264depay ! appsink "
+            "name=out", {"in": [dict(data=a, pts=k * 40_000_000)
+                                for k, a in enumerate(aus)]})),
+        (("rtpptdemux", "rtpssrcdemux"), False, launch(
+            "appsrc name=in caps=application/x-rtp ! tee name=t t. ! queue ! "
+            "rtpptdemux name=p p.src_0 ! appsink name=out p.src_1 ! appsink "
+            "name=out1 t. ! queue ! rtpssrcdemux name=s s.src_0 ! appsink "
+            "name=out2 s.src_1 ! fakesink", rtp_in(pkts))),
+        (("rtpdtmfsrc", "rtpdtmfdepay"), False, launch(
+            "rtpdtmfsrc tones=1#9 tone-duration=100 ! tee name=t t. ! queue ! "
+            "appsink name=out t. ! queue ! rtpdtmfdepay ! appsink name=out1",
+            batch=2)),
+        (("rtpjpegpay", "rtpjpegdepay"), False, jpeg),
+        (("rtpmux", "rtpdtmfmux", "rtpfunnel"), False, launch(
+            "audiotestsrc num-buffers=2 samplesperbuffer=400 ! audio/x-raw,"
+            "format=S16LE,rate=8000,channels=1 ! mulawenc ! rtppcmupay ! "
+            "tee name=t t. ! queue ! rtpmux ssrc=7 seqnum-offset=9 ! appsink "
+            "name=out t. ! queue ! rtpdtmfmux ! appsink name=out1 t. ! queue "
+            "! rtpfunnel ! appsink name=out2")),
+        (("rtprtxsend", "rtprtxreceive", "rtprtxqueue"), False, rtx),
+        (("rtpvp8pay", "rtpvp8depay"), False,
+         coded("rtpvp8pay", "rtpvp8depay", "video/x-vp8")),
+        (("rtpvp9pay", "rtpvp9depay"), False,
+         coded("rtpvp9pay", "rtpvp9depay", "video/x-vp9")),
+        (("rtpopuspay", "rtpopusdepay"), False,
+         coded("rtpopuspay", "rtpopusdepay", "audio/x-opus")),
+        (("rtphdrextclientaudiolevel", "rtphdrextmid", "rtphdrextstreamid",
+          "rtphdrextrepairedstreamid", "rtphdrextntp64", "rtphdrexttwcc",
+          "rtphdrextcolorspace"), False, hdrext),
+        (("dtmfsrc",), False, launch("dtmfsrc tones=159 tone-duration=60 ! "
+                                     "appsink name=out")),
+        (("icydemux",), False, icy),
+        (("amrparse", "dcaparse"), False, launch(
+            "appsrc name=in caps=application/octet-stream ! tee name=t t. ! "
+            "queue ! amrparse ! appsink name=out t. ! queue ! dcaparse ! "
+            "appsink name=out1",
+            {"in": [dict(data=np.frombuffer(amr + dca(96) * 2 + dca(128),
+                                            np.uint8))]})),
+        (("pcapparse",), False, launch(
+            "appsrc name=in caps=raw/x-pcap ! pcapparse dst-port=5004 caps="
+            "application/x-rtp,media=video,clock-rate=90000 ! appsink "
+            "name=out", {"in": [dict(data=np.frombuffer(pcap, np.uint8),
+                                     pts=0)]})),
+        (("udpsink", "udpsrc"), True, socket_pair(
+            "appsrc name=in caps=application/octet-stream ! udpsink "
+            "port={port} mtu=1000",
+            "udpsrc name=u port=0 timeout=1.0 ! appsink name=s",
+            [dict(data=rng.integers(0, 256, 5000, dtype=np.uint8))])),
+        (("tcpclientsink", "tcpserversrc"), True, socket_pair(
+            "appsrc name=in caps=application/octet-stream ! tcpclientsink "
+            "port={port}",
+            "tcpserversrc name=r port=0 timeout=2.0 ! appsink name=s",
+            [dict(data=rng.integers(0, 256, 9000, dtype=np.uint8))])),
+        (("tcpserversink", "tcpclientsrc"), True,
+         lambda d, x=rng.integers(0, 256, 30000, dtype=np.uint8):
+         tcp_server_to_client(d, x)),
+        (("rtpsink", "rtpsrc"), True, rtp_uri),
+        (("sdpdemux", "sdpsrc"), True, sdp_elements),
+        (("rtspsrc", "rtspclientsink"), True, rtsp_play_record),
+    ]
+    covered = {f for r in rows for f in r[0]}
+    mine = rr_factories()
+    require(covered == mine and len(mine) == 60,
+            f"rtp/rtsp alone: the rows cover {len(covered)} factories, the "
+            f"slice's modules register {len(mine)}; not driven: "
+            f"{sorted(mine - covered)}")
+    return rows
+
+
+def rr_factories():
+    """The factories RR_MODULES register (dtmf_icy's aacparse is
+    audioparsers' class, not its own)."""
+    import importlib
+    return {v.FACTORY for m in RR_MODULES
+            for v in vars(importlib.import_module(m)).values()
+            if isinstance(v, type) and getattr(v, "FACTORY", "")
+            and v.__module__ == m}
+
+
+def rr_alone(counters, dev, files, tmp, sockets):
+    """Each of the 60 factories alone or with its pair on the card and on
+    the CPU (alone_runs): the same plain data, no launch.  The socket
+    factories run only where the probe found loopback."""
+    rows, skipped = [], []
+    for names, uses_sockets, fn in rr_alone_rows(files, tmp):
+        if uses_sockets and not sockets:
+            skipped.extend(names)
+        else:
+            rows.append(("/".join(names),
+                         lambda d, _tmp, _seed, fn=fn: fn(d)))
+    alone_runs(rows, counters, dev, 0)
+    print(f"  rtp/rtsp alone: {60 - len(skipped)} factories in {len(rows)} "
+          f"runs on the card == the port's CPU run, no launch"
+          + (f"; not run (no loopback): {skipped}" if skipped else ""))
+
+
+def rtp_rtsp_phase(seed, counters, dev):
+    """RTP, the socket transports, RTSP and pcapparse on the card, each
+    item with the launch counts zeroed just before and read just after:
+    the loopback probe line first; rtsp_mjpeg_ingest (TCP interleaved,
+    yscale_hv once a tick that gives frames), rtsp_mjpeg_udp with
+    rtcp_session, pcap_mjpeg_replay (no socket; yscale_hv once a tick that
+    gives frames), rtp_l16_asr, rtp_vraw_uyvy (generic route, no kernel),
+    rtp_coded_passthrough; then each of the 60 factories alone.  Only the
+    socket items go unrun, and only where the probe found no loopback.
+    Returns {kernel: launches}."""
+    import tempfile
+
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+
+    t0 = time.perf_counter()
+    probe = rr_probe()
+    sockets = probe["udp"] and probe["tcp"]
+    print(f"rtp/rtsp phase: loopback probe on 127.0.0.1: {probe}; "
+          + ("the socket items run" if sockets else
+             "the socket items (rtsp_mjpeg_ingest, rtsp_mjpeg_udp, "
+             "rtcp_session, rtp_l16_asr's UDP leg, the Opus UDP leg and the "
+             "socket factories) are not run; the others run"))
+    files, _dig = codec_vectors(("vp8_1080p.ivf", "opus_10s.opus",
+                                 "digests.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, _jpgs = rr_jpegs(seed, dev, tmp)
+        start("multifilesrc ! jpegdec")
+        ref = rr_rgb_ref(jdir, dev)
+        finish("multifilesrc ! jpegdec",
+               {"yscale_hv": -(-RR_CAM[2] // RR_CAM[3])})
+        require(cont_equal(ref, rr_rgb_ref(jdir, torch.device("cpu"))),
+                "multifilesrc ! jpegdec: the card's RGB differs from the "
+                "port's CPU run")
+        stats = {}
+        start("rtpjpegpay")
+        pkts = rr_pay(dev, jdir, stats)
+        finish("rtpjpegpay", {})
+        sent = rr_frames(pkts)
+        require(len(sent) == RR_CAM[2], f"rtpjpegpay: {len(sent)} frames "
+                f"of {RR_CAM[2]}")
+        print(f"  rtp/rtsp: {rr_rates(stats)}, "
+              f"{len(pkts) / len(sent):.1f} packets a frame")
+        if sockets:
+            tcp_rgb = rtsp_mjpeg_ingest(dev, jdir, ref, start, finish, peak)
+            rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak)
+        pcap_mjpeg_replay(dev, jdir, ref, pkts, tmp, start, finish, peak)
+        if sockets:
+            rtp_l16_asr(seed, dev, start, finish, peak)
+        rtp_vraw_uyvy(seed, dev, start, finish, peak)
+        if sockets:
+            rtp_coded_passthrough(dev, files, start, finish, peak)
+        rr_alone(counters, dev, files, tmp, sockets)
+    print(f"rtp/rtsp phase: {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -9379,6 +10683,10 @@ def main() -> int:
 
     # -- VPx, the transport containers, FLV, ASF, playback_extra (host) ------
     for k, n in vpx_transport_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- RTP, UDP/TCP, RTSP and pcapparse (host code, the card's decode) -----
+    for k, n in rtp_rtsp_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

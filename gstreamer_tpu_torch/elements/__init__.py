@@ -93,3 +93,13 @@ from . import flv               # noqa: F401  (flvmux, flvdemux)
 from . import jpegformat        # noqa: F401  (jpegparse, jifmux)
 from . import asf               # noqa: F401  (asfmux, asfparse, asfdemux)
 from . import playback_extra    # noqa: F401  (decodebin3, parsebin, playbin3, playsink, y4mdec, alphacolor, dtmfdetect)
+from ..net import transport     # noqa: F401  (tcpserversink, tcpclientsink, tcpclientsrc, tcpserversrc, udpsink, udpsrc)
+from ..net import rtp           # noqa: F401  (rtpvrawpay, rtpvrawdepay, rtpL16pay, rtpL16depay, rtpjitterbuffer)
+from ..net import rtp_payloaders  # noqa: F401  (PCMU/PCMA, H.264, JPEG, VP8, VP9, Opus pay/depay, rtpptdemux, rtpssrcdemux, rtpdtmfsrc/depay, rtpmux, rtpdtmfmux, rtpfunnel, rtprtxsend/receive/queue)
+from ..net import rtp_raw_audio  # noqa: F401  (rtpL8pay/depay, rtpL24pay/depay, asteriskh263)
+from ..net import rtp_hdrext    # noqa: F401  (the seven RFC 8285 extension elements)
+from ..net import sdp           # noqa: F401  (sdpdemux, sdpsrc, rtpsink, rtpsrc)
+from ..net import rtsp_server   # noqa: F401  (rtspsrc, rtspclientsink)
+from ..net import rtpmanager    # noqa: F401  (rtpsession, rtpbin)
+from . import dtmf_icy          # noqa: F401  (dtmfsrc, icydemux, amrparse, dcaparse)
+from . import pcapparse         # noqa: F401

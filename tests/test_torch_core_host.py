@@ -116,13 +116,19 @@ def test_element_make_from_uri(tmp_path):
         tst.element_make_from_uri("nope://x")
 
 
-def test_element_make_from_uri_unported_handler():
-    """udpsrc is a factory of the JAX package the port does not have yet:
-    the port raises naming ROADMAP.md where the JAX package builds it."""
-    assert jst.element_make_from_uri("udp://127.0.0.1:5004").FACTORY == \
-        "udpsrc"
+def test_element_make_from_uri_unported_handler(monkeypatch):
+    """A handler whose factory the port does not have yet (lc3dec): the
+    port raises naming ROADMAP.md where the JAX package builds it.  The
+    udp:// handler's udpsrc is ported: both build it alike."""
+    for st in (jst, tst):
+        monkeypatch.setitem(st._URI_HANDLERS, "lc3", "lc3dec")
+    assert jst.element_make_from_uri("lc3://x").FACTORY == "lc3dec"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tst.element_make_from_uri("udp://127.0.0.1:5004")
+        tst.element_make_from_uri("lc3://x")
+    e = tst.element_make_from_uri("udp://127.0.0.1:5004")
+    j = jst.element_make_from_uri("udp://127.0.0.1:5004")
+    assert (e.FACTORY, e.props) == (j.FACTORY, j.props) == \
+        ("udpsrc", j.props)
 
 
 def test_context_registry():

@@ -90,6 +90,22 @@ VPX_TRANSPORT_FACTORIES = (
     "hlssink2", "hlssink", "dashsink", "flvmux", "flvdemux", "jpegparse",
     "jifmux", "asfmux", "asfparse", "asfdemux", "decodebin3", "parsebin",
     "playbin3", "playsink", "y4mdec", "alphacolor", "dtmfdetect")
+# RTP with its payloaders, RTCP's elements, the sockets, SDP, RTSP, DTMF
+# and pcapparse
+NET_FACTORIES = (
+    "tcpserversink", "tcpclientsink", "tcpclientsrc", "tcpserversrc",
+    "udpsink", "udpsrc", "rtpvrawpay", "rtpvrawdepay", "rtpL16pay",
+    "rtpL16depay", "rtpjitterbuffer", "rtppcmupay", "rtppcmudepay",
+    "rtppcmapay", "rtppcmadepay", "rtph264pay", "rtph264depay", "rtpptdemux",
+    "rtpssrcdemux", "rtpdtmfsrc", "rtpdtmfdepay", "rtpjpegpay",
+    "rtpjpegdepay", "rtpmux", "rtpdtmfmux", "rtpfunnel", "rtprtxsend",
+    "rtprtxreceive", "rtprtxqueue", "rtpvp8pay", "rtpvp8depay", "rtpvp9pay",
+    "rtpvp9depay", "rtpopuspay", "rtpopusdepay", "rtpL8pay", "rtpL8depay",
+    "rtpL24pay", "rtpL24depay", "asteriskh263", "rtphdrextclientaudiolevel",
+    "rtphdrextmid", "rtphdrextstreamid", "rtphdrextrepairedstreamid",
+    "rtphdrextntp64", "rtphdrexttwcc", "rtphdrextcolorspace", "sdpdemux",
+    "sdpsrc", "rtpsink", "rtpsrc", "rtspsrc", "rtspclientsink", "rtpsession",
+    "rtpbin", "dtmfsrc", "icydemux", "amrparse", "dcaparse", "pcapparse")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -127,17 +143,19 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 380
+    assert len(telement._REGISTRY) == 440
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
     assert len(set(CODEC_FACTORIES)) == 16
     assert len(set(OPUS_AAC_FACTORIES)) == 4
     assert len(set(VPX_TRANSPORT_FACTORIES)) == 38
+    assert len(set(NET_FACTORIES)) == 60
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
         | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
-        | set(VPX_TRANSPORT_FACTORIES) <= set(telement._REGISTRY)
+        | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
+        <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():

@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Run chip_smoke.py's RTP / RTSP phase (phase 20, ``rtp_rtsp_phase``) alone
+on one CUDA card: build the port's kernels, count the kernel wrappers'
+launches as chip_smoke.py does, run the phase, print the card's name and
+power limit.
+
+    python3 tools/rtp_phase.py [--seed N]
+
+Exits non-zero without a card, or when any check of the phase fails.
+"""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("rtp_phase: no CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from gstreamer_tpu_torch.device import resolve
+    from gstreamer_tpu_torch.ops import _build
+    from gstreamer_tpu_torch.ops import chroma420_kernel as ck
+    from gstreamer_tpu_torch.ops import yscale_kernel as ysk
+    _build.build()
+    counters = {"yscale_hv": ysk.yscale_hv,
+                "chroma420_scale": ck.chroma420_scale}
+    total = chip_smoke.rtp_rtsp_phase(args.seed, counters, resolve())
+    print(f"rtp/rtsp phase launches: {total}")
+    print(chip_smoke.smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
