@@ -421,6 +421,43 @@ before it and read just after:
 
    then each of the 60 factories alone, the card equal to the CPU.
 
+21. The rest of RTP: FEC, RED, the generic and codec payloaders and Siren
+   (rtp_fec_phase; host code, the card decoding and converting):
+
+  rtp_fec_camera    phase 20's camera, its 32 1080p JPEGs through rtpjpegpay
+                    and, in turn, rtpst2022_1_fecenc rows=5, rtpulpfecenc
+                    group-size=4 and rtpredenc distance=1 (payloader mtu 700
+                    under RED); drop pattern (a), one media packet in each
+                    of 16 rows the pushed buffers recover alone (the first
+                    packet of 6 frames among them), into appsrc ! the
+                    decoder (rtpst2022_1_fecdec; rtpstorage ! rtpulpfecdec !
+                    rtpjitterbuffer; rtpreddec) ! rtpjpegdepay ! jpegdec !
+                    RGB 224x224 at batch 16: every packet back in order,
+                    every frame multifilesrc ! jpegdec's and the CPU run's,
+                    yscale_hv once a tick that gives frames; pattern (b),
+                    the same drops with no decoder, ends at the first
+                    headless frame (a reference fault, ROADMAP.md section 3)
+  rtp_fec_udp       the camera with SMPTE 2022-1 over udpsink / udpsrc on
+                    loopback (where the probe found UDP): packets lost and
+                    recovered, frames whole, each equal to its TCP frame
+  rtp_gst_raw       16 1080p I420 frames through rtpgstpay ! rtpgstdepay to
+                    RGB 224x224: the direct conversion's bytes, yscale_hv
+                    once
+  rtp_mp2t_line     mpegtsmux's TS of the committed AAC and MP3 through
+                    rtpmp2tpay ! rtpst2022_1_fecenc, seeded drops, then
+                    rtpst2022_1_fecdec ! rtpmp2tdepay ! filesink: the TS
+                    bytes sent; tsdemux ! aacparse ! faad of it the plain
+                    file's PCM, the ASR chain's output the sent TS's
+  rtp_coded_audio   MP3 through rtpmpapay ! rtpmpadepay ! mpegaudioparse !
+                    mpg123audiodec and AAC through rtpmp4gpay ! rtpmp4gdepay
+                    ! faad: the plain files' PCM; the Vorbis and Theora
+                    packets of the committed Ogg files back from their
+                    payloaders
+  siren_rtp         10 s of 16 kHz mono through sirenenc ! rtpsirenpay !
+                    rtpsirendepay ! sirendec: the card's PCM the CPU run's
+
+   then each of the 76 factories alone, the card equal to the CPU.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -6867,6 +6904,16 @@ def ra4_header(frame=20):
             + bytes([4]) + b"Int0" + bytes([4]) + b"lpcJ" + b"\0\0\0")
 
 
+def push_all(pipe, pushes):
+    """Push each appsrc of `pushes` ({name: [Buffer]}) its buffers, then
+    end of stream."""
+    for name, bufs in (pushes or {}).items():
+        src = pipe.get_by_name(name)
+        for b in bufs:
+            src.push_buffer(b)
+        src.end_of_stream()
+
+
 def cont_launch(desc, d, batch, pushes=None):
     """A launch string to EOS on `d` with seeded pushes (host arrays of
     media go to `d` as tensors, byte blobs stay host arrays): its sinks'
@@ -6876,15 +6923,11 @@ def cont_launch(desc, d, batch, pushes=None):
     from gstreamer_tpu_torch import parse_launch
     from gstreamer_tpu_torch.core.buffer import Buffer, map_leaves
     pipe = parse_launch(desc, batch=batch, device=d)
-    for name, bufs in (pushes or {}).items():
-        src = pipe.get_by_name(name)
-        for b in bufs:
-            src.push_buffer(Buffer(**dict(b, data=map_leaves(
-                lambda x: torch.from_numpy(x).to(d)
-                if isinstance(x, np.ndarray) and (x.dtype != np.uint8
-                                                  or x.ndim > 1) else x,
-                b["data"]))))
-        src.end_of_stream()
+    push_all(pipe, {name: [Buffer(**dict(b, data=map_leaves(
+        lambda x: torch.from_numpy(x).to(d)
+        if isinstance(x, np.ndarray) and (x.dtype != np.uint8
+                                          or x.ndim > 1) else x,
+        b["data"]))) for b in bufs] for name, bufs in (pushes or {}).items()})
     pipe.run()
     got = {}
     for s in ("out", "out1", "out2"):
@@ -7230,15 +7273,18 @@ def codec_timed(targets, spent):
         yield spent
 
 
-def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
-    """One read path on the card: parse and start it (the decode of a
-    collapsed decoder happens there, timed), then tick to EOS under
+def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders,
+               pushes=None, out=None):
+    """One read path on the card: parse it, push `pushes` ({appsrc name:
+    [Buffer]}, then end of stream) and start it (the decode of a collapsed
+    decoder happens there, timed), then tick to EOS under
     torch.profiler, the launch counts zeroed just before and read just
     after (`want`, or `want(fed)` of the frames each tick gave).  Returns
-    the sinks' samples ("v", "a") and its numbers: ticks, host seconds of
-    decoding, set-up, device busy ms and idle share a tick, bytes copied
-    H2D and D2H a tick, peak memory, launches, and each tick's host
-    seconds and frames given (`tick_secs`, `fed`)."""
+    the sinks' samples ("v", "a": into `out` as each tick gives them, so
+    that a caller keeps those before a fault) and its numbers: ticks, host
+    seconds of decoding, set-up, device busy ms and idle share a tick,
+    bytes copied H2D and D2H a tick, peak memory, launches, and each
+    tick's host seconds and frames given (`tick_secs`, `fed`)."""
     import contextlib as cl
 
     from torch.profiler import ProfilerActivity, profile
@@ -7250,27 +7296,32 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders):
         sync(dev)
         t0 = time.perf_counter()
         pipe = parse_launch(desc, batch=batch, device=dev)
+        push_all(pipe, pushes)
         pipe.set_state("playing")
         setup = time.perf_counter() - t0
-    out, secs, fed = {"v": [], "a": []}, [], []
+    out = {"v": [], "a": []} if out is None else out
+    secs, fed = [], []
     prof_cm = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if cuda else cl.nullcontext())
-    with prof_cm as prof, codec_timed(decoders, spent), \
-            copy_meter(counts):
-        while True:
-            sync(dev)
-            t0 = time.perf_counter()
-            more = pipe.tick()
-            had = {k: len(v) for k, v in out.items()}
-            cont_sinks(pipe, out)
-            sync(dev)
-            secs.append(time.perf_counter() - t0)
-            fed.append(sum(x.buffer.batch for k, v in out.items()
-                           for x in v[had[k]:]))
-            if not more:
-                break
-    pipe.set_state("null")
+    try:
+        with prof_cm as prof, codec_timed(decoders, spent), \
+                copy_meter(counts):
+            while True:
+                sync(dev)
+                t0 = time.perf_counter()
+                more = pipe.tick()
+                had = {k: len(v) for k, v in out.items()}
+                cont_sinks(pipe, out)
+                sync(dev)
+                secs.append(time.perf_counter() - t0)
+                fed.append(sum(x.buffer.batch for k, v in out.items()
+                               for x in v[had[k]:]))
+                if not more:
+                    break
+    finally:
+        cont_sinks(pipe, out)
+        pipe.set_state("null")
     launches = finish(name, want(fed) if callable(want) else want)
     n = len(secs)
     wall = sum(secs) / n * 1e3
@@ -7362,13 +7413,19 @@ def codec_audio_item(name, paths, dev, start, finish, peak, decoders, dig,
     return pcm
 
 
-def codec_run(desc, dev, batch=1, sink="a"):
-    """A launch string ending in appsink `sink` run to EOS on `dev`: its
-    samples."""
+def codec_run(desc, dev, batch=1, sink="a", pushes=None, got=None):
+    """A launch string ending in appsink `sink` run to EOS on `dev` (its
+    appsrcs given `pushes`: {name: [Buffer]}, then end of stream): its
+    samples, added to `got` too, also those given before a fault."""
     from gstreamer_tpu_torch import parse_launch
+    got = [] if got is None else got
     pipe = parse_launch(desc, batch=batch, device=dev)
-    pipe.run()
-    return drain(pipe.get_by_name(sink))
+    push_all(pipe, pushes)
+    try:
+        pipe.run()
+    finally:
+        got += drain(pipe.get_by_name(sink))
+    return got
 
 
 def flac_asr(seed, dev, tmp, start, finish, peak):
@@ -9242,10 +9299,11 @@ def rr_jpegs(seed, dev, tmp):
 
 
 def rr_drive(name, desc, dev, start, finish, peak, timers=(),
-             batch=RR_CAM[3]):
-    """codec_path of `desc` with `timers` (context managers) entered around
-    it all, yscale_hv wanted once in each tick that gave frames.  Its
-    numbers gain those of the ticks that gave frames: their count, the
+             batch=RR_CAM[3], pushes=None, out=None):
+    """codec_path of `desc` (its appsrcs given `pushes`, its samples into
+    `out`) with `timers` (context managers) entered around it all,
+    yscale_hv wanted once in each tick that gave frames.  Its numbers gain
+    those of the ticks that gave frames: their count, the
     frames, their host seconds (`work`), device busy ms a tick and idle
     share over them, H2D a tick; `idle_run` is the idle share of the whole
     run, the end-of-stream wait in it.  Returns (the "v" samples,
@@ -9255,7 +9313,8 @@ def rr_drive(name, desc, dev, start, finish, peak, timers=(),
             stack.enter_context(t)
         pipe, out, r = codec_path(
             name, desc, batch, dev, start, finish, peak,
-            lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, ())
+            lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, (), pushes,
+            out)
     n, fed = r["ticks"], r["fed"]
     fed_ticks = sum(1 for f in fed if f)
     work = sum(t for t, f in zip(r["tick_secs"], fed) if f)
@@ -9413,6 +9472,101 @@ def rr_depay_images(sent):
                          .data): k for k, f in enumerate(sent)}
 
 
+@contextlib.contextmanager
+def rr_jpeg_fault(fault):
+    """While the block runs, record jpegdec's own error in `fault`: the
+    exception its decode raised ("error") and the image it raised on
+    ("image": the first of the call's images that raises decoded alone, or
+    None)."""
+    from gstreamer_tpu_torch.elements import image_codecs
+    cls = image_codecs.JpegDec
+    fn = cls._decode_all
+
+    def spy(self, blobs):
+        try:
+            return fn(self, blobs)
+        except Exception as e:
+            fault.update(error=e, image=None)
+            for b in blobs:
+                try:
+                    fn(self, [b])
+                except Exception:
+                    fault["image"] = rr_pkt_bytes(b)
+                    break
+            raise
+    cls._decode_all = spy
+    try:
+        yield fault
+    finally:
+        cls._decode_all = fn
+
+
+def rr_camera_run(name, desc, dev, start, finish, peak, spent, timers):
+    """rr_drive of a receiving camera path (... ! rtpjpegdepay ! jpegdec !
+    ... to RGB on the card) with `timers`, rtpjpegdepay timed into `spent`
+    and its packets taken and images handed on recorded.  A frame that lost
+    packets for good goes to jpegdec as it is (rtpjpegdepay keeps no
+    sequence numbers, ROADMAP.md section 3), and jpegdec may raise on it:
+    that error (rr_jpeg_fault) ends the run, any other propagates.  Then
+    the launch counts are read here, yscale_hv once a tick whose frames
+    reached the appsink (a sample each).  Returns (packets taken, images
+    handed on, the samples, rr_drive's numbers or None, the fault or
+    None)."""
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    took, images, fault, out = [], [], {}, {"v": [], "a": []}
+
+    def record(args, o):
+        if args[-1] is None:
+            return 0
+        took.extend(rr_pkt_bytes(x) for x in args[-1].data)
+        if o is not None:
+            images.extend(rr_pkt_bytes(x) for x in (
+                o.data if isinstance(o.data, list) else [o.data]))
+        return len(args[-1].data)
+    try:
+        _v, r = rr_drive(name, desc, dev, start, finish, peak, (
+            rr_jpeg_fault(fault), cont_timed(rp.RtpJpegDepay, "host_process",
+                                             spent, "rtpjpegdepay", record),
+            *timers), out=out)
+        return took, images, out["v"], r, None
+    except Exception as e:
+        if e is not fault.get("error"):
+            raise
+    finish(name, {"yscale_hv": len(out["v"])})
+    return took, images, out["v"], None, fault
+
+
+def rr_camera_check(name, sent, ref, images, v, fault):
+    """The frames a receiving camera path handed on, against the TCP run
+    (`ref`, the RGB of the sent frames): every image that reached the
+    appsink (all of them, or those before jpegdec's fault) that is a sent
+    frame's, whole, has its frame's RGB.  After the fault, the image
+    jpegdec raised on came after those and is no sent frame's: a frame
+    that lost packets for good.  Returns (the frames handed on whole, those
+    checked)."""
+    index = rr_depay_images(sent)
+    rgb = cont_joined(v)
+    done = 0 if rgb is None else rgb[0].shape[0]
+    require(done <= len(images), f"{name}: {done} frames out of "
+            f"{len(images)} images")
+    if fault is None:
+        require(done == len(images), f"{name}: {done} frames out of "
+                f"{len(images)} images")
+    else:
+        bad = fault["image"]
+        require(bad is not None and bad in images[done:] and bad not in index,
+                f"{name}: jpegdec raised {fault['error']!r} on an image that "
+                f"is not a broken frame handed on after the {done} decoded")
+    pairs = [(k, index[x]) for k, x in enumerate(images[:done]) if x in index]
+    require(pairs or fault, f"{name}: no frame arrived whole")
+    if pairs:
+        mine, theirs = [k for k, _ in pairs], [j for _, j in pairs]
+        require(cont_equal(tuple(p[mine] for p in rgb),
+                           tuple(p[theirs] for p in ref)),
+                f"{name}: a whole frame's RGB differs from the TCP run's")
+    return sum(1 for x in images if x in index), len(pairs)
+
+
 def rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak):
     """The same camera with RTSP's default UDP transport and the server's
     rate control at 25/1, twice.  The baseline: rtspsrc ! appsink, a
@@ -9422,12 +9576,11 @@ def rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak):
     pipeline on the card, rtspsrc ! rtpjpegdepay ! jpegdec ! videoconvertscale
     to RGB 224x224 (rr_drive, yscale_hv once a tick that gives frames):
     prints the packets the server sent and rtpjpegdepay took and the frames
-    whole; each whole frame's RGB equals its frame of the TCP run.  A
-    frame that lost its first packet makes jpegdec raise (a reference
-    fault, ROADMAP.md section 3): that run is then reported as such."""
+    whole; each whole frame's RGB equals its frame of the TCP run, up to
+    jpegdec's fault on a frame that lost packets for good where it raises
+    (rr_camera_run, rr_camera_check)."""
     from gstreamer_tpu_torch import parse_launch
     from gstreamer_tpu_torch.elements import image_codecs
-    from gstreamer_tpu_torch.net import rtp_payloaders as rp
     from gstreamer_tpu_torch.net import rtsp_server as rs
     w, h, n, _batch = RR_CAM
     launch = rr_cam_launch(jdir, "imagesequencesrc")
@@ -9477,35 +9630,22 @@ def rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak):
              f"{rb.jitter}" if rb is not None else ""))
 
     # the camera's path in one pipeline
-    index = rr_depay_images(sent)
-    took, images, spent = [], [], {}
-
-    def record(args, out):
-        if args[-1] is None:
-            return 0
-        took.extend(rr_pkt_bytes(x) for x in args[-1].data)
-        if out is not None:
-            images.extend(rr_pkt_bytes(x) for x in (
-                out.data if isinstance(out.data, list) else [out.data]))
-        return len(args[-1].data)
+    spent = {}
     srv, port = rr_server(dev, launch, True)
     try:
-        out, r = rr_drive(
+        took, images, v, r, fault = rr_camera_run(
             "rtsp_mjpeg_udp",
             f"rtspsrc location=rtsp://127.0.0.1:{port}/cam {RR_WAIT} ! "
             f"rtpjpegdepay ! jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}", dev,
-            start, finish, peak,
-            (cont_timed(rp.RtpJpegDepay, "host_process", spent,
-                        "rtpjpegdepay", record),
-             cont_timed(rs.RTSPServer, "_send_rtp", spent, "server",
+            start, finish, peak, spent,
+            (cont_timed(rs.RTSPServer, "_send_rtp", spent, "server",
                         lambda a, o: 1),
              cont_timed(image_codecs.JpegDec, "_decode_all", spent,
                         "decode")))
-        fault = None
-    except ValueError as e:
-        fault = e
     finally:
         srv.shutdown()
+    whole, checked = rr_camera_check("rtsp_mjpeg_udp", sent, tcp_rgb,
+                                     images, v, fault)
     sent_n = spent.get("server packets", 0)
     have = {p[12:] for p in took}
     first_lost = [k for k, f in enumerate(sent)
@@ -9514,26 +9654,17 @@ def rtsp_mjpeg_udp(dev, jdir, tcp_rgb, sent, start, finish, peak):
     print(f"  rtsp_mjpeg_udp: rtpjpegdepay took {len(took)} of the {sent_n} "
           f"packets the server sent ({sent_n - len(took)} lost) with "
           f"jpegdec in the receiving loop; {len(images)} images handed on, "
-          f"{sum(1 for x in images if x in index)} of {n} frames whole; "
-          f"frames that lost their first packet: {first_lost}")
+          f"{whole} of {n} frames whole; frames that lost their first "
+          f"packet: {first_lost}")
     if fault is not None:
-        require(first_lost and str(fault) == "not a JPEG",
-                f"rtsp_mjpeg_udp: {fault!r}")
         print(f"  rtsp_mjpeg_udp: reference fault (ROADMAP.md section 3): "
-              f"rtpjpegdepay handed on frame {first_lost[0]} without its "
-              f"first packet and jpegdec raised {fault!r}; the run's RGB is "
-              f"not checked")
+              f"rtpjpegdepay handed on a frame that lost packets for good and "
+              f"jpegdec raised {fault['error']!r} on it, ending the "
+              f"pipeline; the {checked} whole frames before it == their "
+              f"frames of the TCP run")
         return
-    rgb = cont_joined(out)
-    pairs = [(k, index[x]) for k, x in enumerate(images) if x in index]
-    require(pairs, "rtsp_mjpeg_udp: no frame arrived whole")
-    mine, theirs = [k for k, _ in pairs], [j for _, j in pairs]
-    require(rgb is not None and rgb[0].shape[0] == len(images)
-            and cont_equal(tuple(p[mine] for p in rgb),
-                           tuple(p[theirs] for p in tcp_rgb)),
-            "rtsp_mjpeg_udp: a whole frame's RGB differs from the TCP run's")
     rr_report("rtsp_mjpeg_udp", r)
-    print(f"  rtsp_mjpeg_udp: every whole frame ({len(pairs)}) == its frame "
+    print(f"  rtsp_mjpeg_udp: every whole frame ({checked}) == its frame "
           f"of the TCP run; yscale_hv {r['launches'].get('yscale_hv', 0)} in "
           f"the {r['fed_ticks']} ticks that gave frames; host decode "
           f"{spent.get('decode', 0) / max(len(images), 1) * 1e3:.3f} ms a "
@@ -10247,14 +10378,14 @@ def rr_alone_rows(files, tmp):
     return rows
 
 
-def rr_factories():
-    """The factories RR_MODULES register (dtmf_icy's aacparse is
-    audioparsers' class, not its own)."""
-    import importlib
-    return {v.FACTORY for m in RR_MODULES
-            for v in vars(importlib.import_module(m)).values()
-            if isinstance(v, type) and getattr(v, "FACTORY", "")
-            and v.__module__ == m}
+def rr_factories(modules=RR_MODULES):
+    """The factories whose registered class `modules` define (dtmf_icy's
+    aacparse is audioparsers' class, not its own; rtp_payloaders2's raw
+    rtpsirenpay pair gives way to siren_elements')."""
+    from gstreamer_tpu_torch.core.element import (get_factory_class,
+                                                  list_factories)
+    return {f for f in list_factories()
+            if get_factory_class(f).__module__ in modules}
 
 
 def rr_alone(counters, dev, files, tmp, sockets):
@@ -10287,30 +10418,7 @@ def rtp_rtsp_phase(seed, counters, dev):
     import tempfile
 
     import torch
-    cuda = dev.type == "cuda"
-    total = {k: 0 for k in counters}
-
-    def start(what):
-        for c in counters.values():
-            c.launches = 0
-        if cuda:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            return torch.cuda.memory_allocated()
-        return 0
-
-    def finish(what, want):
-        counts = {k: c.launches for k, c in counters.items()}
-        require(counts == {k: want.get(k, 0) for k in counters},
-                f"{what}: launches {counts}, want {want}")
-        for k, v in counts.items():
-            total[k] += v
-        return {k: v for k, v in counts.items() if v}
-
-    def peak(base):
-        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
-            else 0.0
-
+    start, finish, peak, total = phase_meters(counters, dev)
     t0 = time.perf_counter()
     probe = rr_probe()
     sockets = probe["udp"] and probe["tcp"]
@@ -10350,6 +10458,807 @@ def rtp_rtsp_phase(seed, counters, dev):
             rtp_coded_passthrough(dev, files, start, finish, peak)
         rr_alone(counters, dev, files, tmp, sockets)
     print(f"rtp/rtsp phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+RF_MODULES = tuple(f"gstreamer_tpu_torch.{m}" for m in (
+    "net.rtp_payloaders2", "net.fec", "net.rtp_tail",
+    "elements.siren_elements"))
+RF_ROWS = 5                         # SMPTE 2022-1's row length L
+RF_GROUP = 4                        # ULPFEC's media packets a FEC packet
+RF_RED_MTU = 700                    # RED's payloader: blocks under 1024 bytes
+RF_FIRST = (1, 5, 9, 13, 17, 21)    # frames that lose their first packet
+RF_MIDDLE = (2, 3, 6, 7, 10, 11, 18, 19, 22, 23)    # ... a middle packet
+RF_MIDDLE_AT = 50                   # which one
+RF_GST = 16                         # rtp_gst_raw's 1080p frames
+RF_TS_BLOCK = 188 * 70              # filesrc's bytes a buffer of the TS
+RF_TS_DROPS = 12                    # rtp_mp2t_line's rows that lose a packet
+RF_SIREN = 10                       # siren_rtp's seconds of 16 kHz mono
+# name, the payloader's MTU, the encoder, the decoder, the FEC payload type
+RF_PROTECT = (
+    ("st2022_1", RR_MTU, f"rtpst2022_1_fecenc rows={RF_ROWS}",
+     "rtpst2022_1_fecdec", 100),
+    ("ulpfec", RR_MTU, f"rtpulpfecenc percentage=100 group-size={RF_GROUP}",
+     "rtpstorage ! rtpulpfecdec ! rtpjitterbuffer", 122),
+    ("red", RF_RED_MTU, "rtpredenc distance=1", "rtpreddec", None))
+
+
+def phase_meters(counters, dev):
+    """A phase's start(what) (zero the launch counts, reset the peak; the
+    memory in use), finish(what, want) (the counts must be `want`; added to
+    the phase's totals) and peak(base) (MiB above `base`), and the totals."""
+    import torch
+    cuda = dev.type == "cuda"
+    total = {k: 0 for k in counters}
+
+    def start(what):
+        for c in counters.values():
+            c.launches = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def finish(what, want):
+        counts = {k: c.launches for k, c in counters.items()}
+        require(counts == {k: want.get(k, 0) for k in counters},
+                f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def peak(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+            else 0.0
+    return start, finish, peak, total
+
+
+def rf_seq(p):
+    return (p[2] << 8) | p[3]
+
+
+def rf_pay(dev, jdir, mtu, enc=""):
+    """The camera's JPEG files through rtpjpegpay mtu=`mtu` (then `enc`)
+    on the host, a buffer a frame: [the packets of frame k, with the FEC
+    packets the encoder sent after them]."""
+    tail = f"{enc} ! " if enc else ""
+    got = [[rr_pkt_bytes(x) for x in s.buffer.data] for s in codec_run(
+        f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+        f"framerate={CONT_FPS}/1 ! rtpjpegpay mtu={mtu} ! {tail}appsink "
+        "name=p", dev, 1, "p")]
+    require(len(got) == RR_CAM[2], f"rtpjpegpay ! {enc}: {len(got)} buffers "
+            f"of {RR_CAM[2]} frames")
+    return got
+
+
+def rf_rows(kind, push, fec_pt):
+    """The rows a pushed buffer's own packets can recover: the sequence
+    numbers a FEC packet protects when all of them and it are in the buffer
+    (SMPTE 2022-1, ULPFEC); for RED, a packet whose neighbours are there
+    (the next carries it, the one before shows the gap)."""
+    media = {rf_seq(p) for p in push if (p[1] & 0x7F) != fec_pt}
+    if kind == "red":
+        return [(s,) for s in media
+                if (s - 1) & 0xFFFF in media and (s + 1) & 0xFFFF in media]
+    return [run for run in (rf_run(kind, p) for p in push
+                            if (p[1] & 0x7F) == fec_pt)
+            if set(run) <= media]
+
+
+def rf_run(kind, p):
+    """The sequence numbers a FEC packet protects (SMPTE 2022-1 or
+    ULPFEC), as each decoder parses them."""
+    from gstreamer_tpu_torch.net.fec import parse_fec_packet
+    from gstreamer_tpu_torch.net.rtp import parse_rtp_header
+    from gstreamer_tpu_torch.net.rtp_payloaders2 import ulpfec_header
+    if kind == "ulpfec":
+        return tuple(ulpfec_header(parse_rtp_header(p)["payload"])
+                     ["protected"])
+    f = parse_fec_packet(p)
+    return tuple((f["sn_base"] + i * f["offset"]) & 0xFFFF
+                 for i in range(f["na"]))
+
+
+def rf_straddled(a, b, fec_pt):
+    """The rows that start in pushed buffer `a` and end, with their FEC
+    packets, in `b` (SMPTE 2022-1)."""
+    mine = {rf_seq(p) for p in a if (p[1] & 0x7F) != fec_pt}
+    return [run for run in (rf_run("st2022_1", p) for p in b
+                            if (p[1] & 0x7F) == fec_pt)
+            if run[0] in mine and run[-1] not in mine]
+
+
+def rf_cut_in_row(full, fec_pt):
+    """SMPTE 2022-1 pushes whose first cut lies inside a row: where the
+    frames' cut falls at a row's end, the next row's first two media
+    packets move to the first buffer (rtpjpegdepay joins a frame across
+    buffers)."""
+    a, b = full[0], full[1]
+    if rf_straddled(a, b, fec_pt):
+        return full
+    k = [i for i, p in enumerate(b) if (p[1] & 0x7F) != fec_pt][1] + 1
+    return [a + b[:k], b[k:]] + full[2:]
+
+
+def rf_straddle(full, fec_pt, drops):
+    """SMPTE 2022-1: the first packet of the first row that starts in one
+    pushed buffer and ends, with its FEC packet, in the next, and holds no
+    other drop; only a decoder that keeps its packets across buffers (the
+    port's, not the JAX package's) recovers it.  Returns (the sequence
+    number, the row's)."""
+    for a, b in zip(full, full[1:]):
+        for run in rf_straddled(a, b, fec_pt):
+            if not set(run) & drops:
+                return run[0], run
+    require(False, "st2022_1: no row straddles two pushed buffers")
+
+
+def rf_pattern(kind, plain, protected, fec_pt):
+    """Drop pattern (a): the first packet of each frame of RF_FIRST and
+    packet RF_MIDDLE_AT of each of RF_MIDDLE (never a frame's last), one in
+    each of 16 rows that the pushed buffer (RR_CAM[3] frames) holding it
+    can recover; under SMPTE 2022-1 one more, rf_straddle's, the first
+    cut inside a row (rf_cut_in_row).  Returns (the sequence numbers, the
+    pushes with them dropped from `protected`, the eligible rows,
+    rf_straddle's or None)."""
+    batch = RR_CAM[3]
+    drops = [rf_seq(plain[k][0]) for k in RF_FIRST]
+    for k in RF_MIDDLE:
+        require(len(plain[k]) > RF_MIDDLE_AT + 1,
+                f"frame {k}: {len(plain[k])} packets")
+        drops.append(rf_seq(plain[k][RF_MIDDLE_AT]))
+    full = [[p for f in protected[i:i + batch] for p in f]
+            for i in range(0, len(protected), batch)]
+    if kind == "st2022_1":
+        full = rf_cut_in_row(full, fec_pt)
+    rows = [r for push in full for r in rf_rows(kind, push, fec_pt)]
+    for s in drops:
+        mine = [r for r in rows if s in r]
+        require(mine and all(len(set(r) & set(drops)) == 1 for r in mine),
+                f"{kind}: packet {s} lies in no row its buffer recovers "
+                f"alone, or shares one with another drop")
+    if kind == "red":
+        require(all((s + 1) & 0xFFFF not in drops for s in drops),
+                "red: two drops in a row")
+    straddle = None
+    if kind == "st2022_1":
+        straddle = rf_straddle(full, fec_pt, set(drops))
+        drops.append(straddle[0])
+    pushes = [[p for p in push if (p[1] & 0x7F) == fec_pt
+               or rf_seq(p) not in drops] for push in full]
+    return set(drops), pushes, len(rows), straddle
+
+
+def rf_buffers(pushes):
+    """Pushed packet lists as buffers, RR_CAM[3] frames of time each."""
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    dur = RR_CAM[3] * 10**9 // CONT_FPS
+    return [Buffer(data=list(p), pts=k * dur, duration=dur)
+            for k, p in enumerate(pushes)]
+
+
+def rf_camera_desc(dec):
+    w, h = RR_CAM[:2]
+    return (f"appsrc name=in caps={RR_RTP_JPEG} ! {dec + ' ! ' if dec else ''}"
+            f"rtpjpegdepay ! jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}")
+
+
+def rtp_fec_camera(dev, jdir, ref, sent, start, finish, peak):
+    """The camera's 32 JPEGs through rtpjpegpay and each protection of
+    RF_PROTECT, drop pattern (a) on the host, then appsrc ! the decoder !
+    rtpjpegdepay ! jpegdec ! videoconvertscale to RGB 224x224 on the card
+    at batch RR_CAM[3] (rr_drive: yscale_hv once a tick that gives
+    frames): rtpjpegdepay takes the payloader's packets, every one, in
+    order; every frame's RGB equals multifilesrc ! jpegdec's (== the TCP
+    run's) and the port's CPU run.  Pattern (b): the same packets dropped
+    from the plain stream, no decoder; the frames whole by their packets,
+    and the run, which ends at the first headless frame (ROADMAP.md
+    section 3), reported as that fault."""
+    import torch
+    from gstreamer_tpu_torch.net import rtp_payloaders as rp
+    n = RR_CAM[2]
+    for kind, mtu, enc, dec, fec_pt in RF_PROTECT:
+        name = f"rtp_fec_camera[{kind}]"
+        stats = {}
+        start(name)
+        plain = sent if mtu == RR_MTU else rf_pay(dev, jdir, mtu)
+        t0 = time.perf_counter()
+        with cont_timed(rp.RtpJpegPay, "host_process", stats, "rtpjpegpay",
+                        rr_packets_out):
+            protected = rf_pay(dev, jdir, mtu, enc)
+        enc_s = time.perf_counter() - t0
+        finish(name, {})
+        drops, pushes, eligible, straddle = rf_pattern(kind, plain,
+                                                       protected, fec_pt)
+        flat = [p for f in plain for p in f]
+        took = []
+
+        def record(args, out):
+            if args[-1] is None:
+                return 0
+            took.extend(rr_pkt_bytes(x) for x in args[-1].data)
+            return len(args[-1].data)
+        out, r = rr_drive(name, rf_camera_desc(dec), dev, start, finish,
+                          peak, (cont_timed(rp.RtpJpegDepay, "host_process",
+                                            stats, "rtpjpegdepay", record),),
+                          pushes={"in": rf_buffers(pushes)})
+        rgb = cont_joined(out)
+        got = {rf_seq(p) for p in took} & drops
+        require(took == flat, f"{name}: rtpjpegdepay took {len(took)} "
+                f"packets, not the payloader's {len(flat)} in order")
+        require(rgb is not None and cont_equal(rgb, ref),
+                f"{name}: RGB other than multifilesrc ! jpegdec's")
+        t0 = time.perf_counter()
+        require(cont_equal(cont_joined(codec_run(
+            rf_camera_desc(dec), torch.device("cpu"), RR_CAM[3], "v",
+            {"in": rf_buffers(pushes)})), rgb),
+                f"{name}: the card's RGB differs from the port's CPU run")
+        cpu_s = time.perf_counter() - t0
+        sent_n = sum(len(f) for f in protected)
+        rr_report(name, r)
+        print(f"  {name}: rtpjpegpay mtu={mtu} ! {enc}: {sent_n} packets "
+              f"({len(flat)} media) in {enc_s:.3f} s; dropped {len(drops)} "
+              f"media packets, one in each of {len(drops) - bool(straddle)} "
+              f"of the {eligible} rows the pushed buffers recover alone (the "
+              f"first packet of frames {list(RF_FIRST)}, packet "
+              f"{RF_MIDDLE_AT} of {list(RF_MIDDLE)})"
+              + (f" and packet {straddle[0]}, the first of row "
+                 f"{straddle[1][0]}..{straddle[1][-1]}, which straddles two "
+                 f"pushed buffers (recovered only by the port's decoder, "
+                 f"ROADMAP.md section 3)" if straddle else "") + "; "
+              f"recovered {len(got)}; {n} of {n} frames whole == multifilesrc "
+              f"! jpegdec's RGB (== the TCP run's) == the port's CPU run "
+              f"({cpu_s:.1f} s); "
+              f"yscale_hv {r['launches'].get('yscale_hv', 0)} in the "
+              f"{r['fed_ticks']} ticks that gave frames; {rr_rates(stats)}")
+        lossy = [[p for p in f if rf_seq(p) not in drops] for f in plain]
+        whole, _lost = rr_whole_frames([p for f in lossy for p in f], plain)
+        start(f"{name}[no decoder]")
+        got, fault = rf_no_decoder(dev, lossy)
+        finish(f"{name}[no decoder]", {"yscale_hv": len(got)})
+        frames = sum(x.buffer.batch for x in got)
+        headless = rr_depay_images([lossy[RF_FIRST[0]]])
+        require(fault and str(fault["error"]) == "not a JPEG"
+                and fault["image"] in headless
+                and not set(rr_depay_images(plain)) & set(headless),
+                f"{name}[no decoder]: {fault} (want jpegdec's 'not a JPEG' "
+                f"on frame {RF_FIRST[0]}, which lost its first packet)")
+        print(f"  {name}[no decoder]: the same {len(drops)} packets dropped "
+              f"from the plain stream: {len(whole)} of {n} frames whole by "
+              f"their packets; reference fault (ROADMAP.md section 3): "
+              f"rtpjpegdepay handed on frame {RF_FIRST[0]} without its first "
+              f"packet and jpegdec raised {fault['error']!r} on it, ending "
+              f"the pipeline after {frames} frames")
+
+
+def rf_no_decoder(dev, lossy):
+    """Pattern (b): the lossy plain stream (a list of packets a frame) into
+    appsrc ! rtpjpegdepay ! jpegdec ! ... on `dev` with no decoder, a
+    pushed buffer RR_CAM[3] frames: (the samples, a tick that gave frames
+    each; jpegdec's fault (rr_jpeg_fault) that ended it, or {}).  Any
+    other error propagates."""
+    batch = RR_CAM[3]
+    pushes = [[p for f in lossy[i:i + batch] for p in f]
+              for i in range(0, len(lossy), batch)]
+    got, fault = [], {}
+    try:
+        with rr_jpeg_fault(fault):
+            codec_run(rf_camera_desc(""), dev, batch, "v",
+                      {"in": rf_buffers(pushes)}, got)
+    except Exception as e:
+        if e is not fault.get("error"):
+            raise
+    return got, fault
+
+
+@contextlib.contextmanager
+def rf_sender(desc, dev, started, spent):
+    """While the block runs, a thread that waits for `started`, then ticks
+    the sender `desc` (batch 1: a frame a tick) at CONT_FPS frames a
+    second; its host seconds in spent["sender"]."""
+    import threading
+    from gstreamer_tpu_torch import parse_launch
+    failed = []
+
+    def run():
+        try:
+            require(started.wait(30.0), "rtp_fec_udp: udpsrc never started")
+            tx = parse_launch(desc, device=dev)
+            tx.set_state("playing")
+            t0 = time.perf_counter()
+            k = 0
+            while tx.tick():
+                k += 1
+                time.sleep(max(0.0, t0 + k / CONT_FPS - time.perf_counter()))
+            spent["sender"] = time.perf_counter() - t0
+            tx.set_state("null")
+        except Exception as e:        # handed to the main thread
+            failed.append(e)
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        yield spent
+    finally:
+        t.join(60.0)
+        require(not t.is_alive(), "rtp_fec_udp: the sender did not end")
+        if failed:
+            raise failed[0]
+
+
+def rtp_fec_udp(dev, jdir, ref, sent, start, finish, peak):
+    """The camera over UDP on loopback with SMPTE 2022-1: a sender thread
+    (multifilesrc ! rtpjpegpay ! rtpst2022_1_fecenc ! udpsink at 25/1) and
+    the camera's path in one pipeline on the card, udpsrc (a datagram a
+    tick) ! rtpst2022_1_fecdec ! rtpjpegdepay ! jpegdec ! videoconvertscale
+    to RGB 224x224 (rr_camera_run: yscale_hv once a tick that gives
+    frames).  Prints the packets loopback lost, those recovered and the
+    frames whole; each whole frame's RGB equals its frame of multifilesrc !
+    jpegdec (== the TCP run's), up to jpegdec's fault on a frame that lost
+    packets for good where it raises (rr_camera_check)."""
+    import threading
+    from gstreamer_tpu_torch.net import fec, transport
+    w, h, n, _batch = RR_CAM
+    port = rr_free_port()
+    started, spent, fed_in, decs = threading.Event(), {}, [], []
+
+    def record_dec(args, out):
+        decs[:] = [args[0]]
+        if args[-1] is None:
+            return 0
+        d = args[-1].data
+        fed_in.extend(rr_pkt_bytes(x) for x in (d if isinstance(d, list)
+                                                else [d]))
+        return 1
+    sender = (f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+              f"framerate={CONT_FPS}/1 ! rtpjpegpay ! rtpst2022_1_fecenc "
+              f"rows={RF_ROWS} ! udpsink port={port}")
+    # the sender last: it is joined first, with the counters still on
+    took, images, v, r, fault = rr_camera_run(
+        "rtp_fec_udp", f"udpsrc port={port} timeout=1.0 caps="
+        f"{RR_RTP_JPEG} ! rtpst2022_1_fecdec name=dec ! rtpjpegdepay ! "
+        f"jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}", dev, start, finish, peak,
+        spent, (cont_timed(transport.UDPSrc, "start", spent, "udpsrc",
+                           lambda a, o: started.set() or 0),
+                cont_timed(fec.RtpSt2022FecEnc, "host_process", spent,
+                           "fecenc", rr_packets_out),
+                cont_timed(fec.RtpSt2022FecDec, "host_process", spent,
+                           "fecdec", record_dec),
+                rf_sender(sender, dev, started, spent)))
+    whole, checked = rr_camera_check("rtp_fec_udp", sent, ref, images, v,
+                                     fault)
+    media = sum(len(f) for f in sent)
+    sent_n = spent.get("fecenc packets", 0)
+    # what loopback lost: the media sequence numbers missing up to the last
+    # one the receiver read (the stream starts at 0 and does not wrap)
+    seqs = {rf_seq(p) for p in fed_in if (p[1] & 0x7F) != 100}
+    last = max(seqs, default=-1)
+    have = {p[12:] for p in took}
+    first_lost = [k for k, f in enumerate(sent)
+                  if rf_seq(f[0]) <= last and f[0][12:] not in have]
+    print(f"  rtp_fec_udp: the sender sent {sent_n} packets ({media} media, "
+          f"{sent_n - media} FEC) in {spent.get('sender', 0):.3f} s; the "
+          f"receiver read media up to sequence number {last} of "
+          f"{media - 1}{' (the run ended there)' if fault else ''}: loopback "
+          f"lost {last + 1 - len(seqs)} of those {last + 1}; "
+          f"rtpst2022_1_fecdec recovered "
+          f"{decs[0].recovered if decs else 0}; rtpjpegdepay took "
+          f"{len(took)} media packets; {len(images)} images handed on, "
+          f"{whole} of {n} frames whole; frames up to there that lost their "
+          f"first packet for good: {first_lost}")
+    if fault is not None:
+        print(f"  rtp_fec_udp: reference fault (ROADMAP.md section 3): "
+              f"rtpjpegdepay handed on a frame that lost packets for good and "
+              f"jpegdec raised {fault['error']!r} on it, ending the "
+              f"pipeline; the {checked} whole frames before it == their "
+              f"frames of multifilesrc ! jpegdec (== the TCP run's)")
+        return
+    rr_report("rtp_fec_udp", r)
+    print(f"  rtp_fec_udp: every whole frame ({checked}) == its frame of "
+          f"multifilesrc ! jpegdec (== the TCP run's); yscale_hv "
+          f"{r['launches'].get('yscale_hv', 0)} in the {r['fed_ticks']} "
+          f"ticks that gave frames")
+
+
+def rtp_gst_raw(seed, dev, start, finish, peak):
+    """RF_GST seeded 1080p I420 frames as card tensors through rtpgstpay
+    mtu=1400 ! rtpgstdepay (the caps named after it) to RGB 224x224 in one
+    tick (yscale_hv once): the same bytes as the direct conversion.
+    Prints packets/s each way."""
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.net import rtp_payloaders2 as p2
+    w, h = RR_CAM[:2]
+    n = RF_GST
+    planes = vt_panning(n, w, h, seed)
+    caps = f"video/x-raw,format=I420,width={w},height={h},framerate=" \
+        f"{CONT_FPS}/1"
+
+    def pushes():
+        return {"in": [Buffer(**dict(b, data=tuple(
+            torch.from_numpy(p).to(dev) for p in b["data"])))
+            for b in vt_pushes(planes, n)]}
+    _, direct, rd = codec_path(
+        "rtp_gst_raw[direct]", f"appsrc name=in caps={caps} ! {CONT_RGB}",
+        n, dev, start, finish, peak, {"yscale_hv": 1}, (), pushes())
+    stats = {}
+    out, r = rr_drive(
+        "rtp_gst_raw", f"appsrc name=in caps={caps} ! rtpgstpay mtu={RR_MTU} "
+        f"! rtpgstdepay ! {caps} ! {CONT_RGB}", dev, start, finish, peak,
+        (cont_timed(p2.RtpGstPay, "host_process", stats, "rtpgstpay",
+                    rr_packets_out),
+         cont_timed(p2.RtpGstDepay, "host_process", stats, "rtpgstdepay",
+                    rr_packets_in)), batch=n, pushes=pushes())
+    rgb, want = cont_joined(out), cont_joined(direct["v"])
+    require(rgb is not None and rgb[0].shape[0] == n and cont_equal(rgb, want),
+            "rtp_gst_raw: RGB other than the direct conversion's")
+    rr_report("rtp_gst_raw", r)
+    print(f"  rtp_gst_raw: {n} frames of {w}x{h} I420, "
+          f"{stats['rtpgstpay packets'] / n:.1f} packets a frame; the RGB "
+          f"== the direct conversion's ({rd['secs'] * 1e3:.3f} ms for the "
+          f"tick alone); yscale_hv {r['launches'].get('yscale_hv', 0)} in "
+          f"{r['fed_ticks']} tick; {rr_rates(stats)}")
+
+
+def rtp_mp2t_line(seed, dev, tmp, start, finish, peak, files, plain_aac):
+    """mpegtsmux's TS of the committed AAC and MP3 (ts_audio_ingest's file)
+    through filesrc (whole TS packets a buffer) ! rtpmp2tpay !
+    rtpst2022_1_fecenc, seeded drops (one packet in each of RF_TS_DROPS
+    rows), then appsrc ! rtpst2022_1_fecdec ! rtpmp2tdepay ! filesink on
+    the card: the TS bytes equal those sent.  Then ts_audio_ingest's item
+    on the received file: tsdemux ! aacparse ! faad into the ASR chain,
+    the PCM the plain file's, the ASR output the port's CPU run's."""
+    import numpy as np
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.elements import aacdec, mpegts
+    out = os.path.join(tmp, "rtp_mp2t_line")
+    os.makedirs(out)
+    sent_path = os.path.join(out, "a.ts")
+    start("rtp_mp2t_line")
+    _, mux_s = vt_timed(
+        f"mpegtsmux name=m location={sent_path} ! fakesink filesrc location="
+        f"{files['aac_10s.aac']} ! aacparse ! m.sink_0 filesrc location="
+        f"{files['mp3_10s.mp3']} ! mpegaudioparse ! m.sink_1", dev, 8)
+    with open(sent_path, "rb") as f:
+        sent_ts = f.read()
+    bufs = [[rr_pkt_bytes(x) for x in s.buffer.data] for s in codec_run(
+        f"filesrc location={sent_path} blocksize={RF_TS_BLOCK} ! "
+        f"video/mpegts,systemstream=true ! rtpmp2tpay ! rtpst2022_1_fecenc "
+        f"rows={RF_ROWS} ! appsink name=p", dev, 1, "p")]
+    rows = [r for b in bufs for r in rf_rows("st2022_1", b, 100)]
+    rng = np.random.default_rng(seed)
+    drops = {int(rng.choice(rows[k])) for k in
+             rng.choice(len(rows), RF_TS_DROPS, replace=False)}
+    got_path = os.path.join(out, "received.ts")
+    pipe = parse_launch(
+        "appsrc name=in caps=application/x-rtp,media=video,encoding-name="
+        "MP2T,clock-rate=90000,payload=33 ! rtpst2022_1_fecdec name=dec ! "
+        f"rtpmp2tdepay ! filesink location={got_path}", device=dev)
+    push_all(pipe, {"in": [Buffer(data=[p for p in b if (p[1] & 0x7F) == 100
+                                        or rf_seq(p) not in drops], pts=k)
+                           for k, b in enumerate(bufs)]})
+    t0 = time.perf_counter()
+    pipe.run()
+    secs = time.perf_counter() - t0
+    recovered = pipe.get_by_name("dec").recovered
+    pipe.set_state("null")
+    finish("rtp_mp2t_line", {})
+    with open(got_path, "rb") as f:
+        require(f.read() == sent_ts, "rtp_mp2t_line: the received TS differs "
+                "from the TS sent")
+    media = sum(1 for b in bufs for p in b if (p[1] & 0x7F) != 100)
+    print(f"e2e rtp_mp2t_line: mpegtsmux wrote {len(sent_ts)} bytes of TS "
+          f"in {mux_s:.3f} s, {media} RTP packets (+"
+          f"{sum(map(len, bufs)) - media} FEC); dropped {len(drops)} (one in "
+          f"each of {len(drops)} of the {len(rows)} rows), "
+          f"rtpst2022_1_fecdec recovered {recovered}; the received TS == the "
+          f"TS sent, {media / secs:.1f} packets/s through fecdec ! "
+          f"rtpmp2tdepay ! filesink; no launch")
+    vt_asr_item("rtp_mp2t_line[tsdemux]", f"tsdemux name=d location="
+                f"{got_path} stream=0 ! aacparse ! faad", dev, start, finish,
+                peak, [(paac.AACDecoder, "decode_frame")], plain_aac, aacdec,
+                held=" (the received TS)", demux=(mpegts.TsDemux, "create"))
+
+
+def rtp_coded_audio(dev, files, dig, start, finish, peak, plain_aac):
+    """MP3 through rtpmpapay ! rtpmpadepay ! mpegaudioparse !
+    mpg123audiodec and AAC access units through rtpmp4gpay ! rtpmp4gdepay
+    ! faad on the card: the PCM equals the plain files' decode (the JAX
+    digests).  The Vorbis and Theora packets of the committed Ogg files
+    through rtpvorbispay / rtptheorapay and back: the packets Ogg carries,
+    byte for byte."""
+    import numpy as np
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.elements.ogg import parse_ogg_pages
+    from gstreamer_tpu_torch.net import rtp_payloaders2 as p2
+    mp3, aac = files["mp3_10s.mp3"], files["aac_10s.aac"]
+    stats = {}
+    start("rtp_coded_audio")
+    with cont_timed(p2.RtpMpaPay, "host_process", stats, "rtpmpapay",
+                    rr_packets_out), \
+            cont_timed(p2.RtpMpaDepay, "host_process", stats, "rtpmpadepay",
+                       rr_packets_in):
+        pcm = np.concatenate(vt_pcm(
+            f"filesrc location={mp3} ! mpegaudioparse ! rtpmpapay ! "
+            "rtpmpadepay ! mpegaudioparse ! mpg123audiodec", dev))
+    err = codec_pcm_check("rtp_coded_audio[mp3]", pcm, dig["mp3"])
+    require(np.array_equal(pcm, np.concatenate(vt_pcm(
+        f"filesrc location={mp3} ! mpegaudioparse ! mpg123audiodec", dev))),
+        "rtp_coded_audio[mp3]: PCM other than the plain file's")
+    print(f"  rtp_coded_audio[mp3]: {len(pcm) / 48000:.2f} s == the plain "
+          f"file's PCM (within {CODEC_PCM_TOL} of the JAX digest, max {err})"
+          f"; {rr_rates(stats)}")
+    # RFC 3640 carries raw access units: aacparse's ADTS frames without
+    # their headers, the AudioSpecificConfig (SDP's config=) in the meta
+    frames = [x for s in codec_run(f"filesrc location={aac} ! aacparse ! "
+                                   "appsink name=a", dev)
+              for x in (s.buffer.data if isinstance(s.buffer.data, list)
+                        else [s.buffer.data])]
+    frames = [rr_pkt_bytes(x) for x in frames]
+    b = frames[0]
+    sfi, ch = (b[2] >> 2) & 0xF, ((b[2] & 1) << 2) | (b[3] >> 6)
+    asc = bytes([(((b[2] >> 6) + 1) << 3) | (sfi >> 1),
+                 ((sfi & 1) << 7) | (ch << 3)])
+    units = [Buffer(data=np.frombuffer(f[7 if f[1] & 1 else 9:], np.uint8),
+                    pts=k * 21_333_333, duration=21_333_333,
+                    meta={"codec_data": asc}) for k, f in enumerate(frames)]
+    with cont_timed(p2.RtpMp4gPay, "host_process", stats, "rtpmp4gpay",
+                    rr_packets_out):
+        pcm = np.concatenate([s.buffer.data.cpu().numpy() for s in codec_run(
+            "appsrc name=in caps=\"audio/mpeg, mpegversion=4, stream-format="
+            "raw\" ! rtpmp4gpay ! rtpmp4gdepay ! faad ! appsink name=a", dev,
+            pushes={"in": units})])
+    err = codec_pcm_check("rtp_coded_audio[aac]", pcm, dig["aac_adts"])
+    require(np.array_equal(pcm, plain_aac),
+            "rtp_coded_audio[aac]: PCM other than the plain file's")
+    print(f"  rtp_coded_audio[aac]: {len(frames)} access units, "
+          f"{len(pcm) / 48000:.2f} s == the plain file's PCM (within "
+          f"{CODEC_PCM_TOL} of the JAX digest, max {err}); rtpmp4gdepay ! "
+          f"aacparse does not apply: aacparse frames ADTS only (both "
+          f"packages), RFC 3640 carries raw units")
+    for fname, kind, caps in (("vorbis_10s.ogg", "vorbis", "audio/x-vorbis"),
+                              ("theora_1080p.ogv", "theora",
+                               "video/x-theora")):
+        with open(files[fname], "rb") as f:
+            pk = [p for _s, _g, ps in parse_ogg_pages(f.read()) for p in ps]
+        got = codec_run(
+            f"appsrc name=in caps={caps} ! rtp{kind}pay ! rtp{kind}depay ! "
+            "appsink name=a", dev, pushes={"in": [Buffer(
+                data=np.frombuffer(p, np.uint8), pts=k * 20_000_000)
+                for k, p in enumerate(pk)]})
+        back = [rr_pkt_bytes(x) for s in got for x in (
+            s.buffer.data if isinstance(s.buffer.data, list)
+            else [s.buffer.data])]
+        require(back == pk, f"rtp_coded_audio[{kind}]: {len(back)} packets "
+                f"back of {len(pk)}, or other bytes")
+        try:
+            parse_launch(f"appsrc ! rtp{kind}depay ! {kind}dec ! fakesink",
+                         device=dev)
+            linked = "links"
+        except ValueError as e:
+            linked = f"does not link ({e}): {kind}dec reads a file in both " \
+                "packages"
+        print(f"  rtp_coded_audio[{kind}]: the {len(pk)} packets of {fname} "
+              f"== Ogg's after rtp{kind}pay ! rtp{kind}depay; rtp{kind}depay "
+              f"! {kind}dec {linked}")
+    finish("rtp_coded_audio", {})
+
+
+def siren_rtp(seed, dev, start, finish, peak):
+    """RF_SIREN s of seeded 16 kHz mono through sirenenc ! rtpsirenpay !
+    rtpsirendepay ! sirendec on the card and on the CPU: the PCM (on the
+    card, one copy a tick) equals the CPU run's.  Prints encode and decode
+    host seconds a second of audio."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.codecs import siren
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    rng = np.random.default_rng(seed)
+    t = np.arange(16000 * RF_SIREN) / 16000.0
+    x = (5000 * np.sin(2 * np.pi * 210 * t) * (0.6 + 0.4 * np.sin(
+        2 * np.pi * 3 * t)) + 2500 * np.sin(2 * np.pi * 1300 * t)
+        + rng.normal(0, 600, t.shape))
+    x = np.clip(np.round(x), -32768, 32767).astype(np.int16).reshape(-1, 1)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        spent = {}
+        base = start("siren_rtp")
+        with cont_timed(siren.SirenEncoder, "encode_frame", spent, "enc"), \
+                cont_timed(siren.SirenDecoder, "decode_frame", spent, "dec"):
+            out = codec_run(
+                "appsrc name=in caps=audio/x-raw,format=S16LE,rate=16000,"
+                "channels=1,layout=interleaved ! sirenenc ! rtpsirenpay ! "
+                "rtpsirendepay ! sirendec ! appsink name=a", d,
+                pushes={"in": [Buffer(data=torch.from_numpy(
+                    x[k:k + 1600]).to(d), pts=k * 62_500,
+                    duration=100_000_000) for k in range(0, len(x), 1600)]})
+        finish("siren_rtp", {})
+        require(all(s.buffer.data.device.type == d.type for s in out),
+                f"siren_rtp: sirendec's PCM not on {d}")
+        got[d.type] = (cont_joined(out), spent, peak(base))
+    card, spent, mem = got[dev.type]
+    require(card is not None and card.shape == (len(x), 1)
+            and torch.equal(card.cpu(), got["cpu"][0]),
+            "siren_rtp: the card's PCM differs from the port's CPU run")
+    print(f"e2e siren_rtp: {RF_SIREN} s of 16 kHz mono; encode "
+          f"{spent['enc'] / RF_SIREN:.4f} s and decode "
+          f"{spent['dec'] / RF_SIREN:.4f} s a second of audio (host numpy); "
+          f"the PCM on the card == the port's CPU run; peak memory "
+          f"{mem:.1f} MiB; no launch")
+
+
+def rf_alone_rows():
+    """The runs that drive each of RF_MODULES' factories alone or with its
+    pair: [(factories, fn(d) -> plain data)]."""
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net.rtp import rtp_header
+    rng = np.random.default_rng(24)
+    blobs = [rng.integers(0, 256, int(rng.integers(50, 3000)),
+                          dtype=np.uint8) for _ in range(5)]
+    pkts = [rtp_header(96, (65530 + k) & 0xFFFF, 3000 * k, 0x11,
+                       marker=k % 4 == 3)
+            + rng.integers(0, 256, 200, dtype=np.uint8).tobytes()
+            for k in range(12)]
+    h265 = [np.frombuffer(a, np.uint8) for a in annexb_aus(True, 4, rng)]
+    ts = [np.concatenate([np.full((k, 1), 0x47, np.uint8), rng.integers(
+        0, 256, (k, 187), dtype=np.uint8)], 1).reshape(-1) for k in (1, 9)]
+    t = np.arange(6400) / 16000.0
+    pcm = (8000 * np.sin(2 * np.pi * 300 * t)).astype(np.int16)
+
+    def frames_in(data):
+        return {"in": [dict(data=b, pts=k * 40_000_000, duration=40_000_000)
+                       for k, b in enumerate(data)]}
+
+    def launch(desc, pushes=None):
+        return lambda d: cont_launch(desc, d, 1, pushes)
+
+    def coded(pay, depay, caps, data=blobs, mtu=300):
+        return launch(f"appsrc name=in caps=\"{caps}\" ! {pay} mtu={mtu} ! "
+                      f"tee name=t t. ! queue ! appsink name=out t. ! queue ! "
+                      f"{depay} ! appsink name=out1", frames_in(data))
+
+    def rtp(desc, data=pkts):
+        return launch(f"appsrc name=in caps=application/x-rtp ! {desc} ! "
+                      "appsink name=out", {"in": [dict(data=list(data),
+                                                       pts=0)]})
+    def direct(factory):
+        """The element called directly: its src caps stay ANY until a
+        payload description names them, which no launch string fixates
+        (in either package)."""
+        def run(d):
+            e = element_factory_make(factory)
+            e.device = d
+            e.start()
+            return [None if o is None else bc_plain(o.data) for o in (
+                e.host_process(Buffer(data=list(pkts), pts=0)),
+                e.host_process(None))]
+        return run
+    lossy = pkts[:5] + pkts[6:]
+    rows = [((f"rtp{b}pay", f"rtp{b}depay"), coded(f"rtp{b}pay",
+                                                   f"rtp{b}depay", c))
+            for c, b in (
+                ("audio/G722, rate=8000, channels=1", "g722"),
+                ("audio/G723, rate=8000, channels=1", "g723"),
+                ("audio/x-adpcm, layout=g726", "g726"),
+                ("audio/G729, rate=8000, channels=1", "g729"),
+                ("audio/x-gsm, rate=8000, channels=1", "gsm"),
+                ("audio/x-iLBC", "ilbc"), ("audio/x-speex", "speex"),
+                ("audio/x-bv", "bv"),
+                ("audio/qcelp, rate=8000, channels=1", "qcelp"),
+                ("meta/x-klv", "klv"), ("video/x-dv", "dv"),
+                ("video/mpeg, mpegversion=4, systemstream=false", "mp4v"),
+                ("audio/mpeg, mpegversion=4, stream-format=loas", "mp4a"),
+                ("video/x-h263, variant=itu", "h263p"),
+                ("video/x-h263, variant=itu, h263version=h263", "h263"),
+                ("video/x-h261", "h261"), ("audio/mpeg, mpegversion=1", "mpa"),
+                ("video/mpeg, systemstream=false", "mpv"),
+                ("audio/mpeg, mpegversion=4, stream-format=raw", "mp4g"),
+                ("audio/x-ac3", "ac3"), ("audio/AMR", "amr"),
+                ("audio/x-sbc", "sbc"), ("image/x-jpc", "j2k"),
+                ("audio/x-vorbis", "vorbis"), ("video/x-theora", "theora"),
+                ("application/x-custom", "gst"),
+                ("video/x-ms-asf, parsed=true", "asf"))]
+    rows += [
+        (("rtph265pay", "rtph265depay"), coded(
+            "rtph265pay", "rtph265depay", "video/x-h265, stream-format="
+            "byte-stream, alignment=au", h265, 40)),
+        (("rtpmp2tpay", "rtpmp2tdepay"), coded(
+            "rtpmp2tpay", "rtpmp2tdepay", "video/mpegts, systemstream=true",
+            ts)),
+        (("rtpmp1sdepay",), rtp("rtpmp1sdepay")),
+        (("rtpmparobustdepay",), rtp("rtpmparobustdepay")),
+        (("rtpxqtdepay",), direct("rtpxqtdepay")),
+        (("rtpsv3vdepay",), rtp("rtpsv3vdepay")),
+        (("rtpstreampay", "rtpstreamdepay"),
+         rtp("rtpstreampay ! rtpstreamdepay")),
+        (("rtppassthroughpay",), rtp("rtppassthroughpay pt=111")),
+        (("rtpredenc", "rtpreddec"), rtp("rtpredenc ! rtpreddec")),
+        (("rtpulpfecenc", "rtpstorage", "rtpulpfecdec"),
+         rtp("rtpulpfecenc group-size=4 ! rtpstorage ! rtpulpfecdec",
+             lossy)),
+        (("rtpst2022_1_fecenc", "rtpst2022_1_fecdec"),
+         rtp("rtpst2022_1_fecenc rows=4 ! rtpst2022_1_fecdec", lossy)),
+        (("sirenenc", "rtpsirenpay", "rtpsirendepay", "sirendec"), launch(
+            "appsrc name=in caps=audio/x-raw,format=S16LE,rate=16000,"
+            "channels=1,layout=interleaved ! sirenenc ! rtpsirenpay mtu=132 "
+            "! rtpsirendepay ! sirendec ! appsink name=out",
+            {"in": [dict(data=pcm[k:k + 1600].reshape(-1, 1),
+                         pts=k * 62_500) for k in range(0, len(pcm), 1600)]}))]
+    covered = {f for names, _fn in rows for f in names}
+    mine = rr_factories(RF_MODULES)
+    require(covered == mine and len(mine) == 76,
+            f"rtp fec alone: the rows cover {len(covered)} factories, the "
+            f"slice's modules register {len(mine)}; not driven: "
+            f"{sorted(mine - covered)}")
+    return rows
+
+
+def rtp_fec_phase(seed, counters, dev):
+    """The rest of RTP on the card, each item with the launch counts zeroed
+    just before and read just after: rtp_fec_camera (the camera's 32 JPEGs
+    under SMPTE 2022-1, ULPFEC and RED, drop patterns (a) and (b);
+    yscale_hv once a tick that gives frames), rtp_fec_udp (where the
+    loopback probe finds UDP), rtp_gst_raw (yscale_hv once), rtp_mp2t_line,
+    rtp_coded_audio, siren_rtp, then each of the 76 factories alone.
+    Returns {kernel: launches}."""
+    import tempfile
+
+    import numpy as np
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    probe = rr_probe()
+    print(f"rtp fec phase: loopback probe on 127.0.0.1: {probe}; "
+          + ("rtp_fec_udp runs" if probe["udp"] else "rtp_fec_udp is not "
+             "run; the others run"))
+    files, dig = codec_vectors(("mp3_10s.mp3", "aac_10s.aac",
+                                "vorbis_10s.ogg", "theora_1080p.ogv",
+                                "digests.json"))
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        spent[name] = time.perf_counter() - t1
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, _jpgs = item("jpegs", rr_jpegs, seed, dev, tmp)
+        start("multifilesrc ! jpegdec")
+        ref = item("reference", rr_rgb_ref, jdir, dev)
+        finish("multifilesrc ! jpegdec",
+               {"yscale_hv": -(-RR_CAM[2] // RR_CAM[3])})
+        start("rtpjpegpay")
+        sent = rr_frames(rr_pay(dev, jdir, {}))
+        finish("rtpjpegpay", {})
+        item("rtp_fec_camera", rtp_fec_camera, dev, jdir, ref, sent, start,
+             finish, peak)
+        if probe["udp"]:
+            item("rtp_fec_udp", rtp_fec_udp, dev, jdir, ref, sent, start,
+                 finish, peak)
+        item("rtp_gst_raw", rtp_gst_raw, seed, dev, start, finish, peak)
+        start("faad")
+        plain_aac = np.concatenate(vt_pcm(f"filesrc location="
+                                          f"{files['aac_10s.aac']} ! aacparse "
+                                          "! faad", dev))
+        finish("faad", {})
+        codec_pcm_check("faad", plain_aac, dig["aac_adts"])
+        item("rtp_mp2t_line", rtp_mp2t_line, seed, dev, tmp, start, finish,
+             peak, files, plain_aac)
+        item("rtp_coded_audio", rtp_coded_audio, dev, files, dig, start,
+             finish, peak, plain_aac)
+        item("siren_rtp", siren_rtp, seed, dev, start, finish, peak)
+    rows = rf_alone_rows()
+    item("alone", alone_runs, [
+        ("/".join(names), lambda d, _tmp, _seed, fn=fn: fn(d))
+        for names, fn in rows], counters, dev, 0)
+    print(f"  rtp fec alone: the 76 factories in {len(rows)} runs on the "
+          f"card == the port's CPU run, no launch")
+    print(f"rtp fec phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
     return total
 
 
@@ -10687,6 +11596,10 @@ def main() -> int:
 
     # -- RTP, UDP/TCP, RTSP and pcapparse (host code, the card's decode) -----
     for k, n in rtp_rtsp_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- FEC, RED, the other payloaders and Siren (host code) -----------------
+    for k, n in rtp_fec_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

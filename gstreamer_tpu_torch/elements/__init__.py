@@ -103,3 +103,7 @@ from ..net import rtsp_server   # noqa: F401  (rtspsrc, rtspclientsink)
 from ..net import rtpmanager    # noqa: F401  (rtpsession, rtpbin)
 from . import dtmf_icy          # noqa: F401  (dtmfsrc, icydemux, amrparse, dcaparse)
 from . import pcapparse         # noqa: F401
+from ..net import rtp_payloaders2  # noqa: F401  (the raw, H.265, H.263/H.261, MPEG, AAC, AC-3, AMR, SBC, JPEG 2000, Xiph, stream, gst and passthrough pay/depay, RED, ULPFEC, rtpstorage)
+from ..net import fec           # noqa: F401  (rtpst2022_1_fecenc, rtpst2022_1_fecdec)
+from ..net import rtp_tail      # noqa: F401  (rtpmparobustdepay, rtpxqtdepay, rtpsv3vdepay, rtpasfpay, rtpasfdepay)
+from . import siren_elements    # noqa: F401  (sirenenc, sirendec, rtpsirenpay, rtpsirendepay)

@@ -106,6 +106,26 @@ NET_FACTORIES = (
     "rtphdrextntp64", "rtphdrexttwcc", "rtphdrextcolorspace", "sdpdemux",
     "sdpsrc", "rtpsink", "rtpsrc", "rtspsrc", "rtspclientsink", "rtpsession",
     "rtpbin", "dtmfsrc", "icydemux", "amrparse", "dcaparse", "pcapparse")
+# the rest of RTP: the second payloader batch with RED, ULPFEC and
+# rtpstorage, SMPTE 2022-1 FEC, rtp_tail and Siren
+RTP2_FACTORIES = (
+    "rtpg722pay", "rtpg722depay", "rtpg723pay", "rtpg723depay", "rtpg726pay",
+    "rtpg726depay", "rtpg729pay", "rtpg729depay", "rtpgsmpay", "rtpgsmdepay",
+    "rtpilbcpay", "rtpilbcdepay", "rtpspeexpay", "rtpspeexdepay", "rtpbvpay",
+    "rtpbvdepay", "rtpqcelppay", "rtpqcelpdepay", "rtpklvpay", "rtpklvdepay",
+    "rtpdvpay", "rtpdvdepay", "rtpmp4vpay", "rtpmp4vdepay", "rtpmp4apay",
+    "rtpmp4adepay", "rtph265pay", "rtph265depay", "rtph263ppay",
+    "rtph263pdepay", "rtph263pay", "rtph263depay", "rtph261pay",
+    "rtph261depay", "rtpmpapay", "rtpmpadepay", "rtpmpvpay", "rtpmpvdepay",
+    "rtpmp2tpay", "rtpmp2tdepay", "rtpmp1sdepay", "rtpmp4gpay",
+    "rtpmp4gdepay", "rtpac3pay", "rtpac3depay", "rtpamrpay", "rtpamrdepay",
+    "rtpsbcpay", "rtpsbcdepay", "rtpj2kpay", "rtpj2kdepay", "rtpvorbispay",
+    "rtpvorbisdepay", "rtptheorapay", "rtptheoradepay", "rtpstreampay",
+    "rtpstreamdepay", "rtpgstpay", "rtpgstdepay", "rtppassthroughpay",
+    "rtpredenc", "rtpreddec", "rtpulpfecenc", "rtpulpfecdec", "rtpstorage",
+    "rtpst2022_1_fecenc", "rtpst2022_1_fecdec", "rtpmparobustdepay",
+    "rtpxqtdepay", "rtpsv3vdepay", "rtpasfpay", "rtpasfdepay", "sirenenc",
+    "sirendec", "rtpsirenpay", "rtpsirendepay")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -143,7 +163,7 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 440
+    assert len(telement._REGISTRY) == 516
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
@@ -151,11 +171,12 @@ def test_registry_count():
     assert len(set(OPUS_AAC_FACTORIES)) == 4
     assert len(set(VPX_TRANSPORT_FACTORIES)) == 38
     assert len(set(NET_FACTORIES)) == 60
+    assert len(set(RTP2_FACTORIES)) == 76
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
         | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
         | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
-        <= set(telement._REGISTRY)
+        | set(RTP2_FACTORIES) <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():
