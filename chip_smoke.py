@@ -458,6 +458,47 @@ before it and read just after:
 
    then each of the 76 factories alone, the card equal to the CPU.
 
+22. The rest of net/: RIST, WebRTC, SRT, RTMP, HLS/DASH, shm, AVTP
+   (net_tail_phase; host code, the card decoding and converting).  Its
+   first line is a probe: libssl / libcrypto, libsrt, an AF_PACKET socket
+   on lo, UDP and TCP on loopback.  An item whose library or permission is
+   missing prints the error both packages raise, as a difference of
+   installation, and is no pass:
+
+  rist_camera       phase 20's 32 1080p JPEGs through rtpjpegpay mtu=1400 !
+                    ristsink (a frame a tick at 25/1), a relay on 127.0.0.1
+                    that drops the first copy of 16 seeded packets (the
+                    first packet of 4 frames among them), ristsrc !
+                    rtpjpegdepay ! jpegdec ! RGB 224x224 at batch 16, with
+                    generic and with range NACKs: every drop recovered, none
+                    lost, 32 of 32 frames whole and each multifilesrc !
+                    jpegdec's (the CPU run's), yscale_hv once a tick that
+                    gives frames
+  rist_camera_live  the same with no relay, beside rtp_fec_udp's figures
+  webrtc_camera     two webrtcbins (ICE on 127.0.0.1, DTLS-SRTP) carry
+                    rtpjpegpay mtu=1200's packets of 16 frames; the
+                    receiver's packets through appsrc ! rtpjpegdepay !
+                    jpegdec ! RGB 224x224: no datagram holds a sent JPEG
+                    payload, every frame its reference's
+  srt_ts_link       rtp_mp2t_line's TS through srtsink mode=listener to
+                    srtsrc mode=caller, plain and with a passphrase: the
+                    bytes sent; tsdemux ! aacparse ! faad of them the plain
+                    file's PCM
+  rtmp_audio        the committed AAC's units through flvmux, filesrc !
+                    rtmp2sink, RtmpRelayServer and rtmp2src ! filesink: the
+                    tags sent; flvdemux of them within the JAX digest
+  hls_dash_pull     hlsdemux and dashdemux over hlssink2's and dashsink's
+                    segments of the AAC (file:// URIs): the plain decode
+  shm_camera        the JPEGs through jpegparse ! shmsink, shmsrc ! jpegdec
+                    ! RGB 224x224: the reference, yscale_hv once a tick
+  avtp_raw_video    16 seeded 1080p I420 frames as GRAY8 rows through
+                    avtprvfpay ! avtprvfdepay, then RGB 224x224: the direct
+                    conversion's bytes, yscale_hv once; AAF and CVF pay /
+                    depay; avtpsink / avtpsrc on lo where AF_PACKET is
+                    allowed
+
+   then each of the 55 factories alone, the card equal to the CPU.
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -8041,13 +8082,7 @@ def oa_av(seed, dev, tmp, start, finish, peak, files, dig, pcm):
                {"yscale_hv": -(-OA_WEBM[2] // OA_WEBM[3])}, dev, tmp, seed,
                start, finish, peak)
     oa_routes("webm_av_ingest", {"celt": len(opus)})
-    with open(files["aac_10s.aac"], "rb") as f:
-        adts = f.read()
-    units, pos = [], 0
-    while pos + 7 <= len(adts):
-        flen, _s, _c, _p, hlen = paac.parse_adts_header(adts, pos)
-        units.append(adts[pos + hlen:pos + flen])
-        pos += flen
+    units = aac_units(files["aac_10s.aac"])
     oa_av_item("mp4_av_ingest", "qtmux", "qtdemux", "UYVY", OA_MP4,
                "audio/mpeg,mpegversion=4,stream-format=raw,rate=48000,"
                "channels=2", units, dig["aac_m4a"], lambda a: a,
@@ -8682,6 +8717,36 @@ def hls_segments(dev, tmp, start, finish, peak, files, plain, card_asr):
           f"{demux_s * 1e3:.1f} ms gives the file's {len(joined)} bytes")
 
 
+def aac_units(path):
+    """The access units of an ADTS file, without their headers (the units
+    of aac_10s.m4a for the committed vector)."""
+    from gstreamer_tpu_torch.codecs import aac as paac
+    with open(path, "rb") as f:
+        adts = f.read()
+    units, pos = [], 0
+    while pos + 7 <= len(adts):
+        flen, _s, _c, _p, hlen = paac.parse_adts_header(adts, pos)
+        units.append(adts[pos + hlen:pos + flen])
+        pos += flen
+    return units
+
+
+AAC_FLVMUX = ("appsrc name=a caps=audio/mpeg,mpegversion=4,stream-format=raw,"
+              "rate=48000,channels=2 ! flvmux location={path}")
+
+
+def aac_flv_pushes(units, per=16):
+    """appsrc a's buffers of AAC_FLVMUX: `per` units a buffer, stamped at
+    1024 frames a unit of 48 kHz."""
+    import numpy as np
+    return {"a": [dict(data=[np.frombuffer(u, np.uint8).copy()
+                             for u in units[k:k + per]],
+                       batch=len(units[k:k + per]),
+                       pts=k * 1024 * 10**9 // 48000,
+                       duration=1024 * 10**9 // 48000)
+                  for k in range(0, len(units), per)]}
+
+
 def flv_aac_ingest(dev, tmp, start, finish, peak, files, dig):
     """The AAC access units (aac_10s.aac without its ADTS headers: the
     units of aac_10s.m4a) through flvmux, then flvdemux into the ASR
@@ -8690,23 +8755,10 @@ def flv_aac_ingest(dev, tmp, start, finish, peak, files, dig):
     from gstreamer_tpu_torch.codecs import aac as paac
     from gstreamer_tpu_torch.core.element import element_factory_make
     from gstreamer_tpu_torch.elements import flv
-    with open(files["aac_10s.aac"], "rb") as f:
-        adts = f.read()
-    units, pos = [], 0
-    while pos + 7 <= len(adts):
-        flen, _s, _c, _p, hlen = paac.parse_adts_header(adts, pos)
-        units.append(adts[pos + hlen:pos + flen])
-        pos += flen
-    per = 16
-    push = [dict(data=[np.frombuffer(u, np.uint8).copy()
-                       for u in units[k:k + per]],
-                 batch=len(units[k:k + per]), pts=k * 1024 * 10**9 // 48000,
-                 duration=1024 * 10**9 // 48000)
-            for k in range(0, len(units), per)]
+    units = aac_units(files["aac_10s.aac"])
     out, _, secs = vt_write_both(
-        "flv_aac_ingest", "appsrc name=a caps=audio/mpeg,mpegversion=4,"
-        "stream-format=raw,rate=48000,channels=2 ! flvmux location="
-        "{dir}/a.flv", 1, {"a": push}, dev, tmp, start, finish)
+        "flv_aac_ingest", AAC_FLVMUX.format(path="{dir}/a.flv"), 1,
+        aac_flv_pushes(units), dev, tmp, start, finish)
     print(f"  flv_aac_ingest: flvmux wrote {len(units)} AAC units at "
           f"{len(units) * 1024 / 48000 / secs:.1f} audio seconds/s (the "
           f"file == the CPU run's)")
@@ -10474,6 +10526,7 @@ RF_GST = 16                         # rtp_gst_raw's 1080p frames
 RF_TS_BLOCK = 188 * 70              # filesrc's bytes a buffer of the TS
 RF_TS_DROPS = 12                    # rtp_mp2t_line's rows that lose a packet
 RF_SIREN = 10                       # siren_rtp's seconds of 16 kHz mono
+RF_UDP_FIGURES = {}                 # rtp_fec_udp's numbers, when it ran
 # name, the payloader's MTU, the encoder, the decoder, the FEC payload type
 RF_PROTECT = (
     ("st2022_1", RR_MTU, f"rtpst2022_1_fecenc rows={RF_ROWS}",
@@ -10753,17 +10806,19 @@ def rf_no_decoder(dev, lossy):
 
 
 @contextlib.contextmanager
-def rf_sender(desc, dev, started, spent):
+def rf_sender(desc, dev, started, spent, name="rtp_fec_udp"):
     """While the block runs, a thread that waits for `started`, then ticks
     the sender `desc` (batch 1: a frame a tick) at CONT_FPS frames a
-    second; its host seconds in spent["sender"]."""
+    second; its host seconds in spent["sender"] (`name`: the item's, in
+    errors)."""
     import threading
     from gstreamer_tpu_torch import parse_launch
     failed = []
 
     def run():
         try:
-            require(started.wait(30.0), "rtp_fec_udp: udpsrc never started")
+            require(started.wait(30.0), f"{name}: the receiver never "
+                    "started")
             tx = parse_launch(desc, device=dev)
             tx.set_state("playing")
             t0 = time.perf_counter()
@@ -10781,7 +10836,7 @@ def rf_sender(desc, dev, started, spent):
         yield spent
     finally:
         t.join(60.0)
-        require(not t.is_alive(), "rtp_fec_udp: the sender did not end")
+        require(not t.is_alive(), f"{name}: the sender did not end")
         if failed:
             raise failed[0]
 
@@ -10836,6 +10891,9 @@ def rtp_fec_udp(dev, jdir, ref, sent, start, finish, peak):
     have = {p[12:] for p in took}
     first_lost = [k for k, f in enumerate(sent)
                   if rf_seq(f[0]) <= last and f[0][12:] not in have]
+    RF_UDP_FIGURES.update(read=last + 1, lost=last + 1 - len(seqs),
+                          recovered=decs[0].recovered if decs else 0,
+                          whole=whole)
     print(f"  rtp_fec_udp: the sender sent {sent_n} packets ({media} media, "
           f"{sent_n - media} FEC) in {spent.get('sender', 0):.3f} s; the "
           f"receiver read media up to sequence number {last} of "
@@ -10900,6 +10958,15 @@ def rtp_gst_raw(seed, dev, start, finish, peak):
           f"{r['fed_ticks']} tick; {rr_rates(stats)}")
 
 
+def aac_mp3_ts(dev, path, files):
+    """mpegtsmux of the committed AAC and MP3 into `path` on `dev`;
+    returns its host seconds."""
+    return vt_timed(
+        f"mpegtsmux name=m location={path} ! fakesink filesrc location="
+        f"{files['aac_10s.aac']} ! aacparse ! m.sink_0 filesrc location="
+        f"{files['mp3_10s.mp3']} ! mpegaudioparse ! m.sink_1", dev, 8)[1]
+
+
 def rtp_mp2t_line(seed, dev, tmp, start, finish, peak, files, plain_aac):
     """mpegtsmux's TS of the committed AAC and MP3 (ts_audio_ingest's file)
     through filesrc (whole TS packets a buffer) ! rtpmp2tpay !
@@ -10917,10 +10984,7 @@ def rtp_mp2t_line(seed, dev, tmp, start, finish, peak, files, plain_aac):
     os.makedirs(out)
     sent_path = os.path.join(out, "a.ts")
     start("rtp_mp2t_line")
-    _, mux_s = vt_timed(
-        f"mpegtsmux name=m location={sent_path} ! fakesink filesrc location="
-        f"{files['aac_10s.aac']} ! aacparse ! m.sink_0 filesrc location="
-        f"{files['mp3_10s.mp3']} ! mpegaudioparse ! m.sink_1", dev, 8)
+    mux_s = aac_mp3_ts(dev, sent_path, files)
     with open(sent_path, "rb") as f:
         sent_ts = f.read()
     bufs = [[rr_pkt_bytes(x) for x in s.buffer.data] for s in codec_run(
@@ -11258,6 +11322,1526 @@ def rtp_fec_phase(seed, counters, dev):
     print(f"  rtp fec alone: the 76 factories in {len(rows)} runs on the "
           f"card == the port's CPU run, no launch")
     print(f"rtp fec phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return total
+
+
+
+NT_MODULES = tuple(f"gstreamer_tpu_torch.{m}" for m in (
+    "net.srtp", "net.dtls_elements", "net.sctp", "net.webrtc", "net.rist",
+    "net.srt", "net.rtmp", "net.adaptive", "net.fanout", "net.rfb",
+    "net.avtp", "net.websinks", "elements.ipc_misc"))
+NT_DROPS = 16                       # rist_camera's first copies the relay drops
+NT_FIRST = 4                        # of them, frames' first packets at least
+NT_WEBRTC = 16                      # webrtc_camera's 1080p frames
+NT_WEBRTC_MTU = 1200
+NT_AVTP = 16                        # avtp_raw_video's 1080p I420 frames
+NT_AAF_SECONDS = 1                  # avtp AAF's 48 kHz stereo S16BE
+NT_SRT_BLOCK = 1316 * 8             # srtsink's bytes a tick of the TS
+NT_FACTORIES = 55
+
+
+def nt_probe():
+    """What this machine allows the slice: libssl / libcrypto (ctypes),
+    libsrt (net/srt.py's loader), a frame through AF_PACKET sockets on lo,
+    and rr_probe's UDP and TCP on loopback.  Nothing raises."""
+    import ctypes
+    import socket
+    from gstreamer_tpu_torch.net import dtls, srt
+    got = dict(rr_probe())
+    for lib in ("libssl.so.3", "libcrypto.so.3"):
+        try:
+            ctypes.CDLL(lib)
+            got[lib] = True
+        except OSError as e:
+            got[lib] = False
+            got[lib + "_error"] = repr(e)
+    got["dtls"] = dtls.available()
+    got["libsrt"] = srt.available()
+    try:
+        # one frame of the AVTP ethertype from a socket to another on lo
+        rx = socket.socket(socket.AF_PACKET, socket.SOCK_RAW,
+                           socket.htons(0x22F0))
+        tx = socket.socket(socket.AF_PACKET, socket.SOCK_RAW,
+                           socket.htons(0x22F0))
+        try:
+            rx.bind(("lo", 0x22F0))
+            rx.settimeout(1.0)
+            tx.bind(("lo", 0x22F0))
+            tag = b"nt_probe" + os.urandom(8)
+            tx.send(bytes(6) + tx.getsockname()[4] + b"\x22\xf0" + tag)
+            end = time.perf_counter() + 1.0
+            got["af_packet"] = False
+            while time.perf_counter() < end and not got["af_packet"]:
+                got["af_packet"] = tag in rx.recv(256)
+        finally:
+            rx.close()
+            tx.close()
+    except (OSError, AttributeError) as e:
+        got["af_packet"] = False
+        got["af_packet_error"] = repr(e)
+    return got
+
+
+def nt_pair():
+    """Two UDP sockets on adjacent ports (p, p + 1) of 127.0.0.1, as RIST
+    wants its RTCP beside its media (retried while a pair is taken)."""
+    import socket
+    for _ in range(64):
+        a = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        a.bind(("127.0.0.1", 0))
+        b = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            b.bind(("127.0.0.1", a.getsockname()[1] + 1))
+            return a, b
+        except OSError:
+            a.close()
+            b.close()
+    raise RuntimeError("no adjacent UDP port pair free on 127.0.0.1")
+
+
+def nt_free_pair():
+    a, b = nt_pair()
+    port = a.getsockname()[1]
+    a.close()
+    b.close()
+    return port
+
+
+class NtRelay:
+    """A UDP relay on 127.0.0.1 between ristsink and ristsrc: media (a
+    port) and RTCP (the port + 1) both ways; it drops the FIRST copy of
+    each media sequence number in `drops` (a retransmission passes)."""
+
+    def __init__(self, dst_port, drops):
+        import threading
+        self.dst = ("127.0.0.1", dst_port)
+        self.drop, self.dropped, self.forwarded = set(drops), [], 0
+        self.media, self.rtcp = nt_pair()
+        self.port = self.media.getsockname()[1]
+        self._sender_rtcp, self._run = None, True
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._media_loop, self._rtcp_loop)]
+        for t in self._threads:
+            t.start()
+
+    def _media_loop(self):
+        import socket
+        self.media.settimeout(0.05)
+        while self._run:
+            try:
+                data, _ = self.media.recvfrom(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            seq = rf_seq(data) if len(data) >= 12 else None
+            if seq in self.drop:
+                self.drop.discard(seq)
+                self.dropped.append(seq)
+                continue
+            self.forwarded += 1
+            self.media.sendto(data, self.dst)
+
+    def _rtcp_loop(self):
+        import socket
+        self.rtcp.settimeout(0.05)
+        back = (self.dst[0], self.dst[1] + 1)
+        while self._run:
+            try:
+                data, addr = self.rtcp.recvfrom(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if addr == back:
+                if self._sender_rtcp:
+                    self.rtcp.sendto(data, self._sender_rtcp)
+            else:
+                self._sender_rtcp = addr
+                self.rtcp.sendto(data, back)
+
+    def close(self):
+        self._run = False
+        for t in self._threads:
+            t.join(2.0)
+        self.media.close()
+        self.rtcp.close()
+
+
+def nt_drops(seed, sent):
+    """NT_DROPS sequence numbers of the camera's packets, chosen with numpy
+    default_rng(seed): the first packet of NT_FIRST frames, the others
+    anywhere.  Never the stream's first packet nor its last: a receiver
+    learns the stream from the first packet it sees and cannot ask for one
+    before, and no packet after the last shows it missing."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    firsts = [rf_seq(f[0]) for f in sent]
+    heads = {firsts[int(k)] for k in 1 + rng.choice(len(sent) - 1, NT_FIRST,
+                                                    replace=False)}
+    rest = [rf_seq(p) for f in sent for p in f if rf_seq(p) not in heads
+            and rf_seq(p) not in (firsts[0], rf_seq(sent[-1][-1]))]
+    return heads | {int(s) for s in rng.choice(rest, NT_DROPS - NT_FIRST,
+                                               replace=False)}
+
+
+@contextlib.contextmanager
+def nt_first_call(cls, attr, event):
+    """While the block runs, set `event` as cls.attr is first called,
+    before the call: the receiver is reading (its pipeline set up and
+    the profiler started), so a sender that waits for it loses nothing
+    to a socket nobody drains."""
+    fn = getattr(cls, attr)
+
+    def first(*a, **k):
+        event.set()
+        return fn(*a, **k)
+    setattr(cls, attr, first)
+    try:
+        yield event
+    finally:
+        setattr(cls, attr, fn)
+
+
+def nt_sender_proc(jdir, jobs, go, done, out):
+    """The RIST sender, in a process of its own (as on another host), for
+    each (port, drops) job until None: with `drops`, an NtRelay to `port`;
+    multifilesrc ! rtpjpegpay mtu=1400 ! ristsink on the CPU (host
+    elements only), started, then "ready" into `out`; from `go` on a frame
+    a tick at 25/1; it serves NACKs until `done`.  Then {"sink": ristsink's
+    stats, "dropped": the relay's drops or None, "secs": sending seconds}
+    (or {"error": ...}) into `out`."""
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.net import rist
+    for port, drops in iter(jobs.get, None):
+        relay = None
+        try:
+            relay = None if drops is None else NtRelay(port, drops)
+            tx = parse_launch(
+                f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+                f"framerate={CONT_FPS}/1 ! rtpjpegpay mtu={RR_MTU} ! ristsink "
+                f"address=127.0.0.1 port={relay.port if relay else port}",
+                device="cpu")
+            tx.set_state("playing")
+            sink = next(e for e in tx._nodes()
+                        if isinstance(e, rist.RistSink))
+            out.put("ready")
+            require(go.wait(120.0), "the RIST receiver never read")
+            t0 = time.perf_counter()
+            k = 0
+            while tx.tick():
+                k += 1
+                time.sleep(max(0.0, t0 + k / CONT_FPS - time.perf_counter()))
+            secs = time.perf_counter() - t0
+            done.wait(120.0)
+            stats = dict(sink.stats)
+            tx.set_state("null")
+            out.put({"sink": stats, "secs": secs, "dropped":
+                     None if relay is None else list(relay.dropped)})
+        except Exception as e:           # handed to the receiver
+            out.put({"error": repr(e)})
+        finally:
+            if relay is not None:
+                relay.close()
+
+
+class NtSender:
+    """nt_sender_proc in a spawned process, kept for the phase's RIST runs
+    (the process's start, torch's import, is paid once)."""
+
+    def __init__(self, jdir):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.jobs, self.out = ctx.Queue(), ctx.Queue()
+        self.go, self.done = ctx.Event(), ctx.Event()
+        self.proc = ctx.Process(target=nt_sender_proc, args=(
+            jdir, self.jobs, self.go, self.done, self.out), daemon=True)
+        self.proc.start()
+
+    def start(self, port, drops):
+        """Hand the sender a job; returns once it is ready to send."""
+        self.go.clear()
+        self.done.clear()
+        self.jobs.put((port, None if drops is None else sorted(drops)))
+        msg = self.out.get(timeout=120.0)
+        require(msg == "ready", f"the RIST sender: {msg}")
+
+    def finish(self):
+        """Let the sender stop serving NACKs; its results."""
+        self.go.set()
+        self.done.set()
+        got = self.out.get(timeout=60.0)
+        require("error" not in got, f"the RIST sender: {got.get('error')}")
+        return got
+
+    def close(self):
+        self.jobs.put(None)
+        self.proc.join(30.0)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5.0)
+
+
+@contextlib.contextmanager
+def nt_switch_interval(secs):
+    """sys.setswitchinterval(secs) while the block runs: a thread that
+    waits on a socket takes the interpreter back sooner from a busy one."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(secs)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(old)
+
+
+def nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
+                nack_type, drops):
+    """The camera over RIST: the sender's process (NtSender: through
+    NtRelay with `drops`, none: straight), from the receiver's first read
+    on; the receiver ristsrc ! rtpjpegdepay ! jpegdec ! RGB 224x224 on the
+    card (rr_camera_run: yscale_hv once a tick that gives frames), the
+    interpreter's switch interval 1 ms.  Returns (ristsink's and
+    ristsrc's stats, the relay's drops or None, rr_camera_check's (whole,
+    checked), rr_drive's numbers or None, the fault or None, the sender's
+    seconds)."""
+    from gstreamer_tpu_torch.net import rist
+    w, h, _n, _b = RR_CAM
+    port = nt_free_pair()
+    spent, elems = {}, {}
+
+    def seen(args, out):
+        elems["src"] = args[0]
+        return 0
+    sender.start(port, drops)
+    try:
+        took, images, v, r, fault = rr_camera_run(
+            name, f"ristsrc address=127.0.0.1 port={port} nack-type="
+            f"{nack_type} timeout=1.0 caps={RR_RTP_JPEG} ! rtpjpegdepay ! "
+            f"jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}", dev, start, finish,
+            peak, spent,
+            (cont_timed(rist.RistSrc, "create", spent, "ristsrc", seen),
+             nt_first_call(rist.RistSrc, "create", sender.go),
+             nt_switch_interval(0.001)))
+    finally:
+        got = sender.finish()
+    whole, checked = rr_camera_check(name, sent, ref, images, v, fault)
+    return (got["sink"], dict(elems["src"].stats), got["dropped"],
+            (whole, checked), r, fault, {"sender": got["secs"]})
+
+
+def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
+    """rist_camera with generic and with range NACKs: the relay drops the
+    first copy of NT_DROPS packets (the first packet of NT_FIRST frames
+    among them); every drop is recovered, none lost, the 32 frames whole
+    and each the reference's RGB (multifilesrc ! jpegdec on the card, ==
+    the port's CPU run), yscale_hv once a tick that gives frames."""
+    drops = nt_drops(seed, sent)
+    heads = sum(1 for f in sent if rf_seq(f[0]) in drops)
+    for nack in ("generic", "range"):
+        name = f"rist_camera[{nack}]"
+        snd, rcv, dropped, (whole, checked), r, fault, _spent = nt_rist_run(
+            name, dev, sender, ref, sent, start, finish, peak, nack, drops)
+        print(f"  {name}: ristsink sent {snd['sent']} packets, "
+              f"retransmitted {snd['retransmitted']} on {snd['nacks']} NACK "
+              f"packets; the relay dropped {len(dropped)} first copies "
+              f"({heads} of them frames' first packets); ristsrc sent "
+              f"{rcv['nacks_sent']} NACK packets, received {rcv['received']}, "
+              f"recovered {rcv['recovered']}, lost {rcv['lost']}; "
+              f"{whole} of {len(sent)} frames whole")
+        require(fault is None and r is not None, f"{name}: jpegdec raised "
+                f"{fault and fault['error']!r} on a frame that lost packets")
+        require(sorted(dropped) == sorted(drops), f"{name}: the relay "
+                f"dropped {sorted(dropped)}, chose {sorted(drops)}")
+        # the relay's drops, and any first copy loopback lost on top
+        # (the receiver's socket overflowing while jpegdec runs): every
+        # one recovered, none lost, every frame whole
+        require(rcv["recovered"] >= len(drops) and rcv["lost"] == 0,
+                f"{name}: recovered {rcv['recovered']} of {len(drops)} "
+                f"dropped, lost {rcv['lost']}")
+        if rcv["recovered"] > len(drops):
+            print(f"  {name}: of the {rcv['recovered']} recovered, "
+                  f"{rcv['recovered'] - len(drops)} were lost on loopback "
+                  f"beside the relay's {len(drops)}")
+        require(whole == checked == len(sent), f"{name}: {whole} frames "
+                f"whole, {checked} checked, of {len(sent)}")
+        rr_report(name, r)
+        print(f"  {name}: every frame == its frame of multifilesrc ! jpegdec "
+              f"(== the port's CPU run); yscale_hv "
+              f"{r['launches'].get('yscale_hv', 0)} in the {r['fed_ticks']} "
+              f"ticks that gave frames")
+
+
+def rist_camera_live(dev, sender, ref, sent, start, finish, peak):
+    """The camera over RIST with no relay, paced at 25/1 with jpegdec in
+    the loop, as rtp_fec_udp over plain UDP: what loopback lost, what
+    RIST recovered and lost, the frames whole, beside rtp_fec_udp's own
+    figures from this run.  Every whole frame is its reference frame."""
+    name = "rist_camera_live"
+    snd, rcv, _d, (whole, checked), r, fault, spent = nt_rist_run(
+        name, dev, sender, ref, sent, start, finish, peak, "generic", None)
+    missing = rcv["recovered"] + rcv["lost"]
+    print(f"  {name}: ristsink sent {snd['sent']} packets in "
+          f"{spent.get('sender', 0):.3f} s, retransmitted "
+          f"{snd['retransmitted']} on {snd['nacks']} NACK packets; loopback "
+          f"lost {missing} (first copies ristsrc found missing), RIST "
+          f"recovered {rcv['recovered']} and lost {rcv['lost']}; "
+          f"{whole} of {len(sent)} frames whole ({checked} checked)")
+    if RF_UDP_FIGURES:
+        f = RF_UDP_FIGURES
+        print(f"  {name}: beside rtp_fec_udp in this run (plain UDP, SMPTE "
+              f"2022-1 rows={RF_ROWS}): loopback lost {f['lost']} of "
+              f"{f['read']}, fecdec recovered {f['recovered']}, "
+              f"{f['whole']} of {len(sent)} frames whole")
+    else:
+        print(f"  {name}: rtp_fec_udp did not run in this process")
+    if rcv["lost"] or whole < len(sent):
+        why = []
+        if snd["retransmitted"] < rcv["recovered"] + rcv["lost"]:
+            why.append("the sender's history (sender-buffer 1200) had "
+                       "evicted packets asked for")
+        if rcv["lost"] and rcv["nacks_sent"]:
+            why.append("packets still missing past reorder-section's budget "
+                       "or receiver-buffer (1000) were skipped as lost")
+        print(f"  {name}: frames lost: " + ("; ".join(why) or
+              "ristsrc's stats name no cause"))
+    if fault is not None:
+        print(f"  {name}: reference fault (ROADMAP.md section 3): "
+              f"rtpjpegdepay handed on a frame that lost packets for good and "
+              f"jpegdec raised {fault['error']!r}; the {checked} whole frames "
+              f"before it == their reference frames")
+        return
+    rr_report(name, r)
+
+
+def nt_negotiate(a, b, **transceiver):
+    """A video transceiver (`transceiver`: add_transceiver's pt, ...) on
+    webrtcbin `a`; `a` offers, `b` answers, through SDP text."""
+    from gstreamer_tpu_torch.net.sdp import SDPMessage
+    from gstreamer_tpu_torch.net.webrtc import WebRTCSessionDescription
+    a.add_transceiver("sendrecv", "video", **transceiver)
+    offer = a.create_offer()
+    a.set_local_description(offer)
+    b.set_remote_description(WebRTCSessionDescription(
+        "offer", SDPMessage.parse(offer.as_text())))
+    answer = b.create_answer()
+    b.set_local_description(answer)
+    a.set_remote_description(WebRTCSessionDescription(
+        "answer", SDPMessage.parse(answer.as_text())))
+
+
+def webrtc_camera(dev, jdir, ref, start, finish, peak):
+    """Two port webrtcbins on 127.0.0.1 (no STUN server, DTLS-SRTP on)
+    offer and answer in-process; once both are connected the sender renders
+    rtpjpegpay mtu=1200's packets of NT_WEBRTC 1080p frames, a frame a
+    push, and the receiver's pull_received() feeds appsrc ! rtpjpegdepay !
+    jpegdec ! RGB 224x224 on the card.  The wire is not plaintext, every
+    whole frame is its reference frame, yscale_hv once a tick that gives
+    frames."""
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net import ice, srtp
+    name = "webrtc_camera"
+    w, h, _n, batch = RR_CAM
+    frames = rf_pay(dev, jdir, NT_WEBRTC_MTU)[:NT_WEBRTC]
+    a, b = element_factory_make("webrtcbin"), element_factory_make(
+        "webrtcbin")
+    wire, spent = [], {}
+    send = ice.IceAgent.send
+
+    def tap(self, data):
+        wire.append(bytes(data))
+        return send(self, data)
+    try:
+        t0 = time.perf_counter()
+        nt_negotiate(a, b, pt=26, encoding_name="JPEG")
+        t_ice = t_dtls = None
+        while time.perf_counter() - t0 < 15.0:
+            if t_ice is None and a.ice_connection_state == \
+                    b.ice_connection_state == "connected":
+                t_ice = time.perf_counter() - t0
+            if a.connection_state == b.connection_state == "connected":
+                t_dtls = time.perf_counter() - t0
+                break
+            if "failed" in (a.connection_state, b.connection_state):
+                break
+            time.sleep(0.001)
+        require(t_dtls is not None, f"{name}: connection states "
+                f"{a.connection_state}, {b.connection_state}")
+        t_ice = t_dtls if t_ice is None else t_ice
+        ice.IceAgent.send = tap
+        got = []
+        with cont_timed(srtp.SrtpSession, "protect", spent, "protect",
+                        lambda a_, o: 1), \
+                cont_timed(srtp.SrtpSession, "unprotect", spent,
+                           "unprotect", lambda a_, o: 1):
+            t1 = time.perf_counter()
+            for k, pkts in enumerate(frames):
+                a.render(Buffer(data=list(pkts), pts=k))
+                mine = []
+                end = time.perf_counter() + 5.0
+                while len(mine) < len(pkts) and time.perf_counter() < end:
+                    mine += b.pull_received(len(pkts) - len(mine))
+                got.append(mine)
+            secs = time.perf_counter() - t1
+    finally:
+        ice.IceAgent.send = send
+        a.stop()
+        b.stop()
+    n_sent = sum(map(len, frames))
+    n_got = sum(map(len, got))
+    plain = [bytes(p[20:84]) for f in frames for p in f if len(p) > 84]
+    require(len(wire) >= n_sent and not any(
+        x in d for d in wire for x in plain[::7]), f"{name}: a datagram on "
+        f"the wire holds a sent packet's JPEG payload (not encrypted)")
+    print(f"  {name}: ICE connected in {t_ice * 1e3:.1f} ms, DTLS-SRTP in "
+          f"{t_dtls * 1e3:.1f} ms (both sides); the sender rendered "
+          f"{n_sent} packets ({a.stats['sent']} sent, "
+          f"{a.stats['dropped_unconnected']} dropped before the connection), "
+          f"the receiver pulled {n_got} ({b.stats['auth_failed']} dropped "
+          f"for failed authentication, {b.stats['dtls_strays']} stray DTLS "
+          f"records); {len(wire)} datagrams on the wire, none holds a sent "
+          f"JPEG payload; {n_got / secs:.1f} packets/s from render to pull "
+          f"(host), {n_got / (spent['protect'] + spent['unprotect']):.1f} "
+          f"packets/s through SRTP's protect and unprotect alone; protect "
+          f"{spent['protect'] / max(spent['protect packets'], 1) * 1e6:.1f} "
+          f"us and unprotect "
+          f"{spent['unprotect'] / max(spent['unprotect packets'], 1) * 1e6:.1f}"
+          f" us a packet (host)")
+    pushes = {"in": [Buffer(data=g, pts=k * 40_000_000) for k, g in
+                     enumerate(got) if g]}
+    out, r = {"v": [], "a": []}, None
+    _v, r = rr_drive(name, f"appsrc name=in caps={RR_RTP_JPEG} ! "
+                     f"rtpjpegdepay ! jpegdec ! {rr_caps(w, h)} ! {CONT_RGB}",
+                     dev, start, finish, peak, pushes=pushes, out=out)
+    whole = [k for k, g in enumerate(got) if g == list(frames[k])]
+    rgb = cont_joined(out["v"])
+    require(rgb is not None and rgb[0].shape[0] == len(whole) == NT_WEBRTC,
+            f"{name}: {len(whole)} frames whole of {NT_WEBRTC}, "
+            f"{0 if rgb is None else rgb[0].shape[0]} decoded")
+    require(cont_equal(rgb, tuple(p[:NT_WEBRTC] for p in ref)),
+            f"{name}: a frame's RGB differs from its reference frame")
+    rr_report(name, r)
+    print(f"  {name}: {len(whole)} of {NT_WEBRTC} frames whole, each == its "
+          f"frame of multifilesrc ! jpegdec; yscale_hv "
+          f"{r['launches'].get('yscale_hv', 0)} in the {r['fed_ticks']} "
+          f"ticks that gave frames")
+
+
+def srt_ts_link(dev, tmp, files, plain_aac, start, finish, peak, have_srt):
+    """The TS through filesrc ! srtsink mode=listener to srtsrc mode=caller
+    ! filesink on 127.0.0.1, plain and with a passphrase: the bytes those
+    sent; tsdemux ! aacparse ! faad of the received file into the ASR
+    chain (the plain file's PCM).  Without libsrt: the error both packages
+    raise, printed as a difference of installation."""
+    import threading
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.codecs import aac as paac
+    from gstreamer_tpu_torch.elements import aacdec, mpegts
+    from gstreamer_tpu_torch.net import srt
+    sent_path = os.path.join(tmp, "srt_sent.ts")
+    aac_mp3_ts(dev, sent_path, files)
+    with open(sent_path, "rb") as f:
+        sent = f.read()
+    if not have_srt:
+        try:
+            parse_launch(f"filesrc location={sent_path} ! srtsink "
+                         "mode=listener port=7001", device=dev).set_state(
+                             "playing")
+        except RuntimeError as e:
+            print(f"  srt_ts_link: NOT RUN, a difference of installation "
+                  f"(ROADMAP.md section 3): {e!r}, the error both packages "
+                  f"raise where net/srt.py's loader finds no libsrt")
+            return
+        raise AssertionError("srt_ts_link: srtsink started without libsrt")
+    for pw in ("", "0123456789abcdef"):
+        name = f"srt_ts_link[{'passphrase' if pw else 'plain'}]"
+        extra = f" passphrase={pw}" if pw else ""
+        got_path = os.path.join(tmp, f"srt_got{len(pw)}.ts")
+        start(name)
+        port = rr_free_port()
+        tx = parse_launch(f"filesrc location={sent_path} blocksize="
+                          f"{NT_SRT_BLOCK} ! srtsink mode=listener "
+                          f"address=127.0.0.1 port={port}{extra}", device=dev)
+        tx.set_state("playing")
+        rx = parse_launch(f"srtsrc mode=caller address=127.0.0.1 port={port} "
+                          f"timeout=2.0{extra} ! filesink location={got_path}",
+                          device=dev)
+        failed = []
+
+        def receive():
+            try:
+                rx.run()
+            except Exception as e:          # handed to the main thread
+                failed.append(e)
+        rx.set_state("playing")
+        th = threading.Thread(target=receive, daemon=True)
+        th.start()
+        sink = next(e for e in tx._nodes() if isinstance(e, srt.SRTSink))
+        end = time.perf_counter() + 10.0
+        while not sink._peers and time.perf_counter() < end:
+            time.sleep(0.01)
+        require(sink._peers, f"{name}: no caller reached the listener")
+        t0 = time.perf_counter()
+        while tx.tick():
+            time.sleep(0.001)
+        tx.set_state("null")
+        secs = time.perf_counter() - t0
+        th.join(30.0)
+        require(not th.is_alive() and not failed, f"{name}: the receiver "
+                f"{'hangs' if th.is_alive() else failed}")
+        rx.set_state("null")
+        finish(name, {})
+        with open(got_path, "rb") as f:
+            got = f.read()
+        require(got == sent, f"{name}: {len(got)} bytes received, the "
+                f"{len(sent)} sent differ")
+        print(f"e2e {name}: {len(sent)} bytes of TS over SRT in {secs:.3f} s "
+              f"({len(sent) * 8 / secs / 1e6:.1f} Mbit/s, live mode, "
+              f"{-(-len(sent) // srt.LIVE_PAYLOAD)} messages); the received "
+              f"file == the TS sent; no launch")
+    vt_asr_item("srt_ts_link[tsdemux]", f"tsdemux name=d location={got_path} "
+                f"stream=0 ! aacparse ! faad", dev, start, finish, peak,
+                [(paac.AACDecoder, "decode_frame")], plain_aac, aacdec,
+                held=" (the TS received over SRT)",
+                demux=(mpegts.TsDemux, "create"))
+
+
+def rtmp_audio(dev, tmp, files, dig, start, finish, peak):
+    """The committed AAC's units through flvmux (a file: flvmux is a
+    writer), filesrc ! rtmp2sink publishing through the port's
+    RtmpRelayServer to rtmp2src ! filesink (the player connected first):
+    the tags received are those sent; flvdemux's PCM of the received file
+    within CODEC_PCM_TOL of the JAX digest of the same units
+    (aac_10s.m4a)."""
+    import threading
+
+    import numpy as np
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.net import rtmp
+    name = "rtmp_audio"
+    units = aac_units(files["aac_10s.aac"])
+    sent_path, got_path = (os.path.join(tmp, f"rtmp_{k}.flv")
+                           for k in ("sent", "got"))
+    start(name)
+    vt_timed(AAC_FLVMUX.format(path=sent_path), dev, 1,
+             aac_flv_pushes(units))
+    srv = rtmp.RtmpRelayServer()
+    url = f"rtmp://127.0.0.1:{srv.port}/live/aac"
+    failed = []
+    try:
+        rx = parse_launch(f"rtmp2src location={url} timeout=2.0 ! filesink "
+                          f"location={got_path}", device=dev)
+        rx.set_state("playing")           # the player connects first
+
+        def receive():
+            try:
+                while rx.tick():
+                    pass
+            except Exception as e:        # handed to the main thread
+                failed.append(e)
+        th = threading.Thread(target=receive, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        tx = parse_launch(f"filesrc location={sent_path} ! rtmp2sink "
+                          f"location={url}", device=dev)
+        tx.run()
+        sent_tags = next(e for e in tx._nodes()
+                         if isinstance(e, rtmp.Rtmp2Sink)).sent_tags
+        tx.set_state("null")
+        th.join(30.0)
+        secs = time.perf_counter() - t0
+        rx.set_state("null")
+    finally:
+        srv.close()
+    require(not th.is_alive() and not failed, f"{name}: the player "
+            f"{'hangs' if th.is_alive() else failed}")
+    finish(name, {})
+    with open(sent_path, "rb") as f:
+        want, _ = rtmp.parse_flv_stream(f.read())
+    with open(got_path, "rb") as f:
+        got, rest = rtmp.parse_flv_stream(f.read())
+    require(got == want and not rest and sent_tags == len(want),
+            f"{name}: {len(got)} tags received, {len(want)} in the file, "
+            f"{sent_tags} published")
+    print(f"e2e {name}: flvmux's {len(want)} tags published through "
+          f"RtmpRelayServer and played back in {secs:.3f} s (the tags "
+          f"received == the file's); no launch")
+    start(f"{name}[flvdemux]")
+    t0 = time.perf_counter()
+    pcm = np.concatenate(vt_pcm(f"flvdemux location={got_path}", dev))
+    secs = time.perf_counter() - t0
+    finish(f"{name}[flvdemux]", {})
+    err = codec_pcm_check(name, pcm, dig["aac_m4a"])
+    print(f"  {name}: flvdemux of the received file decodes "
+          f"{len(pcm) / 48000:.2f} s of PCM in {secs:.3f} s on the host, "
+          f"within {CODEC_PCM_TOL} of the JAX digest of these units "
+          f"(aac_10s.m4a's; max {err})")
+
+
+def hls_dash_pull(dev, tmp, files, plain_aac, start, finish, peak):
+    """hlssink2's segments and playlist and dashsink's MPD of the committed
+    AAC, read back by hlsdemux stream=audio and dashdemux stream=0 over
+    file:// URIs: the PCM the plain file's decode."""
+    import numpy as np
+    aac = files["aac_10s.aac"]
+    d = os.path.join(tmp, "hls_dash")
+    os.makedirs(d)
+    start("hls_dash_pull[write]")
+    vt_timed(f"filesrc location={aac} ! aacparse ! hlssink2 location={d}/"
+             f"seg%05d.ts playlist-location={d}/p.m3u8 target-duration="
+             f"{VT_HLS_TARGET}", dev, 8)
+    vt_timed(f"filesrc location={aac} ! aacparse ! dashsink location={d}/"
+             f"dash%05d.ts mpd-filename={d}/m.mpd target-duration="
+             f"{VT_HLS_TARGET}", dev, 8)
+    finish("hls_dash_pull[write]", {})
+    for name, desc in (
+            ("hls_dash_pull[hlsdemux]",
+             f"hlsdemux uri=file://{d}/p.m3u8 stream=audio"),
+            ("hls_dash_pull[dashdemux]",
+             f"dashdemux uri=file://{d}/m.mpd stream=0")):
+        start(name)
+        t0 = time.perf_counter()
+        pcm = np.concatenate(vt_pcm(desc, dev))
+        secs = time.perf_counter() - t0
+        finish(name, {})
+        require(np.array_equal(pcm, plain_aac), f"{name}: the PCM "
+                f"{pcm.shape} differs from the plain file's decode")
+        print(f"  {name}: {len(pcm) / 48000:.2f} s of PCM == the plain "
+              f"file's decode, pulled and decoded in {secs:.3f} s on the "
+              f"host")
+
+
+def shm_camera(dev, jdir, ref, tmp, start, finish, peak):
+    """multifilesrc ! jpegparse ! shmsink of the camera's 32 JPEGs, then
+    shmsrc ! jpegdec ! RGB 224x224 on the card: the reference RGB,
+    yscale_hv once a tick that gives frames."""
+    w, h, _n, _b = RR_CAM
+    path = os.path.join(tmp, "shm_camera")
+    start("shm_camera[write]")
+    vt_timed(f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+             f"framerate={CONT_FPS}/1 ! jpegparse ! shmsink socket-path="
+             f"{path}", dev, 1)
+    finish("shm_camera[write]", {})
+    v, r = rr_drive("shm_camera", f"shmsrc socket-path={path} ! image/jpeg,"
+                    f"framerate={CONT_FPS}/1 ! jpegdec ! {rr_caps(w, h)} ! "
+                    f"{CONT_RGB}", dev, start, finish, peak)
+    require(cont_equal(cont_joined(v), ref), "shm_camera: the RGB differs "
+            "from multifilesrc ! jpegdec's")
+    rr_report("shm_camera", r)
+    print(f"  shm_camera: the {RR_CAM[2]} frames == multifilesrc ! jpegdec's "
+          f"(== the port's CPU run); yscale_hv "
+          f"{r['launches'].get('yscale_hv', 0)} in the {r['fed_ticks']} ticks "
+          f"that gave frames")
+
+
+def avtp_raw_video(seed, dev, start, finish, peak, af_packet):
+    """NT_AVTP seeded 1080p I420 frames through avtprvfpay ! avtprvfdepay.
+    RVF carries GRAY formats only (the reference's avtprvfpay, GRAY16_LE),
+    so each frame rides as a GRAY8 image of 1620 rows of 1920 (Y, then U
+    and V two rows to a row); the depayloaded rows (on the card) are cut
+    back into the I420 planes and go through appsrc ! videoconvertscale to
+    RGB 224x224: the direct conversion's bytes, yscale_hv once a tick.
+    Then AAF (S16BE) and CVF (H.264 access units) pay/depay alike, and
+    avtpsink / avtpsrc on lo where the probe's frame came back through
+    AF_PACKET (`af_packet`: True, or what the probe saw)."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.net import avtp
+    w, h, n, rows = W, H, NT_AVTP, H * 3 // 2
+    rng = np.random.default_rng(seed)
+    planes = vt_panning(n, w, h, seed)
+    gray = np.concatenate([planes[0], planes[1].reshape(n, h // 4, w),
+                           planes[2].reshape(n, h // 4, w)], axis=1)
+    name = "avtp_raw_video"
+    spent = {}
+    start(name + "[rvf]")
+    t0 = time.perf_counter()
+    with cont_timed(avtp.AvtpRvfPay, "host_process", spent, "rvfpay",
+                    lambda a, o: 0 if o is None else len(o.data)):
+        got = codec_run(f"appsrc name=in caps=video/x-raw,format=GRAY8,"
+                        f"width={w},height={rows},framerate={CONT_FPS}/1 ! "
+                        "avtprvfpay ! avtprvfdepay ! appsink name=p", dev, n,
+                        "p", {"in": [Buffer(data=(torch.from_numpy(gray)
+                                                  .to(dev),),
+                                            batch=n, pts=0)]})
+    secs = time.perf_counter() - t0
+    finish(name + "[rvf]", {})
+    back = torch.cat([s.buffer.data[0] for s in got])
+    require(back.device.type == dev.type and back.shape == (n, rows, w)
+            and torch.equal(back.cpu(), torch.from_numpy(gray)),
+            f"{name}: the depayloaded rows differ from those sent")
+    pdus = spent["rvfpay packets"]
+    print(f"  {name}: avtprvfpay ! avtprvfdepay carried {n} {w}x{h} I420 "
+          f"frames as GRAY8 {w}x{rows} in {pdus} PDUs in {secs:.3f} s "
+          f"({pdus / secs:.0f} PDUs/s; pay {spent['rvfpay']:.3f} s, host); "
+          f"the rows back == those sent, on the card")
+    i420 = (back[:, :h], back[:, h:h + h // 4].reshape(n, h // 2, w // 2),
+            back[:, h + h // 4:].reshape(n, h // 2, w // 2))
+    src = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+           f"height={h},framerate={CONT_FPS}/1")
+    _, out, r = codec_path(name, f"{src} ! {CONT_RGB}", n, dev, start,
+                           finish, peak, {"yscale_hv": 1}, (),
+                           {"in": [Buffer(data=tuple(p.contiguous()
+                                                     for p in i420),
+                                          batch=n, pts=0)]})
+    direct = cont_joined(codec_run(
+        f"{src} ! {CONT_RGB}", torch.device("cpu"), n, "v",
+        {"in": [Buffer(data=tuple(torch.from_numpy(p) for p in planes),
+                       batch=n, pts=0)]}))
+    require(cont_equal(cont_joined(out["v"]), direct),
+            f"{name}: the RGB differs from the direct conversion's")
+    codec_report(name, r, n, "frames")
+    print(f"  {name}: RGB 224x224 == the direct conversion's (the port's "
+          f"CPU run of the frames sent); yscale_hv {r['launches']}")
+    pcm = rng.integers(-32768, 32768, (48000 * NT_AAF_SECONDS, 2),
+                       dtype=np.int16)
+    raw = np.frombuffer(pcm.astype(">i2").tobytes(), np.uint8)
+    start(name + "[aaf]")
+    got = codec_run("appsrc name=in caps=audio/x-raw,format=S16BE,rate=48000,"
+                    "channels=2,layout=interleaved ! avtpaafpay ! "
+                    "avtpaafdepay ! appsink name=p", dev, 1, "p",
+                    {"in": [Buffer(data=raw[k:k + 3840].copy(), pts=k)
+                            for k in range(0, len(raw), 3840)]})
+    finish(name + "[aaf]", {})
+    aaf = torch.cat([s.buffer.data.cpu() for s in got])
+    require(torch.equal(aaf, torch.from_numpy(pcm)), f"{name}: AAF's "
+            "samples back differ from those sent")
+    aus = [b"".join(b"\x00\x00\x00\x01" + bytes([t]) + rng.integers(
+        1, 256, size, np.uint8).tobytes() for t, size in (
+            (0x67, 12), (0x68, 4), (0x65 if k % 8 == 0 else 0x41,
+                                    int(rng.integers(500, 60000)))))
+        for k in range(25)]
+    start(name + "[cvf]")
+    got = codec_run("appsrc name=in caps=video/x-h264,stream-format="
+                    "byte-stream ! avtpcvfpay ! avtpcvfdepay ! appsink "
+                    "name=p", dev, 1, "p",
+                    {"in": [Buffer(data=np.frombuffer(a, np.uint8).copy(),
+                                   pts=k * 40_000_000)
+                            for k, a in enumerate(aus)]})
+    finish(name + "[cvf]", {})
+    back_aus = [rr_pkt_bytes(x) for s in got for x in s.buffer.data]
+    require(back_aus == aus, f"{name}: CVF's access units back differ")
+    print(f"  {name}: AAF {NT_AAF_SECONDS} s of 48 kHz stereo S16BE and CVF "
+          f"{len(aus)} H.264 access units (FU-A at mtu 1400) back as sent")
+    if af_packet is not True:
+        print(f"  {name}: avtpsink / avtpsrc on lo NOT RUN, a difference of "
+              f"installation (ROADMAP.md section 3): the probe's frame "
+              f"through AF_PACKET on lo did not come back ({af_packet}); "
+              f"avtpsink raises there in both packages")
+        return
+    print(f"  {name}: avtpsink -> avtpsrc on lo: "
+          f"{nt_avtp_lo(dev, aus[:4])} PDUs back as sent")
+
+
+def nt_avtp_lo(dev, aus):
+    """CVF PDUs of `aus` through avtpsink on lo to avtpsrc: the PDUs of the
+    stream back as sent.  Returns their count."""
+    import threading
+
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net import avtp
+    pay = element_factory_make("avtpcvfpay", streamid=0xC0DE)
+    pay.device = dev
+    pdus = [p for k, a in enumerate(aus) for p in pay.host_process(
+        Buffer(data=np.frombuffer(a, np.uint8), pts=k)).data]
+    src = element_factory_make("avtpsrc", ifname="lo", timeout=2.0)
+    sink = element_factory_make("avtpsink", ifname="lo")
+    src.start()
+    sink.start()
+    got = []
+
+    def rx():
+        end = time.perf_counter() + 5.0
+        while len(got) < len(pdus) and time.perf_counter() < end:
+            b = src.create(1)
+            for p in (b.data if b else []):
+                if avtp.parse_pdu(bytes(p))["stream_id"] == 0xC0DE:
+                    got.append(bytes(p)[:len(pdus[len(got)])])
+    th = threading.Thread(target=rx, daemon=True)
+    th.start()
+    time.sleep(0.1)
+    sink.render(Buffer(data=pdus))
+    th.join(6.0)
+    sink.stop()
+    src.stop()
+    require(got == pdus, f"avtp on lo: {len(got)} of {len(pdus)} PDUs back "
+            "as sent")
+    return len(pdus)
+
+
+class NtServer:
+    """A one-client TCP server on 127.0.0.1 (port 0) whose thread runs
+    `serve(conn)`; what it returns is `result`."""
+
+    def __init__(self, serve):
+        import socket
+        import threading
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.sock.settimeout(10.0)
+        self.port = self.sock.getsockname()[1]
+        self.result = None
+
+        def run():
+            try:
+                c, _ = self.sock.accept()
+                c.settimeout(10.0)
+                self.result = serve(c)
+                c.close()
+            except OSError as e:
+                self.result = repr(e)
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def join(self):
+        self._t.join(15.0)
+        self.sock.close()
+        return self.result
+
+
+def nt_vnc(c):
+    """rfbsrc's peer: RFB 3.8, no security, a 16x8 framebuffer; the first
+    update a red 8x8 block (Raw), the next ones copy it right (CopyRect)."""
+    import struct
+    c.sendall(b"RFB 003.008\n")
+    c.recv(12)
+    c.sendall(bytes([1, 1]))
+    c.recv(1)
+    c.sendall(struct.pack(">I", 0))
+    c.recv(1)
+    pf = struct.pack(">BBBBHHHBBBxxx", 32, 24, 0, 1, 255, 255, 255, 0, 8, 16)
+    c.sendall(struct.pack(">HH", 16, 8) + pf + struct.pack(">I", 4) + b"mini")
+    updates = 0
+    while True:
+        msg = c.recv(1)
+        if not msg:
+            return updates
+        if msg[0] == 0:
+            c.recv(19)
+        elif msg[0] == 2:
+            n = struct.unpack(">H", c.recv(3)[1:])[0]
+            c.recv(4 * n)
+        elif msg[0] == 3:
+            c.recv(9)
+            if updates == 0:
+                c.sendall(struct.pack(">BxHHHHHi", 0, 1, 0, 0, 8, 8, 0)
+                          + bytes([255, 0, 0, 0]) * 64)
+            else:
+                c.sendall(struct.pack(">BxHHHHHi", 0, 1, 8, 0, 8, 8, 1)
+                          + struct.pack(">HH", 0, 0))
+            updates += 1
+
+
+def nt_lines(c, handle):
+    """A line protocol's server loop: handle(line, send, f) until it
+    returns a value (the result)."""
+    f = c.makefile("rwb")
+
+    def send(line):
+        f.write(line.encode() + b"\r\n")
+        f.flush()
+    return handle(None, send, f)
+
+
+def nt_ftp(c):
+    """Just enough FTP for one STOR; returns {path: bytes}."""
+    import socket
+
+    def handle(_line, send, f):
+        send("220 mini ftp")
+        data = socket.socket()
+        data.bind(("127.0.0.1", 0))
+        data.listen(1)
+        dport, stored = data.getsockname()[1], {}
+        while True:
+            line = f.readline().decode().strip()
+            if not line:
+                return stored
+            cmd = line.split()[0].upper()
+            if cmd == "PASV":
+                send("227 Entering Passive Mode (127,0,0,1,%d,%d)"
+                     % (dport >> 8, dport & 0xFF))
+            elif cmd == "STOR":
+                send("150 go ahead")
+                d, _ = data.accept()
+                chunks = []
+                while (b := d.recv(65536)):
+                    chunks.append(b)
+                d.close()
+                stored[line.split(None, 1)[1]] = b"".join(chunks)
+                send("226 done")
+            elif cmd == "QUIT":
+                send("221 bye")
+                return stored
+            else:
+                send({"USER": "331 pw", "PASS": "230 ok"}.get(cmd, "200 ok"))
+    return nt_lines(c, handle)
+
+
+def nt_smtp(c):
+    """Just enough SMTP for one message; returns the attachment's bytes."""
+    import email
+
+    def handle(_line, send, f):
+        send("220 mini smtp")
+        body, in_data = [], False
+        while (line := f.readline()):
+            if in_data:
+                if line.strip() == b".":
+                    send("250 queued")
+                    in_data = False
+                else:
+                    body.append(line)
+                continue
+            cmd = line.decode().strip().upper()
+            if cmd.startswith("DATA"):
+                send("354 go")
+                in_data = True
+            elif cmd.startswith("QUIT"):
+                send("221 bye")
+                break
+            else:
+                send("250 ok")
+        msg = email.message_from_bytes(b"".join(body))
+        return [p.get_payload(decode=True) for p in msg.walk()
+                if p.get_filename()]
+    return nt_lines(c, handle)
+
+
+def nt_http(root):
+    """A local HTTP server for GET of `root`'s files and PUT (bodies kept
+    in .puts); serve_forever in a thread.  Returns the server."""
+    import http.server
+    import socketserver
+    import threading
+    puts = {}
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, directory=root, **kw)
+
+        def do_PUT(self):
+            n = int(self.headers["Content-Length"])
+            puts[self.path] = (self.rfile.read(n),
+                               self.headers.get("Authorization"))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+    srv = socketserver.TCPServer(("127.0.0.1", 0), Handler)
+    srv.puts = puts
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def nt_alone_rows(tmp):
+    """The runs that drive each of NT_MODULES' 55 factories alone or with
+    its pair: [(factories, what it needs from the probe, fn(d) -> plain
+    data)]."""
+    import socket
+    import threading
+
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net import avtp, rtmp
+    from gstreamer_tpu_torch.net.rtp import rtp_header
+    rng = np.random.default_rng(25)
+    pkts = [rtp_header(96, (65530 + k) & 0xFFFF, 3000 * k, 0x22,
+                       marker=k % 4 == 3)
+            + rng.integers(0, 256, 300, dtype=np.uint8).tobytes()
+            for k in range(12)]
+    blob = rng.integers(0, 256, 9000, dtype=np.uint8).tobytes()
+    key = rng.integers(0, 256, 30, dtype=np.uint8).tobytes().hex()
+    counter = iter(range(10**6))
+
+    def make(factory, d, **props):
+        e = element_factory_make(factory, **props)
+        e.device = d
+        return e
+
+    def launch(desc, pushes=None, batch=1):
+        return lambda d: cont_launch(desc, d, batch, pushes)
+
+    def rtp(desc):
+        return launch(f"appsrc name=in caps=application/x-rtp ! tee name=t "
+                      f"t. ! queue ! {desc.split(' ! ')[0]} ! appsink "
+                      f"name=out t. ! queue ! {desc} ! appsink name=out1",
+                      {"in": [dict(data=list(pkts[:6]), pts=0),
+                              dict(data=list(pkts[6:]), pts=1)]})
+
+    def dtls_pair(d):
+        out = []
+        for enc_f, dec_f, data in (("dtlsenc", "dtlsdec", [blob]),
+                                   ("dtlssrtpenc", "dtlssrtpdec", pkts)):
+            cid = f"nt{next(counter)}"
+            ec = make(enc_f, d, connection_id=cid + "c", is_client=True)
+            dc = make(dec_f, d, connection_id=cid + "c", is_client=True)
+            es = make(enc_f, d, connection_id=cid + "s", is_client=False)
+            ds = make(dec_f, d, connection_id=cid + "s", is_client=False)
+            for e in (ec, dc, es, ds):
+                e.start()
+            for _ in range(10):
+                for oe, idc in ((ec, ds), (es, dc)):
+                    o = oe.host_process(None)
+                    for rec in ([] if o is None else o.data):
+                        idc.host_process(Buffer(data=[rr_pkt_bytes(rec)]))
+            wire = ec.host_process(Buffer(data=list(data), batch=1))
+            got = []
+            for rec in wire.data:
+                o = ds.host_process(Buffer(data=[rr_pkt_bytes(rec)]))
+                got += [] if o is None else [rr_pkt_bytes(x) for x in o.data]
+            out.append(b"".join(got) if enc_f == "dtlsenc" else got)
+            for e in (ec, dc, es, ds):
+                e.stop()
+        return out
+
+    def sctp(d):
+        enc, dec = make("sctpenc", d), make("sctpdec", d)
+        dec.start()
+        wire = [enc.host_aggregate({f"sink_{s}": Buffer(
+            data=np.frombuffer(blob[100 * k + s:100 * k + s + 50 + k],
+                               np.uint8), meta={"ppid": 51 + s})
+            for s in range(1 + k % 3)}) for k in range(5)]
+        out = [dec.host_process(Buffer(data=list(wire[k].data)))
+               for k in (1, 0, 2, 4, 3)]
+        return ([bc_plain(o.data) if o else None for o in out],
+                [o.meta["sctp_streams"] for o in out if o], len(dec.sacks))
+
+    def webrtc(d):
+        a, b = make("webrtcbin", d), make("webrtcbin", d)
+        try:
+            nt_negotiate(a, b, pt=96)
+            end = time.perf_counter() + 10.0
+            while time.perf_counter() < end and not (
+                    a.connection_state == b.connection_state == "connected"):
+                time.sleep(0.01)
+            a.render(Buffer(data=list(pkts[:4])))
+            got = []
+            while len(got) < 4 and time.perf_counter() < end:
+                got += b.pull_received()
+            return a.connection_state, b.connection_state, got
+        finally:
+            a.stop()
+            b.stop()
+
+    def rist_pair(d):
+        port = nt_free_pair()
+        src = make("ristsrc", d, address="127.0.0.1", port=port,
+                   timeout=1.0)
+        sink = make("ristsink", d, address="127.0.0.1", port=port)
+        src.start()
+        sink.start()
+        got = []
+        try:
+            for k in range(0, 12, 4):
+                sink.render(Buffer(data=list(pkts[k:k + 4])))
+            while len(got) < 12 and (b := src.create(1)) is not None:
+                got += [rr_pkt_bytes(x) for x in b.data]
+        finally:
+            sink.stop()
+            src.stop()
+        return got, src.stats["lost"]
+
+    def rtx(d):
+        send, recv = make("ristrtxsend", d), make("ristrtxreceive", d)
+        send.start()
+        o = send.host_process(Buffer(data=list(pkts[:6])))
+        send.request_retransmit(rr_pkt_bytes(pkts[2])[3]
+                                | (rr_pkt_bytes(pkts[2])[2] << 8))
+        o2 = send.host_process(Buffer(data=list(pkts[6:])))
+        return [bc_plain(recv.host_process(x).data) for x in (o, o2)]
+
+    def srt_pair(d):
+        port = rr_free_port()
+        src = make("srtsrc", d, address="127.0.0.1", port=port, timeout=2.0)
+        src.start()
+        got = []
+        th = threading.Thread(target=lambda: got.extend(
+            iter(lambda: (lambda b: None if b is None else rr_pkt_bytes(
+                b.data))(src.create(1)), None)), daemon=True)
+        th.start()
+        sink = make("srtsink", d, address="127.0.0.1", port=port,
+                    mode="caller")
+        sink.start()
+        time.sleep(0.1)
+        for k in range(4):
+            sink.render(Buffer(data=[blob[k * 1316:(k + 1) * 1316]]))
+        sink.stop()
+        th.join(10.0)
+        src.stop()
+        return got
+
+    def rtmp_pair(d):
+        srv = rtmp.RtmpRelayServer()
+        url = f"rtmp://127.0.0.1:{srv.port}/live/x"
+        try:
+            src = make("rtmp2src", d, location=url, timeout=2.0)
+            src.start()
+            sink = make("rtmp2sink", d, location=url)
+            sink.start()
+            tags = [rtmp.build_flv_tag(8, 40 * k, blob[k * 700:(k + 1) * 700])
+                    for k in range(5)]
+            sink.render(Buffer(data=np.frombuffer(
+                rtmp.FLV_HEADER + b"".join(tags), np.uint8)))
+            data = b""
+            while len(rtmp.parse_flv_stream(data)[0]) < 5:
+                b = src.create(1)
+                if b is None:
+                    break
+                data += rr_pkt_bytes(b.data)
+            src.stop()
+            sink.stop()
+        finally:
+            srv.close()
+        return rtmp.parse_flv_stream(data)[0]
+
+    def adaptive_files():
+        d = os.path.join(tmp, "nt_adaptive")
+        os.makedirs(os.path.join(d, "QualityLevels(500)"), exist_ok=True)
+        for k in range(3):
+            with open(os.path.join(d, f"s{k}.bin"), "wb") as f:
+                f.write(blob[k * 500:(k + 1) * 500])
+            with open(os.path.join(d, "QualityLevels(500)",
+                                   f"Fragments(video={k * 100})"), "wb") as f:
+                f.write(blob[k * 300:(k + 1) * 300])
+        with open(os.path.join(d, "p.m3u8"), "w") as f:
+            f.write("#EXTM3U\n" + "".join(f"#EXTINF:1,\ns{k}.bin\n"
+                                          for k in range(3))
+                    + "#EXT-X-ENDLIST\n")
+        with open(os.path.join(d, "m.mpd"), "w") as f:
+            f.write('<MPD><Period><AdaptationSet><Representation id="r" '
+                    'bandwidth="9"><SegmentList duration="1">'
+                    + "".join(f'<SegmentURL media="s{k}.bin"/>'
+                              for k in range(3))
+                    + "</SegmentList></Representation></AdaptationSet>"
+                    "</Period></MPD>")
+        with open(os.path.join(d, "Manifest"), "w") as f:
+            f.write('<SmoothStreamingMedia><StreamIndex Type="video" '
+                    'Url="QualityLevels({bitrate})/Fragments(video={start '
+                    'time})"><QualityLevel Bitrate="500" FourCC="H264"/>'
+                    '<c t="0" d="100"/><c d="100"/><c d="100"/>'
+                    '</StreamIndex></SmoothStreamingMedia>')
+        return d
+
+    def udp_fanout(d):
+        rxs = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+               for _ in range(3)]
+        for r in rxs:
+            r.bind(("127.0.0.1", 0))
+            r.settimeout(5.0)
+        try:
+            m = make("multiudpsink", d, clients=",".join(
+                f"127.0.0.1:{r.getsockname()[1]}" for r in rxs[:2]), mtu=1000)
+            m.start()
+            m.render(Buffer(data=np.frombuffer(blob[:2500], np.uint8)))
+            dy = make("dynudpsink", d)
+            dy.start()
+            dy.render(Buffer(data=[b"dyn"], meta={
+                "host": "127.0.0.1", "port": rxs[2].getsockname()[1]}))
+            got = [[r.recvfrom(2000)[0] for _ in range(3)] for r in rxs[:2]]
+            got.append(rxs[2].recvfrom(100)[0])
+            m.stop()
+            dy.stop()
+            return got
+        finally:
+            for r in rxs:
+                r.close()
+
+    def socket_fanout(d):
+        a, b = socket.socketpair()
+        r, w = os.pipe()
+        ms, mf = make("multisocketsink", d), make("multifdsink", d)
+        ms.add(a)
+        mf.add(w)
+        for e in (ms, mf):
+            e.render(Buffer(data=np.frombuffer(blob[:3000], np.uint8)))
+        a.close()
+        os.close(w)
+        src = make("socketsrc", d, socket=b, blocksize=1024, timeout=1.0)
+        src.start()
+        got = []
+        while (buf := src.create(1)) is not None:
+            got.append(rr_pkt_bytes(buf.data))
+        src.stop()
+        b.close()
+        with os.fdopen(r, "rb") as f:
+            piped = f.read()
+        return got, piped, ms.bytes_served, mf.bytes_served
+
+    def rfb(d):
+        srv = NtServer(nt_vnc)
+        got = cont_launch(f"rfbsrc port={srv.port} num-buffers=2 ! appsink "
+                          "name=out", d, 1)
+        return got, srv.join()
+
+    pcm = rng.integers(-2000, 2000, (960, 2), dtype=np.int16)
+    frames = rng.integers(0, 65536, (2, 16, 800), dtype=np.uint16)
+    samples = rng.integers(-99, 99, (400, 1), dtype=np.int16)
+
+    def aaf(d):
+        return launch("appsrc name=in caps=audio/x-raw,format=S16BE,"
+                      "rate=48000,channels=2 ! avtpaafpay ! tee name=t t. ! "
+                      "queue ! appsink name=out t. ! queue ! avtpaafdepay ! "
+                      "appsink name=out1", {"in": [dict(data=np.frombuffer(
+                          pcm.astype(">i2").tobytes(), np.uint8), pts=0)]})(d)
+
+    def cvf(d):
+        au = b"".join(b"\x00\x00\x00\x01" + bytes([t]) + blob[:n]
+                      for t, n in ((0x67, 8), (0x65, 3000)))
+        return launch("appsrc name=in caps=video/x-h264,stream-format="
+                      "byte-stream ! avtpcvfpay ! tee name=t t. ! queue ! "
+                      "appsink name=out t. ! queue ! avtpcvfdepay ! appsink "
+                      "name=out1", {"in": [dict(data=np.frombuffer(
+                          au, np.uint8), pts=0)]})(d)
+
+    def rvf(d):
+        return launch("appsrc name=in caps=video/x-raw,format=GRAY16_LE,"
+                      "width=800,height=16,framerate=25/1 ! avtprvfpay ! tee "
+                      "name=t t. ! queue ! appsink name=out t. ! queue ! "
+                      "avtprvfdepay ! appsink name=out1",
+                      {"in": [dict(data=(frames,), batch=2, pts=0)]}, 2)(d)
+
+    def crf(d):
+        pdus = [avtp.build_aaf_pdu(k, 7, 3000 + 100 * k, 48000, 2,
+                                   blob[:16]) for k in range(4)]
+        crf_pdu = bytearray(40)
+        crf_pdu[0] = avtp.SUBTYPE_CRF
+        crf_pdu[24:32] = (0x1_0000_5000).to_bytes(8, "big")
+        out = []
+        for f in ("avtpcrfsync", "avtpcrfcheck"):
+            e = make(f, d)
+            out.append([bc_plain(e.host_process(Buffer(data=x)).data)
+                        for x in (pdus[:2], [bytes(crf_pdu)] + pdus[2:])])
+        return out
+
+    def avtp_lo(d):
+        return nt_avtp_lo(d, [b"\x00\x00\x00\x01\x67" + blob[:2000]])
+
+    def proxy(d):
+        ch = f"nt{next(counter)}"
+        cont_launch("appsrc name=in caps=audio/x-raw,format=S16LE,rate=8000,"
+                    "channels=1,layout=interleaved ! proxysink channel=" + ch,
+                    d, 1, {"in": [dict(data=samples, pts=0)]})
+        return cont_launch(f"proxysrc channel={ch} ! appsink name=out", d, 1)
+
+    def shm(d):
+        path = os.path.join(tmp, f"nt_shm{next(counter)}")
+        cont_launch(f"appsrc name=in ! application/octet-stream ! shmsink "
+                    f"socket-path={path}", d, 1,
+                    {"in": [dict(data=np.frombuffer(blob[k:k + 700],
+                                                    np.uint8), pts=k)
+                            for k in range(0, 2800, 700)]})
+        return cont_launch(f"shmsrc socket-path={path} ! appsink name=out",
+                           d, 1)
+
+    def http_src(d):
+        root = os.path.join(tmp, "nt_http")
+        os.makedirs(root, exist_ok=True)
+        with open(os.path.join(root, "b.bin"), "wb") as f:
+            f.write(blob)
+        srv = nt_http(root)
+        try:
+            return [cont_launch(f"{f} location=http://127.0.0.1:"
+                                f"{srv.server_address[1]}/b.bin blocksize=4000"
+                                " ! appsink name=out", d, 1)
+                    for f in ("souphttpsrc", "neonhttpsrc", "curlhttpsrc")]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+
+    def upload(desc_fmt, serve=None):
+        def run(d):
+            srv = nt_http(tmp) if serve == "http" else (
+                NtServer(serve) if serve else None)
+            port = (srv.server_address[1] if serve == "http"
+                    else srv.port if srv else 0)
+            name = os.path.join(tmp, f"nt_up{next(counter)}.bin")
+            cont_launch("appsrc name=in ! application/octet-stream ! "
+                        + desc_fmt.format(port=port, file=name), d, 1,
+                        {"in": [dict(data=np.frombuffer(blob[k:k + 3000],
+                                                        np.uint8), pts=k)
+                                for k in range(0, 9000, 3000)]})
+            if serve == "http":
+                srv.shutdown()
+                srv.server_close()
+                return sorted(srv.puts.items())
+            if srv is not None:
+                return srv.join()
+            with open(name, "rb") as f:
+                return f.read()
+        return run
+
+    vpushes = {"in": [dict(data=np.frombuffer(blob[:4000], np.uint8),
+                           pts=0),
+                      dict(data=np.frombuffer(blob[4000:6500], np.uint8),
+                           pts=1)]}
+    ad = adaptive_files()
+    rows = [
+        (("srtpenc", "srtpdec"), "dtls",
+         rtp(f"srtpenc key={key} ! srtpdec key={key}")),
+        (("dtlsenc", "dtlsdec", "dtlssrtpenc", "dtlssrtpdec"), "dtls",
+         dtls_pair),
+        (("dtlssrtpdemux",), "", launch(
+            "appsrc name=in ! application/x-rtp ! dtlssrtpdemux ! appsink "
+            "name=out", {"in": [dict(data=[bytes([22, 254, 253]) + bytes(20),
+                                           pkts[0]], pts=0)]})),
+        (("sctpenc", "sctpdec"), "", sctp),
+        (("webrtcbin",), "dtls", webrtc),
+        (("ristsink", "ristsrc"), "udp", rist_pair),
+        (("ristrtpext", "ristrtpdeext"), "", rtp(
+            "ristrtpext drop-null-ts-packets=true sequence-number-extension="
+            "true ! ristrtpdeext")),
+        (("ristrtxsend", "ristrtxreceive"), "", rtx),
+        (("srtsink", "srtsrc"), "libsrt", srt_pair),
+        (("rtmp2sink", "rtmp2src"), "tcp", rtmp_pair),
+        (("hlsdemux",), "", launch(f"hlsdemux uri={ad}/p.m3u8 ! appsink "
+                                   "name=out")),
+        (("dashdemux",), "", launch(f"dashdemux uri=file://{ad}/m.mpd ! "
+                                    "appsink name=out")),
+        (("mssdemux",), "", launch(f"mssdemux uri={ad}/Manifest ! appsink "
+                                   "name=out")),
+        (("multiudpsink", "dynudpsink"), "udp", udp_fanout),
+        (("multisocketsink", "multifdsink", "socketsrc"), "", socket_fanout),
+        (("rfbsrc",), "tcp", rfb),
+        (("avtpaafpay", "avtpaafdepay"), "", aaf),
+        (("avtpcvfpay", "avtpcvfdepay"), "", cvf),
+        (("avtprvfpay", "avtprvfdepay"), "", rvf),
+        (("avtpcrfsync", "avtpcrfcheck"), "", crf),
+        (("avtpsink", "avtpsrc"), "af_packet", avtp_lo),
+        (("proxysink", "proxysrc"), "", proxy),
+        (("shmsink", "shmsrc"), "", shm),
+        (("souphttpsrc", "neonhttpsrc", "curlhttpsrc"), "tcp", http_src),
+        (("streamsynchronizer", "tsparse"), "", launch(
+            "appsrc name=in ! video/mpegts ! streamsynchronizer ! tsparse ! "
+            "appsink name=out", {"in": [dict(data=np.frombuffer(
+                b"".join(b"\x47" + blob[k * 187:(k + 1) * 187]
+                         for k in range(12)), np.uint8), pts=0)]})),
+        (("unalignedvideoparse", "unalignedaudioparse"), "", launch(
+            "appsrc name=in ! application/octet-stream ! unalignedvideoparse "
+            "format=GRAY8 width=40 height=30 ! appsink name=out "
+            "appsrc name=in1 ! application/octet-stream ! unalignedaudioparse "
+            "! appsink name=out1", dict(vpushes, in1=vpushes["in"]))),
+        (("souphttpclientsink", "curlhttpsink"), "tcp", lambda d: [
+            upload(f"{f} location=http://127.0.0.1:{{port}}/up.bin", "http")(d)
+            for f in ("souphttpclientsink", "curlhttpsink")]),
+        (("curlfilesink",), "", upload("curlfilesink location=file://{file}")),
+        (("curlftpsink",), "tcp", upload(
+            "curlftpsink user=u passwd=p location=ftp://127.0.0.1:{port}/"
+            "up.dat", nt_ftp)),
+        (("curlsmtpsink",), "tcp", upload(
+            "curlsmtpsink mail-from=a@b.c mail-rcpt=d@e.f location=smtp://"
+            "127.0.0.1:{port}", nt_smtp))]
+    covered = {f for names, _need, _fn in rows for f in names}
+    mine = rr_factories(NT_MODULES)
+    require(covered == mine and len(mine) == NT_FACTORIES,
+            f"net tail alone: the rows cover {len(covered)} factories, the "
+            f"slice's modules register {len(mine)}; not driven: "
+            f"{sorted(mine - covered)}")
+    return rows
+
+
+def net_tail_phase(seed, counters, dev):
+    """The rest of net/ on the card, each item with the launch counts
+    zeroed just before and read just after: the probe line first, then
+    rist_camera (generic and range NACKs through a lossy relay; yscale_hv
+    once a tick that gives frames), rist_camera_live (where the probe found
+    UDP), webrtc_camera (where it found libssl and UDP), srt_ts_link (the
+    error both packages raise where it found no libsrt), rtmp_audio,
+    hls_dash_pull, shm_camera, avtp_raw_video (AAF and CVF too; avtpsink /
+    avtpsrc where AF_PACKET is allowed), then each of the 55 factories
+    alone.  Returns {kernel: launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    probe = nt_probe()
+    have = {"": True, "udp": probe["udp"], "tcp": probe["tcp"],
+            "dtls": probe["dtls"] and probe["udp"], "libsrt": probe["libsrt"],
+            "af_packet": probe["af_packet"]}
+    missing = sorted(k for k, v in have.items() if not v)
+    print(f"net tail phase: probe: {probe}; " + (
+        "every item runs" if not missing else
+        f"items needing {missing} run as the error both packages raise "
+        f"(a difference of installation, ROADMAP.md section 3), not as a "
+        f"pass"))
+    files, dig = codec_vectors(("mp3_10s.mp3", "aac_10s.aac",
+                                "digests.json"))
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        spent[name] = time.perf_counter() - t1
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, _jpgs = item("jpegs", rr_jpegs, seed, dev, tmp)
+        start("multifilesrc ! jpegdec")
+        ref = item("reference", rr_rgb_ref, jdir, dev)
+        finish("multifilesrc ! jpegdec",
+               {"yscale_hv": -(-RR_CAM[2] // RR_CAM[3])})
+        require(cont_equal(ref, rr_rgb_ref(jdir, torch.device("cpu"))),
+                "multifilesrc ! jpegdec: the card's RGB differs from the "
+                "port's CPU run")
+        start("rtpjpegpay")
+        sent = rr_frames(rr_pay(dev, jdir, {}))
+        finish("rtpjpegpay", {})
+        if have["udp"]:
+            sender = item("rist_sender", NtSender, jdir)
+            try:
+                item("rist_camera", rist_camera, seed, dev, sender, ref,
+                     sent, start, finish, peak)
+                item("rist_camera_live", rist_camera_live, dev, sender, ref,
+                     sent, start, finish, peak)
+            finally:
+                sender.close()
+        else:
+            print("  rist_camera, rist_camera_live: NOT RUN (no UDP on "
+                  "loopback)")
+        if have["dtls"]:
+            item("webrtc_camera", webrtc_camera, dev, jdir, ref, start,
+                 finish, peak)
+        else:
+            print("  webrtc_camera: NOT RUN, a difference of installation: "
+                  "the probe found no libssl or no UDP; webrtcbin fails "
+                  "its connection alike in both packages")
+        start("faad")
+        plain_aac = np.concatenate(vt_pcm(f"filesrc location="
+                                          f"{files['aac_10s.aac']} ! aacparse "
+                                          "! faad", dev))
+        finish("faad", {})
+        codec_pcm_check("faad", plain_aac, dig["aac_adts"])
+        item("srt_ts_link", srt_ts_link, dev, tmp, files, plain_aac, start,
+             finish, peak, have["libsrt"] and have["udp"])
+        if have["tcp"]:
+            item("rtmp_audio", rtmp_audio, dev, tmp, files, dig, start,
+                 finish, peak)
+        item("hls_dash_pull", hls_dash_pull, dev, tmp, files, plain_aac,
+             start, finish, peak)
+        item("shm_camera", shm_camera, dev, jdir, ref, tmp, start, finish,
+             peak)
+        item("avtp_raw_video", avtp_raw_video, seed, dev, start, finish,
+             peak, True if have["af_packet"] else probe.get(
+                 "af_packet_error", "no frame came back"))
+        rows = nt_alone_rows(tmp)
+        run = [(("/".join(names)), lambda d, _tmp, _seed, fn=fn: fn(d))
+               for names, need, fn in rows if have[need]]
+        skipped = [f for names, need, _fn in rows if not have[need]
+                   for f in names]
+        item("alone", alone_runs, run, counters, dev, 0)
+    print(f"  net tail alone: {NT_FACTORIES - len(skipped)} factories in "
+          f"{len(run)} runs on the card == the port's CPU run, no launch"
+          + (f"; NOT RUN, a difference of installation: {skipped}"
+             if skipped else ""))
+    print(f"net tail phase: {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
     return total
 
@@ -11600,6 +13184,10 @@ def main() -> int:
 
     # -- FEC, RED, the other payloaders and Siren (host code) -----------------
     for k, n in rtp_fec_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- the rest of net/: WebRTC, RIST, SRT, RTMP, HLS/DASH, AVTP, ... -----
+    for k, n in net_tail_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

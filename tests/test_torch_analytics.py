@@ -493,5 +493,5 @@ def test_inspect_cli_lists_the_port():
              "raise SystemExit(inspect.main([]) or inspect.main("
              "['yolov8tensordec']))\n")
     assert p.returncode == 0, p.stderr
-    assert "Total count: 516 elements" in p.stdout
+    assert "Total count: 571 elements" in p.stdout
     assert "class-confidence-threshold" in p.stdout

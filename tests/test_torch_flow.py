@@ -126,6 +126,21 @@ RTP2_FACTORIES = (
     "rtpst2022_1_fecenc", "rtpst2022_1_fecdec", "rtpmparobustdepay",
     "rtpxqtdepay", "rtpsv3vdepay", "rtpasfpay", "rtpasfdepay", "sirenenc",
     "sirendec", "rtpsirenpay", "rtpsirendepay")
+# the rest of net/: WebRTC (SRTP, DTLS, SCTP, webrtcbin), RIST, SRT, RTMP,
+# HLS/DASH/MSS, the socket fan-out, RFB, AVTP, the web sinks and ipc_misc
+NET_TAIL_FACTORIES = (
+    "srtpenc", "srtpdec", "dtlsenc", "dtlsdec", "dtlssrtpenc", "dtlssrtpdec",
+    "dtlssrtpdemux", "sctpenc", "sctpdec", "webrtcbin", "ristsink",
+    "ristsrc", "ristrtpext", "ristrtpdeext", "ristrtxsend", "ristrtxreceive",
+    "srtsink", "srtsrc", "rtmp2sink", "rtmp2src", "hlsdemux", "dashdemux",
+    "mssdemux", "multiudpsink", "dynudpsink", "multisocketsink",
+    "multifdsink", "socketsrc", "rfbsrc", "avtpaafpay", "avtpaafdepay",
+    "avtpcvfpay", "avtpcvfdepay", "avtprvfpay", "avtprvfdepay", "avtpsink",
+    "avtpsrc", "avtpcrfsync", "avtpcrfcheck", "proxysink", "proxysrc",
+    "shmsink", "shmsrc", "souphttpsrc", "streamsynchronizer", "tsparse",
+    "unalignedvideoparse", "unalignedaudioparse", "neonhttpsrc",
+    "souphttpclientsink", "curlhttpsink", "curlfilesink", "curlftpsink",
+    "curlsmtpsink", "curlhttpsrc")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -163,7 +178,7 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 516
+    assert len(telement._REGISTRY) == 571
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
@@ -172,11 +187,13 @@ def test_registry_count():
     assert len(set(VPX_TRANSPORT_FACTORIES)) == 38
     assert len(set(NET_FACTORIES)) == 60
     assert len(set(RTP2_FACTORIES)) == 76
+    assert len(set(NET_TAIL_FACTORIES)) == 55
     assert set(NEW_FACTORIES) | set(LATER_FACTORIES) \
         | set(BROADCAST_FACTORIES) | set(CONTAINER_FACTORIES) \
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
         | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
-        | set(RTP2_FACTORIES) <= set(telement._REGISTRY)
+        | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
+        <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():

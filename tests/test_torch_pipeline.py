@@ -200,7 +200,8 @@ def test_pulled_buffers_are_staged_on_the_pipeline_device():
 def test_registry_is_the_ports_own():
     """Loading the port's elements leaves the JAX registry as it was, and
     the port's registry holds only the port's classes."""
-    from test_torch_flow import NET_FACTORIES, RTP2_FACTORIES
+    from test_torch_flow import (NET_FACTORIES, NET_TAIL_FACTORIES,
+                                 RTP2_FACTORIES)
     jelement._ensure_elements_loaded()
     before = dict(jelement._REGISTRY)
     telement._ensure_elements_loaded()
@@ -296,7 +297,7 @@ def test_registry_is_the_ports_own():
         "flvdemux", "jpegparse", "jifmux", "asfmux", "asfparse", "asfdemux",
         "decodebin3", "parsebin", "playbin3", "playsink", "y4mdec",
         "alphacolor", "dtmfdetect"} | set(NET_FACTORIES) \
-        | set(RTP2_FACTORIES)
+        | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES)
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith(("gstreamer_tpu_torch.elements.",
                                           "gstreamer_tpu_torch.net."))

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's RTP / RTSP phase (phase 20, ``rtp_rtsp_phase``) or its
-FEC / payloader / Siren phase (phase 21, ``rtp_fec_phase``) alone on one
-CUDA card: build the port's kernels, count the kernel wrappers' launches
+"""Run chip_smoke.py's RTP / RTSP phase (phase 20, ``rtp_rtsp_phase``), its
+FEC / payloader / Siren phase (phase 21, ``rtp_fec_phase``) or its phase of
+the rest of net/ (phase 22, ``net_tail_phase``) alone on one CUDA card: build the port's kernels, count the kernel wrappers' launches
 as chip_smoke.py does, run the phase, print the card's name and power
 limit.
 
-    python3 tools/rtp_phase.py [--seed N] [--phase 20|21]
+    python3 tools/rtp_phase.py [--seed N] [--phase 20|21|22]
 
 Exits non-zero without a card, or when any check of the phase fails.
 """
@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", type=int, choices=(20, 21), default=20)
+    ap.add_argument("--phase", type=int, choices=(20, 21, 22), default=20)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -36,7 +36,8 @@ def main() -> int:
     counters = {"yscale_hv": ysk.yscale_hv,
                 "chroma420_scale": ck.chroma420_scale}
     phase = {20: chip_smoke.rtp_rtsp_phase,
-             21: chip_smoke.rtp_fec_phase}[args.phase]
+             21: chip_smoke.rtp_fec_phase,
+             22: chip_smoke.net_tail_phase}[args.phase]
     total = phase(args.seed, counters, resolve())
     print(f"phase {args.phase} launches: {total}")
     print(chip_smoke.smi_line())
