@@ -467,6 +467,7 @@ before it and read just after:
 
   rist_camera       phase 20's 32 1080p JPEGs through rtpjpegpay mtu=1400 !
                     ristsink (a frame a tick at 25/1), a relay on 127.0.0.1
+                    (a process of its own, with 4 MiB socket buffers asked)
                     that drops the first copy of 16 seeded packets (the
                     first packet of 4 frames among them), ristsrc !
                     rtpjpegdepay ! jpegdec ! RGB 224x224 at batch 16, with
@@ -498,6 +499,35 @@ before it and read just after:
                     allowed
 
    then each of the 55 factories alone, the card equal to the CPU.
+
+23. The libav family and the numpy codecs LC3, Smoke and FLIC
+   (codec_tail_phase; host codecs, the card decoding and converting).  Its
+   first line is a probe: what native/av.py finds of libavcodec
+   (``missing()``, ``available()``, ``have_codec`` of every codec the
+   tables name).  Where libavcodec is absent, the libav items print the
+   error both packages raise, as a difference of installation, and are no
+   pass; the vectors are committed under tests/data/torch_codecs/:
+
+  h264_ingest       h264_1080p.ts through tsdemux ! h264parse ! avdec_h264:
+                    every plane the JAX package's sha256; then ! I420
+                    1920x1080 (the decoder's caps carry no size) !
+                    videoconvertscale ! RGB 640x360 at batch 4, yscale_hv
+                    once a decoded buffer, equal to the plain route
+                    (GTPU_PALLAS_YSCALE=0); speex_16k.spx through oggdemux
+                    within the JAX digest.  Without libavcodec: decodebin on
+                    the TS and oggdemux on the Speex file, each the error
+                    both packages raise
+  smoke_camera      8 integer-made 1080p I420 frames (ct_frames) through
+                    smokeenc (the packets' sha256 the CPU box's), smokeenc !
+                    smokedec (every plane's), and on to videoconvertscale !
+                    RGB 640x360 at batch 4: yscale_hv once a tick, equal to
+                    the plain route
+  flic_anim         anim_320x200.flc through flxdec (the RGB planes the JAX
+                    package's sha256) and flxdec ! videoconvertscale ! I420
+                    640x400 (every plane's)
+  lc3_stereo        0.5 s of integer-made 48 kHz stereo S16 through lc3enc
+                    (10 ms frames; the bytes' sha256) and lc3enc ! lc3dec
+                    (the PCM's), both the CPU box's
 
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
@@ -11408,16 +11438,28 @@ def nt_free_pair():
     return port
 
 
+NT_RELAY_RCVBUF = 4 << 20           # the relay's socket buffers (bytes asked)
+
+
 class NtRelay:
     """A UDP relay on 127.0.0.1 between ristsink and ristsrc: media (a
     port) and RTCP (the port + 1) both ways; it drops the FIRST copy of
-    each media sequence number in `drops` (a retransmission passes)."""
+    each media sequence number in `drops` (a retransmission passes) and
+    keeps the sequence numbers it received (`seen`).  Its sockets ask for
+    NT_RELAY_RCVBUF bytes of buffer (the system caps it): a frame's burst
+    of ~105 packets overflows the default one while the relay waits for
+    the CPU."""
 
     def __init__(self, dst_port, drops):
+        import socket
         import threading
         self.dst = ("127.0.0.1", dst_port)
         self.drop, self.dropped, self.forwarded = set(drops), [], 0
+        self.seen = set()
         self.media, self.rtcp = nt_pair()
+        for s in (self.media, self.rtcp):
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                         NT_RELAY_RCVBUF)
         self.port = self.media.getsockname()[1]
         self._sender_rtcp, self._run = None, True
         self._threads = [threading.Thread(target=f, daemon=True)
@@ -11436,6 +11478,7 @@ class NtRelay:
             except OSError:
                 return
             seq = rf_seq(data) if len(data) >= 12 else None
+            self.seen.add(seq)
             if seq in self.drop:
                 self.drop.discard(seq)
                 self.dropped.append(seq)
@@ -11504,25 +11547,42 @@ def nt_first_call(cls, attr, event):
         setattr(cls, attr, fn)
 
 
+def nt_relay_proc(jobs, out, stop):
+    """NtRelay in a process of its own, so that it shares no interpreter
+    with the sender's pipeline (in one process it forwarded a packet a
+    switch interval while the pipeline ran, and lost whole bursts): for
+    each (port, drops) job until None, an NtRelay to `port`, its media
+    port into `out`; once `stop` is set, {"dropped": its drops, "seen":
+    the sequence numbers it received} (or {"error": ...}) into `out`."""
+    sys.setswitchinterval(0.001)
+    for port, drops in iter(jobs.get, None):
+        try:
+            relay = NtRelay(port, drops)
+        except Exception as e:           # handed to the receiver
+            out.put({"error": repr(e)})
+            continue
+        out.put(relay.port)
+        stop.wait()
+        relay.close()
+        out.put({"dropped": list(relay.dropped),
+                 "seen": sorted(s for s in relay.seen if s is not None)})
+
+
 def nt_sender_proc(jdir, jobs, go, done, out):
     """The RIST sender, in a process of its own (as on another host), for
-    each (port, drops) job until None: with `drops`, an NtRelay to `port`;
-    multifilesrc ! rtpjpegpay mtu=1400 ! ristsink on the CPU (host
-    elements only), started, then "ready" into `out`; from `go` on a frame
-    a tick at 25/1; it serves NACKs until `done`.  Then {"sink": ristsink's
-    stats, "dropped": the relay's drops or None, "secs": sending seconds}
-    (or {"error": ...}) into `out`."""
+    each port until None: multifilesrc ! rtpjpegpay mtu=1400 ! ristsink
+    to 127.0.0.1:port on the CPU (host elements only), started, then
+    "ready" into `out`; from `go` on a frame a tick at 25/1; it serves
+    NACKs until `done`.  Then {"sink": ristsink's stats, "secs": sending
+    seconds} (or {"error": ...}) into `out`."""
     from gstreamer_tpu_torch import parse_launch
     from gstreamer_tpu_torch.net import rist
-    for port, drops in iter(jobs.get, None):
-        relay = None
+    for port in iter(jobs.get, None):
         try:
-            relay = None if drops is None else NtRelay(port, drops)
             tx = parse_launch(
                 f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
                 f"framerate={CONT_FPS}/1 ! rtpjpegpay mtu={RR_MTU} ! ristsink "
-                f"address=127.0.0.1 port={relay.port if relay else port}",
-                device="cpu")
+                f"address=127.0.0.1 port={port}", device="cpu")
             tx.set_state("playing")
             sink = next(e for e in tx._nodes()
                         if isinstance(e, rist.RistSink))
@@ -11537,50 +11597,69 @@ def nt_sender_proc(jdir, jobs, go, done, out):
             done.wait(120.0)
             stats = dict(sink.stats)
             tx.set_state("null")
-            out.put({"sink": stats, "secs": secs, "dropped":
-                     None if relay is None else list(relay.dropped)})
+            out.put({"sink": stats, "secs": secs})
         except Exception as e:           # handed to the receiver
             out.put({"error": repr(e)})
-        finally:
-            if relay is not None:
-                relay.close()
 
 
 class NtSender:
-    """nt_sender_proc in a spawned process, kept for the phase's RIST runs
-    (the process's start, torch's import, is paid once)."""
+    """nt_sender_proc and nt_relay_proc in spawned processes, kept for the
+    phase's RIST runs (each process's start, the sender's torch import,
+    is paid once)."""
 
     def __init__(self, jdir):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         self.jobs, self.out = ctx.Queue(), ctx.Queue()
         self.go, self.done = ctx.Event(), ctx.Event()
-        self.proc = ctx.Process(target=nt_sender_proc, args=(
-            jdir, self.jobs, self.go, self.done, self.out), daemon=True)
-        self.proc.start()
+        self.rjobs, self.rout, self.stop = ctx.Queue(), ctx.Queue(), \
+            ctx.Event()
+        self.relaying = False
+        self.procs = [ctx.Process(target=nt_sender_proc, args=(
+            jdir, self.jobs, self.go, self.done, self.out), daemon=True),
+            ctx.Process(target=nt_relay_proc, args=(
+                self.rjobs, self.rout, self.stop), daemon=True)]
+        for p in self.procs:
+            p.start()
 
     def start(self, port, drops):
-        """Hand the sender a job; returns once it is ready to send."""
+        """Hand the sender a job (through a relay to `port` that drops
+        `drops`, or, with None, straight to it); returns once it is ready
+        to send."""
         self.go.clear()
         self.done.clear()
-        self.jobs.put((port, None if drops is None else sorted(drops)))
+        self.stop.clear()
+        self.relaying = drops is not None
+        if self.relaying:
+            self.rjobs.put((port, sorted(drops)))
+            port = self.rout.get(timeout=120.0)
+            require(isinstance(port, int), f"the RIST relay: {port}")
+        self.jobs.put(port)
         msg = self.out.get(timeout=120.0)
         require(msg == "ready", f"the RIST sender: {msg}")
 
     def finish(self):
-        """Let the sender stop serving NACKs; its results."""
+        """Let the sender stop serving NACKs, then the relay; their
+        results: the sender's, with the relay's "dropped" and "seen"
+        (None without a relay)."""
         self.go.set()
         self.done.set()
         got = self.out.get(timeout=60.0)
+        relay = {"dropped": None, "seen": None}
+        if self.relaying:
+            self.stop.set()
+            relay = self.rout.get(timeout=60.0)
         require("error" not in got, f"the RIST sender: {got.get('error')}")
-        return got
+        return {**got, **relay}
 
     def close(self):
         self.jobs.put(None)
-        self.proc.join(30.0)
-        if self.proc.is_alive():
-            self.proc.terminate()
-            self.proc.join(5.0)
+        self.rjobs.put(None)
+        for p in self.procs:
+            p.join(30.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(5.0)
 
 
 @contextlib.contextmanager
@@ -11602,7 +11681,8 @@ def nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
     on; the receiver ristsrc ! rtpjpegdepay ! jpegdec ! RGB 224x224 on the
     card (rr_camera_run: yscale_hv once a tick that gives frames), the
     interpreter's switch interval 1 ms.  Returns (ristsink's and
-    ristsrc's stats, the relay's drops or None, rr_camera_check's (whole,
+    ristsrc's stats, the relay's drops and the sequence numbers it
+    received (None, None without a relay), rr_camera_check's (whole,
     checked), rr_drive's numbers or None, the fault or None, the sender's
     seconds)."""
     from gstreamer_tpu_torch.net import rist
@@ -11626,8 +11706,9 @@ def nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
     finally:
         got = sender.finish()
     whole, checked = rr_camera_check(name, sent, ref, images, v, fault)
-    return (got["sink"], dict(elems["src"].stats), got["dropped"],
-            (whole, checked), r, fault, {"sender": got["secs"]})
+    return (got["sink"], dict(elems["src"].stats),
+            (got["dropped"], got["seen"]), (whole, checked), r, fault,
+            {"sender": got["secs"]})
 
 
 def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
@@ -11640,11 +11721,14 @@ def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
     heads = sum(1 for f in sent if rf_seq(f[0]) in drops)
     for nack in ("generic", "range"):
         name = f"rist_camera[{nack}]"
-        snd, rcv, dropped, (whole, checked), r, fault, _spent = nt_rist_run(
-            name, dev, sender, ref, sent, start, finish, peak, nack, drops)
+        snd, rcv, (dropped, seen), (whole, checked), r, fault, _spent = \
+            nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
+                        nack, drops)
         print(f"  {name}: ristsink sent {snd['sent']} packets, "
               f"retransmitted {snd['retransmitted']} on {snd['nacks']} NACK "
-              f"packets; the relay dropped {len(dropped)} first copies "
+              f"packets; the relay received {len(seen)} of "
+              f"{sum(map(len, sent))} sequence numbers and dropped "
+              f"{len(dropped)} first copies "
               f"({heads} of them frames' first packets); ristsrc sent "
               f"{rcv['nacks_sent']} NACK packets, received {rcv['received']}, "
               f"recovered {rcv['recovered']}, lost {rcv['lost']}; "
@@ -11652,7 +11736,10 @@ def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
         require(fault is None and r is not None, f"{name}: jpegdec raised "
                 f"{fault and fault['error']!r} on a frame that lost packets")
         require(sorted(dropped) == sorted(drops), f"{name}: the relay "
-                f"dropped {sorted(dropped)}, chose {sorted(drops)}")
+                f"dropped {sorted(dropped)}, chose {sorted(drops)}; it "
+                f"received {len(seen)} of the {sum(map(len, sent))} sequence "
+                f"numbers, never {sorted(set(drops) - set(seen))} of those "
+                f"it chose (lost on loopback before it)")
         # the relay's drops, and any first copy loopback lost on top
         # (the receiver's socket overflowing while jpegdec runs): every
         # one recovered, none lost, every frame whole
@@ -12846,6 +12933,333 @@ def net_tail_phase(seed, counters, dev):
     return total
 
 
+CT_FILES = ("h264_1080p.ts", "speex_16k.spx", "anim_320x200.flc",
+            "digests.json")
+CT_SMOKE = (1920, 1080, 8, 4)       # smoke_camera: width, height, frames, batch
+CT_RGB = "videoconvertscale ! video/x-raw,format=RGB,width=640,height=360"
+CT_FLIC_I420 = "video/x-raw,format=I420,width=640,height=400"
+# avdec_h264's caps carry no size (h264parse sets none, in both packages):
+# the decoded size is named, as jpegdec's after rtpjpegdepay
+CT_H264_RAW = "video/x-raw,format=I420,width=1920,height=1080,framerate=25/1"
+CT_LC3 = (48000, 2, 24000, 4800)    # rate, channels, frames, frames a push
+CT_BATCH = 4
+CT_SEED = 2026                      # the inputs whose digests are committed
+
+
+def ct_frames(n, w, h, seed):
+    """n I420 frames of w x h made with integer arithmetic only (the same
+    bytes on any machine): tiles under a diagonal ramp, seeded noise, and
+    a disc that crosses them; host planes (n, h, w), (n, h/2, w/2) x 2."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y0 = ((xx // 64 + yy // 48) % 2 * 50 + (xx + yy) * 120 // (w + h) + 40
+          + rng.integers(0, 8, (h, w))).astype(np.uint8)
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2]
+    u0 = (96 + (cx // 32 + cy // 24) % 3 * 24).astype(np.uint8)
+    v0 = (160 - (cx * 48) // (w // 2)).astype(np.uint8)
+    out = ([], [], [])
+    r = h // 8
+    for k in range(n):
+        ox, oy = w // 8 + k * w // (n + 2), h // 2 + (k % 3 - 1) * h // 10
+        disc = (xx - ox) ** 2 + (yy - oy) ** 2 <= r * r
+        cdisc = disc[::2, ::2]
+        out[0].append(np.where(disc, 220 - 4 * k, y0).astype(np.uint8))
+        out[1].append(np.where(cdisc, 60, u0).astype(np.uint8))
+        out[2].append(np.where(cdisc, 200, v0).astype(np.uint8))
+    return tuple(np.stack(p) for p in out)
+
+
+def ct_lc3_input(seed):
+    """CT_LC3's S16 input made with integer arithmetic only: two triangle
+    waves a channel and seeded noise; (frames, channels)."""
+    import numpy as np
+    rate, ch, n, _per = CT_LC3
+    t = np.arange(n)
+
+    def tri(period, amp):
+        return (np.abs(t % period - period // 2) * 4 * amp // period - amp)
+    x = np.stack([tri(109, 6000) + tri(23, 1500),
+                  tri(83, 5000) - tri(31, 2000)][:ch], 1)
+    x += np.random.default_rng(seed).integers(-300, 300, x.shape)
+    return x.astype(np.int16)
+
+
+def ct_video_pushes(planes, batch, dev, fps=25):
+    """Appsrc buffers of `batch` frames, their planes on `dev`."""
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    dur = 10**9 // fps
+    return [Buffer(data=tuple(torch.from_numpy(p[k:k + batch]).to(dev)
+                              for p in planes), batch=batch, pts=k * dur,
+                   duration=dur) for k in range(0, len(planes[0]), batch)]
+
+
+def ct_lc3_pushes(x, dev):
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    rate, _ch, _n, per = CT_LC3
+    return [Buffer(data=torch.from_numpy(x[k:k + per]).to(dev),
+                   pts=k * 10**9 // rate,
+                   duration=len(x[k:k + per]) * 10**9 // rate)
+            for k in range(0, len(x), per)]
+
+
+def ct_blobs(samples):
+    """Every coded blob of a sink's samples, as bytes."""
+    import numpy as np
+    out = []
+    for smp in samples:
+        d = smp.buffer.data
+        for b in (d if isinstance(d, (list, tuple)) else [d]):
+            out.append(bytes(b) if isinstance(b, (bytes, bytearray))
+                       else np.asarray(b).tobytes())
+    return out
+
+
+def ct_planes(samples):
+    """Every frame's planes of a sink's samples, on the host."""
+    return [[p[k].cpu().numpy() for p in smp.buffer.data]
+            for smp in samples for k in range(smp.buffer.batch)]
+
+
+def ct_sha(chunks):
+    import hashlib
+    return [hashlib.sha256(c).hexdigest() for c in chunks]
+
+
+def ct_plain_route(name, desc, dev, start, finish, pushes, batch, want,
+                   ref):
+    """`desc` again with the yscale kernel switched off (the two plain
+    scale passes): no launch, and every output frame equal to `ref`'s
+    (the kernel's run on the same frames)."""
+    import torch
+    with switches(GTPU_PALLAS_YSCALE="0"):
+        start(name + "[plain]")
+        plain = codec_run(desc, dev, batch, "a", pushes)
+        finish(name + "[plain]", {})
+    a = [p for s in ref for p in s.buffer.data]
+    b = [p for s in plain for p in s.buffer.data]
+    require(len(a) == len(b) == want and all(
+        torch.equal(x, y) for x, y in zip(a, b)),
+        f"{name}: the yscale kernel's frames differ from the plain route's")
+
+
+def ct_h264_ingest(dev, start, finish, peak, files, dig):
+    """The committed 1080p H.264 TS decoded by avdec_h264 (every plane the
+    JAX package's), then converted to RGB 640x360 on the card (yscale_hv
+    once a tick, equal to the plain route); the Ogg-Speex file within the
+    JAX package's digest."""
+    import numpy as np
+    ts, spx = files["h264_1080p.ts"], files["speex_16k.spx"]
+    head = f"tsdemux location={ts} ! h264parse ! avdec_h264"
+    start("h264_ingest[planes]")
+    t0 = time.perf_counter()
+    got = codec_run(f"{head} ! appsink name=a", dev, CT_BATCH, "a")
+    secs = time.perf_counter() - t0
+    finish("h264_ingest[planes]", {})
+    frames = ct_planes(got)
+    require([ct_sha([np.ascontiguousarray(p).tobytes() for p in f])
+             for f in frames] == dig["h264_ts"],
+            "h264_ingest: decoded planes differ from the JAX package's")
+    desc = f"{head} ! {CT_H264_RAW} ! {CT_RGB} ! appsink name=a"
+    base = start("h264_ingest")
+    t0 = time.perf_counter()
+    rgb = codec_run(desc, dev, CT_BATCH, "a")
+    rsecs = time.perf_counter() - t0
+    n = len(frames)
+    # one conversion a buffer avdec_h264 gives (tsdemux hands it an access
+    # unit a tick)
+    counts = finish("h264_ingest", {"yscale_hv": len(got)})
+    ct_plain_route("h264_ingest", desc, dev, start, finish, None, CT_BATCH,
+                   len(got) * 3, rgb)
+    print(f"  h264_ingest: {n} 1080p frames == the JAX package's sha256 "
+          f"({secs:.2f} s to decode, {n / secs:.1f} frames/s); RGB "
+          f"640x360 at batch {CT_BATCH} == the plain route, {rsecs:.2f} s, "
+          f"launches {counts}, peak {peak(base):.1f} MiB")
+    start("speex_ogg")
+    pcm = np.concatenate([s.buffer.data.cpu().numpy() for s in codec_run(
+        f"oggdemux location={spx} ! appsink name=a", dev, 1, "a")])
+    finish("speex_ogg", {})
+    err = codec_pcm_check("speex_ogg", pcm, dig["speex_ogg"])
+    print(f"  speex_ogg: {pcm.shape[0]} frames at 16 kHz within {err} of "
+          f"the JAX package's digest")
+
+
+def ct_av_absent(dev, files):
+    """Without libavcodec no av factory registers, in either package: the
+    explicit avdec_h264 launch fails to parse and oggdemux on the Speex
+    file raises, each with the error both packages raise; decodebin on the
+    TS raises the port's error naming the missing codec (the JAX package's
+    decodebin passes the coded stream on undecoded instead).  Printed as
+    such, not as a pass."""
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.parse import ParseError
+    from gstreamer_tpu_torch.native import av
+    ts = files["h264_1080p.ts"]
+    for name, desc, want, both in (
+            ("h264_ingest", f"tsdemux location={ts} ! h264parse ! avdec_h264"
+             " ! appsink name=a", "no element factory 'avdec_h264'", True),
+            ("h264_ingest[decodebin]", f"decodebin uri=file://{ts} ! appsink "
+             "name=a", "avdec_h264 for video/x-h264: the system libavcodec "
+             f"is missing ({av.missing()})", False),
+            ("speex_ogg", f"oggdemux location={files['speex_16k.spx']} ! "
+             "appsink name=a", "av: libavcodec shim unavailable", True)):
+        try:
+            parse_launch(desc, device=dev).run()
+        except (RuntimeError, ParseError) as e:
+            require(want in str(e), f"{name}: raised {e!r}, want {want!r}")
+            print(f"  {name}: NOT RUN, a difference of installation: "
+                  f"{type(e).__name__}({str(e)!r}), " + (
+                      "the error both packages raise without libavcodec"
+                      if both else "the port's error without libavcodec"))
+            continue
+        require(False, f"{name}: ran without libavcodec")
+
+
+def ct_smoke(dev, start, finish, peak, dig):
+    """ct_frames through smokeenc, smokeenc ! smokedec and on to RGB
+    640x360 on the card: the packets and planes the CPU box's sha256,
+    yscale_hv once a tick, equal to the plain route."""
+    w, h, n, b = CT_SMOKE
+    planes = ct_frames(n, w, h, CT_SEED)
+    src = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+           f"height={h},framerate=25/1")
+    start("smoke_camera[smokeenc]")
+    t0 = time.perf_counter()
+    pkts = ct_blobs(codec_run(f"{src} ! smokeenc ! appsink name=a", dev, b,
+                              "a", {"in": ct_video_pushes(planes, b, dev)}))
+    esecs = time.perf_counter() - t0
+    finish("smoke_camera[smokeenc]", {})
+    require(ct_sha(pkts) == dig["smoke"]["packets"],
+            "smoke_camera: the Smoke packets differ from the CPU box's")
+    start("smoke_camera[smokedec]")
+    t0 = time.perf_counter()
+    dec = ct_planes(codec_run(f"{src} ! smokeenc ! smokedec ! appsink "
+                              "name=a", dev, b, "a",
+                              {"in": ct_video_pushes(planes, b, dev)}))
+    dsecs = time.perf_counter() - t0
+    finish("smoke_camera[smokedec]", {})
+    require([ct_sha([p.tobytes() for p in f]) for f in dec]
+            == dig["smoke"]["planes"],
+            "smoke_camera: smokedec's planes differ from the CPU box's")
+    desc = f"{src} ! smokeenc ! smokedec ! {CT_RGB} ! appsink name=a"
+    base = start("smoke_camera")
+    t0 = time.perf_counter()
+    rgb = codec_run(desc, dev, b, "a", {"in": ct_video_pushes(planes, b,
+                                                              dev)})
+    rsecs = time.perf_counter() - t0
+    counts = finish("smoke_camera", {"yscale_hv": n // b})
+    ct_plain_route("smoke_camera", desc, dev, start, finish,
+                   {"in": ct_video_pushes(planes, b, dev)}, b, n // b * 3,
+                   rgb)
+    print(f"  smoke_camera: {n} {w}x{h} frames, {sum(map(len, pkts))} "
+          f"bytes of Smoke == the CPU box's sha256 ({esecs:.2f} s to "
+          f"encode); smokedec's planes == ({dsecs:.2f} s with the encode); "
+          f"RGB 640x360 at batch {b} == the plain route, {rsecs:.2f} s, "
+          f"launches {counts}, peak {peak(base):.1f} MiB")
+
+
+def ct_flic(dev, start, finish, files, dig):
+    """The committed FLIC through flxdec (RGB planes the JAX package's
+    sha256) and on to I420 640x400 (every plane's)."""
+    flc = files["anim_320x200.flc"]
+    start("flic_anim[rgb]")
+    rgb = ct_planes(codec_run(f"flxdec location={flc} ! appsink name=a", dev,
+                              CT_BATCH, "a"))
+    finish("flic_anim[rgb]", {})
+    require([ct_sha([p.tobytes() for p in f]) for f in rgb]
+            == dig["flic"]["rgb"],
+            "flic_anim: flxdec's RGB planes differ from the JAX package's")
+    require(dig["flic"]["caps"] == CT_FLIC_I420,
+            "flic_anim: the digest is of another conversion")
+    start("flic_anim")
+    t0 = time.perf_counter()
+    i420 = ct_planes(codec_run(
+        f"flxdec location={flc} ! videoconvertscale ! {CT_FLIC_I420} ! "
+        "appsink name=a", dev, CT_BATCH, "a"))
+    secs = time.perf_counter() - t0
+    counts = finish("flic_anim", {})
+    require([ct_sha([p.tobytes() for p in f]) for f in i420]
+            == dig["flic"]["i420"],
+            "flic_anim: the I420 planes differ from the JAX package's")
+    print(f"  flic_anim: {len(rgb)} 320x200 frames, RGB and I420 640x400 "
+          f"== the JAX package's sha256, {secs:.2f} s, launches {counts}")
+
+
+def ct_lc3(dev, start, finish, dig):
+    """ct_lc3_input through lc3enc and lc3enc ! lc3dec on the card's host:
+    the bytes and the PCM the CPU box's sha256."""
+    import numpy as np
+    rate, ch, _n, _per = CT_LC3
+    x = ct_lc3_input(CT_SEED)
+    src = (f"appsrc name=in caps=audio/x-raw,format=S16LE,rate={rate},"
+           f"channels={ch},layout=interleaved")
+    start("lc3_stereo")
+    t0 = time.perf_counter()
+    frames = ct_blobs(codec_run(f"{src} ! lc3enc ! appsink name=a", dev, 1,
+                                "a", {"in": ct_lc3_pushes(x, dev)}))
+    esecs = time.perf_counter() - t0
+    pcm = np.concatenate([s.buffer.data.cpu().numpy() for s in codec_run(
+        f"{src} ! lc3enc ! lc3dec ! appsink name=a", dev, 1, "a",
+        {"in": ct_lc3_pushes(x, dev)})])
+    finish("lc3_stereo", {})
+    d = dig["lc3"]
+    require(len(frames) == d["frames"]
+            and ct_sha([b"".join(frames)])[0] == d["bytes"],
+            "lc3_stereo: the LC3 frames differ from the CPU box's")
+    require(pcm.shape == (d["samples"], ch)
+            and ct_sha([pcm.tobytes()])[0] == d["pcm"],
+            "lc3_stereo: lc3dec's PCM differs from the CPU box's")
+    print(f"  lc3_stereo: {len(frames)} frames of {len(frames[0])} bytes and "
+          f"{pcm.shape[0]} frames of PCM == the CPU box's sha256 "
+          f"({esecs:.2f} s to encode {len(x) / rate} s)")
+
+
+def codec_tail_phase(seed, counters, dev):
+    """The libav family and LC3, Smoke and FLIC on the card, each item with
+    the launch counts zeroed just before and read just after: the probe
+    line, h264_ingest (avdec_h264 to RGB 640x360, yscale_hv once a buffer;
+    the Speex file) where the system libavcodec is there, else the error
+    both packages raise; smoke_camera (yscale_hv once a tick),
+    flic_anim, lc3_stereo.  The inputs compared with committed digests are
+    made from CT_SEED, not `seed`.  Returns {kernel: launches}."""
+    from gstreamer_tpu_torch.elements import libav
+    from gstreamer_tpu_torch.native import av
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    names = sorted({e[1] for t in (libav._DECODERS, libav._AUDIO_DECODERS)
+                    for e in t} | {"aptx"})
+    encs = sorted({e[1] for t in (libav._ENCODERS, libav._AUDIO_ENCODERS)
+                   for e in t})
+    have = av.available()
+    print(f"codec tail phase: libavcodec: missing() = {av.missing()!r}, "
+          f"available() = {have}; decoders "
+          f"{ {n: av.have_codec(n) for n in names} }; encoders "
+          f"{ {n: av.have_codec(n, encoder=True) for n in encs} }" + (
+              "" if have else "; the libav items run as the error both "
+              "packages raise (a difference of installation, ROADMAP.md "
+              "section 3), not as a pass"))
+    files, dig = codec_vectors(CT_FILES)
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        fn(*a)
+        spent[name] = time.perf_counter() - t1
+    if have and av.have_codec("h264") and av.have_codec("libspeex"):
+        item("h264_ingest", ct_h264_ingest, dev, start, finish, peak, files,
+             dig)
+    else:
+        item("av_absent", ct_av_absent, dev, files)
+    item("smoke_camera", ct_smoke, dev, start, finish, peak, dig)
+    item("flic_anim", ct_flic, dev, start, finish, files, dig)
+    item("lc3_stereo", ct_lc3, dev, start, finish, dig)
+    print(f"codec tail phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -13188,6 +13602,10 @@ def main() -> int:
 
     # -- the rest of net/: WebRTC, RIST, SRT, RTMP, HLS/DASH, AVTP, ... -----
     for k, n in net_tail_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- the libav family, LC3, Smoke and FLIC (host codecs) ----------------
+    for k, n in codec_tail_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

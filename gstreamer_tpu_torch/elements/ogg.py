@@ -22,9 +22,9 @@ A port of the JAX package's ``elements/ogg.py``: the page layer is a
 copy (``ogg_page`` writes whole packets only, as the JAX package's does:
 ROADMAP.md section 3); oggdemux gives host arrays that the pipeline
 stages on its device, oggmux copies each tick's samples to the host
-(``host_array``).  Ogg-Opus decodes through the port's ``codecs/opus.py``;
-the Ogg-Speex mapping raises ``NotImplementedError`` naming ROADMAP.md
-(Speex waits for the libav family).
+(``host_array``).  Ogg-Opus decodes through the port's ``codecs/opus.py``,
+Ogg-Speex through the port's ``native/av.py`` (libspeex in the system
+libavcodec), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ _SINK_CAPS = ("audio/x-raw, format={ S8, S16LE, S24LE, S32LE }, "
               "rate=[1,655350], channels=[1,8], layout=interleaved")
 _FMT_BPS = {"S8": 8, "S16LE": 16, "S24LE": 24, "S32LE": 32}
 _BPS_FMT = {v: k for k, v in _FMT_BPS.items()}
-_ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
 
 
 def _make_crc_table():
@@ -267,8 +266,22 @@ class OggDemux(SourceElement):
             self._ainfo = AudioInfo(format="F32LE", rate=rate,
                                     channels=ch)
         elif bos.startswith(b"Speex   "):
-            # Ogg-Speex: native/av.py (libspeex) in the JAX package
-            raise NotImplementedError(f"oggdemux Ogg-Speex: {_ROADMAP}")
+            # Ogg-Speex mapping: header packet + comment, then
+            # fixed-size frames (speexdec wraps libspeex exactly as
+            # gst-plugins-good/ext/speex/gstspeexdec.c does)
+            from ..native import av as native_av
+            rate = struct.unpack("<I", bos[36:40])[0]
+            ch = struct.unpack("<I", bos[48:52])[0]
+            dec = native_av.AvAudioDecoder("libspeex", bos)
+            chunks = []
+            for pkt in packets[2:]:
+                chunks.extend(dec.decode(pkt))
+            chunks.extend(dec.flush())
+            pcm = (np.concatenate(chunks) if chunks
+                   else np.zeros((0, ch), np.float32))
+            self._samples = np.asarray(pcm, np.float32)
+            self._ainfo = AudioInfo(format="F32LE", rate=rate,
+                                    channels=max(ch, 1))
         elif bos.startswith(b"\x80theora"):
             from ..codecs.theora import TheoraDecoder
             if len(packets) < 3:

@@ -13,10 +13,10 @@ internally, and proxies its caps/data.
 A port of the JAX package's ``elements/playback.py``.  The internal
 pipelines run on the element's device (the outer pipeline's, set at its
 compile; set ``device`` on a playbin before ``build_pipeline*``).  Where
-the JAX package would autoplug a demuxer, parser or decoder that the port
-does not have yet (the libav decoders, ...), the port raises
-``NotImplementedError`` naming ROADMAP.md instead of passing the coded
-stream through.
+the JAX package would autoplug a decoder that is not registered (a libav
+factory whose codec the system libavcodec lacks), it passes the coded
+stream through; the port raises ``RuntimeError`` naming the missing system
+codec instead.
 """
 
 from __future__ import annotations
@@ -31,25 +31,33 @@ from ..core.element import (Element, MultiStreamSourceElement,
                             element_factory_make, register_element)
 from ..utils.typefind import DECODABLE, decodable_for, type_find_file
 
-_ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
+def _why_missing(factory: str) -> str:
+    """Why a factory of an autoplug route is not registered: every one the
+    JAX package names is ported, so only a libav factory can be missing,
+    where the system libavcodec lacks its codec."""
+    from . import libav
+    if libav.codec_of(factory) is None:
+        return "no element factory"
+    return libav.why_missing(factory)
 
 
 def _require(route: str) -> None:
     """Raise unless every factory of an autoplug route (a factory name or
-    a launch-chain template) is ported."""
+    a launch-chain template) is registered."""
     from ..core.element import factory_exists
     for part in route.split("!"):
         factory = part.split()[0]
         if not factory_exists(factory):
-            raise NotImplementedError(f"{factory}: {_ROADMAP}")
+            raise RuntimeError(f"{factory}: {_why_missing(factory)}")
 
 
 def _decoder_for_caps(caps) -> Optional[str]:
     """Coded-stream caps from a demuxer -> decoder factory to append
     (the rank-sorted factory pick of gstdecodebin3.c, reduced to the
-    registered decoder table).  Every candidate is a factory of the JAX
-    package; one the port lacks raises (the JAX package's silence, a
-    coded stream passed on undecoded, is not copied)."""
+    registered decoder table).  A candidate that is not registered (a
+    libav decoder whose codec the system libavcodec lacks) raises naming
+    that codec (the JAX package's silence, a coded stream passed on
+    undecoded, is not copied)."""
     if caps is None or caps.is_any or not len(caps):
         return None
     from ..core.element import factory_exists
@@ -75,7 +83,7 @@ def _decoder_for_caps(caps) -> Optional[str]:
         ver = s.get("mpegversion")
         cand = ("mpg123audiodec" if ver in (1, None) else "faad")
     if cand is not None and not factory_exists(cand):
-        raise NotImplementedError(f"{cand} for {name}: {_ROADMAP}")
+        raise RuntimeError(f"{cand} for {name}: {_why_missing(cand)}")
     return cand
 
 

@@ -21,8 +21,9 @@ tsparse/tsdemux).
 A copy of the JAX package's ``net/adaptive.py``: the same playlists,
 manifests and segment lists.  With ``stream=`` set, the inner chain runs
 on the element's device over the port's ``elements/playback.py``
-(``_ChainSrc``, ``_decoder_for_caps``), which raises
-``NotImplementedError`` naming ROADMAP.md for a decoder the port lacks."""
+(``_ChainSrc``, ``_decoder_for_caps``), which raises ``RuntimeError``
+naming the system codec for a libav decoder that is not registered (the
+system libavcodec lacks its codec)."""
 
 from __future__ import annotations
 

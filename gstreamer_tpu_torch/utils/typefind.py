@@ -8,9 +8,9 @@ byte-streams, QuickTime brand mapping, EBML doctype, text).
 
 Probabilities mirror GST_TYPE_FIND_* (gsttypefind.h).
 
-A copy of the JAX package's ``utils/typefind.py`` (host only).  Its
-``DECODABLE`` routes name factories that the port may not have yet:
-``elements/playback.py`` raises ``NotImplementedError`` for those.
+A copy of the JAX package's ``utils/typefind.py`` (host only).  Every
+factory its ``DECODABLE`` routes name is ported; ``elements/playback.py``
+raises for one that is not registered.
 """
 
 from __future__ import annotations

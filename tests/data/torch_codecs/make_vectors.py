@@ -8,8 +8,10 @@ JAX package, which writes the digests):
     JAX_PLATFORMS=cpu python tests/data/torch_codecs/make_vectors.py [GROUP ...]
 
 GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors),
-``opus_aac`` (the Opus/AAC phase's) or ``vpx`` (the VPx/transport phase's;
-it needs the system libvpx); without one it writes all three.  A group
+``opus_aac`` (the Opus/AAC phase's), ``vpx`` (the VPx/transport phase's;
+it needs the system libvpx) or ``codec_tail`` (the libav / LC3 / Smoke /
+FLIC phase's; it needs libavcodec with libx264 and libspeex); without one
+it writes all four.  A group
 rewrites its files and its entries of ``digests.json`` and keeps the
 others'.  It writes, beside itself, with fixed seeds:
 
@@ -50,7 +52,29 @@ others'.  It writes, beside itself, with fixed seeds:
 * ``vp9_1080p.webm``: the same frames through the port's ``matroskamux
   video-codec=vp9``;
 * the sha256 of every plane the JAX package's ``codecs/vpx.py`` decodes
-  from each (``vpx_ivf``, ``vpx_webm``).
+  from each (``vpx_ivf``, ``vpx_webm``);
+* ``h264_1080p.ts``: the 8 frames of ``theora_1080p.ogv`` through the
+  port's ``x264enc ! mpegtsmux`` (libx264 at its default bitrate), with the
+  sha256 of every plane the JAX package's ``tsdemux ! h264parse !
+  avdec_h264`` decodes (``h264_ts``);
+* ``speex_16k.spx``: the first 3 s of the 10 s, left channel, every third
+  sample (16 kHz mono), through libspeex in Ogg (the Speex header from the
+  encoder, a comment packet, a frame a page), with the digest of the PCM
+  the JAX package's ``oggdemux`` decodes (``speex_ogg``);
+* ``anim_320x200.flc``: 8 frames of 320x200 from
+  ``tests/test_torch_flx.py::flc_bytes`` (BRUN, SS2, an FLI line delta, a
+  palette change, BLACK, COPY), with the sha256 of every RGB plane the JAX
+  package's ``flxdec`` gives and of every I420 plane of ``flxdec !
+  videoconvertscale ! video/x-raw,format=I420,width=640,height=400``
+  (``flic``);
+* no file for Smoke and LC3, whose inputs ``chip_smoke.py`` makes at run
+  time with integer arithmetic (``ct_frames``, ``ct_lc3_input`` from
+  CT_SEED): the sha256 of every packet and decoded plane of its CT_SMOKE
+  frames through the port's ``smokeenc`` / ``smokeenc ! smokedec`` on the
+  CPU (the JAX package's encoder raises on an inter frame of 1080 lines:
+  ROADMAP.md section 3) (``smoke``), and of the frames and PCM of its
+  CT_LC3 input through ``lc3enc`` and ``lc3enc ! lc3dec``, the same in both
+  packages (``lc3``).
 """
 
 import hashlib
@@ -75,6 +99,7 @@ OPUS_BITRATE, VOICE_BITRATE, AAC_BITRATE, HEAAC_BITRATE = (
 OPUS_AAC_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
                   "heaac_10s.aac", "aac_10s.m4a")
 VPX_FILES = ("vp8_1080p.ivf", "vp9_1080p.webm")
+CODEC_TAIL_FILES = ("h264_1080p.ts", "speex_16k.spx", "anim_320x200.flc")
 
 
 def frames(w=W, h=H, n=FRAMES):
@@ -437,9 +462,119 @@ def write_vpx_digests(digests):
         {n: os.path.getsize(os.path.join(HERE, n)) for n in VPX_FILES})
 
 
+def write_codec_tail_vectors():
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.elements.ogg import ogg_page
+    from gstreamer_tpu_torch.native import av
+    from test_torch_flx import flc_bytes
+    if not (av.have_codec("libx264", encoder=True)
+            and av.have_codec("libspeex", encoder=True)):
+        raise RuntimeError("the system libavcodec lacks libx264 or libspeex")
+    fr = frames()
+    dur = 10**9 // FPS
+    pipe = parse_launch(
+        f"appsrc name=v caps=video/x-raw,format=I420,width={W},height={H},"
+        f"framerate={FPS}/1 ! x264enc ! mpegtsmux location="
+        f"{os.path.join(HERE, CODEC_TAIL_FILES[0])}", device="cpu")
+    for k in range(FRAMES):
+        pipe.get_by_name("v").push_buffer(Buffer(
+            data=tuple(torch.from_numpy(p[None]) for p in fr[k]),
+            pts=k * dur, duration=dur))
+    pipe.get_by_name("v").end_of_stream()
+    pipe.run()
+    voice = pcm16()[:3 * RATE:3, :1].astype(np.float32) / 32768.0
+    enc = av.AvAudioEncoder("libspeex", RATE // 3, 1)
+    pkts = enc.encode_all(voice)
+    pages = [ogg_page([enc.extradata()], 7, 0, 0, bos=True),
+             ogg_page([b"\x00" * 8], 7, 1, 0)]
+    for i, pk in enumerate(pkts):
+        pages.append(ogg_page([pk], 7, 2 + i, 320 * (i + 1),
+                              eos=i == len(pkts) - 1))
+    with open(os.path.join(HERE, CODEC_TAIL_FILES[1]), "wb") as f:
+        f.write(b"".join(pages))
+    with open(os.path.join(HERE, CODEC_TAIL_FILES[2]), "wb") as f:
+        f.write(flc_bytes(320, 200, 8, SEED)[0])
+
+
+def port_samples(desc, pushes=None, batch=1):
+    """The samples of a launch string ending in appsink `out`, run by the
+    port on the CPU (its appsrc `in` given the Buffers `pushes`)."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(desc + " ! appsink name=out", batch=batch,
+                        device="cpu")
+    for b in pushes or ():
+        pipe.get_by_name("in").push_buffer(b)
+    if pushes:
+        pipe.get_by_name("in").end_of_stream()
+    pipe.run()
+    sink = pipe.get_by_name("out")
+    return list(iter(sink.pull_sample, None))
+
+
+def element_planes(desc):
+    """Every frame's planes a JAX launch string ending in appsink gives."""
+    from gstreamer_tpu.core.parse import parse_launch
+    pipe = parse_launch(desc + " ! appsink name=out")
+    pipe.run()
+    out = []
+    for s in iter(pipe.get_by_name("out").pull_sample, None):
+        planes = [np.asarray(p) for p in s.buffer.data]
+        out += [[p[k] for p in planes] for k in range(planes[0].shape[0])]
+    return out
+
+
+def write_codec_tail_digests(digests):
+    import torch
+    from chip_smoke import (CT_FLIC_I420, CT_LC3, CT_SEED, CT_SMOKE,
+                            ct_blobs, ct_frames, ct_lc3_input,
+                            ct_lc3_pushes, ct_planes, ct_video_pushes)
+    cpu = torch.device("cpu")
+    ts, spx, flc = (os.path.join(HERE, n) for n in CODEC_TAIL_FILES)
+    w, h, n, b = CT_SMOKE
+    planes = ct_frames(n, w, h, CT_SEED)
+    src = (f"appsrc name=in caps=video/x-raw,format=I420,width={w},"
+           f"height={h},framerate=25/1")
+    smoke = ct_blobs(port_samples(f"{src} ! smokeenc",
+                                  ct_video_pushes(planes, b, cpu), b))
+    smoke_planes = ct_planes(port_samples(f"{src} ! smokeenc ! smokedec",
+                                          ct_video_pushes(planes, b, cpu), b))
+    rate, ch, _n, _per = CT_LC3
+    x = ct_lc3_input(CT_SEED)
+    asrc = (f"appsrc name=in caps=audio/x-raw,format=S16LE,rate={rate},"
+            f"channels={ch},layout=interleaved")
+    lc3 = ct_blobs(port_samples(f"{asrc} ! lc3enc", ct_lc3_pushes(x, cpu)))
+    pcm = np.concatenate([s.buffer.data.numpy() for s in port_samples(
+        f"{asrc} ! lc3enc ! lc3dec", ct_lc3_pushes(x, cpu))])
+    digests.update({
+        "h264_ts": plane_digests(element_planes(
+            f"tsdemux location={ts} ! h264parse ! avdec_h264")),
+        "speex_ogg": pcm_digest(element_pcm(f"oggdemux location={spx}"),
+                                RATE // 3),
+        "flic": {"rgb": plane_digests(element_planes(
+                     f"flxdec location={flc}")),
+                 "i420": plane_digests(element_planes(
+                     f"flxdec location={flc} ! videoconvertscale ! "
+                     f"{CT_FLIC_I420}")),
+                 "caps": CT_FLIC_I420},
+        "smoke": {"frames": CT_SMOKE, "seed": CT_SEED,
+                  "packets": [hashlib.sha256(p).hexdigest() for p in smoke],
+                  "planes": plane_digests(smoke_planes)},
+        "lc3": {"input": CT_LC3, "seed": CT_SEED, "frames": len(lc3),
+                "bytes": hashlib.sha256(b"".join(lc3)).hexdigest(),
+                "pcm": hashlib.sha256(pcm.tobytes()).hexdigest(),
+                "samples": len(pcm)},
+    })
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(os.path.join(HERE, n))
+         for n in CODEC_TAIL_FILES})
+
+
 GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
           "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests),
-          "vpx": (write_vpx_vectors, write_vpx_digests)}
+          "vpx": (write_vpx_vectors, write_vpx_digests),
+          "codec_tail": (write_codec_tail_vectors, write_codec_tail_digests)}
 
 
 if __name__ == "__main__":

@@ -211,14 +211,26 @@ def test_adaptive_pulls_match(demux, manifest, stream, aac_segments):
     assert len(ref["out"]) >= 2
 
 
-def test_adaptive_names_roadmap_for_an_unported_decoder(tmp_path):
-    """A segment stream whose decoder the port lacks raises
-    NotImplementedError naming ROADMAP.md (H.264 here: avdec_h264)."""
-    from gstreamer_tpu_torch.elements import playback
+def test_adaptive_names_roadmap_for_an_unported_decoder(monkeypatch):
+    """A segment stream of H.264 gets avdec_h264 in both packages since the
+    libav slice; where the system libavcodec has no H.264 decoder (the
+    factory unregistered), the port raises naming that codec, no longer
+    ROADMAP.md."""
+    from gstreamer_tpu.core.caps import Caps as JCaps
+    from gstreamer_tpu.elements import playback as jplayback
+    from gstreamer_tpu_torch.core import element as telement
     from gstreamer_tpu_torch.core.caps import Caps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        playback._decoder_for_caps(Caps.from_string(
-            "video/x-h264, stream-format=byte-stream"))
+    from gstreamer_tpu_torch.elements import playback
+    from gstreamer_tpu_torch.native import av
+    caps = "video/x-h264, stream-format=byte-stream"
+    telement._ensure_elements_loaded()
+    assert playback._decoder_for_caps(Caps.from_string(caps)) == \
+        jplayback._decoder_for_caps(JCaps.from_string(caps)) == "avdec_h264"
+    monkeypatch.delitem(telement._REGISTRY, "avdec_h264")
+    monkeypatch.setattr(av, "have_codec", lambda *a, **k: False)
+    with pytest.raises(RuntimeError,
+                       match="system libavcodec has no 'h264' decoder"):
+        playback._decoder_for_caps(Caps.from_string(caps))
 
 
 # -- shm, proxy, tsparse, souphttpsrc through both packages ------------------

@@ -117,14 +117,14 @@ def test_element_make_from_uri(tmp_path):
 
 
 def test_element_make_from_uri_unported_handler(monkeypatch):
-    """A handler whose factory the port does not have yet (lc3dec): the
+    """A handler whose factory the port does not have yet (dvdec): the
     port raises naming ROADMAP.md where the JAX package builds it.  The
     udp:// handler's udpsrc is ported: both build it alike."""
     for st in (jst, tst):
-        monkeypatch.setitem(st._URI_HANDLERS, "lc3", "lc3dec")
-    assert jst.element_make_from_uri("lc3://x").FACTORY == "lc3dec"
+        monkeypatch.setitem(st._URI_HANDLERS, "dv", "dvdec")
+    assert jst.element_make_from_uri("dv://x").FACTORY == "dvdec"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tst.element_make_from_uri("lc3://x")
+        tst.element_make_from_uri("dv://x")
     e = tst.element_make_from_uri("udp://127.0.0.1:5004")
     j = jst.element_make_from_uri("udp://127.0.0.1:5004")
     assert (e.FACTORY, e.props) == (j.FACTORY, j.props) == \

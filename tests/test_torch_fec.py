@@ -4,7 +4,8 @@ package, bit for bit.
 
 The JAX package's ``tests/test_fec.py`` runs again on the port's module
 (``on_port``).  Its end-to-end case needs libav's VP8 (a ``skipif`` mark):
-the same check runs here on the port with vp8enc / vp8dec over libvpx.
+it runs on the port in ``test_torch_libav.py``, and the same check runs
+here with vp8enc / vp8dec over libvpx.
 The FEC packets and the encoder's output equal the JAX package's; the
 decoder's output equals the JAX package's where each buffer holds whole
 rows with their FEC packets.  Where it differs it is a fault of the JAX

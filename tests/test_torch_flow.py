@@ -141,6 +141,32 @@ NET_TAIL_FACTORIES = (
     "unalignedvideoparse", "unalignedaudioparse", "neonhttpsrc",
     "souphttpclientsink", "curlhttpsink", "curlfilesink", "curlftpsink",
     "curlsmtpsink", "curlhttpsrc")
+
+
+def av_factories():
+    """The libav factories the port registers where the tests run: its copies
+    of the JAX package's tables, filtered by its own ``have_codec`` (so
+    the list does not hang on the JAX package's in-place build)."""
+    from gstreamer_tpu_torch.elements import libav
+    from gstreamer_tpu_torch.native import av
+    if not av.available():
+        return ()
+    out = [e[0] for table, enc in ((libav._DECODERS, False),
+                                   (libav._AUDIO_DECODERS, False),
+                                   (libav._ENCODERS, True),
+                                   (libav._AUDIO_ENCODERS, True))
+           for e in table if av.have_codec(e[1], encoder=enc)]
+    if av.have_codec("mpeg2video", encoder=True):
+        out.append("mpeg2enc")
+    if av.have_codec("aptx"):
+        out += ["openaptxdec", "openaptxenc", "avdec_aptx", "avdec_aptx_hd"]
+    return tuple(out)
+
+
+# the libav family (where the system libavcodec has each codec) and the
+# numpy codecs LC3, Smoke and FLIC
+CODEC_TAIL_FACTORIES = ("lc3enc", "lc3dec", "smokeenc", "smokedec",
+                        "flxdec") + av_factories()
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -166,10 +192,13 @@ def _spec(cls):
     return props, pads
 
 
-@pytest.mark.parametrize("factory", NEW_FACTORIES)
+@pytest.mark.parametrize("factory", NEW_FACTORIES + CODEC_TAIL_FACTORIES)
 def test_factory_matches_reference(factory):
     """Property names, types, defaults and pad templates as the
     reference's class of the same factory."""
+    if factory in CODEC_TAIL_FACTORIES:
+        from test_torch_libav import load_jax_av
+        load_jax_av()
     jelement._ensure_elements_loaded()
     telement._ensure_elements_loaded()
     assert _spec(telement._REGISTRY[factory][0]) == \
@@ -177,8 +206,15 @@ def test_factory_matches_reference(factory):
 
 
 def test_registry_count():
-    telement._ensure_elements_loaded()
-    assert len(telement._REGISTRY) == 571
+    """571 before the libav slice, the five numpy codec factories, and as
+    many libav factories as the JAX package registers where the tests
+    run."""
+    from test_torch_libav import load_jax_av
+    load_jax_av()
+    jav = [f for f, (c, _r) in jelement._REGISTRY.items()
+           if c.__module__ == "gstreamer_tpu.elements.libav"]
+    assert len(telement._REGISTRY) == 571 + 5 + len(jav)
+    assert len(CODEC_TAIL_FACTORIES) == 5 + len(jav)
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
@@ -193,18 +229,18 @@ def test_registry_count():
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
         | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
         | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
-        <= set(telement._REGISTRY)
+        | set(CODEC_TAIL_FACTORIES) <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():
-    """The libav family waits for its slice: the JAX package registers it,
-    the port does not.  The Opus and AAC decoders, which waited with it
-    until the Opus slice, are registered in both."""
-    jelement._ensure_elements_loaded()
-    telement._ensure_elements_loaded()
+    """The libav family waited for its slice, which registers it in the
+    port as the JAX package does: every avdec_* factory of the JAX
+    registry is the port's too.  The Opus and AAC decoders, which waited
+    with it until the Opus slice, are registered in both."""
+    from test_torch_libav import load_jax_av
+    load_jax_av()
     later = sorted(f for f in jelement._REGISTRY if f.startswith("avdec_"))
-    assert len(later) > 3 and all(f in jelement._REGISTRY for f in later)
-    assert not [f for f in later if f in telement._REGISTRY]
+    assert len(later) > 3 and all(f in telement._REGISTRY for f in later)
     assert all(f in jelement._REGISTRY and f in telement._REGISTRY
                for f in OPUS_AAC_FACTORIES)
 

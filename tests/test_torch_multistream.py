@@ -1,12 +1,13 @@
 """Multi-stream execution of the port's Pipeline against the JAX package.
 
-Mirrors ``tests/test_multistream_demux.py`` without its libav cases (one
-parse feeding both branches, per-pad caps, a convert chain, the
-single-stream ``stream=`` mode, qtdemux A/V, uridecodebin, playbin's A/V
-build) on raw tracks, and adds the pipeline's behaviour: ``select_streams``
-mid-stream, tracks of unequal length ending on different ticks, prefetch,
-a flushing seek, the per-element path that a text track forces, a pad
-whose peer takes host bytes left unstaged, and ``compile(mesh=...)``.  The
+Mirrors ``tests/test_multistream_demux.py`` (one parse feeding both
+branches, per-pad caps, a convert chain, the single-stream ``stream=``
+mode, qtdemux A/V, uridecodebin, playbin's A/V build) on raw tracks (its
+libav cases run on the port in ``test_torch_libav.py``), and adds the
+pipeline's behaviour: ``select_streams`` mid-stream, tracks of unequal
+length ending on different ticks, prefetch, a flushing seek, the
+per-element path that a text track forces, a pad whose peer takes host
+bytes left unstaged, and ``compile(mesh=...)``.  The
 same seeded files go through both packages (the port on the CPU); samples,
 caps and bus messages equal, tolerance 0.
 """

@@ -200,8 +200,8 @@ def test_pulled_buffers_are_staged_on_the_pipeline_device():
 def test_registry_is_the_ports_own():
     """Loading the port's elements leaves the JAX registry as it was, and
     the port's registry holds only the port's classes."""
-    from test_torch_flow import (NET_FACTORIES, NET_TAIL_FACTORIES,
-                                 RTP2_FACTORIES)
+    from test_torch_flow import (CODEC_TAIL_FACTORIES, NET_FACTORIES,
+                                 NET_TAIL_FACTORIES, RTP2_FACTORIES)
     jelement._ensure_elements_loaded()
     before = dict(jelement._REGISTRY)
     telement._ensure_elements_loaded()
@@ -297,7 +297,8 @@ def test_registry_is_the_ports_own():
         "flvdemux", "jpegparse", "jifmux", "asfmux", "asfparse", "asfdemux",
         "decodebin3", "parsebin", "playbin3", "playsink", "y4mdec",
         "alphacolor", "dtmfdetect"} | set(NET_FACTORIES) \
-        | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES)
+        | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
+        | set(CODEC_TAIL_FACTORIES)
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith(("gstreamer_tpu_torch.elements.",
                                           "gstreamer_tpu_torch.net."))
@@ -305,9 +306,9 @@ def test_registry_is_the_ports_own():
 
 def test_unported_factory_raises():
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("lc3dec")
+        telement.element_factory_make("dvdec")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("lc3dec ! appsink",
+        gstreamer_tpu_torch.parse_launch("dvdec ! appsink",
                                          device="cpu")
 
 

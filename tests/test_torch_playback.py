@@ -3,11 +3,11 @@ uridecodebin and decodebin (single-stream routes, a seek), playbin's
 ``build_pipeline``, and ``_decoder_for_caps``.
 
 The same seeded files go through both packages (the port on the CPU);
-samples, caps and bus messages equal, tolerance 0.  Where the JAX package
-autoplugs a demuxer, parser or decoder that the port does not have yet
-(the libav decoders, faad, flvdemux, ...), the
-port raises ``NotImplementedError`` naming ROADMAP.md instead of passing a
-coded stream on undecoded: each case has a test.
+samples, caps and bus messages equal, tolerance 0.  Every factory the JAX
+package autoplugs is ported; where a libav decoder is not registered (the
+system libavcodec lacks its codec), the JAX package passes the coded stream
+on undecoded and the port raises ``RuntimeError`` naming that codec: each
+case has a test.
 """
 
 import numpy as np
@@ -142,15 +142,15 @@ CODED = [
 
 @pytest.mark.parametrize("caps,decoder", CODED, ids=[d for _, d in CODED])
 def test_decoder_for_caps_raises_where_the_port_lacks_it(caps, decoder):
-    """The JAX package appends its decoder; the port, where it has none
-    yet, raises instead of passing the coded stream on, and appends the
-    same decoder where it has it (mpg123audiodec since the codec slice,
-    faad since the Opus and AAC slice)."""
+    """The JAX package appends its decoder; the port appends the same
+    decoder where it is registered (the libav ones since the libav slice)
+    and, where the system libavcodec lacks its codec, raises naming that
+    codec instead of passing the coded stream on."""
     assert jpb._decoder_for_caps(JCaps.from_string(caps)) == decoder
     if factory_exists(decoder):
         assert tpb._decoder_for_caps(Caps.from_string(caps)) == decoder
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="system libavcodec"):
         tpb._decoder_for_caps(Caps.from_string(caps))
 
 
@@ -162,21 +162,27 @@ def test_decoder_for_caps_ported(caps):
 
 
 def test_uridecodebin_h264_track_raises(tmp_path):
-    """An mkv whose video is H.264: the JAX package splices avdec_h264 in,
-    the port raises in both modes."""
+    """An mkv whose video is H.264 of seeded NAL units (no picture
+    decodes): both packages splice avdec_h264 in, and uridecodebin raises
+    alike in both modes (no frame, so no caps to fixate) where playbin's
+    pipeline builds and runs to its end."""
     path = tmp_path / "h264.mkv"
     write_jax(f"matroskamux name=m location={path} ! fakesink "
               f"{coded_src('video/x-h264,stream-format=byte-stream,alignment=au')}"
               f" ! m.video_0", {"v": blob_pushes(nals(1, 4, H264))})
-    for desc in (f"uridecodebin uri=file://{path} ! fakesink",
-                 f"uridecodebin name=u uri=file://{path} u.video_0 ! "
-                 f"fakesink"):
-        with pytest.raises(NotImplementedError, match="avdec_h264"):
-            tparse(desc, device="cpu").compile()
-    pb = tmake("playbin", uri=f"file://{path}")
-    pb.device = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pb.build_pipeline()
+    for parse, make, kw in ((jparse, jmake, {}),
+                            (tparse, tmake, {"device": "cpu"})):
+        for desc in (f"uridecodebin uri=file://{path} ! fakesink",
+                     f"uridecodebin name=u uri=file://{path} u.video_0 ! "
+                     f"fakesink"):
+            with pytest.raises(ValueError, match="cannot fixate ANY caps"):
+                parse(desc, **kw).compile()
+        pb = make("playbin", uri=f"file://{path}")
+        if kw:
+            pb.device = torch.device("cpu")
+        pipe, _sink = pb.build_pipeline()
+        assert "avdec_h264" in [e.FACTORY for e in pipe.iterate_elements()]
+        pipe.run()
 
 
 @pytest.mark.parametrize("head,factory", [

@@ -7,8 +7,8 @@ aacparse is the port's ``audioparsers.AacParse``).
 
 The JAX package's ``tests/test_rtp_payloaders.py``, ``test_rtp_codecs.py``
 and ``test_dtmf_icy.py`` run again on the port's modules (``on_port``; the
-cases marked to need libavcodec are left out: they encode and decode with
-the libav family, which the port does not have yet).  The same seeded or committed inputs go through both
+cases marked to need libavcodec encode and decode with the libav family and
+run in ``test_torch_libav.py``).  The same seeded or committed inputs go through both
 packages: packets byte for byte, depayloaded frames, PCM, caps and
 timestamps equal, tolerance 0.  The H.264 cases use the synthetic stream
 of ``tests/test_videoparsers.py``.

@@ -6,7 +6,7 @@ The JAX package's ``tests/test_siren.py`` runs again on the port's
 modules (``on_port``), its oracle cases with the same ``oracle`` fixture
 (the reference library compiled from its C sources, where they are
 present; the fixture skips where they are not, in both packages).  Its
-aptX cases are the libav family's and wait with it.  The codec is a copy
+aptX cases are the libav family's and run in ``test_torch_libav.py``.  The codec is a copy
 that keeps the JAX package's numpy dtypes: its code equals the JAX
 module's statement for statement, and seeded signals give the same frames
 and PCM.  The elements run the same launch strings in both packages.

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's RTP / RTSP phase (phase 20, ``rtp_rtsp_phase``), its
-FEC / payloader / Siren phase (phase 21, ``rtp_fec_phase``) or its phase of
-the rest of net/ (phase 22, ``net_tail_phase``) alone on one CUDA card: build the port's kernels, count the kernel wrappers' launches
+FEC / payloader / Siren phase (phase 21, ``rtp_fec_phase``), its phase of
+the rest of net/ (phase 22, ``net_tail_phase``) or its phase of the libav
+family, LC3, Smoke and FLIC (phase 23, ``codec_tail_phase``) alone on one
+CUDA card: build the port's kernels, count the kernel wrappers' launches
 as chip_smoke.py does, run the phase, print the card's name and power
 limit.
 
-    python3 tools/rtp_phase.py [--seed N] [--phase 20|21|22]
+    python3 tools/rtp_phase.py [--seed N] [--phase 20|21|22|23]
 
 Exits non-zero without a card, or when any check of the phase fails.
 """
@@ -21,7 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", type=int, choices=(20, 21, 22), default=20)
+    ap.add_argument("--phase", type=int, choices=(20, 21, 22, 23),
+                    default=20)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -37,7 +40,8 @@ def main() -> int:
                 "chroma420_scale": ck.chroma420_scale}
     phase = {20: chip_smoke.rtp_rtsp_phase,
              21: chip_smoke.rtp_fec_phase,
-             22: chip_smoke.net_tail_phase}[args.phase]
+             22: chip_smoke.net_tail_phase,
+             23: chip_smoke.codec_tail_phase}[args.phase]
     total = phase(args.seed, counters, resolve())
     print(f"phase {args.phase} launches: {total}")
     print(chip_smoke.smi_line())
