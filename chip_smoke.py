@@ -529,6 +529,36 @@ before it and read just after:
                     (10 ms frames; the bytes' sha256) and lc3enc ! lc3dec
                     (the PCM's), both the CPU box's
 
+24. Subtitles, tags and the last parsers (tags_subs_phase; host modules,
+   the card converting).  Its first line names Pillow's version (text
+   bitmaps are compared within one machine) and whether x264enc, dvdec and
+   av1dec registered (libavcodec):
+
+  subtitle_burnin   64 1080p videotestsrc frames into subtitleoverlay, an
+                    .srt of 8 cues through filesrc ! subparse on its text
+                    pad, then videoconvertscale ! RGB 224x224 at batch 16:
+                    yscale_hv once a tick, every frame equal to the port's
+                    CPU run of the same string, the text drawn
+  ttml_burnin       the same with ttmlrender, a TTML document a tick (32)
+  mjpeg_multipart_camera
+                    phase 20's 32 1080p JPEGs written by multipartmux, then
+                    multipartdemux ! jpegdec ! RGB 224x224 at batch 16:
+                    yscale_hv twice, equal to multifilesrc's reference; the
+                    parts stay host bytes
+  tags_roundtrip    id3v2mux / id3demux and apev2mux / apedemux on
+                    mp3_10s.mp3, flactag on tags_1s.flac (flacdec's PCM
+                    unchanged), vorbistag / vorbisparse on vorbis_10s.ogg's
+                    packets, the discoverer on every committed vector: the
+                    CPU box's digests; the tagged MP3's PCM within the JAX
+                    package's digest
+  transcode_raw     a raw 1080p Matroska through uritranscodebin to raw:
+                    the CPU's file, read back equal to the input; an x264enc
+                    profile where libavcodec has libx264, else the error
+                    both packages raise, as no pass
+  bpm_click         bpmdetect on a 10 s seeded click track: the CPU's bpm
+  alone             each factory of the slice on small inputs, the card
+                    equal to the CPU, no launch
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -11663,6 +11693,76 @@ class NtSender:
 
 
 @contextlib.contextmanager
+def nt_stalls(cls, attr, seen):
+    """While the block runs, seen["stall"] is the longest time from one
+    call of cls.attr returning to the next starting (the pipeline
+    downstream of the source), seen["gc"] the interpreter's longest
+    collection (generation, seconds) and seen["full"] how many full
+    collections ran."""
+    import gc
+    fn = getattr(cls, attr)
+    mark = {"end": None, "gc": None}
+    seen.update(stall=0.0, gc=(None, 0.0), full=0)
+
+    def call(*a, **k):
+        if mark["end"] is not None:
+            seen["stall"] = max(seen["stall"],
+                                time.perf_counter() - mark["end"])
+        try:
+            return fn(*a, **k)
+        finally:
+            mark["end"] = time.perf_counter()
+
+    def collected(phase, info):
+        if phase == "start":
+            mark["gc"] = time.perf_counter()
+        elif mark["gc"] is not None:
+            dt = time.perf_counter() - mark["gc"]
+            if dt > seen["gc"][1]:
+                seen["gc"] = (info["generation"], dt)
+            seen["full"] += info["generation"] == 2
+    setattr(cls, attr, call)
+    gc.callbacks.append(collected)
+    try:
+        yield seen
+    finally:
+        gc.callbacks.remove(collected)
+        setattr(cls, attr, fn)
+
+
+@contextlib.contextmanager
+def nt_frozen_heap(seen):
+    """While the block runs, the objects of all the script's earlier work
+    are frozen (gc.freeze, after a full collection): the interpreter's
+    collections scan only what the block allocates.  A full collection of
+    the whole heap holds the GIL for the better part of a second, through
+    which no Python thread reads its socket (ristsrc's receive thread
+    among them: ROADMAP.md section 3).  seen["frozen"] is (the objects
+    frozen, the collection's seconds)."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    seen["frozen"] = (gc.get_freeze_count(), time.perf_counter() - t0)
+    try:
+        yield seen
+    finally:
+        gc.unfreeze()
+
+
+def nt_stall_line(name, seen):
+    """The line nt_stalls' and nt_frozen_heap's figures print as."""
+    gen, secs = seen["gc"]
+    print(f"  {name}: {seen['frozen'][0]} objects of earlier work frozen "
+          f"after a collection of {seen['frozen'][1] * 1e3:.1f} ms; the "
+          f"pipeline's longest stall between two reads of ristsrc "
+          f"{seen['stall'] * 1e3:.1f} ms; " + (
+              "no collection of the interpreter" if gen is None else
+              f"the interpreter's longest collection {secs * 1e3:.1f} ms "
+              f"(generation {gen}), {seen['full']} full ones"))
+
+
+@contextlib.contextmanager
 def nt_switch_interval(secs):
     """sys.setswitchinterval(secs) while the block runs: a thread that
     waits on a socket takes the interpreter back sooner from a busy one."""
@@ -11680,15 +11780,16 @@ def nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
     NtRelay with `drops`, none: straight), from the receiver's first read
     on; the receiver ristsrc ! rtpjpegdepay ! jpegdec ! RGB 224x224 on the
     card (rr_camera_run: yscale_hv once a tick that gives frames), the
-    interpreter's switch interval 1 ms.  Returns (ristsink's and
+    interpreter's switch interval 1 ms, the heap of earlier work frozen
+    (nt_frozen_heap).  Returns (ristsink's and
     ristsrc's stats, the relay's drops and the sequence numbers it
     received (None, None without a relay), rr_camera_check's (whole,
     checked), rr_drive's numbers or None, the fault or None, the sender's
-    seconds)."""
+    seconds with nt_stalls' and nt_frozen_heap's figures)."""
     from gstreamer_tpu_torch.net import rist
     w, h, _n, _b = RR_CAM
     port = nt_free_pair()
-    spent, elems = {}, {}
+    spent, elems, stalls = {}, {}, {}
 
     def seen(args, out):
         elems["src"] = args[0]
@@ -11702,13 +11803,15 @@ def nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
             peak, spent,
             (cont_timed(rist.RistSrc, "create", spent, "ristsrc", seen),
              nt_first_call(rist.RistSrc, "create", sender.go),
+             nt_frozen_heap(stalls),
+             nt_stalls(rist.RistSrc, "create", stalls),
              nt_switch_interval(0.001)))
     finally:
         got = sender.finish()
     whole, checked = rr_camera_check(name, sent, ref, images, v, fault)
     return (got["sink"], dict(elems["src"].stats),
             (got["dropped"], got["seen"]), (whole, checked), r, fault,
-            {"sender": got["secs"]})
+            {"sender": got["secs"], **stalls})
 
 
 def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
@@ -11721,9 +11824,10 @@ def rist_camera(seed, dev, sender, ref, sent, start, finish, peak):
     heads = sum(1 for f in sent if rf_seq(f[0]) in drops)
     for nack in ("generic", "range"):
         name = f"rist_camera[{nack}]"
-        snd, rcv, (dropped, seen), (whole, checked), r, fault, _spent = \
+        snd, rcv, (dropped, seen), (whole, checked), r, fault, spent = \
             nt_rist_run(name, dev, sender, ref, sent, start, finish, peak,
                         nack, drops)
+        nt_stall_line(name, spent)
         print(f"  {name}: ristsink sent {snd['sent']} packets, "
               f"retransmitted {snd['retransmitted']} on {snd['nacks']} NACK "
               f"packets; the relay received {len(seen)} of "
@@ -11768,6 +11872,7 @@ def rist_camera_live(dev, sender, ref, sent, start, finish, peak):
     snd, rcv, _d, (whole, checked), r, fault, spent = nt_rist_run(
         name, dev, sender, ref, sent, start, finish, peak, "generic", None)
     missing = rcv["recovered"] + rcv["lost"]
+    nt_stall_line(name, spent)
     print(f"  {name}: ristsink sent {snd['sent']} packets in "
           f"{spent.get('sender', 0):.3f} s, retransmitted "
           f"{snd['retransmitted']} on {snd['nacks']} NACK packets; loopback "
@@ -13260,6 +13365,700 @@ def codec_tail_phase(seed, counters, dev):
     return total
 
 
+TS_FILES = ("mp3_10s.mp3", "vorbis_10s.ogg", "tags_1s.flac", "digests.json")
+TS_MODULES = tuple(f"gstreamer_tpu_torch.elements.{m}" for m in (
+    "subparse", "subtitles_extra", "tagmux", "multipart", "moreparsers",
+    "aliases", "transcode"))
+TS_BURNIN = (1920, 1080, 64, 16)    # subtitle_burnin: width, height, frames, batch
+TS_TTML = (1920, 1080, 32, 16)      # ttml_burnin
+TS_CUES = 8                         # the .srt's cues, 320 ms apart
+TS_RAW = (1920, 1080, 8, 4)         # transcode_raw's Matroska: frames, batch
+TS_BPM = (16000, 10, 120)           # bpm_click: rate, seconds, beats a minute
+TS_ALONE = (64, 48, 4)              # width, height, frames of a factory alone
+TS_SEED = 2027                      # the inputs whose digests are committed
+TS_ID3_TAGS = "title=Tagged Song,artist=Me,album=Phase 24,track-number=3"
+TS_APE_TAGS = "title=Tagged Song,artist=Me"
+TS_XIPH_TAGS = "TITLE=Tagged Song;ARTIST=Me"
+
+
+def ts_ms(ms):
+    return (f"{ms // 3_600_000:02d}:{ms // 60_000 % 60:02d}:"
+            f"{ms // 1000 % 60:02d},{ms % 1000:03d}")
+
+
+def ts_srt(path):
+    """TS_CUES SubRip cues, one every 320 ms, each on for 300 ms."""
+    with open(path, "w") as f:
+        for k in range(TS_CUES):
+            f.write(f"{k + 1}\n{ts_ms(320 * k)} --> {ts_ms(320 * k + 300)}\n"
+                    f"Subtitle {k + 1}: burnt into the training frames\n\n")
+    return path
+
+
+def ts_ttml(k):
+    """A TTML document of two cues (the first is drawn)."""
+    return (f'<?xml version="1.0" encoding="utf-8"?>\n<tt xmlns="http://www.'
+            f'w3.org/ns/ttml"><body><div><p begin="{k}.0s" end="{k}.5s">TTML '
+            f'cue {k}: rendered by ttmlrender</p><p begin="{k}.5s" end='
+            f'"{k + 1}.0s">second</p></div></body></tt>').encode()
+
+
+def ts_sha(data):
+    """A sink's data, or bytes, as one sha256: tensors and arrays by their
+    bytes (wherever they lie), text by its UTF-8, containers in order."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, (list, tuple)):
+            for v in x:
+                add(v)
+        elif isinstance(x, torch.Tensor):
+            h.update(x.cpu().numpy().tobytes())
+        elif isinstance(x, np.ndarray):
+            h.update(x.tobytes())
+        elif isinstance(x, str):
+            h.update(x.encode())
+        else:
+            h.update(bytes(x))
+    add(data)
+    return h.hexdigest()
+
+
+def ts_file_sha(path):
+    with open(path, "rb") as f:
+        return ts_sha(f.read())
+
+
+def ts_run(desc, d, batch=1, pushes=None, sink="a"):
+    """`desc` to EOS on `d`: its sink's samples (none without one) and its
+    tag messages."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(desc, batch=batch, device=d)
+    push_all(pipe, pushes)
+    pipe.run()
+    s = pipe.get_by_name(sink)
+    tags = [(m.src, m.data) for m in iter(pipe.bus.pop, None)
+            if m.type == "tag"]
+    return (drain(s) if s is not None else []), tags, pipe
+
+
+def ts_burnin_run(name, desc, size, dev, start, finish, peak, pushes=None):
+    """One burn-in path on the card (codec_path: yscale_hv once a tick that
+    gave frames), held frame for frame to the port's CPU run of the same
+    string; `size` is (width, height, frames, batch).  Returns (the card's
+    frames, its pipeline, the numbers)."""
+    import torch
+    w, h, n, batch = size
+    pipe, out, r = codec_path(
+        name, desc, batch, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, (), pushes)
+    got = cont_joined(out["v"])
+    ref = cont_joined(ts_run(desc, torch.device("cpu"), batch, pushes,
+                             "v")[0])
+    require(got is not None and got[0].shape[0] == n,
+            f"{name}: {0 if got is None else got[0].shape[0]} of {n} frames")
+    require(cont_equal(got, ref), f"{name}: the card's frames differ from "
+            "the port's CPU run of the same string")
+    fed, secs = r["fed"][1:], r["tick_secs"][1:]
+    fps = sum(fed) / max(sum(secs), 1e-9)
+    print(f"e2e {name}: {n} {w}x{h} frames to RGB 224x224 == "
+          f"the port's CPU run, {fps:.1f} frames/s over ticks 2..{r['ticks']}"
+          f"; device busy {r['busy']:.3f} ms and idle share {r['idle']:.3f} "
+          f"of a {r['wall']:.3f} ms tick (traced); {r['d2h'] / 2**20:.3f} MiB "
+          f"D2H and {r['h2d'] / 2**20:.3f} MiB H2D a tick; peak memory "
+          f"{r['mem']:.1f} MiB; launches {r['launches']}")
+    return got, pipe, r
+
+
+def subtitle_burnin(dev, tmp, start, finish, peak):
+    """videotestsrc's 1080p I420 into subtitleoverlay with filesrc ! subparse
+    of an .srt, then to RGB 224x224 on the card (yscale_hv once a tick):
+    equal to the port's CPU run; the text changed the frames."""
+    w, h, n, b = TS_BURNIN
+    srt = ts_srt(os.path.join(tmp, "burnin.srt"))
+    video = (f"videotestsrc num-buffers={n} ! video/x-raw,format=I420,width="
+             f"{w},height={h},framerate={CONT_FPS}/1")
+    # filesrc reads blocksize bytes a frame: the .srt spans the video's
+    # ticks, its cues reaching subparse a few at a time
+    block = -(-os.path.getsize(srt) // n)
+    desc = (f"{video} ! subtitleoverlay name=o ! {CONT_RGB} filesrc name=s "
+            f"location={srt} blocksize={block} ! subparse name=p ! o.")
+    got, pipe, _r = ts_burnin_run("subtitle_burnin", desc, TS_BURNIN, dev,
+                                  start, finish, peak)
+    require(pipe.get_by_name("p")._emitted == TS_CUES,
+            f"subtitle_burnin: subparse gave {pipe.get_by_name('p')._emitted}"
+            f" of {TS_CUES} cues")
+    require(pipe.get_by_name("s") in pipe._host_fed,
+            "subtitle_burnin: the .srt was staged on the card")
+    bare = cont_joined(ts_run(f"{video} ! {CONT_RGB}", dev, b, sink="v")[0])
+    drawn = int((got[0] != bare[0]).flatten(1).any(1).sum())
+    require(drawn > 0, "subtitle_burnin: no frame carries text")
+    print(f"  subtitle_burnin: {TS_CUES} cues drawn on {drawn} of {n} frames")
+
+
+def ttml_burnin(dev, tmp, start, finish, peak):
+    """The same with ttmlrender, a TTML document pushed a tick."""
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    w, h, n, b = TS_TTML
+    dur = 10**9 // CONT_FPS
+    pushes = {"txt": [Buffer(data=np.frombuffer(ts_ttml(k), np.uint8),
+                             pts=k * b * dur) for k in range(n // b)]}
+    desc = (f"videotestsrc num-buffers={n} ! video/x-raw,format=I420,width="
+            f"{w},height={h},framerate={CONT_FPS}/1 ! ttmlrender name=o "
+            f"font-size=36 ! {CONT_RGB} appsrc name=txt caps=application/"
+            "ttml+xml ! o.")
+    ts_burnin_run("ttml_burnin", desc, TS_TTML, dev, start, finish, peak,
+                  pushes)
+
+
+def mjpeg_multipart_camera(seed, dev, tmp, start, finish, peak):
+    """Phase 20's panning camera (RR_CAM's 1080p JPEGs, jpegenc on the
+    card) written by multipartmux, then multipartdemux ! jpegdec ! RGB
+    224x224 at batch 16 (yscale_hv once a tick): equal to multifilesrc's
+    reference of the same JPEGs; the demuxer's parts stay host bytes."""
+    from gstreamer_tpu_torch.elements import image_codecs
+    from gstreamer_tpu_torch.elements.multipart import parse_multipart
+    w, h, n, b = RR_CAM
+    jdir, jpgs = rr_jpegs(seed, dev, tmp)
+    mp = os.path.join(tmp, "cam.mjpeg")
+    start("multipartmux")
+    # multifilesrc negotiates application/octet-stream with a muxer whose
+    # pads take ANY caps (in both packages): the capsfilter names the parts'
+    ts_run(f"multifilesrc location={jdir}/cam_%05d.jpg caps=image/jpeg,"
+           f"framerate={CONT_FPS}/1 ! image/jpeg ! multipartmux "
+           f"boundary=camera ! filesink location={mp}", dev)
+    finish("multipartmux", {})
+    with open(mp, "rb") as f:
+        boundary, parts = parse_multipart(f.read())
+    require(boundary == "camera" and [p for _m, p in parts] == jpgs
+            and {m for m, _p in parts} == {"image/jpeg"},
+            "multipartmux: the file's parts are not the camera's JPEGs")
+    start("multifilesrc ! jpegdec")
+    ref = rr_rgb_ref(jdir, dev)
+    finish("multifilesrc ! jpegdec", {"yscale_hv": -(-n // b)})
+    desc = (f"multipartdemux name=d location={mp} ! jpegdec ! {rr_caps(w, h)}"
+            f" ! {CONT_RGB}")
+    pipe, out, r = codec_path(
+        "mjpeg_multipart_camera", desc, b, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)},
+        [(image_codecs.JpegDec, "_decode_all")])
+    require(cont_equal(cont_joined(out["v"]), ref),
+            "mjpeg_multipart_camera: the frames differ from multifilesrc's")
+    require(pipe.get_by_name("d") in pipe._host_fed,
+            "mjpeg_multipart_camera: multipartdemux's parts were staged")
+    fed, secs = r["fed"][1:], r["tick_secs"][1:]
+    print(f"e2e mjpeg_multipart_camera: {n} {w}x{h} JPEGs ({len(parts)} "
+          f"parts) to RGB 224x224 == multifilesrc's, "
+          f"{sum(fed) / max(sum(secs), 1e-9):.1f} frames/s over ticks 2.."
+          f"{r['ticks']}, jpegdec {r['decode'] / n * 1e3:.2f} host ms a "
+          f"frame; device busy {r['busy']:.3f} ms and idle share "
+          f"{r['idle']:.3f} of a {r['wall']:.3f} ms tick (traced); "
+          f"{r['h2d'] / 2**20:.3f} MiB H2D a tick; launches {r['launches']}")
+
+
+def ts_flac_pcm(path, d):
+    import numpy as np
+    samples = ts_run(f"flacdec location={path} ! appsink name=a", d)[0]
+    return np.concatenate([s.buffer.data.cpu().numpy() for s in samples])
+
+
+def ts_vorbis_packets(path):
+    from gstreamer_tpu_torch.elements.ogg import parse_ogg_pages
+    with open(path, "rb") as f:
+        return [p for _s, _g, pkts in parse_ogg_pages(f.read())
+                for p in pkts]
+
+
+def ts_tag_results(files, tmp, d):
+    """The tag writers and readers on the committed vectors, on `d`: the
+    tagged files' and payloads' sha256 with the tag messages (id3v2mux then
+    id3demux on the MP3, apev2mux then apedemux), flactag's file and the
+    PCM flacdec gives back, vorbistag's packets with vorbisparse's rate and
+    channels, and the discoverer's report of every committed vector (its
+    path left out).  Plain data, as ``digests.json`` keeps it."""
+    import json
+
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.utils.discoverer import Discoverer
+    mp3, ogg, flac = (files[n] for n in TS_FILES[:3])
+    out = {}
+    id3 = os.path.join(tmp, "tagged.mp3")
+    ts_run(f"filesrc location={mp3} ! mpegaudioparse ! taginject tags="
+           f"\"{TS_ID3_TAGS}\" ! id3v2mux ! filesink location={id3}", d)
+    samples, tags, _ = ts_run(f"id3demux name=d location={id3} ! appsink "
+                              "name=a", d)
+    out["id3"] = {"file": ts_file_sha(id3), "payload": ts_sha(
+        [s.buffer.data for s in samples]), "tags": tags}
+    ape = os.path.join(tmp, "tagged.ape.mp3")
+    ts_run(f"filesrc location={mp3} ! apev2mux tags=\"{TS_APE_TAGS}\" ! "
+           f"filesink location={ape}", d)
+    samples, tags, _ = ts_run(f"apedemux name=d location={ape} ! appsink "
+                              "name=a", d)
+    out["ape"] = {"file": ts_file_sha(ape), "payload": ts_sha(
+        [s.buffer.data for s in samples]), "tags": tags}
+    require(out["id3"]["payload"] == out["ape"]["payload"]
+            == ts_file_sha(mp3), "id3demux / apedemux: the payload is not "
+            "the MP3 file")
+    tagged = os.path.join(tmp, "tagged.flac")
+    ts_run(f"filesrc location={flac} ! audio/x-flac ! flactag tags="
+           f"\"{TS_XIPH_TAGS}\" ! filesink location={tagged}", d)
+    pcm = ts_flac_pcm(tagged, d)
+    require(np.array_equal(pcm, ts_flac_pcm(flac, d)),
+            "flactag: flacdec's PCM of the tagged file differs from the "
+            "untagged file's")
+    out["flac"] = {"file": ts_file_sha(tagged), "pcm": ts_sha(pcm),
+                   "frames": int(pcm.shape[0])}
+    pkts = ts_vorbis_packets(ogg)
+    pushes = {"in": [Buffer(data=[np.frombuffer(p, np.uint8)
+                                  for p in pkts[k:k + 16]], pts=k,
+                            batch=len(pkts[k:k + 16]))
+                     for k in range(0, len(pkts), 16)]}
+    samples, _, pipe = ts_run(
+        f"appsrc name=in caps=audio/x-vorbis ! vorbisparse name=p ! "
+        f"vorbistag tags=\"{TS_XIPH_TAGS}\" ! appsink name=a", d,
+        pushes=pushes)
+    p = pipe.get_by_name("p")
+    out["vorbis"] = {"packets": ts_sha([s.buffer.data for s in samples]),
+                     "rate": p.rate, "channels": p.channels,
+                     "count": sum(s.buffer.batch for s in samples)}
+    disc = {}
+    for name in sorted(os.listdir(CODEC_DIR)):
+        if name.endswith((".py", ".json")) or not os.path.isfile(
+                os.path.join(CODEC_DIR, name)):
+            continue
+        info = Discoverer().discover(os.path.join(CODEC_DIR, name))
+        disc[name] = [info.duration_ns, [
+            [s.kind, None if s.caps is None else str(s.caps), s.width,
+             s.height, None if s.fps is None else str(s.fps), s.rate,
+             s.channels, s.format] for s in info.streams]]
+    out["discoverer"] = disc
+    return json.loads(json.dumps(out))
+
+
+def tags_roundtrip(dev, files, tmp, start, finish, dig):
+    """ts_tag_results on the card's pipelines equal the CPU box's digests;
+    the PCM id3demux ! mpegaudioparse ! mpg123audiodec gives within the JAX
+    package's MP3 digest."""
+    import numpy as np
+    start("tags_roundtrip")
+    t0 = time.perf_counter()
+    got = ts_tag_results(files, tmp, dev)
+    secs = time.perf_counter() - t0
+    finish("tags_roundtrip", {})
+    want = dig["tags_subs"]
+    for k in ("id3", "ape", "flac", "vorbis", "discoverer"):
+        require(got[k] == want[k], f"tags_roundtrip: {k} differs from the "
+                f"CPU box's digest: {got[k]} != {want[k]}")
+    start("tags_roundtrip[mp3]")
+    t1 = time.perf_counter()
+    pcm = np.concatenate([s.buffer.data.cpu().numpy() for s in ts_run(
+        f"id3demux location={os.path.join(tmp, 'tagged.mp3')} ! "
+        "mpegaudioparse ! mpg123audiodec ! appsink name=a", dev)[0]])
+    msecs = time.perf_counter() - t1
+    finish("tags_roundtrip[mp3]", {})
+    err = codec_pcm_check("tags_roundtrip[mp3]", pcm, dig["mp3"])
+    print(f"  tags_roundtrip: id3v2mux/id3demux, apev2mux/apedemux, flactag "
+          f"(flacdec's {got['flac']['frames']} frames of PCM unchanged), "
+          f"vorbistag/vorbisparse ({got['vorbis']['count']} packets, "
+          f"{got['vorbis']['rate']} Hz) and the discoverer on "
+          f"{len(got['discoverer'])} vectors == the CPU box's digests "
+          f"({secs:.2f} s); the tagged MP3's PCM within {err} of the JAX "
+          f"package's digest ({msecs:.2f} s to decode)")
+
+
+def transcode_raw(seed, dev, tmp, start, finish, peak):
+    """uritranscodebin of a raw 1080p Matroska written by the phase to
+    video/x-matroska:video/x-raw:audio/x-raw on the card: the same file as
+    the CPU's transcode, read back equal to the input.  An x264enc profile
+    where libavcodec has libx264; else the error both packages raise,
+    printed as such, not as a pass."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.element import (element_factory_make,
+                                                  factory_exists)
+    from gstreamer_tpu_torch.core.parse import ParseError
+    w, h, n, b = TS_RAW
+    planes = ct_frames(n, w, h, TS_SEED)
+    samples = cont_audio(n * CONT_RATE // CONT_FPS, seed)
+    src = os.path.join(tmp, "raw.mkv")
+    cont_write("matroskamux", src, "I420", planes, samples, b, dev)
+
+    def transcode(d, profile, name):
+        dst = os.path.join(tmp, name)
+        tb = element_factory_make("uritranscodebin", **{
+            "source-uri": f"file://{src}", "dest-uri": dst,
+            "profile": profile})
+        tb.device = d
+        return tb.transcode()
+    profile = "video/x-matroska:video/x-raw:audio/x-raw"
+    start("transcode_raw")
+    t0 = time.perf_counter()
+    dst = transcode(dev, profile, "card.mkv")
+    secs = time.perf_counter() - t0
+    finish("transcode_raw", {})
+    require(ts_file_sha(dst) == ts_file_sha(transcode(
+        torch.device("cpu"), profile, "cpu.mkv")),
+        "transcode_raw: the card's file differs from the CPU's")
+    v = ts_run(f"matroskademux location={dst} stream=video ! appsink name=a",
+               dev)[0]
+    a = ts_run(f"matroskademux location={dst} stream=audio ! appsink name=a",
+               dev)[0]
+    back = [np.concatenate([s.buffer.data[i].cpu().numpy() for s in v])
+            for i in range(3)]
+    require(all(np.array_equal(x, y) for x, y in zip(back, planes))
+            and np.array_equal(np.concatenate(
+                [s.buffer.data.cpu().numpy() for s in a]), samples),
+            "transcode_raw: the output does not read back as the input")
+    print(f"  transcode_raw: {n} {w}x{h} frames and {len(samples)} audio "
+          f"frames, Matroska raw to {profile} on the card in {secs:.2f} s "
+          f"== the CPU's file, read back == the input")
+    coded = "video/x-matroska:video/x-h264:audio/x-raw"
+    if factory_exists("x264enc"):
+        from gstreamer_tpu_torch.utils.discoverer import Discoverer
+        start("transcode_raw[x264enc]")
+        out = transcode(dev, coded, "h264.mkv")
+        finish("transcode_raw[x264enc]", {})
+        kinds = {s.kind: s.format for s in
+                 Discoverer().discover(out).streams}
+        require(kinds.get("video") == "V_MPEG4/ISO/AVC",
+                f"transcode_raw[x264enc]: the discoverer reports {kinds}")
+        print(f"  transcode_raw[x264enc]: {coded}, the discoverer reports "
+              f"{kinds}")
+        return
+    try:
+        transcode(dev, coded, "h264.mkv")
+    except ParseError as e:
+        require("x264enc" in str(e), f"transcode_raw[x264enc]: raised {e!r}")
+        print(f"  transcode_raw[x264enc]: NOT RUN, a difference of "
+              f"installation: {type(e).__name__}({str(e)!r}), the error both "
+              "packages raise without libavcodec's libx264")
+        return
+    require(False, "transcode_raw[x264enc]: ran without x264enc")
+
+
+def ts_click(seed):
+    """TS_BPM's click track: a seeded noise burst of 200 samples a beat."""
+    import numpy as np
+    rate, seconds, bpm = TS_BPM
+    x = np.zeros(rate * seconds, np.float32)
+    rng = np.random.default_rng(seed)
+    for i in range(0, len(x), rate * 60 // bpm):
+        x[i:i + 200] = rng.standard_normal(len(x[i:i + 200]))
+    return x
+
+
+def ts_bpm(x, d):
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    rate = TS_BPM[0]
+    pushes = {"in": [Buffer(data=torch.from_numpy(x[k:k + rate, None]).to(d),
+                            pts=k * 10**9 // rate, duration=10**9)
+                     for k in range(0, len(x), rate)]}
+    _, _, pipe = ts_run(
+        f"appsrc name=in caps=audio/x-raw,format=F32LE,rate={rate},"
+        "channels=1,layout=interleaved ! bpmdetect name=b ! appsink name=a",
+        d, pushes=pushes)
+    return pipe.get_by_name("b").bpm
+
+
+def bpm_click(seed, dev, start, finish):
+    """bpmdetect on TS_BPM's seeded click track pushed as card tensors, a
+    second a push: bpm bit for bit the CPU path's."""
+    import torch
+    x = ts_click(seed)
+    start("bpm_click")
+    t0 = time.perf_counter()
+    bpm = ts_bpm(x, dev)
+    secs = time.perf_counter() - t0
+    finish("bpm_click", {})
+    ref = ts_bpm(x, torch.device("cpu"))
+    require(bpm == ref, f"bpm_click: {bpm!r} on the card, {ref!r} on the CPU")
+    print(f"  bpm_click: {TS_BPM[1]} s at {TS_BPM[0]} Hz, {TS_BPM[2]} beats a "
+          f"minute played, bpmdetect reads {bpm!r} == the CPU path's "
+          f"({secs:.2f} s)")
+
+
+def ts_streams(seed):
+    """Seeded bitstreams of the six framing parsers (no 00 and no FF in the
+    fillers, so no start code or marker inside a payload)."""
+    import struct
+
+    import numpy as np
+    from gstreamer_tpu_torch.elements.ogg import ogg_page
+    rng = np.random.default_rng(seed)
+
+    def fill(n):
+        return rng.integers(1, 255, n, dtype=np.uint8).tobytes()
+
+    def nal(t, n):
+        return b"\x00\x00\x00\x01" + bytes([0, t << 3]) + fill(n)
+    dirac = b"".join(b"BBCD" + bytes([c]) + struct.pack(">II", 13 + n, 0)
+                     + fill(n) for c, n in ((0, 30), (8, 90), (8, 60)))
+    return {
+        "h263parse": b"".join(b"\x00\x00\x80" + fill(40 + 30 * k)
+                              for k in range(4)),
+        "h266parse": b"".join(nal(15, 12) + nal(1, 60 + k) + nal(2, 40)
+                              for k in range(3)),
+        "vc1parse": b"\x00\x00\x01\x0f" + fill(20) + b"".join(
+            b"\x00\x00\x01\x0d" + fill(50 + k) for k in range(3)),
+        "diracparse": dirac + b"BBCD\x10" + bytes(8),
+        "jpeg2000parse": b"".join(b"\xff\x4f\xff\x51" + fill(60 + k)
+                                  + b"\xff\xd9" for k in range(3)),
+        "oggparse": b"".join(ogg_page([fill(100 + k)], 9, k, k, bos=k == 0)
+                             for k in range(3))}
+
+
+def ts_alone_rows(files):
+    """The runs that drive each factory of the slice alone or with its pair
+    on small inputs: [(factories, fn(d, tmp, seed) -> plain data)]."""
+    import struct
+
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import (element_factory_make,
+                                                  factory_exists)
+    w, h, n = TS_ALONE
+    vcaps = (f"video/x-raw,format=I420,width={w},height={h},"
+             f"framerate={CONT_FPS}/1")
+    vsrc = f"videotestsrc num-buffers={n} pattern=ball ! {vcaps}"
+    asrc = ("audiotestsrc num-buffers=2 samplesperbuffer=480 wave=ticks ! "
+            "audio/x-raw,format=S16LE,rate=48000,channels=2")
+
+    def blob(b, pts=0):
+        return Buffer(data=np.frombuffer(b, np.uint8), pts=pts)
+
+    def launch(desc, d, pushes=None, batch=1):
+        samples, tags, _ = ts_run(desc, d, batch, pushes)
+        return [(s.buffer.pts, s.buffer.batch, str(s.caps),
+                 ts_sha(s.buffer.data)) for s in samples], tags
+
+    def written(desc, d, tmp, pushes=None):
+        path = os.path.join(tmp, "out.bin")
+        ts_run(desc.format(loc=path), d, pushes=pushes)
+        return ts_file_sha(path)
+
+    def built(factory):
+        def run(d, _tmp, _seed):
+            e = element_factory_make(factory)
+            e.device = d
+            return {k: str(v) for k, v in e.props.items()}
+        return run
+
+    def overlay(el, caps, text):
+        def run(d, _tmp, seed):
+            pushes = {"t": [blob(text)]}
+            return launch(f"{vsrc} ! {el} name=o ! appsink name=a appsrc "
+                          f"name=t caps={caps} ! o.", d, pushes, n)
+        return run
+
+    srt = ("1\n00:00:00,000 --> 00:00:00,100\nfirst\n\n2\n00:00:00,100 --> "
+           "00:00:00,300\nsecond\n").encode()
+    ssa = (b"Dialogue: 0,0:00:01.00,0:00:02.00,Default,,0,0,0,,{\\i1}a{\\i0}"
+           b" line\\Nbreak\n")
+    ape = (b"APETAGEX" + struct.pack("<IIII", 2000, 32 + 10, 1, 0xA0000000)
+           + bytes(8) + struct.pack("<II", 2, 0) + b"Title\x00Hi"
+           + b"APETAGEX" + struct.pack("<IIII", 2000, 32 + 10, 1, 0x80000000)
+           + bytes(8))
+    id3 = (b"ID3\x04\x00\x00\x00\x00\x00\x0fTIT2\x00\x00\x00\x05\x00\x00"
+           b"\x03Song")
+    pkts = ts_vorbis_packets(files["vorbis_10s.ogg"])[:3]
+
+    def tagged(d, tmp, _seed):
+        out = {}
+        for name, head in (("apedemux", ape), ("id3demux", id3)):
+            path = os.path.join(tmp, f"{name}.bin")
+            with open(path, "wb") as f:
+                f.write(head + b"\xff\xfbpayload" * 8)
+            out[name] = launch(f"{name} name=d location={path} ! appsink "
+                               "name=a", d)
+        return out
+
+    def parsers(d, _tmp, seed):
+        return {p: launch(f"appsrc name=in caps=application/octet-stream ! "
+                          f"{p} ! appsink name=a", d, {"in": [blob(s)]})
+                for p, s in ts_streams(seed).items()}
+
+    def multipart(d, tmp, _seed):
+        path = os.path.join(tmp, "m.mjpeg")
+        ts_run(f"{vsrc} ! jpegenc ! multipartmux ! filesink location={path}",
+               d)
+        return ts_file_sha(path), launch(
+            f"multipartdemux location={path} ! jpegdec ! {vcaps} ! appsink "
+            "name=a", d)
+
+    def uri(factory):
+        def run(d, tmp, _seed):
+            path = os.path.join(tmp, "in.y4m")
+            ts_run(f"{vsrc} ! y4menc location={path}", d)
+            return launch(f"{factory} uri=file://{path} ! appsink name=a", d)
+        return run
+
+    def transcode(factory):
+        def run(d, tmp, _seed):
+            src, dst = os.path.join(tmp, "in.mkv"), os.path.join(tmp, "o.mkv")
+            ts_run(f"{vsrc} ! matroskamux location={src}", d)
+            tb = element_factory_make(factory, **{
+                "source-uri": src, "dest-uri": dst,
+                "profile": "video/x-matroska:video/x-raw"})
+            tb.device = d
+            tb.transcode()
+            return ts_file_sha(dst)
+        return run
+
+    def liveadder(d, _tmp, seed):
+        x = np.random.default_rng(seed).integers(-3000, 3000, (2, 480, 2),
+                                                 np.int16)
+        acaps = ("audio/x-raw,format=S16LE,rate=48000,channels=2,"
+                 "layout=interleaved")
+        return launch(f"liveadder name=m ! appsink name=a appsrc name=x caps="
+                      f"{acaps} ! m. appsrc name=y caps={acaps} ! m.", d, {
+                          k: [Buffer(data=torch.from_numpy(x[i]).to(d),
+                                     pts=0, duration=10**7)]
+                          for i, k in enumerate("xy")})
+
+    rows = [
+        (("subparse",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=application/octet-stream ! subparse ! "
+            "appsink name=a", d, {"in": [blob(srt)]})),
+        (("encodebin",), lambda d, tmp, s: written(
+            f"{asrc} ! encodebin profile=audio/x-wav location={{loc}}", d,
+            tmp)),
+        (("encodebin2",), lambda d, tmp, s: written(
+            f"{vsrc} ! encodebin2 profile=application/x-yuv4mpeg "
+            "location={loc}", d, tmp)),
+        (("subtitleoverlay",), overlay("subtitleoverlay",
+                                       "text/x-raw,format=utf8", b"Hi there")),
+        (("ttmlrender",), overlay("ttmlrender", "application/ttml+xml",
+                                  ts_ttml(0))),
+        (("ttmlparse",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=application/ttml+xml ! ttmlparse ! appsink "
+            "name=a", d, {"in": [blob(ts_ttml(1))]})),
+        (("avisubtitle",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=application/x-subtitle-avi ! avisubtitle ! "
+            "appsink name=a", d, {"in": [blob(b"GAB2\x00" + struct.pack(
+                "<HI", 4, len(srt)) + srt)]})),
+        (("apev2mux", "id3v2mux", "id3mux"), lambda d, tmp, s: [launch(
+            f"appsrc name=in caps=audio/mpeg ! {m} tags=title=T ! appsink "
+            "name=a", d, {"in": [blob(b"\xff\xfbAUDIO" * 20)]})
+            for m in ("apev2mux", "id3v2mux", "id3mux")]),
+        (("bpmdetect",), lambda d, tmp, s: ts_bpm(ts_click(s)[:TS_BPM[0] * 4],
+                                                  d)),
+        (("rtpdec",), built("rtpdec")),
+        (("multipartmux", "multipartdemux"), multipart),
+        (("apedemux", "id3demux"), tagged),
+        (tuple(ts_streams(0)), parsers),
+        (("matroskaparse",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=video/x-matroska ! matroskaparse ! appsink "
+            "name=a", d, {"in": [blob(b"\x1aE\xdf\xa3" + bytes(range(64)))]})),
+        (("vorbisparse", "vorbistag"), lambda d, tmp, s: launch(
+            f"appsrc name=in caps=audio/x-vorbis ! vorbisparse ! vorbistag "
+            f"tags=\"{TS_XIPH_TAGS}\" ! appsink name=a", d, {"in": [Buffer(
+                data=[np.frombuffer(p, np.uint8) for p in pkts], batch=3)]})),
+        (("flactag",), lambda d, tmp, s: written(
+            f"filesrc location={files['tags_1s.flac']} ! audio/x-flac ! "
+            f"flactag tags=\"{TS_XIPH_TAGS}\" ! filesink location={{loc}}", d,
+            tmp)),
+        (("id3metaparse",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=application/octet-stream ! id3metaparse ! "
+            "appsink name=a", d, {"in": [blob(id3 + b"\xff\xfbREST")]})),
+        (("ssaparse",), lambda d, tmp, s: launch(
+            "appsrc name=in caps=application/x-ssa ! ssaparse ! appsink "
+            "name=a", d, {"in": [blob(ssa)]})),
+        (("goom",), lambda d, tmp, s: launch(
+            f"{asrc} ! goom seed=3 ! video/x-raw,width={w},height={h} ! "
+            "appsink name=a", d)),
+        (("liveadder",), liveadder),
+        (("uridecodebin3",), uri("uridecodebin3")),
+        (("urisourcebin",), uri("urisourcebin")),
+        (("uritranscodebin",), transcode("uritranscodebin")),
+        (("transcodebin",), transcode("transcodebin"))]
+    for f in ("srtclientsrc", "srtserversrc", "srtclientsink",
+              "srtserversink", "rtmpsink", "rtmpsrc", "hlsdemux2",
+              "dashdemux2", "mssdemux2", "dvdec", "av1dec", "dav1ddec"):
+        if factory_exists(f):
+            rows.append(((f,), built(f)))
+    return rows
+
+
+def ts_alone(counters, dev, files, seed):
+    """Each factory of the slice alone on small inputs, on the card and on
+    the CPU (alone_runs): the same result, no launch.  The srt* aliases
+    raise at start as srtsrc and srtsink do where libsrt is missing."""
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    from gstreamer_tpu_torch.net import srt
+    rows = ts_alone_rows(files)
+    alone_runs([("/".join(names), fn) for names, fn in rows], counters, dev,
+               seed)
+    mine = rr_factories(TS_MODULES)
+    driven = {f for names, _fn in rows for f in names}
+    require(not mine - driven, f"factories not driven alone: {mine - driven}")
+    if not srt.available():
+        for f in ("srtclientsrc", "srtserversrc", "srtclientsink",
+                  "srtserversink"):
+            kind = "srtsrc" if f.endswith("src") else "srtsink"
+            try:
+                element_factory_make(f).start()
+            except RuntimeError as e:
+                require(str(e) == f"{kind}: system libsrt not found",
+                        f"{f}: raised {e!r}")
+                continue
+            require(False, f"{f}: started without libsrt")
+    print(f"  tags/subs alone: the {len(mine)} factories in {len(rows)} runs "
+          f"on the card == the port's CPU run, no launch; libsrt "
+          f"{'present' if srt.available() else 'missing: the four srt* aliases raise at start as srtsrc and srtsink do'}")
+
+
+def tags_subs_phase(seed, counters, dev):
+    """Subtitles, tags and the last parsers on the card, each item with the
+    launch counts zeroed just before and read just after: subtitle_burnin
+    and ttml_burnin (1080p burn-in to RGB 224x224, yscale_hv once a tick,
+    equal to the port's CPU run), mjpeg_multipart_camera (multipartmux /
+    multipartdemux ! jpegdec of phase 20's camera, yscale_hv twice, equal to
+    multifilesrc's), tags_roundtrip (host; the CPU box's digests),
+    transcode_raw, bpm_click, then each factory of the slice alone.  The
+    inputs compared with committed digests are the committed vectors.
+    Returns {kernel: launches}."""
+    import tempfile
+
+    import PIL
+    from gstreamer_tpu_torch.core.element import factory_exists
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    print(f"tags/subs phase: Pillow {PIL.__version__} (text bitmaps: "
+          f"compared within this machine); x264enc registered: "
+          f"{factory_exists('x264enc')}; dvdec / av1dec registered: "
+          f"{factory_exists('dvdec')} / {factory_exists('av1dec')}")
+    files, dig = codec_vectors(TS_FILES)
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        fn(*a)
+        spent[name] = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        item("subtitle_burnin", subtitle_burnin, dev, tmp, start, finish,
+             peak)
+        item("ttml_burnin", ttml_burnin, dev, tmp, start, finish, peak)
+        item("mjpeg_multipart_camera", mjpeg_multipart_camera, seed, dev, tmp,
+             start, finish, peak)
+        item("tags_roundtrip", tags_roundtrip, dev, files, tmp, start, finish,
+             dig)
+        item("transcode_raw", transcode_raw, seed, dev, tmp, start, finish,
+             peak)
+        item("bpm_click", bpm_click, seed, dev, start, finish)
+        item("alone", ts_alone, counters, dev, files, seed)
+    print(f"tags/subs phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -13606,6 +14405,10 @@ def main() -> int:
 
     # -- the libav family, LC3, Smoke and FLIC (host codecs) ----------------
     for k, n in codec_tail_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- subtitles, tags and the last parsers (host modules) ----------------
+    for k, n in tags_subs_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

@@ -26,15 +26,17 @@ A copy of the JAX package's ``net/rist.py``: the same packets, NACKs and
 header extension, byte for byte.  Packets stay host bytes
 (``host_array``); the elements that take packets set ``HOST_INPUT``.
 ristsrc differs in one place (ROADMAP.md section 3): a thread reads its
-media socket into a queue, which ``create`` takes from.  The JAX
-package's reads the socket inside ``create`` only, so while the pipeline
-decodes (20-30 ms a 1080p JPEG) the kernel's socket buffer, under two such
-frames, overflows and the losses exceed what NACKs recover.
+media socket, ingests each packet and NACKs the gaps as they come, and
+``create`` only releases what is in order.  The JAX package's reads the
+socket and NACKs inside ``create`` only, so while the pipeline decodes
+(20-30 ms a 1080p JPEG) the kernel's socket buffer, under two such frames,
+overflows and the losses exceed what NACKs recover; and a stall downstream
+holds back the NACKs while the backlog fills `receiver-buffer`, whose
+guard then skips the gaps as lost.
 """
 
 from __future__ import annotations
 
-import queue
 import socket
 import struct
 import threading
@@ -246,6 +248,7 @@ class RistSrc(SourceElement):
         self._rtcp: Optional[socket.socket] = None
         self._pending: Dict[int, bytes] = {}   # seq -> packet
         self._next_seq: Optional[int] = None
+        self._highest: Optional[int] = None
         # seq -> (first_missing_time, nacks_sent, last_nack_time)
         self._missing: Dict[int, Tuple[float, int, float]] = {}
         self._sender_rtcp: Optional[Tuple[str, int]] = None
@@ -267,26 +270,42 @@ class RistSrc(SourceElement):
         self._rtcp.bind((host, (self.bound_port or
                                 self.props["port"]) + 1))
         self._rtcp.setblocking(False)
-        self._rx: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._arrived = threading.Event()
+        self._rx_failed = False
         self._rx_run = True
         self._rx_thread = threading.Thread(
-            target=self._rx_loop, args=(self._media, self._rx), daemon=True)
+            target=self._rx_loop, args=(self._media,), daemon=True)
         self._rx_thread.start()
 
-    def _rx_loop(self, sock, q):
-        """Move each datagram of the media socket into `q` as it comes;
-        None once the socket fails.  ``create`` ingests them at its own
-        time, as the JAX package's reads them: a gap's recovery budget
-        starts when the receiver sees it."""
+    def _rx_loop(self, sock):
+        """Ingest each datagram of the media socket as it comes, and NACK
+        the gaps every 2 ms at most (every 10 ms, the socket's timeout,
+        while nothing comes), on this thread: as gstristsrc.c's
+        rtpjitterbuffer runs its retransmission timers off the streaming
+        thread, a stall of the pipeline downstream does not hold back
+        recovery.  ``create`` only releases what is in order.  Sets
+        ``_rx_failed`` once the socket fails."""
+        last = 0.0
         while self._rx_run:
             try:
                 pkt, _ = sock.recvfrom(65536)
             except socket.timeout:
-                continue
+                pkt = None
             except OSError:
                 break
-            q.put(pkt)
-        q.put(None)
+            with self._lock:
+                now = time.monotonic()
+                if pkt is not None:
+                    self._ingest(pkt, now)
+                if now - last >= 0.002:      # RTCP and NACKs each 2 ms
+                    last = now
+                    self._poll_rtcp()
+                    self._send_nacks(now)
+            if pkt is not None:
+                self._arrived.set()
+        self._rx_failed = True
+        self._arrived.set()
 
     def stop(self):
         self._rx_run = False
@@ -299,6 +318,7 @@ class RistSrc(SourceElement):
         self._media = self._rtcp = None
         self._pending.clear()
         self._missing.clear()
+        self._highest = None
 
     def get_caps(self, filter=None):
         caps = self.props["caps"] or Caps.any()
@@ -380,8 +400,14 @@ class RistSrc(SourceElement):
             self.stats["recovered"] += 1
             del self._missing[seq]
         self.stats["received"] += 1
-        # register any new gap between next_seq and this packet
+        # register any new gap between next_seq and this packet: from past
+        # the highest seq seen, below which every seq is already pending,
+        # missing or released (the walk stays short while a backlog waits)
         s = self._next_seq
+        if self._highest is not None and _seq_lt(s, self._highest):
+            s = (self._highest + 1) & 0xFFFF
+        if self._highest is None or _seq_lt(self._highest, seq):
+            self._highest = seq
         guard = 0
         while _seq_lt(s, seq) and guard < 0x8000:
             if s not in self._pending and s not in self._missing:
@@ -426,22 +452,15 @@ class RistSrc(SourceElement):
     def create(self, n_frames: int) -> Optional[Buffer]:
         deadline = time.monotonic() + self.props["timeout"]
         while True:
-            now = time.monotonic()
-            if now >= deadline:
-                return None               # idle -> EOS
-            self._poll_rtcp()
-            try:
-                item = self._rx.get(timeout=0.01)
-                while item is not None:      # all that has come
-                    self._ingest(item, time.monotonic())
-                    item = self._rx.get_nowait()
-                return None                  # the socket failed
-            except queue.Empty:
-                pass
-            self._send_nacks(time.monotonic())
-            out = self._drain(time.monotonic())
+            self._arrived.clear()
+            with self._lock:
+                out = self._drain(time.monotonic())
             if out:
                 return Buffer(data=out, batch=1)
+            now = time.monotonic()
+            if self._rx_failed or now >= deadline:
+                return None               # the socket failed, or idle: EOS
+            self._arrived.wait(min(0.01, deadline - now))
 
 
 # ---------------------------------------------------------------------------

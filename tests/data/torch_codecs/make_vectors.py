@@ -9,9 +9,10 @@ JAX package, which writes the digests):
 
 GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors),
 ``opus_aac`` (the Opus/AAC phase's), ``vpx`` (the VPx/transport phase's;
-it needs the system libvpx) or ``codec_tail`` (the libav / LC3 / Smoke /
-FLIC phase's; it needs libavcodec with libx264 and libspeex); without one
-it writes all four.  A group
+it needs the system libvpx), ``codec_tail`` (the libav / LC3 / Smoke /
+FLIC phase's; it needs libavcodec with libx264 and libspeex) or
+``tags_subs`` (the subtitle / tag / parser phase's); without one it
+writes all five.  A group
 rewrites its files and its entries of ``digests.json`` and keeps the
 others'.  It writes, beside itself, with fixed seeds:
 
@@ -74,7 +75,18 @@ others'.  It writes, beside itself, with fixed seeds:
   CPU (the JAX package's encoder raises on an inter frame of 1080 lines:
   ROADMAP.md section 3) (``smoke``), and of the frames and PCM of its
   CT_LC3 input through ``lc3enc`` and ``lc3enc ! lc3dec``, the same in both
-  packages (``lc3``).
+  packages (``lc3``);
+* ``tags_1s.flac``: the first second of the 10 s, left channel, every third
+  sample (16 kHz mono), through the port's ``flacenc``;
+* ``tags_subs``: what ``chip_smoke.py``'s ``ts_tag_results`` gives on the
+  port's CPU path (integer and byte operations only): the sha256 of
+  id3v2mux's and apev2mux's files from ``mp3_10s.mp3``, of the payloads
+  id3demux and apedemux give back and their tag messages, of flactag's
+  file and of the PCM flacdec decodes from it, of vorbistag's packets of
+  ``vorbis_10s.ogg`` with vorbisparse's rate and channels, and the
+  discoverer's report of every committed vector, which the JAX package's
+  discoverer must give too (but for the ADTS files, which it reads as MP3:
+  ROADMAP.md section 3).
 """
 
 import hashlib
@@ -100,6 +112,7 @@ OPUS_AAC_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
                   "heaac_10s.aac", "aac_10s.m4a")
 VPX_FILES = ("vp8_1080p.ivf", "vp9_1080p.webm")
 CODEC_TAIL_FILES = ("h264_1080p.ts", "speex_16k.spx", "anim_320x200.flc")
+TAGS_SUBS_FILES = ("tags_1s.flac",)
 
 
 def frames(w=W, h=H, n=FRAMES):
@@ -571,10 +584,52 @@ def write_codec_tail_digests(digests):
          for n in CODEC_TAIL_FILES})
 
 
+def write_tags_subs_vectors():
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    x = np.ascontiguousarray(pcm16()[:RATE:3, :1])
+    pipe = parse_launch(
+        f"appsrc name=in caps=audio/x-raw,format=S16LE,rate={RATE // 3},"
+        f"channels=1,layout=interleaved ! flacenc location="
+        f"{os.path.join(HERE, TAGS_SUBS_FILES[0])}", device="cpu")
+    pipe.get_by_name("in").push_buffer(Buffer(
+        data=torch.from_numpy(x), pts=0, duration=10**9))
+    pipe.get_by_name("in").end_of_stream()
+    pipe.run()
+
+
+def write_tags_subs_digests(digests):
+    import tempfile
+
+    import torch
+    from chip_smoke import TS_FILES, ts_tag_results
+    from gstreamer_tpu.utils.discoverer import Discoverer
+    files = {n: os.path.join(HERE, n) for n in TS_FILES}
+    with tempfile.TemporaryDirectory() as tmp:
+        got = ts_tag_results(files, tmp, torch.device("cpu"))
+    for name, (dur, streams) in got["discoverer"].items():
+        if name in ("aac_10s.aac", "heaac_10s.aac"):
+            continue
+        info = Discoverer().discover(os.path.join(HERE, name))
+        ref = [info.duration_ns, [
+            [s.kind, None if s.caps is None else str(s.caps), s.width,
+             s.height, None if s.fps is None else str(s.fps), s.rate,
+             s.channels, s.format] for s in info.streams]]
+        if ref != [dur, streams]:
+            raise RuntimeError(f"discoverer: {name}: the port's report "
+                               f"{[dur, streams]} is not the JAX "
+                               f"package's {ref}")
+    digests["tags_subs"] = got
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(os.path.join(HERE, n)) for n in TAGS_SUBS_FILES})
+
+
 GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
           "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests),
           "vpx": (write_vpx_vectors, write_vpx_digests),
-          "codec_tail": (write_codec_tail_vectors, write_codec_tail_digests)}
+          "codec_tail": (write_codec_tail_vectors, write_codec_tail_digests),
+          "tags_subs": (write_tags_subs_vectors, write_tags_subs_digests)}
 
 
 if __name__ == "__main__":

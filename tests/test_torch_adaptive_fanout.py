@@ -9,14 +9,12 @@ unaligned raw parsers, neonhttpsrc).
 The JAX package's own tests (``tests/test_adaptive.py``,
 ``test_fanout.py``, ``test_rfb.py``, ``test_websinks.py``,
 ``test_ipc_misc.py``) run again on the port, against local servers on port
-0 and ``file://`` URIs, never the network.  ``test_adaptive.TestHlsDecode``
-builds its segments with x264enc and avenc_aac, which the port has not
-(libav waits in ROADMAP.md): its decode path is held here on TS segments
-of the committed AAC vector instead, as the playlist parses (M3U8, MPD,
+0 and ``file://`` URIs, never the network; ``test_adaptive.TestHlsDecode``
+(segments from x264enc and avenc_aac, the port's libav family) and
+``test_fanout.TestAliases`` (``elements/aliases.py``: srtclientsrc,
+liveadder, hlsdemux2, ...) among them.  The decode path is also held on TS
+segments of the committed AAC vector, as the playlist parses (M3U8, MPD,
 the MSS manifest) are, byte for byte, tolerance 0.
-``test_fanout.TestAliases`` asks for the aliases of
-``elements/aliases.py`` (srtclientsrc, liveadder, hlsdemux2, ...), a module
-not ported yet (ROADMAP.md), and is left out.
 """
 
 import http.server
@@ -49,8 +47,8 @@ from test_torch_webrtc import reference_cases, run_case
 
 DATA = __import__("pathlib").Path(__file__).parent / "data" / "torch_codecs"
 
-REFERENCE = (reference_cases(test_adaptive, exclude=("TestHlsDecode",))
-             + reference_cases(test_fanout, exclude=("TestAliases",))
+REFERENCE = (reference_cases(test_adaptive)
+             + reference_cases(test_fanout)
              + reference_cases(test_rfb)
              + reference_cases(test_websinks)
              + reference_cases(test_ipc_misc))

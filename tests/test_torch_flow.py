@@ -167,6 +167,26 @@ def av_factories():
 # numpy codecs LC3, Smoke and FLIC
 CODEC_TAIL_FACTORIES = ("lc3enc", "lc3dec", "smokeenc", "smokedec",
                         "flxdec") + av_factories()
+# subtitles, tags and the last parsers: subparse, subtitles_extra, tagmux
+# (modules 5-7) and multipart, moreparsers, aliases, transcode (8-11); the
+# decoder aliases where the port's libav registered what they name
+SUBTITLES_TAGS_FACTORIES = (
+    "subparse", "encodebin", "subtitleoverlay", "ttmlparse", "ttmlrender",
+    "avisubtitle", "apev2mux", "bpmdetect", "rtpdec", "id3v2mux", "id3mux")
+PARSERS_MULTIPART_FACTORIES = (
+    "multipartmux", "multipartdemux", "id3demux", "apedemux", "h263parse",
+    "h266parse", "vc1parse", "diracparse", "jpeg2000parse", "oggparse",
+    "matroskaparse", "vorbisparse", "vorbistag", "flactag", "id3metaparse",
+    "ssaparse", "goom", "srtclientsrc", "srtserversrc", "srtclientsink",
+    "srtserversink", "liveadder", "uridecodebin3", "urisourcebin",
+    "encodebin2", "rtmpsink", "rtmpsrc", "hlsdemux2", "dashdemux2",
+    "mssdemux2", "uritranscodebin", "transcodebin") + (
+        ("dvdec",) if "avdec_dvvideo" in CODEC_TAIL_FACTORIES else ()) + (
+        ("av1dec", "dav1ddec") if "avdec_av1" in CODEC_TAIL_FACTORIES
+        else ())
+TAGS_SUBS_FACTORIES = SUBTITLES_TAGS_FACTORIES + PARSERS_MULTIPART_FACTORIES
+TAGS_SUBS_MODULES = ("subparse", "subtitles_extra", "tagmux", "multipart",
+                     "moreparsers", "aliases", "transcode")
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -206,15 +226,22 @@ def test_factory_matches_reference(factory):
 
 
 def test_registry_count():
-    """571 before the libav slice, the five numpy codec factories, and as
-    many libav factories as the JAX package registers where the tests
-    run."""
+    """571 before the libav slice, the five numpy codec factories, as many
+    libav factories as the JAX package registers where the tests run, and
+    as many of the subtitle, tag and parser modules' (46 here: the decoder
+    aliases follow libav)."""
     from test_torch_libav import load_jax_av
     load_jax_av()
     jav = [f for f, (c, _r) in jelement._REGISTRY.items()
            if c.__module__ == "gstreamer_tpu.elements.libav"]
-    assert len(telement._REGISTRY) == 571 + 5 + len(jav)
+    jslice = [f for f, (c, _r) in jelement._REGISTRY.items()
+              if c.__module__.rsplit(".", 1)[-1] in TAGS_SUBS_MODULES
+              and c.__module__.startswith("gstreamer_tpu.elements.")]
+    assert len(telement._REGISTRY) == 571 + 5 + len(jav) + len(jslice)
     assert len(CODEC_TAIL_FACTORIES) == 5 + len(jav)
+    assert sorted(TAGS_SUBS_FACTORIES) == sorted(jslice)
+    assert len(TAGS_SUBS_FACTORIES) == 43 + ("avdec_dvvideo" in jav) \
+        + 2 * ("avdec_av1" in jav)
     assert len(set(LATER_FACTORIES)) == 53
     assert len(set(BROADCAST_FACTORIES)) == 68
     assert len(set(CONTAINER_FACTORIES)) == 19
@@ -229,7 +256,8 @@ def test_registry_count():
         | set(CODEC_FACTORIES) | set(OPUS_AAC_FACTORIES) \
         | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
         | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
-        | set(CODEC_TAIL_FACTORIES) <= set(telement._REGISTRY)
+        | set(CODEC_TAIL_FACTORIES) | set(TAGS_SUBS_FACTORIES) \
+        <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():

@@ -19,9 +19,8 @@ same pushes (``test_torch_captions.pair``): samples, caps and bus messages
 equal, tolerance 0.  The encoders are compared byte for byte: the JAX
 package's encoders give the same bytes on two runs in one process
 (``test_reference_encoders_are_deterministic``).  The JAX package's
-``tests/test_libav.py`` runs again on the port (``on_port``), apart from
-its discoverer case (``utils/discoverer`` is not ported), with the aptX
-cases of ``tests/test_siren.py``.
+``tests/test_libav.py`` runs again on the port (``on_port``), its
+discoverer case too, with the aptX cases of ``tests/test_siren.py``.
 """
 
 import fcntl
@@ -87,6 +86,14 @@ def load_jax_av():
     if not any(c.__module__ == jlibav.__name__
                for c, _rank in jelement._REGISTRY.values()):
         importlib.reload(jlibav)
+    # the decoder aliases register over what libav registered at their
+    # import: again where the libav factories came late
+    from gstreamer_tpu.elements import aliases as jaliases
+    for alias, base, register in (
+            ("dvdec", "avdec_dvvideo", jaliases._register_dvdec),
+            ("av1dec", "avdec_av1", jaliases._register_av1dec)):
+        if base in jelement._REGISTRY and alias not in jelement._REGISTRY:
+            register()
     telement._ensure_elements_loaded()
 
 
@@ -559,8 +566,7 @@ def gated(module, exclude=()):
                            else None)]
 
 
-REFERENCE = reference_cases(
-    test_libav, exclude=("test_discoverer_reports_coded_tracks",)) + \
+REFERENCE = reference_cases(test_libav) + \
     reference_cases(test_siren, only=("TestAptx",)) + gated(test_fec) + \
     gated(test_rtp_codecs) + gated(test_multistream_demux, exclude=(
         "test_qtdemux_one_parse_av",))

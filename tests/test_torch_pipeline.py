@@ -201,7 +201,8 @@ def test_registry_is_the_ports_own():
     """Loading the port's elements leaves the JAX registry as it was, and
     the port's registry holds only the port's classes."""
     from test_torch_flow import (CODEC_TAIL_FACTORIES, NET_FACTORIES,
-                                 NET_TAIL_FACTORIES, RTP2_FACTORIES)
+                                 NET_TAIL_FACTORIES, RTP2_FACTORIES,
+                                 TAGS_SUBS_FACTORIES)
     jelement._ensure_elements_loaded()
     before = dict(jelement._REGISTRY)
     telement._ensure_elements_loaded()
@@ -298,17 +299,19 @@ def test_registry_is_the_ports_own():
         "decodebin3", "parsebin", "playbin3", "playsink", "y4mdec",
         "alphacolor", "dtmfdetect"} | set(NET_FACTORIES) \
         | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
-        | set(CODEC_TAIL_FACTORIES)
+        | set(CODEC_TAIL_FACTORIES) | set(TAGS_SUBS_FACTORIES)
     for cls, _rank in telement._REGISTRY.values():
         assert cls.__module__.startswith(("gstreamer_tpu_torch.elements.",
                                           "gstreamer_tpu_torch.net."))
 
 
 def test_unported_factory_raises():
+    """A factory the port does not have (chromaprint; dvdec, named here
+    before, came with the aliases module)."""
     with pytest.raises(ValueError, match="no element factory"):
-        telement.element_factory_make("dvdec")
+        telement.element_factory_make("chromaprint")
     with pytest.raises(ParseError, match="no element factory"):
-        gstreamer_tpu_torch.parse_launch("dvdec ! appsink",
+        gstreamer_tpu_torch.parse_launch("chromaprint ! appsink",
                                          device="cpu")
 
 

@@ -154,11 +154,11 @@ def test_rist_nacks_match(nack_type):
 
 
 # -- RIST on the wire, JAX sender to port receiver --------------------------
-def _rist_src(**props):
-    """A started port ristsrc on an OS-chosen even/odd pair (retried: the
-    RTCP port is the media port + 1)."""
+def _rist_src(mod=trist, **props):
+    """A started ristsrc of `mod` (the port's by default) on an OS-chosen
+    even/odd pair (retried: the RTCP port is the media port + 1)."""
     for _ in range(64):
-        src = trist.RistSrc(address="127.0.0.1", port=0, **props)
+        src = mod.RistSrc(address="127.0.0.1", port=0, **props)
         try:
             src.start()
             return src
@@ -198,6 +198,60 @@ def test_jax_ristsink_to_port_ristsrc_recovers_every_drop(nack_type):
     assert got == pkts
     assert src.stats["recovered"] == 4 and src.stats["lost"] == 0
     assert sink.stats["retransmitted"] >= 4
+
+
+def _stalled_receive(mod, nack_type):
+    """A JAX ristsink sends 24 packets through a LossyRelay that drops two
+    first copies to a ristsrc of `mod` (receiver-buffer 8) whose pipeline
+    is stalled: nothing calls create until every packet has reached its
+    socket and (the port's, NACKing from its receive thread) both drops
+    are recovered, or 0.5 s have passed.  Then create runs to the end.
+    Returns (sent, received, ristsrc's stats)."""
+    src = _rist_src(mod, **{"receiver-buffer": 8, "nack-type": nack_type,
+                            "timeout": 1.0})
+    relay = test_rist.LossyRelay(src.bound_port, {103, 110})
+    sink = jrist.RistSink(address="127.0.0.1", port=relay.port)
+    pkts, got = test_rist._media(24), []
+    try:
+        sink.start()
+        end = time.monotonic() + DEADLINE
+        if mod is trist:                 # its thread learns the sender's SR
+            while src._sender_rtcp is None and time.monotonic() < end:
+                time.sleep(0.005)
+        else:
+            time.sleep(0.2)
+        sink.render(JBuffer(data=pkts, batch=1))
+        stall = time.monotonic() + 0.5
+        while time.monotonic() < (end if mod is trist else stall) and (
+                relay.dropped < 2 or src.stats["recovered"] < 2):
+            time.sleep(0.005)
+        while len(got) < len(pkts) and time.monotonic() < end:
+            buf = src.create(1)
+            if buf is None:
+                break
+            got.extend(packets(buf.data))
+    finally:
+        src.stop()
+        sink.stop()
+        relay.close()
+    assert relay.dropped == 2
+    return pkts, got, src.stats
+
+
+@pytest.mark.parametrize("nack_type", ["generic", "range"])
+def test_ristsrc_recovers_while_the_pipeline_stalls(nack_type):
+    """A reference fault (ROADMAP.md section 3): the JAX package's ristsrc
+    reads and NACKs inside create only, so a gap waits unasked while the
+    pipeline stalls, and once the backlog passes receiver-buffer its guard
+    skips the gap as lost.  The port's NACKs from its receive thread, as
+    gstristsrc.c's rtpjitterbuffer runs its timers off the streaming
+    thread: both drops come back during the stall, every packet out."""
+    pkts, got, stats = _stalled_receive(trist, nack_type)
+    assert got == pkts
+    assert stats["recovered"] == 2 and stats["lost"] == 0
+    pkts, got, stats = _stalled_receive(jrist, nack_type)
+    assert stats["recovered"] == 0 and stats["lost"] == 2
+    assert got == [p for p in pkts if p not in (pkts[3], pkts[10])]
 
 
 # -- SRT on the wire, JAX sender to port receiver ---------------------------

@@ -147,6 +147,10 @@ def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if level == 0 and _is_jax(name):
         mod = _port_module(name)
         if fromlist:
+            for sub in fromlist:      # `from package import module`
+                if not hasattr(mod, sub):
+                    with contextlib.suppress(ModuleNotFoundError):
+                        importlib.import_module(f"{mod.__name__}.{sub}")
             return _PortModule(mod)
         return _PortModule(importlib.import_module("gstreamer_tpu_torch"))
     return builtins.__import__(name, globals, locals, fromlist, level)
@@ -272,35 +276,39 @@ def run_on_port(fn, names, values, tmp_path, **fixtures):
         return f(**args)
 
 
-REFERENCE = (reference_tests(test_rtp)
-             + reference_tests(test_rtp_raw_audio, exclude=(
-                 "test_rtp_raw_audio::TestAv1DecAlias::"
-                 "test_registered_with_libav",))
+REFERENCE = (reference_tests(test_rtp) + reference_tests(test_rtp_raw_audio)
              + reference_tests(test_rtp_hdrext) + reference_tests(
                  test_transport))
 
 
-def test_av1dec_alias_waits_for_the_aliases_module():
-    """test_rtp_raw_audio's TestAv1DecAlias case, which no longer holds on
-    the port (so it is left out of REFERENCE): the JAX package registers
-    its ``elements/aliases.py`` av1dec exactly where libav shipped
-    avdec_av1; the port has avdec_av1 where the system libavcodec has
-    libdav1d, and not yet the aliases module (ROADMAP.md section
-    1, item 3.4), so not av1dec."""
-    from gstreamer_tpu.core.element import factory_exists as jexists
-    from gstreamer_tpu_torch.core.element import factory_exists as texists
+@pytest.mark.parametrize("alias, base", [("av1dec", "avdec_av1"),
+                                         ("dav1ddec", "avdec_av1"),
+                                         ("dvdec", "avdec_dvvideo")])
+def test_av1dec_alias_waits_for_the_aliases_module(alias, base):
+    """The decoder aliases of ``elements/aliases.py`` (av1dec, dav1ddec,
+    dvdec), which waited for that module: registered in both packages
+    exactly where libavcodec has the codec their libav decoder wraps, each
+    a subclass of that decoder."""
+    from gstreamer_tpu.core import element as jel
+    from gstreamer_tpu_torch.core import element as tel
     from gstreamer_tpu_torch.native import av
-    assert jexists("av1dec") == jexists("avdec_av1")
-    assert texists("avdec_av1") == (av.available()
-                                    and av.have_codec("libdav1d"))
-    assert not texists("av1dec")
+    from test_torch_libav import load_jax_av
+    load_jax_av()
+    codec = {"avdec_av1": "libdav1d", "avdec_dvvideo": "dvvideo"}[base]
+    have = av.available() and av.have_codec(codec)
+    assert tel.factory_exists(base) == have
+    assert tel.factory_exists(alias) == have
+    assert jel.factory_exists(alias) == jel.factory_exists(base) == have
+    if have:
+        for el in (jel, tel):
+            assert issubclass(el.get_factory_class(alias),
+                              el.get_factory_class(base))
 
 
 @pytest.mark.parametrize("case", REFERENCE, ids=[c[0] for c in REFERENCE])
 def test_reference_tests_on_the_port(case, tmp_path):
     """The JAX package's RTP, raw-audio, extension and transport tests, on
-    the port's modules (the av1dec alias case asks whether each package
-    has both factories; the port has neither)."""
+    the port's modules (the av1dec alias case among them)."""
     _id, fn, names, values = case
     run_on_port(fn, names, values, tmp_path)
 
