@@ -7375,9 +7375,9 @@ def codec_timed(targets, spent):
 
 
 def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders,
-               pushes=None, out=None):
-    """One read path on the card: parse it, push `pushes` ({appsrc name:
-    [Buffer]}, then end of stream) and start it (the decode of a collapsed
+               pushes=None, out=None, prepare=None):
+    """One read path on the card: parse it, call `prepare(pipe)` if given,
+    push `pushes` ({appsrc name: [Buffer]}, then end of stream) and start it (the decode of a collapsed
     decoder happens there, timed), then tick to EOS under
     torch.profiler, the launch counts zeroed just before and read just
     after (`want`, or `want(fed)` of the frames each tick gave).  Returns
@@ -7397,6 +7397,8 @@ def codec_path(name, desc, batch, dev, start, finish, peak, want, decoders,
         sync(dev)
         t0 = time.perf_counter()
         pipe = parse_launch(desc, batch=batch, device=dev)
+        if prepare is not None:
+            prepare(pipe)
         push_all(pipe, pushes)
         pipe.set_state("playing")
         setup = time.perf_counter() - t0
@@ -7514,13 +7516,17 @@ def codec_audio_item(name, paths, dev, start, finish, peak, decoders, dig,
     return pcm
 
 
-def codec_run(desc, dev, batch=1, sink="a", pushes=None, got=None):
+def codec_run(desc, dev, batch=1, sink="a", pushes=None, got=None,
+              prepare=None):
     """A launch string ending in appsink `sink` run to EOS on `dev` (its
-    appsrcs given `pushes`: {name: [Buffer]}, then end of stream): its
-    samples, added to `got` too, also those given before a fault."""
+    appsrcs given `pushes`: {name: [Buffer]}, then end of stream; after
+    `prepare(pipe)` if given): its samples, added to `got` too, also those
+    given before a fault."""
     from gstreamer_tpu_torch import parse_launch
     got = [] if got is None else got
     pipe = parse_launch(desc, batch=batch, device=dev)
+    if prepare is not None:
+        prepare(pipe)
     push_all(pipe, pushes)
     try:
         pipe.run()
@@ -14059,6 +14065,841 @@ def tags_subs_phase(seed, counters, dev):
     return total
 
 
+# -- 25. the leaves: camerabin, msesrc, splitmux, fakevideodec, unixfd, ... --
+
+LV_FILES = ("mp3_10s.mp3", "h265_1080p.hevc", "digests.json")
+LV_MODULES = ("gstreamer_tpu_torch.mse",) + tuple(
+    f"gstreamer_tpu_torch.elements.{m}" for m in (
+        "shout2", "camerabin", "dsd_elements", "midi_irtsp", "splitmux",
+        "aes_misc", "chromaprint", "xingmux", "bz2_elements", "ext_music",
+        "de265", "gio_dv", "ogm"))
+LV_CAM = (1920, 1080, 10)           # camerabin's recording: stop_capture's 10
+LV_FRAG = 8                         # splitmux_mjpeg_camera: frames a fragment
+LV_FAKE = (1920, 1080, 64, 16)      # fakevideodec_1080p: width, height, frames, batch
+LV_UNIXFD = (1920, 1080, 32, 16)    # unixfd_camera
+LV_HEVC = (1920, 1080, 8, 4)        # the committed H.265 stream, and its batch
+LV_ALONE = (64, 48, 4)              # width, height, frames of a factory alone
+LV_DSD = 35280                      # dsdconvert's bytes a channel: 100 ms of DSD64
+LV_DEADLINE = 60.0                  # seconds a socket item's peer may take
+LV_SEED = 2028                      # the host items' inputs (digests committed)
+LV_KEY = "00112233445566778899aabbccddeeff"
+LV_IV = "000102030405060708090a0b0c0d0e0f"
+# what each library-backed factory raises where its system library is
+# missing, in both packages
+LV_ABSENT = {"libde265": "libde265dec: libde265 not available",
+             "libgme": "gmedec: libgme not available",
+             "libopenmpt": "openmptdec: libopenmpt not available",
+             "libcrypto": "aes: libcrypto not available",
+             "libchromaprint": "no element factory 'chromaprint'"}
+
+
+def lv_libs():
+    """Which of the leaves' system libraries load on this machine."""
+    from gstreamer_tpu_torch.elements import aes_misc, chromaprint, de265
+    from gstreamer_tpu_torch.elements import ext_music
+    return {"libde265": de265.available(),
+            "libgme": ext_music._get_gme() is not None,
+            "libopenmpt": ext_music._get_mpt() is not None,
+            "libcrypto": aes_misc.aes_available(),
+            "libchromaprint": chromaprint._LIB is not None}
+
+
+def lv_digest(x):
+    """One sha256 of plain data (as JSON, keys sorted)."""
+    import hashlib
+    return hashlib.sha256(json.dumps(x, sort_keys=True, default=str)
+                          .encode()).hexdigest()
+
+
+def lv_socket(tmp, name):
+    """A unix socket's path under `tmp`: relative to the working directory
+    where the absolute one is too long for AF_UNIX."""
+    path = os.path.join(tmp, name)
+    return path if len(path) < 100 else os.path.relpath(path)
+
+
+def lv_thread(name, fn):
+    """`fn()` on a thread of its own: (thread, errors, join) where join()
+    waits LV_DEADLINE and fails the item if it is still running or
+    raised."""
+    import threading
+    errors = []
+
+    def body():
+        try:
+            fn()
+        except BaseException as e:          # handed to join()
+            errors.append(e)
+    th = threading.Thread(target=body, name=name, daemon=True)
+    th.start()
+
+    def join():
+        th.join(LV_DEADLINE)
+        require(not th.is_alive(), f"{name}: still running after "
+                f"{LV_DEADLINE} s")
+        if errors:
+            raise errors[0]
+    return join
+
+
+def lv_samples(desc, d, pushes=None, batch=1, prepare=None):
+    """`desc` to EOS on `d` (its appsrc pushes, `prepare(pipe)` first):
+    appsink "a"'s samples as (pts, batch, lv_caps, sha256), with the tag and
+    element messages' data."""
+    from gstreamer_tpu_torch import parse_launch
+    pipe = parse_launch(desc, batch=batch, device=d)
+    if prepare is not None:
+        prepare(pipe)
+    push_all(pipe, pushes)
+    pipe.run()
+    s = pipe.get_by_name("a")
+    msgs = [(m.type, m.data) for m in iter(pipe.bus.pop, None)
+            if m.type in ("tag", "element")]
+    return [(x.buffer.pts, x.buffer.batch, lv_caps(x.caps),
+             ts_sha(x.buffer.data))
+            for x in (drain(s) if s is not None else [])], msgs
+
+
+def lv_caps(caps):
+    """Caps as plain data with each structure's fields in sorted order (the
+    order of str(caps) may follow a set's, which differs by process)."""
+    return None if caps is None else [
+        (st.name, sorted((k, str(v)) for k, v in st.fields.items()))
+        for st in caps]
+
+
+def lv_blob(b, pts=0):
+    import numpy as np
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    return Buffer(data=np.frombuffer(b, np.uint8), pts=pts)
+
+
+def lv_attach(blob, mime="video/x-matroska"):
+    """prepare(pipe): a MediaSource with `blob` appended, attached to the
+    pipeline's msesrc "m", at end of stream."""
+    def prepare(pipe):
+        from gstreamer_tpu_torch.mse import MediaSource
+        ms = MediaSource()
+        ms.attach(pipe.get_by_name("m"))
+        ms.add_source_buffer(mime).append_buffer(blob)
+        ms.end_of_stream()
+    return prepare
+
+
+def lv_smf(seed):
+    """A Standard MIDI File: a tempo, seeded notes, running status."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def vl(n):
+        out = [n & 0x7F]
+        n >>= 7
+        while n:
+            out.insert(0, 0x80 | (n & 0x7F))
+            n >>= 7
+        return bytes(out)
+    trk = vl(0) + b"\xff\x51\x03" + (600000).to_bytes(3, "big")
+    for k in range(16):
+        note = int(rng.integers(40, 90))
+        trk += vl(int(rng.integers(0, 500))) + bytes([0x90, note, 100])
+        trk += vl(int(rng.integers(1, 500))) + bytes([note, 0])  # running
+    trk += vl(0) + b"\xff\x2f\x00"
+    return (b"MThd" + (6).to_bytes(4, "big") + (0).to_bytes(2, "big")
+            + (1).to_bytes(2, "big") + (480).to_bytes(2, "big") + b"MTrk"
+            + len(trk).to_bytes(4, "big") + trk)
+
+
+def lv_ogm_header(kind, subtype, samples_per_unit, extra):
+    import struct
+    return (b"\x01" + kind + subtype + struct.pack(
+        "<iqqiii", 52, 333667, samples_per_unit, 1, 65536, 16) + extra)
+
+
+def lv_ogm_packet(payload, samples, keyframe=True):
+    nlen = 1 if samples < 256 else 2
+    b0 = ((nlen & 3) << 6) | ((nlen >> 2) << 1) | (0x08 if keyframe else 0)
+    return bytes([b0]) + samples.to_bytes(nlen, "little") + payload
+
+
+def lv_vgm(seed, tenths=10):
+    """A VGM file for an SN76489: a seeded tone every 100 ms."""
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    data = bytearray()
+    for _ in range(tenths):
+        n = int(rng.integers(100, 1000))
+        data += bytes([0x50, 0x80 | (n & 0x0F), 0x50, (n >> 4) & 0x3F,
+                       0x50, 0x90, 0x61]) + struct.pack("<H", 4410)
+    data += b"\x66"
+    hdr = bytearray(0x40)
+    hdr[0:4] = b"Vgm "
+    struct.pack_into("<III", hdr, 0x04, 0x3C + len(data), 0x150, 3579545)
+    struct.pack_into("<I", hdr, 0x18, 4410 * tenths)
+    struct.pack_into("<HB", hdr, 0x28, 0x0009, 16)
+    struct.pack_into("<I", hdr, 0x34, 0x40 - 0x34)
+    return bytes(hdr) + bytes(data)
+
+
+def lv_mod(seed):
+    """A 4-channel ProTracker MOD: one pattern of seeded notes on a square
+    sample."""
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    smp = (b"square".ljust(22, b"\x00") + struct.pack(">H", 16)
+           + bytes([0, 64]) + struct.pack(">HH", 0, 16))
+    empty = bytes(22) + struct.pack(">HBBHH", 0, 0, 0, 0, 1)
+    head = (b"leaves".ljust(20, b"\x00") + smp + empty * 30 + bytes([1, 127])
+            + bytes(128) + b"M.K.")
+    pattern = bytearray(1024)
+    for row in range(0, 64, 4):
+        period = int(rng.choice([214, 240, 254, 285, 320, 360, 428]))
+        o = row * 16
+        pattern[o:o + 4] = bytes([(1 & 0xF0) | (period >> 8), period & 0xFF,
+                                  (1 & 0x0F) << 4, 0])
+    sample = bytes((64 if i % 16 < 8 else 192) for i in range(32))
+    return head + bytes(pattern) + sample
+
+
+class LvIcecast:
+    """A loopback listener answering one source client as an Icecast
+    server does (100 Continue for the right password): the request's
+    lines but Host (its port differs by run) and the bytes that follow."""
+
+    def __init__(self, password="hackme"):
+        import socket
+        self.password = password
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(LV_DEADLINE)
+        self.port = self.srv.getsockname()[1]
+        self.lines, self.payload = [], b""
+        self.join = lv_thread("icecast", self._serve)
+
+    def _serve(self):
+        import base64
+        conn, _ = self.srv.accept()
+        conn.settimeout(LV_DEADLINE)
+        data = b""
+        while b"\r\n\r\n" not in data:
+            part = conn.recv(4096)
+            require(part, "icecast: the client closed during its request")
+            data += part
+        head, _, self.payload = data.partition(b"\r\n\r\n")
+        self.lines = [ln.decode() for ln in head.split(b"\r\n")
+                      if not ln.startswith(b"Host:")]
+        auth = base64.b64encode(f"source:{self.password}".encode()).decode()
+        ok = f"Authorization: Basic {auth}" in self.lines
+        conn.sendall(b"HTTP/1.1 100 Continue\r\n\r\n" if ok
+                     else b"HTTP/1.1 401 Unauthorized\r\n\r\n")
+        while ok and (part := conn.recv(65536)):
+            self.payload += part
+        conn.close()
+        self.srv.close()
+
+
+def lv_rows(files):
+    """The runs that drive each of the 28 factories alone or with its pair
+    on small inputs made from LV_SEED: [(factories, system library or None,
+    fn(d, tmp) -> plain data)].  Their results on the CPU box are the
+    committed digests."""
+    import glob
+    import io
+    import struct
+
+    import numpy as np
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.audio.dsd import FORMATS, dsd_rate_44x
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    w, h, n = LV_ALONE
+    rng = np.random.default_rng(LV_SEED)
+    vcaps = (f"video/x-raw,format=I420,width={w},height={h},"
+             f"framerate={CONT_FPS}/1")
+    vsrc = f"videotestsrc num-buffers={n} pattern=ball ! {vcaps}"
+    octet = "appsrc name=in caps=application/octet-stream"
+    dsd = rng.integers(0, 256, 2 * LV_DSD, dtype=np.uint8)
+    data = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+    packed = (b"leaves " * 900)[:6000] + data
+
+    def dsdconvert(d, _tmp):
+        out = []
+        pairs = [(f, ly) for f in FORMATS
+                 for ly in ("interleaved", "non-interleaved")]
+        for fi, li in pairs:
+            for fo, lo in pairs:
+                out.append(lv_samples(
+                    f"appsrc name=in ! audio/x-dsd,format={fi},rate="
+                    f"{dsd_rate_44x(1)},channels=2,layout={li} ! dsdconvert "
+                    f"! audio/x-dsd,format={fo},layout={lo} ! appsink name=a",
+                    d, {"in": [Buffer(data=dsd, pts=0)]}))
+        return out
+
+    def camerabin(d, tmp):
+        out = []
+        for mode, loc in ((1, "shot_%d"), (2, "clip_%d")):
+            cam = element_factory_make(
+                "camerabin", mode=mode, location=os.path.join(tmp, loc),
+                **{"camera-source": f"videotestsrc num-buffers=1 "
+                   f"pattern=ball ! {vcaps}"})
+            cam.device = d
+            path = cam.start_capture() if mode == 1 else (
+                cam.start_capture(), cam.stop_capture())[1]
+            out.append((os.path.basename(path), ts_file_sha(path)))
+        return out
+
+    def msesrc(d, tmp):
+        path = os.path.join(tmp, "in.mkv")
+        ts_run(f"{vsrc} ! matroskamux location={path}", d)
+        with open(path, "rb") as f:
+            blob = f.read()
+        return lv_samples("msesrc name=m ! appsink name=a", d,
+                          prepare=lv_attach(blob))
+
+    def splitmux(d, tmp):
+        pat = os.path.join(tmp, "f%05d.mov")
+        pipe = parse_launch(
+            f"videotestsrc num-buffers=10 pattern=gradient ! video/x-raw,"
+            f"format=UYVY,width=32,height=24,framerate=5/1 ! splitmuxsink "
+            f"location={pat} max-size-time=400000000", device=d)
+        pipe.run()
+        msgs = [(m.data["name"], os.path.basename(m.data["location"]),
+                 m.data["running-time"]) for m in iter(pipe.bus.pop, None)
+                if m.type == "element"]
+        frags = sorted(glob.glob(os.path.join(tmp, "f*.mov")))
+        return msgs, [ts_file_sha(f) for f in frags], lv_samples(
+            f"splitmuxsrc location={tmp}/f*.mov ! appsink name=a", d)
+
+    def fakevideodec(d, _tmp):
+        dur = 10**9 // CONT_FPS
+        return lv_samples(
+            f"appsrc name=in caps=video/x-fake,width={w},height={h},"
+            f"framerate={CONT_FPS}/1 ! fakevideodec ! appsink name=a", d,
+            {"in": [Buffer(data=np.zeros(1, np.uint8), pts=k * 2 * dur,
+                           duration=dur, batch=2) for k in range(2)]}, 2)
+
+    def unixfd(d, tmp):
+        sock = lv_socket(tmp, "u.sock")
+        join = lv_thread("unixfdsink", lambda: parse_launch(
+            f"{vsrc} ! unixfdsink socket-path={sock}", device=d).run())
+        got = lv_samples(
+            f"unixfdsrc socket-path={sock} timeout=10.0 ! rawvideoparse "
+            f"format=I420 width={w} height={h} ! appsink name=a", d)
+        join()
+        return got
+
+    def midiparse(d, tmp):
+        path = os.path.join(tmp, "a.mid")
+        with open(path, "wb") as f:
+            f.write(lv_smf(LV_SEED))
+        return lv_samples(f"midiparse location={path} ! appsink name=a", d,
+                          batch=4)
+
+    def irtspparse(d, _tmp):
+        r = np.random.default_rng(LV_SEED + 1)
+        stream = b"junk"
+        for k in range(12):
+            pkt = bytes([0x80, 96]) + struct.pack(">HII", k, 90 * k, 7) + \
+                r.integers(0, 256, int(r.integers(10, 200)),
+                           dtype=np.uint8).tobytes()
+            stream += bytes([0x24, k % 2]) + struct.pack(">H", len(pkt)) + pkt
+        return [lv_samples(f"{octet} ! irtspparse channel-id={c} ! appsink "
+                           "name=a", d, {"in": [lv_blob(stream)]})
+                for c in (0, 1)]
+
+    def dvdemux(d, _tmp):
+        frames = []
+        for pal in (False, False, True):
+            f = bytearray(r_bytes(144000 if pal else 120000))
+            f[0:4] = b"\x1f\x07\x00" + bytes([0x80 if pal else 0x00])
+            frames.append(bytes(f))
+        return lv_samples(f"{octet} ! dvdemux ! appsink name=a", d,
+                          {"in": [lv_blob(b"".join(frames))]})
+
+    def r_bytes(k):
+        return np.random.default_rng(LV_SEED + k).integers(
+            0, 256, k, dtype=np.uint8).tobytes()
+
+    def giostreams(d, _tmp):
+        dst = io.BytesIO()
+
+        def prepare(pipe):
+            pipe.get_by_name("s").props["stream"] = io.BytesIO(packed)
+            pipe.get_by_name("k").props["stream"] = dst
+        lv_samples("giostreamsrc name=s blocksize=1000 ! application/"
+                   "octet-stream ! giostreamsink name=k", d, prepare=prepare)
+        return ts_sha(dst.getvalue()), len(dst.getvalue())
+
+    def ogm(d, _tmp):
+        r = np.random.default_rng(LV_SEED + 2)
+        pay = [r.integers(1, 255, int(r.integers(20, 300)),
+                          dtype=np.uint8).tobytes() for _ in range(6)]
+        video = [lv_ogm_header(b"video\x00\x00\x00", b"XVID", 1,
+                               struct.pack("<ii", 320, 240))] + [
+            lv_ogm_packet(p, 1, k == 0) for k, p in enumerate(pay)]
+        audio = [lv_ogm_header(b"audio\x00\x00\x00", b"0055", 44100,
+                               struct.pack("<hhi", 2, 4, 176400))] + [
+            lv_ogm_packet(p, 1152) for p in pay]
+        text = [lv_ogm_header(b"text\x00\x00\x00\x00", b"\0\0\0\0", 1,
+                              bytes(8))] + [
+            lv_ogm_packet(b"cue %d\0\0" % k, 100 + k) for k in range(4)]
+        # a parser's caps come from its header packet, so neither package
+        # negotiates one in a launch string (ROADMAP.md section 3): each is
+        # driven a packet at a time
+        out = []
+        for kind, pk in (("video", video), ("audio", audio), ("text", text)):
+            e = element_factory_make(f"ogm{kind}parse")
+            e.device = d
+            e.start()
+            got = [e.host_process(lv_blob(p, k)) for k, p in enumerate(pk)]
+            out.append((lv_caps(e._caps), [None if g is None else (
+                g.pts, g.batch, int(g.flags), ts_sha(g.data)) for g in got]))
+        return out
+
+    def oggaviparse(d, _tmp):
+        h1, h2, h3 = b"\x01vorbis" + data[:300], b"\x03vorbis", \
+            b"\x05vorbis" + data[300:700]
+        first = bytes([2, 255, len(h1) - 255, len(h2)]) + h1 + h2 + h3
+        return lv_samples("appsrc name=in caps=application/x-ogg-avi ! "
+                          "oggaviparse ! appsink name=a", d, {"in": [
+                              lv_blob(first), lv_blob(data[:50], 1)]})
+
+    def xingmux(d, _tmp):
+        return lv_samples(f"filesrc location={files['mp3_10s.mp3']} ! "
+                          "mpegaudioparse ! xingmux ! appsink name=a", d)
+
+    def aes(d, _tmp):
+        key = f"aesenc key={LV_KEY} iv={LV_IV}"
+        return [lv_samples(f"{octet} ! {tail} ! appsink name=a", d,
+                           {"in": [lv_blob(data)]})
+                for tail in (key, f"{key} ! aesdec key={LV_KEY}")]
+
+    def bz2(d, _tmp):
+        pushes = [lv_blob(packed[k:k + 2500], k) for k in range(0, 9000, 2500)]
+        return [lv_samples(f"{octet} ! {tail} ! appsink name=a", d,
+                           {"in": pushes})
+                for tail in ("bz2enc", "bz2enc ! bz2dec ! application/"
+                             "octet-stream")]
+
+    def tone(d, _tmp):
+        return lv_samples("tonegeneratesrc freq=697 freq2=1209 num-buffers=4 "
+                          "! appsink name=a", d)
+
+    def shout2send(d, _tmp):
+        srv = LvIcecast()
+        lv_samples(f"appsrc name=in caps=application/ogg ! shout2send "
+                   f"ip=127.0.0.1 port={srv.port} mount=/leaves.ogg "
+                   "streamname=Leaves genre=test", d,
+                   {"in": [lv_blob(packed[k:k + 3000], k)
+                           for k in range(0, 9000, 3000)]})
+        srv.join()
+        return srv.lines, ts_sha(srv.payload), len(srv.payload)
+
+    def chromaprint(d, _tmp):
+        got = lv_samples("audiotestsrc num-buffers=80 samplesperbuffer=4410 "
+                         "wave=ticks volume=0.6 ! audio/x-raw,format=S16LE,"
+                         "rate=44100,channels=1 ! chromaprint ! appsink "
+                         "name=a", d)
+        return got[1], len(got[0])
+
+    def gmedec(d, _tmp):
+        return lv_samples("appsrc name=in caps=audio/x-vgm ! gmedec "
+                          "duration=1.0 ! appsink name=a", d,
+                          {"in": [lv_blob(lv_vgm(LV_SEED))]})
+
+    def openmptdec(d, _tmp):
+        return lv_samples("appsrc name=in caps=audio/x-mod ! openmptdec ! "
+                          "appsink name=a", d, {"in": [lv_blob(lv_mod(
+                              LV_SEED))]})
+
+    def libde265dec(d, _tmp):
+        return lv_samples(f"filesrc location={files['h265_1080p.hevc']} ! "
+                          "video/x-h265,stream-format=byte-stream ! "
+                          "libde265dec ! appsink name=a", d, batch=4)
+
+    return [
+        (("dsdconvert",), None, dsdconvert),
+        (("camerabin",), None, camerabin),
+        (("msesrc",), None, msesrc),
+        (("splitmuxsink", "splitmuxsrc"), None, splitmux),
+        (("fakevideodec",), None, fakevideodec),
+        (("unixfdsink", "unixfdsrc"), None, unixfd),
+        (("midiparse",), None, midiparse),
+        (("irtspparse",), None, irtspparse),
+        (("dvdemux",), None, dvdemux),
+        (("giostreamsrc", "giostreamsink"), None, giostreams),
+        (("ogmvideoparse", "ogmaudioparse", "ogmtextparse"), None, ogm),
+        (("oggaviparse",), None, oggaviparse),
+        (("xingmux",), None, xingmux),
+        (("aesenc", "aesdec"), "libcrypto", aes),
+        (("bz2enc", "bz2dec"), None, bz2),
+        (("tonegeneratesrc",), None, tone),
+        (("shout2send",), None, shout2send),
+        (("chromaprint",), "libchromaprint", chromaprint),
+        (("gmedec",), "libgme", gmedec),
+        (("openmptdec",), "libopenmpt", openmptdec),
+        (("libde265dec",), "libde265", libde265dec)]
+
+
+def lv_row_digests(files, d):
+    """{row: lv_digest of its result on `d`} for every row of lv_rows (what
+    ``digests.json`` keeps under leaves/rows)."""
+    import tempfile
+    out = {}
+    for names, _lib, fn in lv_rows(files):
+        with tempfile.TemporaryDirectory() as tmp:
+            out["/".join(names)] = lv_digest(fn(d, tmp))
+    return out
+
+
+def lv_absent(name, lib, run):
+    """A run whose system library is missing here: it must raise the error
+    both packages raise without it, printed as such, not as a pass."""
+    from gstreamer_tpu_torch.core.parse import ParseError
+    want = LV_ABSENT[lib]
+    try:
+        run()
+    except (RuntimeError, ParseError) as e:
+        require(want in str(e), f"{name}: raised {e!r}, want {want!r}")
+        print(f"  {name}: NOT RUN, a difference of installation: "
+              f"{type(e).__name__}({str(e)!r}), the error both packages "
+              f"raise without {lib}")
+        return
+    require(False, f"{name}: ran without {lib}")
+
+
+def camerabin_mse_camera(dev, tmp, start, finish, peak):
+    """camerabin mode=2 records LV_CAM's frames of a 1080p I420
+    videotestsrc on the card to Matroska (its inner pipelines on the card);
+    the file's bytes are appended to a MediaSource and msesrc ! RGB
+    224x224 runs on the card (yscale_hv once a tick that gave frames):
+    equal to the port's CPU run of the same chain and to matroskademux of
+    the same file.  Then image mode writes the JPEG that jpeg_encode makes
+    of the source's frame, which decodes to the frame within JPEG's
+    loss."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.codecs.jpeg import jpeg_decode, jpeg_encode
+    from gstreamer_tpu_torch.core.element import element_factory_make
+    w, h, n = LV_CAM
+    src = (f"videotestsrc num-buffers=1 pattern=ball ! video/x-raw,format="
+           f"I420,width={w},height={h},framerate=30/1")
+    cam = element_factory_make("camerabin", mode=2, location=os.path.join(
+        tmp, "clip_%d"), **{"camera-source": src})
+    cam.device = dev
+    start("camerabin[record]")
+    t0 = time.perf_counter()
+    cam.start_capture()
+    path = cam.stop_capture()
+    rec = time.perf_counter() - t0
+    finish("camerabin[record]", {})
+    with open(path, "rb") as f:
+        blob = f.read()
+    desc = f"msesrc name=m ! {CONT_RGB}"
+    pipe, out, r = codec_path(
+        "camerabin_mse_camera", desc, 1, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, (),
+        prepare=lv_attach(blob))
+    got = cont_joined(out["v"])
+    require(got is not None and got[0].shape[0] == n,
+            f"camerabin_mse_camera: {0 if got is None else got[0].shape[0]}"
+            f" of {n} frames")
+    cpu = torch.device("cpu")
+    ref = cont_joined(codec_run(desc, cpu, 1, "v", prepare=lv_attach(blob)))
+    require(cont_equal(got, ref), "camerabin_mse_camera: the card's frames "
+            "differ from the port's CPU run of the same chain")
+    start("matroskademux")
+    demux = cont_joined(codec_run(f"matroskademux location={path} stream="
+                                  f"video ! {CONT_RGB}", dev, 16, "v"))
+    finish("matroskademux", {"yscale_hv": -(-n // 16)})
+    require(cont_equal(got, demux), "camerabin_mse_camera: msesrc's frames "
+            "differ from matroskademux's of the same file")
+    still = element_factory_make("camerabin", mode=1, location=os.path.join(
+        tmp, "shot_%d"), **{"camera-source": src})
+    still.device = dev
+    start("camerabin[image]")
+    jpg = still.start_capture()
+    finish("camerabin[image]", {})
+    frame = [p[0] for p in codec_run(f"{src} ! appsink name=a", dev)[0]
+             .buffer.data]
+    with open(jpg, "rb") as f:
+        coded = f.read()
+    require(coded == jpeg_encode(tuple(frame), w, h),
+            "camerabin[image]: the JPEG is not jpeg_encode of the source's "
+            "frame")
+    planes, jw, jh, _sub = jpeg_decode(coded, device=dev)
+    err = (planes[0].float() - frame[0].float())
+    psnr = float(10 * torch.log10(255.0**2 / (err * err).mean()))
+    require((jw, jh) == (w, h) and psnr > 30.0,
+            f"camerabin[image]: decodes to {jw}x{jh} at {psnr:.2f} dB")
+    fed = [f for f in r["fed"] if f]
+    print(f"e2e camerabin_mse_camera: camerabin recorded {n} {w}x{h} frames "
+          f"({len(blob) / 2**20:.1f} MiB of Matroska) in {rec:.2f} s; msesrc "
+          f"! RGB 224x224 == the port's CPU run == matroskademux's, "
+          f"{sum(fed) / max(r['secs'], 1e-9):.1f} frames/s over "
+          f"{r['ticks']} ticks, set-up {r['setup']:.2f} s (the inner demux); "
+          f"device busy {r['busy']:.3f} ms and idle share {r['idle']:.3f} of "
+          f"a {r['wall']:.3f} ms tick (traced); {r['h2d'] / 2**20:.3f} MiB "
+          f"H2D a tick; peak memory {r['mem']:.1f} MiB; launches "
+          f"{r['launches']}; image mode: {len(coded)} bytes of JPEG == "
+          f"jpeg_encode of the frame, Y at {psnr:.2f} dB")
+
+
+def splitmux_mjpeg_camera(seed, dev, tmp, start, finish, peak):
+    """RR_CAM's 32 camera frames through jpegenc on the card (rr_jpegs),
+    read back by imagesequencesrc (a frame's duration a buffer) into
+    splitmuxsink (qtmux, max-size-time LV_FRAG frames): 4 fragments with
+    their opened / closed messages; then splitmuxsrc ! jpegdec ! RGB
+    224x224 at batch 16 on the card (yscale_hv once a tick that gave
+    frames): equal to multifilesrc's reference of the same JPEGs, the PTS
+    running on across the fragments."""
+    import glob
+
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.elements import image_codecs
+    w, h, n, b = RR_CAM
+    dur = 10**9 // CONT_FPS
+    jdir, jpgs = rr_jpegs(seed, dev, tmp)
+    pat = os.path.join(tmp, "frag%05d.mov")
+    start("splitmuxsink")
+    t0 = time.perf_counter()
+    wr = parse_launch(f"imagesequencesrc location={jdir}/cam_%05d.jpg "
+                      f"framerate={CONT_FPS}/1 ! image/jpeg ! splitmuxsink "
+                      f"location={pat} max-size-time={LV_FRAG * dur}",
+                      device=dev)
+    wr.run()
+    wsecs = time.perf_counter() - t0
+    finish("splitmuxsink", {})
+    frags = sorted(glob.glob(os.path.join(tmp, "frag*.mov")))
+    msgs = [(m.data["name"], m.data["location"], m.data["running-time"])
+            for m in iter(wr.bus.pop, None) if m.type == "element"]
+    k = n // LV_FRAG
+    require(frags == [pat % i for i in range(k)] and msgs == [
+        (f"splitmuxsink-fragment-{e}", pat % i, (i + (e == "closed"))
+         * LV_FRAG * dur) for i in range(k) for e in ("opened", "closed")],
+        f"splitmuxsink: fragments {frags}, messages {msgs}")
+    start("multifilesrc ! jpegdec")
+    ref = rr_rgb_ref(jdir, dev)
+    finish("multifilesrc ! jpegdec", {"yscale_hv": -(-n // b)})
+    desc = (f"splitmuxsrc location={tmp}/frag*.mov ! jpegdec ! "
+            f"{rr_caps(w, h)} ! {CONT_RGB}")
+    pipe, out, r = codec_path(
+        "splitmux_mjpeg_camera", desc, b, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)},
+        [(image_codecs.JpegDec, "_decode_all")])
+    require(cont_equal(cont_joined(out["v"]), ref),
+            "splitmux_mjpeg_camera: the frames differ from multifilesrc's")
+    pts = [(s.buffer.pts, s.buffer.batch) for s in out["v"]]
+    require(pts[0][0] == 0 and all(
+        b2[0] == a[0] + a[1] * dur for a, b2 in zip(pts, pts[1:])),
+        f"splitmux_mjpeg_camera: the PTS break across the fragments: {pts}")
+    fed = [f for f in r["fed"] if f]
+    mib = sum(map(os.path.getsize, frags)) / 2**20
+    print(f"e2e splitmux_mjpeg_camera: {n} {w}x{h} JPEGs into {k} "
+          f"fragments of {LV_FRAG} ({mib:.1f} MiB, {wsecs:.2f} s to write), "
+          f"splitmuxsrc ! jpegdec ! RGB "
+          f"224x224 == multifilesrc's, PTS continuous ({pts}), "
+          f"{sum(fed) / max(r['secs'], 1e-9):.1f} frames/s over "
+          f"{r['ticks']} ticks, jpegdec {r['decode'] / n * 1e3:.2f} host ms a "
+          f"frame; device busy {r['busy']:.3f} ms and idle share "
+          f"{r['idle']:.3f} of a {r['wall']:.3f} ms tick (traced); "
+          f"{r['h2d'] / 2**20:.3f} MiB H2D a tick; launches {r['launches']}")
+
+
+def fakevideodec_1080p(dev, start, finish, peak):
+    """LV_FAKE's video/x-fake buffers through fakevideodec (mid-grey I420
+    made on the card) to RGB 224x224: yscale_hv once a tick, equal to the
+    port's CPU run."""
+    import numpy as np
+    import torch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    w, h, n, b = LV_FAKE
+    dur = 10**9 // 30
+    pushes = {"in": [Buffer(data=np.zeros(1, np.uint8), pts=k * dur,
+                            duration=dur, batch=b) for k in range(0, n, b)]}
+    desc = (f"appsrc name=in caps=video/x-fake,width={w},height={h},"
+            f"framerate=30/1 ! fakevideodec ! {CONT_RGB}")
+    pipe, out, r = codec_path("fakevideodec_1080p", desc, b, dev, start,
+                              finish, peak, {"yscale_hv": n // b}, (), pushes)
+    got = cont_joined(out["v"])
+    ref = cont_joined(codec_run(desc, torch.device("cpu"), b, "v", pushes))
+    require(got is not None and got[0].shape[0] == n and cont_equal(got, ref),
+            "fakevideodec_1080p: the card's frames differ from the port's "
+            "CPU run")
+    require(pipe.get_by_name("in") in pipe._host_fed,
+            "fakevideodec_1080p: the fake stream's bytes were staged")
+    print(f"e2e fakevideodec_1080p: {n} {w}x{h} frames at batch {b} to RGB "
+          f"224x224 == the port's CPU run, {n / max(r['secs'], 1e-9):.1f} "
+          f"frames/s over {r['ticks']} ticks; device busy {r['busy']:.3f} ms "
+          f"and idle share {r['idle']:.3f} of a {r['wall']:.3f} ms tick "
+          f"(traced); {r['h2d'] / 2**20:.3f} MiB H2D a tick; peak memory "
+          f"{r['mem']:.1f} MiB; launches {r['launches']}")
+
+
+def unixfd_camera(dev, tmp, start, finish, peak):
+    """A 1080p I420 videotestsrc on the card into unixfdsink at batch 1 (a
+    record a plane), on a thread of its own (snow: a frame of its own each
+    tick, made on the card, where the ball is drawn on the host frame by
+    frame); unixfdsrc ! rawvideoparse !
+    RGB 224x224 at batch 16 on the card (yscale_hv once a tick that gave
+    frames): equal to the direct conversion of the same frames.  The
+    sender is joined under LV_DEADLINE and unixfdsrc times out on a silent
+    socket, so a missed accept fails the item."""
+    from gstreamer_tpu_torch import parse_launch
+    w, h, n, b = LV_UNIXFD
+    src = (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw,format="
+           f"I420,width={w},height={h},framerate={CONT_FPS}/1")
+    sock = lv_socket(tmp, "camera.sock")
+    join = lv_thread("unixfd_camera[sender]", lambda: parse_launch(
+        f"{src} ! unixfdsink socket-path={sock}", device=dev).run())
+    desc = (f"unixfdsrc socket-path={sock} timeout=10.0 ! rawvideoparse "
+            f"format=I420 width={w} height={h} framerate={CONT_FPS}/1 ! "
+            f"{CONT_RGB}")
+    pipe, out, r = codec_path(
+        "unixfd_camera", desc, b, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)}, ())
+    join()
+    start("unixfd_camera[direct]")
+    ref = cont_joined(codec_run(f"{src} ! {CONT_RGB}", dev, b, "v"))
+    finish("unixfd_camera[direct]", {"yscale_hv": -(-n // b)})
+    require(cont_equal(cont_joined(out["v"]), ref),
+            "unixfd_camera: the frames differ from the direct conversion")
+    fed = [f for f in r["fed"] if f]
+    print(f"e2e unixfd_camera: {n} {w}x{h} frames over a unix socket "
+          f"({3 * n} records) to RGB 224x224 == the direct conversion, "
+          f"{sum(fed) / max(r['secs'], 1e-9):.1f} frames/s over "
+          f"{r['ticks']} ticks ({len(fed)} gave frames); device busy "
+          f"{r['busy']:.3f} ms and idle share {r['idle']:.3f} of a "
+          f"{r['wall']:.3f} ms tick (traced); {r['h2d'] / 2**20:.3f} MiB H2D "
+          f"a tick; launches {r['launches']}")
+
+
+def hevc_de265_ingest(dev, start, finish, peak, files, dig):
+    """The committed 1080p H.265 stream through libde265dec (every plane the
+    JAX package's digest), then to RGB 224x224 on the card (yscale_hv once
+    a tick that gave frames; the CPU box's digest).  Without libde265 both
+    packages' libde265dec raise at start: printed as such."""
+    import numpy as np
+    from gstreamer_tpu_torch.elements import de265
+    w, h, n, b = LV_HEVC
+    head = (f"filesrc location={files['h265_1080p.hevc']} ! video/x-h265,"
+            "stream-format=byte-stream ! libde265dec")
+    desc = (f"{head} ! video/x-raw,format=I420,width={w},height={h},"
+            f"framerate={CONT_FPS}/1 ! {CONT_RGB}")
+    if not de265.available():
+        lv_absent("hevc_de265_ingest", "libde265",
+                  lambda: codec_run(desc, dev, b, "v"))
+        return
+    want = dig["leaves"]
+    start("hevc_de265_ingest[planes]")
+    t0 = time.perf_counter()
+    planes = ct_planes(codec_run(f"{head} ! appsink name=a", dev, b, "a"))
+    secs = time.perf_counter() - t0
+    finish("hevc_de265_ingest[planes]", {})
+    require([ct_sha([np.ascontiguousarray(p).tobytes() for p in f])
+             for f in planes] == want["hevc_planes"],
+            "hevc_de265_ingest: decoded planes differ from the JAX package's")
+    pipe, out, r = codec_path(
+        "hevc_de265_ingest", desc, b, dev, start, finish, peak,
+        lambda fed: {"yscale_hv": sum(1 for f in fed if f)},
+        [(de265.LibDe265Dec, "_drain_pics")])
+    rgb = cont_joined(out["v"])
+    require(rgb is not None and rgb[0].shape[0] == n
+            and ts_sha(rgb) == want["hevc_rgb"],
+            "hevc_de265_ingest: the RGB frames differ from the CPU box's")
+    print(f"e2e hevc_de265_ingest: {n} {w}x{h} frames == the JAX package's "
+          f"planes ({secs:.2f} s to decode, {n / secs:.1f} frames/s); RGB "
+          f"224x224 == the CPU box's digest, {r['ticks']} ticks, libde265 "
+          f"{r['decode']:.3f} host s; device busy {r['busy']:.3f} ms and idle "
+          f"share {r['idle']:.3f} of a {r['wall']:.3f} ms tick (traced); "
+          f"launches {r['launches']}")
+
+
+def lv_alone(counters, dev, files, dig, libs):
+    """Each of the 28 factories alone on small inputs (lv_rows), on the card
+    and on the CPU (alone_runs): the same result, no launch; and the
+    card's results equal the CPU box's digests (the host items: dsdconvert
+    across every format and layout pair, xingmux on the committed MP3, the
+    OGM parsers, midiparse, irtspparse, dvdemux, the gio streams, the AES
+    and bz2 round trips, shout2send to a loopback listener, chromaprint,
+    gmedec, openmptdec).  A row whose system library is missing prints the
+    error both packages raise."""
+    import tempfile
+    rows = lv_rows(files)
+    card, runs, absent = {}, [], []
+    for names, lib, fn in rows:
+        name = "/".join(names)
+        if lib is not None and not libs[lib]:
+            absent.append((name, lib, fn))
+            continue
+
+        def run(d, tmp, _seed, name=name, fn=fn):
+            res = fn(d, tmp)
+            if d == dev:
+                card[name] = res
+            return res
+        runs.append((name, run))
+    t0 = time.perf_counter()
+    alone_runs(runs, counters, dev, LV_SEED)
+    secs = time.perf_counter() - t0
+    want = dig["leaves"]["rows"]
+    for name, res in card.items():
+        require(lv_digest(res) == want[name], f"{name}: the card's result "
+                "differs from the CPU box's digest")
+    for name, lib, fn in absent:
+        with tempfile.TemporaryDirectory() as tmp:
+            lv_absent(name, lib, lambda: fn(dev, tmp))
+    mine = rr_factories(LV_MODULES)
+    driven = {f for names, _lib, _fn in rows for f in names}
+    require(not mine - driven, f"factories not driven alone: {mine - driven}")
+    ran = {f for name in card for f in name.split("/")}
+    print(f"  leaves alone: {len(ran)} of the {len(mine)} registered "
+          f"factories in {len(card)} runs on the card == the port's CPU run "
+          f"== the CPU box's digests, no launch ({secs:.1f} s)"
+          + (f"; not run here: {[n for n, _l, _f in absent]}" if absent
+             else ""))
+
+
+def leaves_phase(seed, counters, dev):
+    """The last 28 factories on the card, each item with the launch counts
+    zeroed just before and read just after: camerabin_mse_camera,
+    splitmux_mjpeg_camera, fakevideodec_1080p, unixfd_camera and
+    hevc_de265_ingest (1080p to RGB 224x224, yscale_hv once a tick that
+    gave frames), then each factory alone, held to the CPU run and to the
+    CPU box's digests.  Returns {kernel: launches}."""
+    import tempfile
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    libs = lv_libs()
+    print("leaves phase: system libraries " + ", ".join(
+        f"{k} {'loaded' if v else 'missing'}" for k, v in libs.items()))
+    files, dig = codec_vectors(LV_FILES)
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        fn(*a)
+        spent[name] = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        item("camerabin_mse_camera", camerabin_mse_camera, dev, tmp, start,
+             finish, peak)
+        item("splitmux_mjpeg_camera", splitmux_mjpeg_camera, seed, dev, tmp,
+             start, finish, peak)
+        item("fakevideodec_1080p", fakevideodec_1080p, dev, start, finish,
+             peak)
+        item("unixfd_camera", unixfd_camera, dev, tmp, start, finish, peak)
+        item("hevc_de265_ingest", hevc_de265_ingest, dev, start, finish, peak,
+             files, dig)
+    item("alone", lv_alone, counters, dev, files, dig, libs)
+    print(f"leaves phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -14409,6 +15250,10 @@ def main() -> int:
 
     # -- subtitles, tags and the last parsers (host modules) ----------------
     for k, n in tags_subs_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- the leaves: camerabin, msesrc, splitmux, unixfd, de265, ... ---------
+    for k, n in leaves_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

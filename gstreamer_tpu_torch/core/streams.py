@@ -10,8 +10,7 @@ TPU-native equivalents of the remaining core utility types
   that backs uridecodebin-style source selection;
 * GstContext (gstcontext.c) — shared contexts distributed to elements.
 
-A copy of the JAX package's ``core/streams.py``; a URI whose handler
-factory is not ported raises ``NotImplementedError`` naming ROADMAP.md.
+A copy of the JAX package's ``core/streams.py``.
 """
 
 from __future__ import annotations
@@ -154,16 +153,12 @@ def register_uri_handler(protocol: str, factory: str) -> None:
 
 def element_make_from_uri(uri: str, name: Optional[str] = None):
     """gst_element_make_from_uri: build + configure a source for `uri`."""
-    from .element import element_factory_make, factory_exists
+    from .element import element_factory_make
 
     proto = uri_get_protocol(uri)
     factory = _URI_HANDLERS.get(proto)
     if factory is None:
         raise ValueError(f"no URI handler for protocol {proto!r}")
-    if not factory_exists(factory):
-        raise NotImplementedError(
-            f"{factory} (the {proto}:// handler) is not ported to "
-            f"gstreamer_tpu_torch yet (see ROADMAP.md)")
     e = element_factory_make(factory, name=name)
     loc = uri_get_location(uri)
     if "location" in e.PROPERTIES:

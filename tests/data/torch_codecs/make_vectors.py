@@ -10,9 +10,11 @@ JAX package, which writes the digests):
 GROUP is ``codec`` (the FLAC/Vorbis/Theora/MP3 phase's vectors),
 ``opus_aac`` (the Opus/AAC phase's), ``vpx`` (the VPx/transport phase's;
 it needs the system libvpx), ``codec_tail`` (the libav / LC3 / Smoke /
-FLIC phase's; it needs libavcodec with libx264 and libspeex) or
-``tags_subs`` (the subtitle / tag / parser phase's); without one it
-writes all five.  A group
+FLIC phase's; it needs libavcodec with libx264 and libspeex),
+``tags_subs`` (the subtitle / tag / parser phase's) or ``leaves`` (the
+phase of the last factories; it needs libavcodec with libx265 and the
+system libde265, libcrypto, libchromaprint, libgme and libopenmpt); without
+one it writes all six.  A group
 rewrites its files and its entries of ``digests.json`` and keeps the
 others'.  It writes, beside itself, with fixed seeds:
 
@@ -86,7 +88,17 @@ others'.  It writes, beside itself, with fixed seeds:
   ``vorbis_10s.ogg`` with vorbisparse's rate and channels, and the
   discoverer's report of every committed vector, which the JAX package's
   discoverer must give too (but for the ADTS files, which it reads as MP3:
-  ROADMAP.md section 3).
+  ROADMAP.md section 3);
+* ``h265_1080p.hevc``: 8 frames of 1920x1080 I420 from ``videotestsrc``
+  through the port's ``x265enc`` (libx265 at its defaults), with the sha256
+  of every plane the JAX package's ``libde265dec`` decodes from it
+  (``leaves/hevc_planes``, which the port's must equal) and of the RGB
+  224x224 frames ``chip_smoke.py``'s ``hevc_de265_ingest`` chain gives on
+  the port's CPU path (``leaves/hevc_rgb``);
+* ``leaves/rows``: the digest of every run of ``chip_smoke.py``'s
+  ``lv_rows`` (each of the last 28 factories on inputs made from LV_SEED)
+  on the port's CPU path.  Run ``tags_subs`` after ``leaves``: its
+  discoverer reports every committed vector.
 """
 
 import hashlib
@@ -113,6 +125,7 @@ OPUS_AAC_FILES = ("opus_10s.opus", "opus_voice_10s.opus", "aac_10s.aac",
 VPX_FILES = ("vp8_1080p.ivf", "vp9_1080p.webm")
 CODEC_TAIL_FILES = ("h264_1080p.ts", "speex_16k.spx", "anim_320x200.flc")
 TAGS_SUBS_FILES = ("tags_1s.flac",)
+LEAVES_FILES = ("h265_1080p.hevc",)
 
 
 def frames(w=W, h=H, n=FRAMES):
@@ -625,11 +638,48 @@ def write_tags_subs_digests(digests):
         {n: os.path.getsize(os.path.join(HERE, n)) for n in TAGS_SUBS_FILES})
 
 
+def write_leaves_vectors():
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.native import av
+    if not av.have_codec("libx265", encoder=True):
+        raise RuntimeError("the system libavcodec lacks libx265")
+    parse_launch(
+        f"videotestsrc num-buffers={FRAMES} ! video/x-raw,format=I420,"
+        f"width={W},height={H},framerate={FPS}/1 ! x265enc ! filesink "
+        f"location={os.path.join(HERE, LEAVES_FILES[0])}", device="cpu").run()
+
+
+def write_leaves_digests(digests):
+    import torch
+    from chip_smoke import (CONT_FPS, CONT_RGB, LV_FILES, LV_HEVC, ct_planes,
+                            ct_sha, cont_joined, lv_row_digests, ts_sha)
+    w, h, _n, b = LV_HEVC
+    path = os.path.join(HERE, LEAVES_FILES[0])
+    head = (f"filesrc location={path} ! video/x-h265,stream-format="
+            "byte-stream ! libde265dec")
+    planes = plane_digests(element_planes(head))
+    port = [ct_sha([np.ascontiguousarray(p).tobytes() for p in f])
+            for f in ct_planes(port_samples(head, batch=b))]
+    if port != planes:
+        raise RuntimeError("libde265dec: the port's planes are not the JAX "
+                           "package's")
+    rgb = port_samples(f"{head} ! video/x-raw,format=I420,width={w},height="
+                       f"{h},framerate={CONT_FPS}/1 ! "
+                       f"{CONT_RGB.rsplit(' ! ', 1)[0]}", batch=b)
+    digests["leaves"] = {
+        "hevc_planes": planes, "hevc_rgb": ts_sha(cont_joined(rgb)),
+        "rows": lv_row_digests({n: os.path.join(HERE, n) for n in LV_FILES},
+                               torch.device("cpu"))}
+    digests.setdefault("sizes", {}).update(
+        {n: os.path.getsize(os.path.join(HERE, n)) for n in LEAVES_FILES})
+
+
 GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
           "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests),
           "vpx": (write_vpx_vectors, write_vpx_digests),
           "codec_tail": (write_codec_tail_vectors, write_codec_tail_digests),
-          "tags_subs": (write_tags_subs_vectors, write_tags_subs_digests)}
+          "tags_subs": (write_tags_subs_vectors, write_tags_subs_digests),
+          "leaves": (write_leaves_vectors, write_leaves_digests)}
 
 
 if __name__ == "__main__":

@@ -492,8 +492,10 @@ def test_inspect_cli_lists_the_port():
     p = _cli("from gstreamer_tpu_torch.tools import inspect\n"
              "raise SystemExit(inspect.main([]) or inspect.main("
              "['yolov8tensordec']))\n")
-    from test_torch_flow import CODEC_TAIL_FACTORIES, TAGS_SUBS_FACTORIES
+    from test_torch_flow import (CODEC_TAIL_FACTORIES, LEAVES_FACTORIES,
+                                 TAGS_SUBS_FACTORIES)
     assert p.returncode == 0, p.stderr
-    total = 571 + len(CODEC_TAIL_FACTORIES) + len(TAGS_SUBS_FACTORIES)
+    total = 571 + len(CODEC_TAIL_FACTORIES) + len(TAGS_SUBS_FACTORIES) \
+        + len(LEAVES_FACTORIES)
     assert f"Total count: {total} elements" in p.stdout
     assert "class-confidence-threshold" in p.stdout

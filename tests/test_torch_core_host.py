@@ -117,15 +117,21 @@ def test_element_make_from_uri(tmp_path):
 
 
 def test_element_make_from_uri_unported_handler(monkeypatch):
-    """A handler whose factory the port does not have yet (chromaprint;
-    dvdec, named here before, came with the aliases module): the port
-    raises naming ROADMAP.md where the JAX package builds it.  The udp://
-    handler's udpsrc is ported: both build it alike."""
-    for st in (jst, tst):
+    """A handler whose factory is not registered: every factory of the JAX
+    package is ported now, so the port raises as the JAX package does
+    (``ValueError``, no element factory).  chromaprint, named here before,
+    stands for one that registers only where its system library loads,
+    dropped from both registries as where libchromaprint is missing.  The
+    udp:// handler's udpsrc is ported: both build it alike."""
+    from gstreamer_tpu.core import element as jelement
+    from gstreamer_tpu_torch.core import element as telement
+    jelement._ensure_elements_loaded()
+    telement._ensure_elements_loaded()
+    for st, el in ((jst, jelement), (tst, telement)):
         monkeypatch.setitem(st._URI_HANDLERS, "dv", "chromaprint")
-    assert jst.element_make_from_uri("dv://x").FACTORY == "chromaprint"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tst.element_make_from_uri("dv://x")
+        monkeypatch.delitem(el._REGISTRY, "chromaprint", raising=False)
+        with pytest.raises(ValueError, match="no element factory"):
+            st.element_make_from_uri("dv://x")
     e = tst.element_make_from_uri("udp://127.0.0.1:5004")
     j = jst.element_make_from_uri("udp://127.0.0.1:5004")
     assert (e.FACTORY, e.props) == (j.FACTORY, j.props) == \

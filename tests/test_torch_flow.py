@@ -25,6 +25,7 @@ import gstreamer_tpu_torch
 from gstreamer_tpu_torch.check import testclock
 from gstreamer_tpu_torch.core import element as telement
 from gstreamer_tpu_torch.core.buffer import Buffer
+from gstreamer_tpu_torch.elements import chromaprint as tchromaprint
 
 from test_torch_compositor import _run, run_both, video_pushes
 
@@ -187,6 +188,20 @@ PARSERS_MULTIPART_FACTORIES = (
 TAGS_SUBS_FACTORIES = SUBTITLES_TAGS_FACTORIES + PARSERS_MULTIPART_FACTORIES
 TAGS_SUBS_MODULES = ("subparse", "subtitles_extra", "tagmux", "multipart",
                      "moreparsers", "aliases", "transcode")
+# the leaves: the last 14 modules of elements/ and mse.py (chromaprint only
+# where libchromaprint loads, in both packages)
+LEAVES_MODULES = ("shout2", "camerabin", "dsd_elements", "midi_irtsp",
+                  "splitmux", "aes_misc", "chromaprint", "xingmux",
+                  "bz2_elements", "ext_music", "de265", "mse", "gio_dv",
+                  "ogm")
+LEAVES_FACTORIES = (
+    "shout2send", "camerabin", "dsdconvert", "fakevideodec", "midiparse",
+    "irtspparse", "unixfdsink", "unixfdsrc", "splitmuxsink", "splitmuxsrc",
+    "aesenc", "aesdec", "tonegeneratesrc", "xingmux", "bz2enc", "bz2dec",
+    "gmedec", "openmptdec", "libde265dec", "msesrc", "giostreamsrc",
+    "giostreamsink", "dvdemux", "ogmvideoparse", "ogmaudioparse",
+    "ogmtextparse", "oggaviparse") + (
+        ("chromaprint",) if tchromaprint._LIB is not None else ())
 VSRC = ("appsrc name={n} caps=video/x-raw,format=I420,width=32,height=24,"
         "framerate=30/1")
 ASRC = ("appsrc name={n} caps=audio/x-raw,format=S16LE,rate=48000,"
@@ -227,9 +242,10 @@ def test_factory_matches_reference(factory):
 
 def test_registry_count():
     """571 before the libav slice, the five numpy codec factories, as many
-    libav factories as the JAX package registers where the tests run, and
-    as many of the subtitle, tag and parser modules' (46 here: the decoder
-    aliases follow libav)."""
+    libav factories as the JAX package registers where the tests run, as
+    many of the subtitle, tag and parser modules' (46 here: the decoder
+    aliases follow libav) and the leaves' (28 here: chromaprint follows
+    libchromaprint)."""
     from test_torch_libav import load_jax_av
     load_jax_av()
     jav = [f for f, (c, _r) in jelement._REGISTRY.items()
@@ -237,7 +253,14 @@ def test_registry_count():
     jslice = [f for f, (c, _r) in jelement._REGISTRY.items()
               if c.__module__.rsplit(".", 1)[-1] in TAGS_SUBS_MODULES
               and c.__module__.startswith("gstreamer_tpu.elements.")]
-    assert len(telement._REGISTRY) == 571 + 5 + len(jav) + len(jslice)
+    jleaves = [f for f, (c, _r) in jelement._REGISTRY.items()
+               if c.__module__.rsplit(".", 1)[-1] in LEAVES_MODULES]
+    assert len(telement._REGISTRY) == 571 + 5 + len(jav) + len(jslice) \
+        + len(jleaves)
+    assert sorted(LEAVES_FACTORIES) == sorted(jleaves)
+    assert len(LEAVES_FACTORIES) == 27 + (
+        "gstreamer_tpu_torch.elements.chromaprint" in {
+            c.__module__ for c, _r in telement._REGISTRY.values()})
     assert len(CODEC_TAIL_FACTORIES) == 5 + len(jav)
     assert sorted(TAGS_SUBS_FACTORIES) == sorted(jslice)
     assert len(TAGS_SUBS_FACTORIES) == 43 + ("avdec_dvvideo" in jav) \
@@ -257,7 +280,7 @@ def test_registry_count():
         | set(VPX_TRANSPORT_FACTORIES) | set(NET_FACTORIES) \
         | set(RTP2_FACTORIES) | set(NET_TAIL_FACTORIES) \
         | set(CODEC_TAIL_FACTORIES) | set(TAGS_SUBS_FACTORIES) \
-        <= set(telement._REGISTRY)
+        | set(LEAVES_FACTORIES) <= set(telement._REGISTRY)
 
 
 def test_codec_slice_leaves_opus_aac_libav_out():
