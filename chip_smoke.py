@@ -559,6 +559,47 @@ before it and read just after:
   alone             each factory of the slice on small inputs, the card
                     equal to the CPU, no launch
 
+25. The last factories (leaves_phase): camerabin into msesrc, a splitmux
+   MJPEG camera, fakevideodec, a unixfd camera and libde265dec, each 1080p
+   to RGB 224x224 (yscale_hv once a tick that gave frames), then each
+   factory alone against the CPU box's digests.
+
+26. The last host modules (tail_modules_phase; the inputs from TM_SEED,
+   whose digests the JAX package wrote: make_vectors.py's tail group):
+
+  convert_sample_1080p
+                    16 integer-made 1080p I420 frames through
+                    video/hdr.py's convert_sample to RGB 224x224 on the
+                    card in one call (the converter's default cubic):
+                    yscale_hv once, chroma420_scale twice; equal to the
+                    port's CPU run and to the JAX package's digest
+  harness_1080p     Harness("videoconvertscale add-borders=false") on the
+                    card, 1080p I420 to RGB 224x224: 4 pushes of 16 snow
+                    frames made on the card (yscale_hv once a push), then
+                    push_from_src of a videotestsrc sub-harness; each equal
+                    to the direct conversion of the same frames
+  monitored_headline
+                    PipelineMonitor over 64 frames of 1080p snow to RGB
+                    224x224 at batch 16 under a Scenario (a forward seek, a
+                    property set, EOS injected): no violation, the report,
+                    timestamps and frames equal to the CPU run's; yscale_hv
+                    once a tick that gave frames
+  timeline_crossfade_1080p
+                    two 24-frame 1080p I420 Matroska files (matroskamux on
+                    the card) as UriClips overlapping by 8 frames under a
+                    4-frame TitleClip, timelinevideosrc into a 384x216 RGB
+                    track at 25/1 (each clip's sub-pipeline at batch 1,
+                    yscale_hv a frame; the crossfade and the stack on the
+                    card), and timelineaudiosrc of two overlapping square
+                    waves at 48 kHz stereo S16LE: equal to the CPU run and
+                    to the JAX package's digests
+  alone             the host items (timecode, ANC, multiview, DMA, IEC
+                    61937, stream align, a codec base subclass, and
+                    tools.typefind, tools.stats on the card, dotsviewer on
+                    monitored_headline's dot dump, logviewer on a log the
+                    phase writes), the card equal to the CPU and to the
+                    JAX package's digests, no launch
+
 Outputs are checked against the port's own CPU path (first frames), the
 converter's numpy gold and videobalance's float64 tables.  Any failure
 raises.  The last line of standard output is one JSON object {"ok": true,
@@ -14900,6 +14941,779 @@ def leaves_phase(seed, counters, dev):
     return total
 
 
+TM_SAMPLE = (1920, 1080, 16)        # convert_sample_1080p: width, height, frames
+TM_HARNESS = (1920, 1080, 4, 16)    # harness_1080p: pushes of a batch
+TM_MONITOR = (1920, 1080, 64, 16)   # monitored_headline: frames, batch
+TM_CLIPS = (1920, 1080, 24, 8)      # the timeline's files: frames, overlap
+TM_TRACK = (384, 216, 4, 16)        # its track, the title's frames, the batch
+TM_AUDIO = (48000, 2, 4800)         # timelineaudiosrc: rate, channels, blocksize
+TM_FPS = 25
+TM_SEED = 2029                      # the inputs whose digests are committed
+TM_VECTORS = ("aac_10s.aac", "aac_10s.m4a", "anim_320x200.flc",
+              "h264_1080p.ts", "h265_1080p.hevc", "heaac_10s.aac",
+              "mp3_10s.mp3", "opus_10s.opus", "opus_voice_10s.opus",
+              "speex_16k.spx", "tags_1s.flac", "theora_1080p.ogv",
+              "theora_vorbis_1080p.mkv", "vorbis_10s.ogg", "vp8_1080p.ivf",
+              "vp9_1080p.webm")
+TM_FILES = TM_VECTORS + ("digests.json",)
+TM_I420 = "video/x-raw,format=I420,width={w},height={h},framerate={fps}/1"
+TM_RGB = "video/x-raw,format=RGB,width=224,height=224"
+TM_STATS = ("videotestsrc name=src num-buffers=8 pattern=snow ! "
+            "videoconvertscale name=conv ! fakesink name=sink")
+
+
+def tm_mod(root, name):
+    """Module `name` of the package `root` (the port's in this script; the
+    vector writer passes the JAX package's, whose modules have the same
+    names and signatures)."""
+    import importlib
+    return importlib.import_module(f"{root}.{name}")
+
+
+def tm_parse(root, desc, d, batch=1):
+    """`desc` through `root`'s parse_launch, on `d` (None: the package's
+    own default, the JAX package having no device argument)."""
+    kw = {} if d is None else {"device": d}
+    return tm_mod(root, "core.parse").parse_launch(desc, batch=batch, **kw)
+
+
+def tm_headline(w, h, n):
+    """monitored_headline's launch string, every element named (the dot
+    dump then holds no process-wide counter)."""
+    caps = TM_I420.format(w=w, h=h, fps=TM_FPS)
+    return (f"videotestsrc name=src pattern=snow num-buffers={n} ! "
+            f"capsfilter name=in caps=\"{caps}\" ! videoconvertscale "
+            f"name=conv add-borders=false ! capsfilter name=out "
+            f"caps=\"{TM_RGB}\" ! appsink name=a")
+
+
+def tm_stdout(fn, *a):
+    """fn(*a)'s return value and what it printed."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*a)
+    return rc, buf.getvalue()
+
+
+def tm_timecode(root, d, tmp):
+    """VideoTimeCode from seeded frame counts and the minute edges, at five
+    rates, drop-frame where the rate has it: string, frames since the daily
+    jam, nanoseconds, validity, the string parsed back, the increment."""
+    import numpy as np
+    tc = tm_mod(root, "video.timecode")
+    frac = tm_mod(root, "core.value").Fraction
+    rng = np.random.default_rng(TM_SEED)
+    out = []
+    for (num, den), drop in (((30, 1), False), ((25, 1), False),
+                             ((30000, 1001), True), ((60000, 1001), True),
+                             ((24000, 1001), False)):
+        fps = frac(num, den)
+        flags = tc.TimeCodeFlags.DROP_FRAME if drop else 0
+        day = 24 * 3600 * (-(-num // den)) - (
+            (num // 1000) // 15 * 24 * 54 if drop else 0)
+        counts = [0, 1, 1799, 1800, 1801, 17981, 17982, 17983, day - 1] + [
+            int(x) for x in rng.integers(0, day, 24)]
+        for n in counts:
+            t = tc.VideoTimeCode.from_frames(n, fps, flags)
+            s = t.to_string()
+            back = tc.VideoTimeCode.from_string(s, fps)
+            out.append([n, s, t.frames_since_daily_jam(), t.to_ns(),
+                        t.is_valid(), back.frames_since_daily_jam(),
+                        t.increment().to_string()])
+    return out
+
+
+def tm_anc(root, d, tmp):
+    """Seeded ancillary packets encoded into v210 (10-bit) and UYVY (8-bit)
+    lines at SD and HD widths, component and composite, until the line is
+    full; each line's bytes and what the parser reads back, also from the
+    line with one payload byte flipped."""
+    import hashlib
+
+    import numpy as np
+    anc = tm_mod(root, "video.anc")
+    rng = np.random.default_rng(TM_SEED + 1)
+    out = []
+    for fmt in ("v210", "UYVY"):
+        for width in (720, 1920):
+            for composite in (False, True):
+                enc = anc.VideoVBIEncoder(fmt, width)
+                added = []
+                while True:
+                    did, sdid = (int(x) for x in rng.integers(1, 255, 2))
+                    data = rng.integers(0, 256, int(rng.integers(1, 40)),
+                                        dtype=np.uint8).tobytes()
+                    if not enc.add_ancillary(composite, did, sdid, data):
+                        break
+                    added.append([did, sdid, data.hex()])
+                line = enc.write_line()
+                bad = bytearray(line)
+                bad[len(line) // 3] ^= 0x04
+                got = []
+                for ln in (line, bytes(bad)):
+                    par = anc.VideoVBIParser(fmt, width)
+                    par.add_line(ln)
+                    got.append([[a.DID, a.SDID_block_number, a.data.hex()]
+                                for a in par.get_ancillaries()])
+                out.append([fmt, width, composite, len(added),
+                            hashlib.sha256(line).hexdigest(),
+                            got[0] == added, got[1]])
+    caps = tm_mod(root, "core.caps").Caps
+    out.append([[str(anc.caption_type_to_caps(t)),
+                 int(anc.caption_type_from_caps(anc.caption_type_to_caps(t)))]
+                for t in (1, 2, 3, 4)])
+    out.append(int(anc.caption_type_from_caps(caps.from_string(
+        "video/x-raw, format=I420"))))
+    return out
+
+
+def tm_multiview(root, d, tmp):
+    """Every mode's caps string and back, the half-aspect guess over a grid
+    of sizes and pixel aspects, and the geometry of every change of
+    packing with and without HALF_ASPECT."""
+    mv = tm_mod(root, "video.multiview")
+    modes = list(mv.MultiviewMode)
+    out = [[int(m), mv.mode_to_caps_string(m)] for m in modes]
+    out.append([int(mv.mode_from_caps_string(s)) for s in (
+        "mono", "side-by-side", "checkerboard", "separated", "bogus")])
+    out.append([mv.guess_half_aspect(m, w, h, pn, pd) for m in modes
+                for w, h in ((1920, 1080), (3840, 1080), (1920, 2160),
+                             (1280, 1024), (4096, 858))
+                for pn, pd in ((1, 1), (2, 1), (1, 2), (4, 3))])
+    half = mv.MultiviewFlags.HALF_ASPECT
+    out.append([list(mv.change_mode_geometry(1920, 1080, (1, 1), a, fa, b,
+                                             fb))
+                for a in modes for b in modes
+                for fa in (mv.MultiviewFlags.NONE, half)
+                for fb in (mv.MultiviewFlags.NONE, half)])
+    return out
+
+
+def tm_dma(root, d, tmp):
+    """The DRM fourcc and modifier of every format the table maps and of
+    some it does not, mapped back, and the string forms both ways."""
+    dma = tm_mod(root, "video.dma")
+    fmts = sorted(dma._FORMAT_MAP) + ["I420A", "AYUV64", "bogus"]
+    out = []
+    for f in fmts:
+        code, mod = dma.dma_drm_fourcc_from_format(f)
+        s = dma.dma_drm_fourcc_to_string(code, mod)
+        out.append([f, code, mod, dma.dma_drm_fourcc_to_format(code, mod), s,
+                    list(dma.dma_drm_fourcc_from_string(s))])
+    out.append([list(dma.dma_drm_fourcc_from_string(s)) for s in (
+        "NV12", "NV12:0x0100000000000001", "R16:BE", "YU12:0x0",
+        "AB24:0x0b00000000010001")])
+    return out
+
+
+def tm_iec61937(root, d, tmp):
+    """An IEC 61937 burst of every stream type on seeded payloads (AC-3,
+    E-AC-3, DTS types I-III, MPEG-1/2 layers, AAC with 1, 2 and 4 raw data
+    blocks), little- and big-endian, with the frame sizes; and the payloads
+    each refuses."""
+    import hashlib
+
+    import numpy as np
+    iec = tm_mod(root, "audio.iec61937")
+    rng = np.random.default_rng(TM_SEED + 2)
+
+    def raw(n, byte6=None, byte5=None):
+        b = bytearray(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+        if byte5 is not None:
+            b[5] = byte5
+        if byte6 is not None:
+            b[6] = (b[6] & ~3) | byte6
+        return bytes(b)
+    cases = [("ac3", {}, raw(1792, byte5=3)), ("ac3", {}, raw(5)),
+             ("eac3", {}, raw(6001)),
+             ("dts", {"frame-size": 1006, "block-size": 512}, raw(1006)),
+             ("dts", {"frame-size": 2012, "block-size": 1024}, raw(2012)),
+             ("dts", {"frame-size": 4000, "block-size": 512}, raw(4000)),
+             ("mpeg", {"mpegaudioversion": 1, "layer": 1}, raw(384)),
+             ("mpeg", {"mpegaudioversion": 1, "layer": 3}, raw(417)),
+             ("mpeg", {"mpegaudioversion": 2, "layer": 2, "rate": 11025},
+              raw(1000)),
+             ("mpeg", {"mpegaudioversion": 2, "layer": 3, "rate": 8000},
+              raw(144)),
+             ("mpeg", {"mpegaudioversion": 3, "layer": 3}, raw(100)),
+             ("aac", {}, raw(371, byte6=0)), ("aac", {}, raw(700, byte6=1)),
+             ("mpeg4-aac", {}, raw(2001, byte6=3)),
+             ("aac", {}, raw(900, byte6=2)), ("aac", {}, raw(5000, byte6=0)),
+             ("opus", {}, raw(100))]
+    out = []
+    for kind, fields, src in cases:
+        row = [kind, sorted(fields.items()), iec.frame_size(kind, fields)]
+        for be in (False, True):
+            burst = iec.payload(src, kind, fields, big_endian_out=be)
+            row.append(None if burst is None else
+                       [len(burst), hashlib.sha256(burst).hexdigest()])
+        out.append(row)
+    return out
+
+
+def tm_streamalign(root, d, tmp):
+    """AudioStreamAlign over a seeded timeline at 48 kHz: jitter inside the
+    threshold absorbed, a short drift waited out, a long drift and a jump
+    resynced, missing timestamps, a discont marked; every (pts, duration,
+    discont)."""
+    import numpy as np
+    al = tm_mod(root, "audio.streamalign")
+    rng = np.random.default_rng(TM_SEED + 3)
+    a = al.AudioStreamAlign(rate=48000)
+    out, t = [], 0
+    for k in range(120):
+        n = int(rng.integers(256, 4801))
+        if k == 40:
+            t += 3_000_000_000                  # a jump: resync
+        jitter = int(rng.integers(-20_000_000, 20_000_001))
+        if 60 <= k < 90:
+            jitter += 60_000_000                # drift past the threshold
+        pts = None if k % 17 == 5 else t + jitter
+        if k == 100:
+            a.mark_discont()
+        out.append(list(a.process(pts, n)))
+        t += n * 1_000_000_000 // 48000
+    return out
+
+
+def tm_codecbase(root, d, tmp):
+    """A VideoDecoderBase subclass that holds every second frame for one
+    buffer (a reorder) and a VideoEncoderBase that reverses bytes: the
+    frames they give, in order, with their numbers and timestamps, and
+    what drain() gives at the end."""
+    cb = tm_mod(root, "video.codecbase")
+    buf_cls = tm_mod(root, "core.buffer").Buffer
+
+    def handle(self, frame):
+        frame.output_data = bytes(frame.input_data)[::-1]
+        if frame.system_frame_number % 2:
+            self._pending.append(frame)
+            return None
+        held, self._pending = self._pending, []
+        return held[0] if held else frame
+    dec = type("TmReorder", (cb.VideoDecoderBase,), {
+        "FACTORY": "tmreorder", "handle_frame": handle})()
+    enc = type("TmReverse", (cb.VideoEncoderBase,), {
+        "FACTORY": "tmreverse", "handle_frame": lambda self, f: (
+            setattr(f, "output_data", bytes(f.input_data)[::-1]) or f)})()
+    out = []
+    for el in (dec, enc):
+        el.start()
+        for k in range(5):
+            data = [bytes([k, i, 7]) for i in range(3)]
+            b = el.host_process(buf_cls(data=data, pts=k * 3000,
+                                        duration=1000, batch=3))
+            out.append(None if b is None else
+                       [b.pts, b.batch, [x.hex() for x in b.data]])
+        out.append([[f.system_frame_number, f.pts, f.output_data.hex()]
+                    for f in el.drain()])
+    return out
+
+
+def tm_typefind(root, d, tmp, files):
+    """tools.typefind over the committed vectors: its exit code and output,
+    the directory left out."""
+    tf = tm_mod(root, "tools.typefind")
+    paths = [files[n] for n in TM_VECTORS]
+    rc, text = tm_stdout(tf.main, paths)
+    return [rc, text.replace(os.path.dirname(paths[0]) + os.sep, "")]
+
+
+def tm_stats_run(root, d):
+    """tools.stats on TM_STATS (on `d`; None for the package's default)
+    with its three tracers: its exit code and reports' JSON.  The tracers
+    are reset before and after, and GTPU_TRACERS set for the run only."""
+    st = tm_mod(root, "tools.stats")
+    hooks = tm_mod(root, "core.tracer").hooks
+
+    def reset():
+        hooks.handlers.clear()
+        hooks.tracers.clear()
+        hooks._env_loaded = False
+    argv = [TM_STATS] + (["--cpu"] if d is not None and d.type == "cpu"
+                         else [])
+    with switches(GTPU_TRACERS=None):
+        reset()
+        try:
+            rc, text = tm_stdout(st.main, argv)
+        finally:
+            reset()
+    return rc, json.loads(text)
+
+
+def tm_stats(root, d, tmp):
+    """What tm_stats_run reports that a run fixes: the tracers, each
+    element's count of buffers and frames, the ticks."""
+    rc, rep = tm_stats_run(root, d)
+    return [rc, sorted(rep), sorted((k, v["n"]) for k, v in
+                                    rep["latency"].items()),
+            rep["stats"], rep["rusage"]["ticks"]]
+
+
+def tm_sort_caps(pipe):
+    """Sort the fields of every negotiated caps structure of `pipe`: their
+    order may follow a set's, which differs by process, so a dump of the
+    sorted caps is the same in any process."""
+    for e in pipe.iterate_elements():
+        for p in e.pads:
+            for st in (p.caps or ()):
+                st.fields = dict(sorted(st.fields.items()))
+
+
+def tm_dotsviewer(root, d, tmp):
+    """tools.dotsviewer over the dot dump of monitored_headline's pipeline
+    (negotiated at its full size): the dot text, the page and the CLI's
+    line."""
+    w, h, n, b = TM_MONITOR
+    dv = tm_mod(root, "tools.dotsviewer")
+    pipe = tm_parse(root, tm_headline(w, h, n), d, b)
+    pipe.negotiate()
+    tm_sort_caps(pipe)
+    text = tm_mod(root, "utils.dot").pipeline_to_dot(pipe)
+    dots = os.path.join(tmp, "dots")
+    os.makedirs(dots)
+    with open(os.path.join(dots, "monitored_headline.dot"), "w") as f:
+        f.write(text)
+    page = os.path.join(tmp, "page.html")
+    rc, said = tm_stdout(dv.main, [dots, "-o", page])
+    with open(page) as f:
+        html = f.read()
+    return [rc, said.replace(page, "page.html"), text, html]
+
+
+def tm_log_text(seed):
+    """A seeded log in both dialects the viewer reads: the framework's
+    (``... LEVEL gtpu.<category>: message``) and the reference's
+    (GST_DEBUG_FILE), with multi-line messages folded into their entry."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    levels = ["ERROR", "WARNING", "Level 29", "INFO", "DEBUG", "Level 9",
+              "Level 8", "CRITICAL"]
+    gst = ["ERROR", "WARN", "FIXME", "INFO", "DEBUG", "LOG", "TRACE"]
+    cats = ["pipeline", "converter", "parse", "tracer.stats", "net.rtp"]
+    lines = []
+    for k in range(160):
+        ms = 100 * k + int(rng.integers(0, 100))
+        cat = cats[int(rng.integers(0, len(cats)))]
+        word = "".join(chr(97 + int(c)) for c in rng.integers(0, 26, 6))
+        if k % 3:
+            lines.append(f"2026-01-02 03:04:{ms // 1000 % 60:02d},"
+                         f"{ms % 1000:03d} {levels[k % len(levels)]} "
+                         f"gtpu.{cat}: tick {k} {word}")
+        else:
+            lines.append(f"0:00:{ms // 1000:02d}.{ms % 1000:03d}000000 "
+                         f"4242 0x7f00dead {gst[k % len(gst)]:<7} "
+                         f"{cat.split('.')[0]} gst{cat}.c:{k}:fn_{word}:"
+                         f"<elem{k % 4}> buffer {k} {word}")
+        if k % 11 == 0:
+            lines.append(f"    continued {word}")
+    return "\n".join(lines) + "\n"
+
+
+def tm_logviewer(root, d, tmp):
+    """tools.logviewer over a log this phase writes (tm_log_text): the
+    terminal view at three filters and the HTML page."""
+    lv = tm_mod(root, "tools.logviewer")
+    log = os.path.join(tmp, "run.log")
+    with open(log, "w") as f:
+        f.write(tm_log_text(TM_SEED + 4))
+    out = []
+    for args in ([], ["--level", "INFO"], ["--category", "net*", "--grep",
+                                            "tick"]):
+        out.append(list(tm_stdout(lv.main, [log] + args)))
+    page = os.path.join(tmp, "view.html")
+    rc, said = tm_stdout(lv.main, [log, "-o", page])
+    with open(page) as f:
+        out.append([rc, said.replace(page, "view.html"), f.read()])
+    return out
+
+
+def tm_rows(files):
+    """[(name, fn(root, d, tmp))] of the phase's host items; each result is
+    plain data, and ``digests.json`` keeps its lv_digest from the JAX
+    package (tail/rows)."""
+    return [("timecode", tm_timecode), ("anc", tm_anc),
+            ("multiview", tm_multiview), ("dma", tm_dma),
+            ("iec61937", tm_iec61937), ("streamalign", tm_streamalign),
+            ("codecbase", tm_codecbase),
+            ("typefind", lambda root, d, tmp: tm_typefind(root, d, tmp,
+                                                          files)),
+            ("stats", tm_stats), ("dotsviewer", tm_dotsviewer),
+            ("logviewer", tm_logviewer)]
+
+
+def tm_sample_frames():
+    """convert_sample_1080p's seeded I420 frames (ct_frames)."""
+    w, h, n = TM_SAMPLE
+    return ct_frames(n, w, h, TM_SEED)
+
+
+def tm_sample_run(root, planes, d):
+    """`root`'s convert_sample of the frames, 1080p I420 to RGB 224x224 at
+    the converter's default (cubic) configuration, in one call."""
+    w, h, _n = TM_SAMPLE
+    kw = {} if d is None else {"device": d}
+    return tm_mod(root, "video.hdr").convert_sample(
+        planes, TM_I420.format(w=w, h=h, fps=TM_FPS), TM_RGB, **kw)
+
+
+def convert_sample_1080p(dev, start, finish, want):
+    """TM_SAMPLE's frames through convert_sample on the card in one call:
+    yscale_hv once and chroma420_scale twice (the cubic route), equal to
+    the port's CPU run and to the JAX package's digest."""
+    import torch
+    planes = tm_sample_frames()
+    start("convert_sample_1080p")
+    t0 = time.perf_counter()
+    out = tm_sample_run("gstreamer_tpu_torch", planes, dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = finish("convert_sample_1080p",
+                    {"yscale_hv": 1, "chroma420_scale": 2})
+    cpu = tm_sample_run("gstreamer_tpu_torch", planes, torch.device("cpu"))
+    require(len(out) == 3 and all(o.device.type == dev.type for o in out),
+            "convert_sample_1080p: the planes are not on the card")
+    require(cont_equal(tuple(o.cpu() for o in out), tuple(cpu)),
+            "convert_sample_1080p: the card's planes differ from the port's "
+            "CPU run")
+    require(ts_sha(out) == want,
+            "convert_sample_1080p: the planes differ from the JAX package's "
+            "convert_sample (digest)")
+    n = planes[0].shape[0]
+    print(f"e2e convert_sample_1080p: {n} 1080p I420 frames to RGB 224x224 "
+          f"in one call == the port's CPU run == the JAX package's digest, "
+          f"{secs * 1e3:.1f} ms (host clock, the upload included); launches "
+          f"{counts}")
+
+
+def tm_direct(planes, dev):
+    """The direct conversion of 1080p I420 planes to RGB 224x224 with
+    videoconvertscale's configuration (linear, 2 taps)."""
+    from gstreamer_tpu_torch import VideoConverter, VideoInfo
+    w, h = planes[0].shape[-1], planes[0].shape[-2]
+    return VideoConverter(VideoInfo(format="I420", width=w, height=h),
+                          VideoInfo(format="RGB", width=224, height=224),
+                          CONFIGS["linear2"], device=dev).convert(planes)
+
+
+def harness_1080p(dev, start, finish, peak):
+    """Harness("videoconvertscale add-borders=false") on the card, its caps
+    1080p I420 to RGB 224x224: TM_HARNESS's pushes of snow frames made on
+    the card, then one frame of a videotestsrc src sub-harness
+    (push_from_src): yscale_hv once a push, every output on the card and
+    equal to the direct conversion of the same frames."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.check import Harness
+    w, h, pushes, b = TM_HARNESS
+    caps = TM_I420.format(w=w, h=h, fps=TM_FPS)
+    src = parse_launch(f"videotestsrc pattern=snow num-buffers={pushes * b} "
+                       f"! {caps} ! appsink name=a", batch=b, device=dev)
+    src.run()
+    frames = [s.buffer for s in drain(src.get_by_name("a"))]
+    require(len(frames) == pushes and all(
+        f.data[0].device.type == dev.type for f in frames),
+        "harness_1080p: the snow frames are not on the card")
+    hns = Harness("videoconvertscale add-borders=false", device=dev)
+    hns.set_caps(caps, TM_RGB)
+    base = start("harness_1080p")
+    t0 = time.perf_counter()
+    outs = [hns.push(f.data, pts=f.pts, duration=f.duration, batch=f.batch)
+            for f in frames]
+    sync(dev)
+    secs = time.perf_counter() - t0
+    mem = peak(base)
+    counts = finish("harness_1080p", {"yscale_hv": pushes})
+    for f, o in zip(frames, outs):
+        require(o is not None and o[0].device.type == dev.type
+                and tuple(o[0].shape) == (b, 224, 224),
+                "harness_1080p: a push gave no output on the card")
+        require(cont_equal(tuple(o), tuple(tm_direct(f.data, dev))),
+                "harness_1080p: a push differs from the direct conversion")
+    hns.add_src(f"videotestsrc pattern=snow ! {caps}")
+    start("harness_1080p[src]")
+    one = hns.push_from_src()
+    finish("harness_1080p[src]", {"yscale_hv": 1})
+    require(hns.src_harness.device == hns.device == dev,
+            "harness_1080p: the src sub-harness is not on the harness's "
+            "device")
+    require(one is not None and one.batch == 1, "harness_1080p: "
+            "push_from_src gave nothing")
+    ref = parse_launch(f"videotestsrc pattern=snow num-buffers=1 ! {caps} ! "
+                       "appsink name=a", device=dev)
+    ref.run()
+    first = drain(ref.get_by_name("a"))[0].buffer.data
+    require(cont_equal(tuple(one.data),
+                                           tuple(tm_direct(first, dev))),
+            "harness_1080p: push_from_src differs from the direct conversion")
+    print(f"e2e harness_1080p: {pushes} pushes of {b} 1080p snow frames "
+          f"(made on the card) through the harness to RGB 224x224 == the "
+          f"direct conversion, {pushes * b / max(secs, 1e-9):.1f} frames/s; "
+          f"push_from_src of a videotestsrc sub-harness == the direct "
+          f"conversion; peak memory {mem:.1f} MiB; launches {counts} and "
+          f"yscale_hv 1 for push_from_src")
+
+
+def tm_monitored(d, n_ticks=None):
+    """monitored_headline's run on `d` under PipelineMonitor and a
+    Scenario (a forward seek at tick 1, a property set at tick 2, EOS
+    injected at tick 3): (report, [samples' pts], frames, ticks that gave
+    frames, pipeline)."""
+    from gstreamer_tpu_torch.validate import PipelineMonitor, Scenario
+    w, h, n, b = TM_MONITOR
+    dur = 10**9 // TM_FPS
+    pipe = tm_parse("gstreamer_tpu_torch", tm_headline(w, h, n), d, b)
+    mon = PipelineMonitor(pipe)
+    fed = []
+    sink = pipe.get_by_name("a")
+    samples = []
+
+    def take(p):
+        got = drain(sink)
+        fed.append(sum(s.buffer.batch for s in got))
+        samples.extend(got)
+    actions = [(1, take), (1, Scenario.seek(2 * b * dur)),
+               (2, take), (2, Scenario.set_property("src", "pattern",
+                                                    "snow")),
+               (3, take), (3, Scenario.eos_injection())]
+    Scenario(actions=actions, max_ticks=n_ticks or n).run(pipe, mon)
+    take(pipe)
+    rep = mon.report()
+    return rep, [s.buffer.pts for s in samples], cont_joined(samples), \
+        [f for f in fed if f], pipe
+
+
+def monitored_headline(dev, start, finish, peak):
+    """The headline launch (1080p snow to RGB 224x224 at batch 16) on the
+    card under PipelineMonitor, driven by a Scenario that seeks forward,
+    sets a property and injects EOS: no violation, the report equal to the
+    CPU run's, the frames too; yscale_hv once a tick that gave frames."""
+    import torch
+    base = start("monitored_headline")
+    t0 = time.perf_counter()
+    rep, pts, frames, fed, pipe = tm_monitored(dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    mem = peak(base)
+    counts = finish("monitored_headline", {"yscale_hv": len(fed)})
+    require(rep == {"violations": []},
+            f"monitored_headline: violations {rep}")
+    crep, cpts, cframes, cfed, _p = tm_monitored(torch.device("cpu"))
+    require(rep == crep and pts == cpts and fed == cfed,
+            f"monitored_headline: the report, timestamps or ticks differ from "
+            f"the CPU run's ({rep} {pts} {fed} / {crep} {cpts} {cfed})")
+    require(cont_equal(frames, cframes), "monitored_headline: the frames "
+            "differ from the CPU run's")
+    b = TM_MONITOR[3]
+    require(fed == [b, b, b] and pts[1] == 2 * b * (10**9 // TM_FPS),
+            f"monitored_headline: ticks gave {fed} frames, pts {pts}")
+    print(f"e2e monitored_headline: PipelineMonitor over 1080p snow to RGB "
+          f"224x224 at batch {b} under a Scenario (seek to frame {2 * b}, "
+          f"set-property, EOS at tick 3): {sum(fed)} frames in {len(fed)} "
+          f"ticks, report {rep} == the CPU run's, frames and pts equal; "
+          f"{secs:.2f} s (host clock); peak memory {mem:.1f} MiB; launches "
+          f"{counts}")
+
+
+def tm_write_clips(tmp, d):
+    """The timeline's two seeded 1080p I420 Matroska files (TM_CLIPS' frames
+    each, ct_frames of TM_SEED + 10 and + 11), written through matroskamux on
+    `d`: their paths."""
+    import torch
+    from gstreamer_tpu_torch import parse_launch
+    from gstreamer_tpu_torch.core.buffer import Buffer
+    w, h, n, _ov = TM_CLIPS
+    dur = 10**9 // TM_FPS
+    paths = []
+    for k in range(2):
+        planes = ct_frames(n, w, h, TM_SEED + 10 + k)
+        path = os.path.join(tmp, f"clip{k}.mkv")
+        pipe = parse_launch(
+            f"matroskamux name=m location={path} ! fakesink appsrc name=v "
+            f"caps={TM_I420.format(w=w, h=h, fps=TM_FPS)} ! m.video_0",
+            batch=8, device=d)
+        src = pipe.get_by_name("v")
+        for j in range(0, n, 8):
+            chunk = tuple(torch.from_numpy(p[j:j + 8]).to(d) for p in planes)
+            src.push_buffer(Buffer(data=chunk, batch=chunk[0].shape[0],
+                                   pts=j * dur, duration=dur))
+        src.end_of_stream()
+        pipe.run()
+        paths.append(path)
+    return paths
+
+
+def tm_timeline(root, paths, d):
+    """The timeline of timeline_crossfade_1080p in package `root`: a 16:9 RGB
+    track at TM_FPS, the two files as UriClips on layer 0 overlapping by
+    TM_CLIPS' overlap (the first starting after the title's frames), a
+    TitleClip on layer 1 under the first frames; and an audio timeline of
+    two overlapping TestClips (square waves) at 48 kHz stereo S16LE.
+    Returns (video timeline, audio timeline)."""
+    ed = tm_mod(root, "editing")
+    frac = tm_mod(root, "core.value").Fraction
+    _w, _h, n, ov = TM_CLIPS
+    tw, th, title, _b = TM_TRACK
+    f = 10**9 // TM_FPS
+    tl = ed.Timeline(video=ed.VideoTrack(width=tw, height=th,
+                                         fps=frac(TM_FPS, 1), format="RGB"))
+    top, under = tl.append_layer(), tl.append_layer()
+    top.add_clip(ed.UriClip(start=title * f, duration=n * f,
+                            location=paths[0]))
+    top.add_clip(ed.UriClip(start=(title + n - ov) * f, duration=n * f,
+                            location=paths[1]))
+    under.add_clip(ed.TitleClip(start=0, duration=title * f, text="TAIL",
+                                background="black", font_size=20))
+    rate, ch, _blk = TM_AUDIO
+    atl = ed.Timeline(audio=ed.AudioTrack(rate=rate, channels=ch))
+    lay = atl.append_layer()
+    lay.add_clip(ed.TestClip(start=0, duration=6 * 10**8, wave="square",
+                             freq=500.0, volume=0.5))
+    lay.add_clip(ed.TestClip(start=4 * 10**8, duration=6 * 10**8,
+                             wave="square", freq=1200.0, volume=0.25))
+    return tl, atl
+
+
+def tm_timeline_run(root, paths, d, kind="video"):
+    """`timelinevideosrc ! appsink` (or timelineaudiosrc) over tm_timeline
+    in package `root` on `d`: the samples' data joined on the host (numpy),
+    and the samples' (pts, batch)."""
+    import numpy as np
+    import torch
+    tl, atl = tm_timeline(root, paths, d)
+    _tw, _th, _t, b = TM_TRACK
+    blk = TM_AUDIO[2]
+    desc = ("timelinevideosrc name=tl ! appsink name=a" if kind == "video"
+            else f"timelineaudiosrc name=tl blocksize={blk} ! appsink name=a")
+    pipe = tm_parse(root, desc, d, b if kind == "video" else 1)
+    pipe.get_by_name("tl").set_property(
+        "timeline", tl if kind == "video" else atl)
+    pipe.run()
+    got = drain(pipe.get_by_name("a"))
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+    if kind == "video":
+        data = tuple(np.concatenate([host(s.buffer.data[c]) for s in got])
+                     for c in range(len(got[0].buffer.data)))
+    else:
+        data = np.concatenate([host(s.buffer.data) for s in got])
+    return data, [(s.buffer.pts, s.buffer.batch) for s in got]
+
+
+def timeline_crossfade_1080p(dev, tmp, start, finish, peak, dig):
+    """tm_timeline on the card: each UriClip's sub-pipeline (matroskademux !
+    videoconvertscale ! RGB 384x216 at batch 1) converts a 1080p frame
+    with yscale_hv a tick, the crossfade and the stack run on the card;
+    every frame equal to the port's CPU run and to the JAX package's
+    digest; the audio timeline likewise."""
+    import torch
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    paths = tm_write_clips(tmp, dev)
+    wsecs = time.perf_counter() - t0
+    _w, _h, n, ov = TM_CLIPS
+    tw, th, title, b = TM_TRACK
+    base = start("timeline_crossfade_1080p")
+    t0 = time.perf_counter()
+    frames, meta = tm_timeline_run("gstreamer_tpu_torch", paths, dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    mem = peak(base)
+    counts = finish("timeline_crossfade_1080p", {"yscale_hv": 2 * n})
+    total = title + 2 * n - ov
+    require(frames[0].shape == (total, th, tw) and len(frames) == 3,
+            f"timeline_crossfade_1080p: {[f.shape for f in frames]}")
+    cframes, cmeta = tm_timeline_run("gstreamer_tpu_torch", paths, cpu)
+    require(meta == cmeta and cont_equal(
+        tuple(torch.from_numpy(f) for f in frames),
+        tuple(torch.from_numpy(f) for f in cframes)),
+        "timeline_crossfade_1080p: the card's frames differ from the port's "
+        "CPU run")
+    require(ts_sha(frames) == dig["timeline_video"],
+            "timeline_crossfade_1080p: the frames differ from the JAX "
+            "package's timelinevideosrc (digest)")
+    start("timeline_crossfade_1080p[audio]")
+    t1 = time.perf_counter()
+    pcm, ameta = tm_timeline_run("gstreamer_tpu_torch", paths, dev, "audio")
+    asecs = time.perf_counter() - t1
+    finish("timeline_crossfade_1080p[audio]", {})
+    cpcm, cameta = tm_timeline_run("gstreamer_tpu_torch", paths, cpu,
+                                   "audio")
+    require(ameta == cameta and pcm.dtype == cpcm.dtype
+            and (pcm == cpcm).all(), "timeline_crossfade_1080p: the card's "
+            "audio differs from the port's CPU run")
+    require(ts_sha(pcm) == dig["timeline_audio"],
+            "timeline_crossfade_1080p: the audio differs from the JAX "
+            "package's timelineaudiosrc (digest)")
+    print(f"e2e timeline_crossfade_1080p: two {n}-frame 1080p I420 Matroska "
+          f"files ({wsecs:.2f} s to write) as UriClips overlapping by {ov} "
+          f"frames under a {title}-frame TitleClip, timelinevideosrc ! RGB "
+          f"{tw}x{th} at batch {b}: {total} frames == the port's CPU run == "
+          f"the JAX package's digest, {total / max(secs, 1e-9):.1f} frames/s "
+          f"({secs:.2f} s); peak memory {mem:.1f} MiB; launches {counts} "
+          f"(yscale_hv once a clip frame); timelineaudiosrc of two "
+          f"overlapping square waves: {pcm.shape[0]} frames of "
+          f"{pcm.shape[1]} channels S16 == the CPU run == the digest "
+          f"({asecs:.2f} s)")
+
+
+def tm_alone(counters, dev, files, dig):
+    """Each host item (tm_rows) on the card and on the CPU: the same
+    result, no launch; the card's result the CPU box's digest (the JAX
+    package's)."""
+    card, runs = {}, []
+    for name, fn in tm_rows(files):
+        def run(d, tmp, _seed, name=name, fn=fn):
+            res = fn("gstreamer_tpu_torch", d, tmp)
+            if d == dev:
+                card[name] = res
+            return res
+        runs.append((name, run))
+    t0 = time.perf_counter()
+    alone_runs(runs, counters, dev, TM_SEED)
+    secs = time.perf_counter() - t0
+    want = dig["tail"]["rows"]
+    for name, res in card.items():
+        require(lv_digest(res) == want[name], f"{name}: the card's result "
+                "differs from the CPU box's digest (the JAX package's)")
+    print(f"  tail host items: {sorted(card)} on the card == the port's CPU "
+          f"run == the JAX package's digests, no launch ({secs:.1f} s); "
+          f"tools.stats on the card: {card['stats']}")
+
+
+def tail_modules_phase(seed, counters, dev):
+    """The last 15 host modules on the card, each item with the launch
+    counts zeroed just before and read just after: convert_sample_1080p
+    (yscale_hv and chroma420_scale), harness_1080p, monitored_headline and
+    timeline_crossfade_1080p (yscale_hv), then the host items, held to the
+    CPU run and to the JAX package's digests.  The inputs come from
+    TM_SEED, whose digests are committed.  Returns {kernel: launches}."""
+    import tempfile
+    start, finish, peak, total = phase_meters(counters, dev)
+    t0 = time.perf_counter()
+    files, dig = codec_vectors(TM_FILES)
+    spent = {}
+
+    def item(name, fn, *a):
+        t1 = time.perf_counter()
+        fn(*a)
+        spent[name] = time.perf_counter() - t1
+    item("convert_sample_1080p", convert_sample_1080p, dev, start, finish,
+         dig["tail"]["convert_sample"])
+    item("harness_1080p", harness_1080p, dev, start, finish, peak)
+    item("monitored_headline", monitored_headline, dev, start, finish, peak)
+    with tempfile.TemporaryDirectory() as tmp:
+        item("timeline_crossfade_1080p", timeline_crossfade_1080p, dev, tmp,
+             start, finish, peak, dig["tail"])
+    item("alone", tm_alone, counters, dev, files, dig)
+    print(f"tail modules phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -15254,6 +16068,10 @@ def main() -> int:
 
     # -- the leaves: camerabin, msesrc, splitmux, unixfd, de265, ... ---------
     for k, n in leaves_phase(args.seed, counters, dev).items():
+        launches[k] += n
+
+    # -- the last host modules: convert_sample, Harness, monitor, timeline --
+    for k, n in tail_modules_phase(args.seed, counters, dev).items():
         launches[k] += n
     print(f"main path launches, all paths: {launches}")
 

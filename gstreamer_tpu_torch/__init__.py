@@ -37,5 +37,15 @@ from .device import resolve as resolve_device
 from .video.converter import VideoConverter
 from .video.info import VideoInfo
 
-__all__ = ["AudioInfo", "AudioResampler", "Pipeline", "VideoConverter",
-           "VideoInfo", "parse_launch", "resolve_device"]
+__all__ = ["AudioInfo", "AudioResampler", "Harness", "Pipeline",
+           "VideoConverter", "VideoInfo", "parse_launch", "resolve_device"]
+
+
+def __getattr__(name):
+    # the harness is imported at first use, as the JAX package's lazy
+    # table does
+    if name == "Harness":
+        from .check.harness import Harness
+        return Harness
+    raise AttributeError(
+        f"module 'gstreamer_tpu_torch' has no attribute {name!r}")

@@ -55,7 +55,6 @@ ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a ``mesh``.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
@@ -63,6 +62,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..utils.log import get_logger
 from .buffer import Buffer, FlowReturn, map_leaves
 from .caps import Caps
 from .element import (AggregatorElement, Element, Pad, PadDirection,
@@ -70,7 +70,7 @@ from .element import (AggregatorElement, Element, Pad, PadDirection,
 from .staging import Stager
 from .tracer import hooks
 
-log = logging.getLogger("gstreamer_tpu_torch.pipeline")
+log = get_logger("pipeline")
 
 _ROADMAP = "not ported to gstreamer_tpu_torch yet (see ROADMAP.md)"
 
@@ -412,6 +412,12 @@ class Pipeline(Bin):
         return res
 
     def negotiate(self) -> None:
+        """Negotiate caps element by element.  Every element first takes
+        the pipeline's device (elements that build device state in
+        ``set_info``, like videoconvertscale, build it there), also when
+        negotiation is asked for before ``compile``."""
+        for e in self._nodes():
+            e.device = self.device
         order = self._topo_order()
         # reset any previous negotiation (renegotiation path: the sticky
         # CAPS state is replaced, gstevent.c:905)
@@ -601,8 +607,6 @@ class Pipeline(Bin):
         self._staged = None
         if self._stager is None:
             self._stager = Stager(self.device)
-        for e in self._nodes():
-            e.device = self.device
         hooks.load_env()
         self.negotiate()
         hooks.fire("pipeline-negotiated", self)

@@ -674,12 +674,70 @@ def write_leaves_digests(digests):
         {n: os.path.getsize(os.path.join(HERE, n)) for n in LEAVES_FILES})
 
 
+def write_tail_vectors():
+    """The tail group commits no file: its inputs are made at run time."""
+
+
+def write_tail_digests(digests):
+    """From the JAX package: convert_sample's RGB planes of the seeded
+    1080p frames, timelinevideosrc's frames and timelineaudiosrc's samples
+    over the seeded Matroska files, and every host item of tm_rows; each
+    held first to the port's CPU run (the frames one at a time, the JAX
+    package's numpy gold being float64)."""
+    import tempfile
+
+    import torch
+    from chip_smoke import (TM_VECTORS, lv_digest, tm_rows, tm_sample_frames,
+                            tm_sample_run, tm_timeline_run, tm_write_clips,
+                            ts_sha)
+    cpu = torch.device("cpu")
+    planes = tm_sample_frames()
+    jax_out, port_out = [], []
+    for k in range(planes[0].shape[0]):
+        one = tuple(p[k:k + 1] for p in planes)
+        jax_out.append(tm_sample_run("gstreamer_tpu", one, None))
+        port_out.append(tm_sample_run("gstreamer_tpu_torch", one, cpu))
+    jax_rgb = tuple(np.concatenate([o[c] for o in jax_out])
+                    for c in range(3))
+    port_rgb = tuple(np.concatenate([o[c].numpy() for o in port_out])
+                     for c in range(3))
+    if ts_sha(jax_rgb) != ts_sha(port_rgb):
+        raise RuntimeError("convert_sample: the port's planes are not the "
+                           "JAX package's")
+    tail = {"convert_sample": ts_sha(jax_rgb)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = tm_write_clips(tmp, cpu)
+        for kind in ("video", "audio"):
+            jdata, jmeta = tm_timeline_run("gstreamer_tpu", paths, None, kind)
+            tdata, tmeta = tm_timeline_run("gstreamer_tpu_torch", paths, cpu,
+                                           kind)
+            if ts_sha(jdata) != ts_sha(tdata) or jmeta != tmeta:
+                raise RuntimeError(f"timeline {kind}: the port's samples are "
+                                   "not the JAX package's")
+            tail[f"timeline_{kind}"] = ts_sha(jdata)
+    files = {n: os.path.join(HERE, n) for n in TM_VECTORS}
+    rows = {}
+    for name, fn in tm_rows(files):
+        got = []
+        for root, d in (("gstreamer_tpu", None), ("gstreamer_tpu_torch",
+                                                  cpu)):
+            with tempfile.TemporaryDirectory() as tmp:
+                got.append(lv_digest(fn(root, d, tmp)))
+        if got[0] != got[1]:
+            raise RuntimeError(f"{name}: the port's result is not the JAX "
+                               "package's")
+        rows[name] = got[0]
+    tail["rows"] = rows
+    digests["tail"] = tail
+
+
 GROUPS = {"codec": (write_codec_vectors, write_codec_digests),
           "opus_aac": (write_opus_aac_vectors, write_opus_aac_digests),
           "vpx": (write_vpx_vectors, write_vpx_digests),
           "codec_tail": (write_codec_tail_vectors, write_codec_tail_digests),
           "tags_subs": (write_tags_subs_vectors, write_tags_subs_digests),
-          "leaves": (write_leaves_vectors, write_leaves_digests)}
+          "leaves": (write_leaves_vectors, write_leaves_digests),
+          "tail": (write_tail_vectors, write_tail_digests)}
 
 
 if __name__ == "__main__":

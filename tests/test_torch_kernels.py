@@ -235,6 +235,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     pkg = Path(gstreamer_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
     assert len(files) > 10
+    walked = {p.relative_to(pkg).parts[0] for p in files[:-1]}
+    assert {"check", "editing", "tools", "validate", "video",
+            "audio"} <= walked
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]

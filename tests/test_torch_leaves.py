@@ -66,7 +66,7 @@ import test_tail_elements
 import test_xing_ape
 from test_torch_analytics import same_spec
 from test_torch_captions import drain, pair, plain
-from test_torch_flow import LEAVES_FACTORIES
+from test_torch_flow import LEAVES_FACTORIES, port_element_factories
 from test_torch_rtp import _port_globals, on_port
 from test_torch_webrtc import reference_cases, run_case
 
@@ -141,11 +141,13 @@ def test_factory_matches_reference(factory):
 
 
 def test_registries_are_equal():
-    """Every factory the JAX package's element packages register, the port
-    registers, and no other (libav's and chromaprint's where their system
-    libraries are).  Left out of the JAX registry: what a module outside
+    """Every factory the JAX package's element packages register, the port's
+    register, and no other (libav's and chromaprint's where their system
+    libraries are).  Left out of both registries: what a module outside
     them registers when some test imports it (``editing/timeline.py``'s
-    two, ROADMAP.md section 1 item 4; a test's own element)."""
+    two, a test's own element), which a worker may or may not have
+    imported; ``test_torch_tail_modules.py`` compares the registries whole
+    in a fresh process."""
     from gstreamer_tpu.core import element as jelement
     from gstreamer_tpu_torch.core import element as telement
     from test_torch_libav import load_jax_av
@@ -154,8 +156,9 @@ def test_registries_are_equal():
            if c.__module__.startswith(("gstreamer_tpu.elements.",
                                        "gstreamer_tpu.net."))
            or c.__module__ == "gstreamer_tpu.mse"}
-    assert set(telement._REGISTRY) == jax
-    assert len(telement._REGISTRY) == len(jax)
+    port = port_element_factories()
+    assert set(port) == jax
+    assert len(port) == len(jax)
 
 
 def test_mse_is_imported_by_the_elements_package():

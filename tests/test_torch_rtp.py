@@ -40,13 +40,16 @@ from gstreamer_tpu.net import rtp as jrtp
 from gstreamer_tpu.net import rtp_hdrext as jext
 
 import gstreamer_tpu_torch
+from gstreamer_tpu_torch.check import harness as tharness
 from gstreamer_tpu_torch.codecs import jpeg as tjpeg
+from gstreamer_tpu_torch.core import pipeline as tpipeline
 from gstreamer_tpu_torch.core.buffer import Buffer
 from gstreamer_tpu_torch.core.element import element_factory_make as tmake
 from gstreamer_tpu_torch.core.parse import parse_launch as tparse_launch
 from gstreamer_tpu_torch.net import rtp as trtp
 from gstreamer_tpu_torch.net import rtp_hdrext as text
 from gstreamer_tpu_torch.net import rtsp_server as trtsp_server
+from gstreamer_tpu_torch.video import hdr as thdr
 
 import test_rtp
 import test_rtp_hdrext
@@ -75,6 +78,20 @@ class _CpuMediaFactory(trtsp_server.RTSPMediaFactory):
         super().__init__(launch, rate_control, transport_mode, device)
 
 
+class _CpuPipeline(tpipeline.Pipeline):
+    """The port's Pipeline on the CPU unless a device is named."""
+
+    def __init__(self, name=None, device="cpu"):
+        super().__init__(name, device)
+
+
+class _CpuHarness(tharness.Harness):
+    """The port's Harness (its pipeline and sub-harnesses) on the CPU."""
+
+    def __init__(self, element_or_launch, device="cpu", **props):
+        super().__init__(element_or_launch, device, **props)
+
+
 _CPU_VERSIONS = {
     id(tparse_launch): functools.partial(tparse_launch, device="cpu"),
     id(gstreamer_tpu_torch.parse_launch):
@@ -82,6 +99,10 @@ _CPU_VERSIONS = {
     id(tmake): _cpu_make,
     id(trtsp_server.RTSPMediaFactory): _CpuMediaFactory,
     id(tjpeg.jpeg_decode): functools.partial(tjpeg.jpeg_decode, device="cpu"),
+    id(tpipeline.Pipeline): _CpuPipeline,
+    id(tharness.Harness): _CpuHarness,
+    id(thdr.convert_sample): functools.partial(thdr.convert_sample,
+                                               device="cpu"),
 }
 
 
